@@ -1,0 +1,158 @@
+"""Object API: ``Solver`` (EiCOS's ``Solver`` constructor shape) and
+``BatchedSolver`` (lanes sharing one structure): a port of
+``eicos_tpu.api`` without the rescue pass, which is the next slice.
+
+Both run on CUDA unless the caller passes ``device="cpu"``; without a CUDA
+device they raise instead of moving to the CPU on their own.
+"""
+
+from __future__ import annotations
+
+from typing import Optional
+
+import numpy as np
+
+from .exitcodes import ExitCode
+from .problem import ProblemData, make_problem
+from .settings import Settings
+from .solver import (Solution, resolve_device, solve_batch, squeeze_lane,
+                     to_device)
+from .structure import ProblemStructure
+
+_FIELDS = ("G", "A", "c", "h", "b")
+
+
+def _no_rescue(rescue) -> None:
+    if rescue is not None:
+        raise NotImplementedError("rescue: next slice")
+
+
+class Solver:
+    """Single-problem solver: Solver(G, A, c, h, b, soc_dims); l is
+    inferred as m - sum(q).  A batch of one lane underneath."""
+
+    def __init__(self, G, A, c, h, b, soc_dims=(),
+                 settings: Settings = Settings(),
+                 rescue: Optional[Settings] = None, device=None):
+        _no_rescue(rescue)
+        self.device = resolve_device(device)
+        c = np.asarray(c, dtype=np.float64).reshape(-1)
+        h = np.zeros(0) if h is None else np.asarray(h, np.float64).reshape(-1)
+        b = np.zeros(0) if b is None else np.asarray(b, np.float64).reshape(-1)
+        q = tuple(int(d) for d in (soc_dims if soc_dims is not None else ()))
+        n, m, p = c.shape[0], h.shape[0], b.shape[0]
+        l = m - sum(q)
+        if l < 0:
+            raise ValueError("sum of SOC dims exceeds number of cone rows")
+        self.structure = ProblemStructure.create(n, p, m, l, q)
+        self.settings = settings
+        self._data = make_problem(self.structure, G, A, c, h, b)
+        if settings.kkt_strategy == "banded":
+            from .plan import make_band_plan
+
+            self.structure = self.structure.with_band_plan(
+                make_band_plan(self.structure, self._data.G, self._data.A,
+                               block=settings.block))
+        if settings.kkt_strategy in ("reduced", "banded", "normal"):
+            self.structure = self.structure.with_gsplit(
+                self._data.G, self._data.A)
+        self.rescue = None
+        self._solution: Optional[Solution] = None
+        self._dev: Optional[ProblemData] = None
+
+    def update_data(self, G=None, A=None, c=None, h=None, b=None):
+        """Replace problem values; dimensions must match."""
+        st = self.structure
+        d = self._data
+        self._data = ProblemData(
+            G=d.G if G is None else make_problem(st, G, None, None, None,
+                                                 None).G,
+            A=d.A if A is None else make_problem(st, None, A, None, None,
+                                                 None).A,
+            c=d.c if c is None else np.asarray(c, np.float64).reshape(st.n),
+            h=d.h if h is None else np.asarray(h, np.float64).reshape(st.m),
+            b=d.b if b is None else np.asarray(b, np.float64).reshape(st.p),
+        )
+        self._solution = None
+        self._dev = None
+
+    def solve(self) -> ExitCode:
+        # device-resident values, cached until update_data
+        if self._dev is None:
+            self._dev = to_device(self._data, self.device)
+        self._solution = squeeze_lane(
+            solve_batch(self.structure, self._dev, self.settings))
+        return ExitCode(int(self._solution.exit_code))
+
+    def solution(self) -> np.ndarray:
+        """Primal solution x."""
+        return self._solution.x.cpu().numpy()
+
+    def get_info(self):
+        return self._solution.info
+
+    def get_settings(self) -> Settings:
+        return self.settings
+
+    @property
+    def last_solution(self) -> Optional[Solution]:
+        return self._solution
+
+
+class BatchedSolver:
+    """Lanes of problems sharing one structure, solved as one batch;
+    converged lanes freeze until the batch finishes.
+
+    ``shared`` names ProblemData fields identical across lanes, passed
+    without a lane axis: the updateData sweep of EiCOS (same G/A, new c/h/b)
+    maps to ``shared=("G", "A", "h")`` with per-lane c and b.  Shared G and
+    A are equilibrated once and exist once on the device."""
+
+    def __init__(self, structure: ProblemStructure,
+                 settings: Settings = Settings(), shared: tuple = (),
+                 rescue: Optional[Settings] = None, device=None):
+        _no_rescue(rescue)
+        self.device = resolve_device(device)
+        self.structure = structure
+        self.settings = settings
+        self.shared = tuple(shared)
+        self.rescue = None
+        self.last_rescued: tuple = ()
+        self._last_in = None
+        self._last_dev = None
+
+    def update_data(self, **fields) -> None:
+        """Replace fields of the last batch (per-lane fields with their lane
+        axis, shared ones without); the next ``solve()`` uses them."""
+        if self._last_in is None:
+            raise ValueError("update_data needs a batch from solve() first")
+        bad = set(fields) - set(_FIELDS)
+        if bad:
+            raise ValueError(f"unknown fields {sorted(bad)}")
+        self._last_in = ProblemData(**{
+            f: fields.get(f, getattr(self._last_in, f)) for f in _FIELDS})
+        self._last_dev = to_device(self._last_in, self.device, self.shared)
+
+    def solve(self, batch: Optional[ProblemData] = None) -> Solution:
+        """Solve ``batch`` (or the last one, after ``update_data``); the
+        device copy of a batch is kept across repeated solves of it."""
+        if batch is not None and batch is not self._last_in:
+            self._last_in = batch
+            self._last_dev = to_device(batch, self.device, self.shared)
+        if self._last_dev is None:
+            raise ValueError("no batch to solve")
+        return solve_batch(self.structure, self._last_dev, self.settings)
+
+    @staticmethod
+    def stack(problems, shared: tuple = ()) -> ProblemData:
+        """Stack per-lane problems; ``shared`` fields are taken from the
+        first problem and must be identical across lanes."""
+        first = problems[0]
+        vals = {}
+        for f in _FIELDS:
+            if f in shared:
+                vals[f] = np.asarray(getattr(first, f))
+            else:
+                vals[f] = np.stack([np.asarray(getattr(pr, f))
+                                    for pr in problems])
+        return ProblemData(**vals)

@@ -1,0 +1,108 @@
+"""Build and bind the port's CUDA kernels (``eicos_tpu_torch/csrc/*.cu``).
+
+Each source compiles with ``nvcc`` into its own shared library with a plain
+C interface under ``eicos_tpu_torch/_build/``, at first use; all sources
+build at once, one ``nvcc`` process each.  A library's file name carries a
+hash of its source and flags, so an edited source rebuilds.  The libraries
+are bound with ``ctypes``: pointers and the stream pass as ``c_void_p``.
+
+``COUNTS`` holds one plain integer per kernel: its wrapper in ``band.py``
+adds one where it launches the kernel, and nowhere else, so a run can show
+that the main path went through the kernels.
+"""
+
+from __future__ import annotations
+
+import ctypes
+import hashlib
+import os
+import shutil
+import subprocess
+
+_PKG_DIR = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
+CSRC = os.path.join(_PKG_DIR, "csrc")
+BUILD_DIR = os.path.join(_PKG_DIR, "_build")
+NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
+              "-O3", "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v")
+
+# library name -> (source file, {C symbol: ctypes argtypes})
+_P, _I = ctypes.c_void_p, ctypes.c_int
+LIBS = {
+    "band_factor": ("band_factor.cu",
+                    {"eicos_band_factor": [_P] * 5 + [_I, _I, _P]}),
+    "band_solve": ("band_solve.cu",
+                   {"eicos_band_fwd": [_P] * 5 + [_I, _I, _I, _P],
+                    "eicos_band_bwd": [_P] * 4 + [_I, _I, _I, _P]}),
+}
+
+COUNTS = {"band_factor": 0, "band_fwd": 0, "band_bwd": 0}
+BUILD_LOG: dict = {}      # library name -> nvcc's output (ptxas -v report)
+
+_loaded: dict = {}
+
+
+def reset_counts() -> None:
+    for name in COUNTS:
+        COUNTS[name] = 0
+
+
+def _nvcc() -> str:
+    path = shutil.which("nvcc")
+    if path is None and os.path.exists("/usr/local/cuda/bin/nvcc"):
+        path = "/usr/local/cuda/bin/nvcc"
+    if path is None:
+        raise RuntimeError("nvcc not found: the CUDA kernels of "
+                           "eicos_tpu_torch build on a machine with the "
+                           "CUDA toolkit")
+    return path
+
+
+def _lib_path(name: str) -> str:
+    src = os.path.join(CSRC, LIBS[name][0])
+    with open(src, "rb") as f:
+        h = hashlib.sha256(f.read() + " ".join(NVCC_FLAGS).encode())
+    return os.path.join(BUILD_DIR, f"{name}-{h.hexdigest()[:12]}.so")
+
+
+def build(names=None) -> None:
+    """Compile every library that is not built yet, all in parallel.
+    Raises RuntimeError with nvcc's output if one fails."""
+    names = list(LIBS) if names is None else list(names)
+    todo = [n for n in names if not os.path.exists(_lib_path(n))]
+    if not todo:
+        return
+    os.makedirs(BUILD_DIR, exist_ok=True)
+    nvcc = _nvcc()
+    procs = {}
+    for n in todo:
+        out = _lib_path(n)
+        tmp = f"{out}.{os.getpid()}.tmp"
+        cmd = [nvcc, *NVCC_FLAGS, "-o", tmp,
+               os.path.join(CSRC, LIBS[n][0])]
+        procs[n] = (subprocess.Popen(cmd, stdout=subprocess.PIPE,
+                                     stderr=subprocess.STDOUT), tmp, out)
+    failed = []
+    for n, (proc, tmp, out) in procs.items():
+        log, _ = proc.communicate()
+        BUILD_LOG[n] = log.decode(errors="replace")
+        if proc.returncode != 0:
+            failed.append(n)
+        else:
+            os.replace(tmp, out)
+    if failed:
+        raise RuntimeError("nvcc failed for " + ", ".join(failed) + ":\n"
+                           + "\n".join(BUILD_LOG[n] for n in failed))
+
+
+def lib(name: str):
+    """The loaded ctypes library ``name``, built first if needed."""
+    if name in _loaded:
+        return _loaded[name]
+    build()
+    cdll = ctypes.CDLL(_lib_path(name))
+    for sym, argtypes in LIBS[name][1].items():
+        fn = getattr(cdll, sym)
+        fn.argtypes = argtypes
+        fn.restype = ctypes.c_int
+    _loaded[name] = cdll
+    return cdll

@@ -1,0 +1,522 @@
+"""The interior-point loop: Mehrotra predictor-corrector on the
+homogeneous self-dual embedding, batched over lanes: a port of
+``eicos_tpu.solver`` (EiCOS Solver::solve with computeResiduals,
+updateStatistics, checkExitConditions, isBetterThan, RHSaffine,
+RHScombined and backscale).
+
+``lax.while_loop`` under ``vmap`` becomes a host loop over a batched state
+with a leading lane axis.  Every lane runs the same arithmetic; a lane that
+has exited keeps its state unchanged from then on, as a lane of the JAX
+package's vmapped loop does.  The loop reads one flag back from the device
+per iteration ("all lanes done"); the refinement loops in ``kkt`` read one
+per trip.  ``kkt.host_syncs`` counts them.
+
+Semantics kept exactly from the reference (they decide exit codes):
+updateScalings' out-of-cone flag is ignored (NaNs flow into the NaN exit);
+pinfres/dinfres are sticky once set; the NaN exit at iteration 0 (or with a
+better-than-best iterate) returns NOT_CONVERGED_YET; an unset relgap or
+pinfres compares as C++ ``optional`` does (nullopt < x is true).
+"""
+
+from __future__ import annotations
+
+from typing import NamedTuple
+
+import torch
+
+from . import cones, kkt
+from .equilibrate import equilibrate
+from .exitcodes import ExitCode
+from .problem import ProblemData
+from .settings import Settings
+from .structure import ProblemStructure
+
+_OPT = int(ExitCode.OPTIMAL)
+_PINF = int(ExitCode.PRIMAL_INFEASIBLE)
+_DINF = int(ExitCode.DUAL_INFEASIBLE)
+_MAXIT = int(ExitCode.MAXIT)
+_NUMERICS = int(ExitCode.NUMERICS)
+_NOTCONV = int(ExitCode.NOT_CONVERGED_YET)
+_INACC = 10
+
+
+class Iterate(NamedTuple):
+    """One iterate and its statistics; every field has a leading lane axis."""
+
+    x: torch.Tensor
+    y: torch.Tensor
+    z: torch.Tensor
+    s: torch.Tensor
+    kap: torch.Tensor
+    tau: torch.Tensor
+    cx: torch.Tensor
+    by: torch.Tensor
+    hz: torch.Tensor
+    pcost: torch.Tensor
+    dcost: torch.Tensor
+    gap: torch.Tensor
+    relgap: torch.Tensor
+    has_relgap: torch.Tensor
+    pres: torch.Tensor
+    dres: torch.Tensor
+    pinfres: torch.Tensor
+    has_pinfres: torch.Tensor
+    dinfres: torch.Tensor
+    has_dinfres: torch.Tensor
+    mu: torch.Tensor
+    kapovert: torch.Tensor
+    sigma: torch.Tensor
+    step: torch.Tensor
+    step_aff: torch.Tensor
+    iter: torch.Tensor
+    nitref1: torch.Tensor
+    nitref2: torch.Tensor
+    nitref3: torch.Tensor
+
+
+class History(NamedTuple):
+    """Per-iteration statistics, (L, iter_max+1): the reference's verbose
+    table, returned instead of printed."""
+
+    pcost: torch.Tensor
+    dcost: torch.Tensor
+    gap: torch.Tensor
+    pres: torch.Tensor
+    dres: torch.Tensor
+    kapovert: torch.Tensor
+    mu: torch.Tensor
+    step: torch.Tensor
+    sigma: torch.Tensor
+    nitref1: torch.Tensor
+    nitref2: torch.Tensor
+    nitref3: torch.Tensor
+
+
+class LoopState(NamedTuple):
+    it: Iterate
+    best: Iterate
+    rhs1: torch.Tensor
+    pres_prev: torch.Tensor
+    iter: torch.Tensor
+    code: torch.Tensor
+    done: torch.Tensor
+    hist: History
+
+
+class Solution(NamedTuple):
+    exit_code: torch.Tensor  # int32, ExitCode values
+    x: torch.Tensor
+    y: torch.Tensor
+    z: torch.Tensor
+    s: torch.Tensor
+    info: Iterate            # final iterate incl. statistics (pre-backscale)
+    pinf: torch.Tensor
+    dinf: torch.Tensor
+    history: History
+
+
+def _norm(v):
+    return torch.sqrt((v * v).sum(-1))
+
+
+def _dot(a, b):
+    return (a * b).sum(-1)
+
+
+def _vm(v, M):
+    """Row vectors times a shared (a, b) or per-lane (L, a, b) matrix:
+    v (L, a) -> (L, b)."""
+    if M.dim() == 2:
+        return v @ M
+    return (v[:, None, :] @ M)[:, 0]
+
+
+def _where(pred, a, b):
+    """Lane-wise select over (nested) NamedTuples of tensors."""
+    if isinstance(a, tuple):
+        return type(a)(*[_where(pred, u, v) for u, v in zip(a, b)])
+    return torch.where(pred.view(-1, *([1] * (a.dim() - 1))), a, b)
+
+
+def _check_exit(w: Iterate, feastol, abstol, reltol, reduced: bool):
+    """checkExitConditions: an int32 code per lane (NOT_CONVERGED_YET if
+    no test fires)."""
+    relgap_eff = torch.where(w.has_relgap, w.relgap, -torch.inf)
+    optimal = (((-w.cx > 0.0) | (-w.by - w.hz >= -abstol))
+               & (w.pres < feastol) & (w.dres < feastol)
+               & ((w.gap < abstol) | (relgap_eff < reltol)))
+    dinf = w.has_dinfres & (w.dinfres < feastol) & (w.tau < w.kap)
+    pinf_small = torch.where(w.has_pinfres, w.pinfres < feastol, True)
+    pinf = ((w.has_pinfres & (w.pinfres < feastol) & (w.tau < w.kap))
+            | ((w.tau < feastol) & (w.kap < feastol) & pinf_small))
+    off = _INACC if reduced else 0
+    code = torch.where(optimal, _OPT + off,
+                       torch.where(dinf, _DINF + off,
+                                   torch.where(pinf, _PINF + off, _NOTCONV)))
+    return code.to(torch.int32)
+
+
+def _is_better(i: Iterate, o: Iterate):
+    """Information::isBetterThan (it compares this->pinfres against
+    other.pres)."""
+    gap_improves = (i.gap > 0.0) & (o.gap > 0.0) & (i.gap < o.gap)
+    mu_improves = (i.mu > 0.0) & (i.mu < o.mu)
+    infeas_case = i.has_pinfres & (i.kapovert > 1.0)
+    sub = torch.where(
+        o.has_pinfres,
+        gap_improves & (i.pinfres > 0.0) & (i.pinfres < o.pres) & mu_improves,
+        gap_improves & mu_improves)
+    regular = (gap_improves
+               & (i.pres > 0.0) & (i.pres < o.pres)
+               & (i.dres > 0.0) & (i.dres < o.dres)
+               & (i.kapovert > 0.0) & (i.kapovert < o.kapovert)
+               & mu_improves)
+    return torch.where(infeas_case, sub, regular)
+
+
+def _statistics(st, settings, w: Iterate, G, A, c, h, b, res0s):
+    """computeResiduals + updateStatistics at iterate ``w``: returns the
+    residuals (rx, ry, rz), rt and ``w`` with its statistics filled in."""
+    n, p, m = st.n, st.p, st.m
+    lanes = w.x.shape[0]
+    resx0, resy0, resz0 = res0s
+    zero = w.x.new_zeros(lanes)
+    rx_h = -_vm(w.z, G)
+    if p:
+        rx_h = rx_h - _vm(w.y, A)
+    ry_h = _vm(w.x, A.transpose(-1, -2)) if p else w.x.new_zeros(lanes, 0)
+    rz_h = w.s + _vm(w.x, G.transpose(-1, -2))
+    hresx = _norm(rx_h)
+    rx = rx_h - w.tau[:, None] * c
+    hresy = _norm(ry_h)
+    ry = ry_h - w.tau[:, None] * b
+    hresz = _norm(rz_h)
+    rz = rz_h - w.tau[:, None] * h
+
+    cx = _dot(c, w.x) if n else zero
+    by = _dot(b, w.y) if p else zero
+    hz = _dot(h, w.z) if m else zero
+    rt = w.kap + cx + by + hz
+    nx, ny = _norm(w.x), _norm(w.y)
+    nz, ns = _norm(w.z), _norm(w.s)
+
+    gap = _dot(w.s, w.z) if m else zero
+    mu = (gap + w.kap * w.tau) / (st.degrees + 1)
+    kapovert = w.kap / w.tau
+    pcost = cx / w.tau
+    dcost = -(hz + by) / w.tau
+    has_relgap = (pcost < 0.0) | (dcost > 0.0)
+    relgap = torch.where(pcost < 0.0, gap / -pcost,
+                         torch.where(dcost > 0.0, gap / dcost, torch.nan))
+    nry = (_norm(ry) / torch.clamp(resy0 + nx, min=1.0)) if p else zero
+    nrz = _norm(rz) / torch.clamp(resz0 + nx + ns, min=1.0)
+    pres = torch.maximum(nry, nrz) / w.tau
+    dres = _norm(rx) / torch.clamp(resx0 + ny + nz, min=1.0) / w.tau
+    set_pinf = (hz + by) / torch.clamp(ny + nz, min=1.0) < -settings.reltol
+    pinfres = torch.where(set_pinf, hresx / torch.clamp(ny + nz, min=1.0),
+                          w.pinfres)
+    set_dinf = cx / torch.clamp(nx, min=1.0) < -settings.reltol
+    dinfres = torch.where(
+        set_dinf,
+        torch.maximum(hresy / torch.clamp(nx, min=1.0),
+                      hresz / torch.clamp(nx + ns, min=1.0)),
+        w.dinfres)
+    w = w._replace(
+        cx=cx, by=by, hz=hz, pcost=pcost, dcost=dcost, gap=gap,
+        relgap=relgap, has_relgap=has_relgap, pres=pres, dres=dres,
+        pinfres=pinfres, has_pinfres=w.has_pinfres | set_pinf,
+        dinfres=dinfres, has_dinfres=w.has_dinfres | set_dinf,
+        mu=mu, kapovert=kapovert)
+    return (rx, ry, rz), rt, w
+
+
+def _checks(settings):
+    def full(w):
+        return _check_exit(w, settings.feastol, settings.abstol,
+                           settings.reltol, reduced=False)
+
+    def red(w):
+        return _check_exit(w, settings.feastol_inacc, settings.abstol_inacc,
+                           settings.reltol_inacc, reduced=True)
+
+    return full, red
+
+
+def solve_batch(structure: ProblemStructure, data: ProblemData,
+                settings: Settings = Settings()) -> Solution:
+    """Solve a batch of problems sharing ``structure``.  ``data`` holds
+    float64 tensors on one device: c (L, n), h (L, m), b (L, p); G and A
+    shared, (m, n) and (p, n), or per lane, (L, m, n) and (L, p, n)."""
+    st = structure
+    kkt.require_slice(st, settings)
+    n, p, m = st.n, st.p, st.m
+    cone = st.cone
+    lanes = data.c.shape[0]
+    gamma = settings.gamma
+
+    eq = equilibrate(st, data.G, data.A, data.c, data.h, data.b,
+                     iters=settings.equil_iters)
+    G, A, c, h, b = eq.G, eq.A, eq.c, eq.h, eq.b
+    res0s = (torch.clamp(_norm(c), min=1.0), torch.clamp(_norm(b), min=1.0),
+             torch.clamp(_norm(h), min=1.0))
+    ctx = kkt.make_context(st, G, A, settings)
+    full_check, red_check = _checks(settings)
+
+    def zeros(*shape, dtype=c.dtype):
+        return torch.zeros(*shape, dtype=dtype, device=c.device)
+
+    def fill(v, dtype=c.dtype):
+        return torch.full((lanes,), v, dtype=dtype, device=c.device)
+
+    # ---- init: identity scalings, the two init systems
+    solve0 = kkt.factor(st, ctx, None, settings, lanes)
+    rhs_init = torch.stack([torch.cat([zeros(lanes, n), b, h], -1),
+                            torch.cat([-c, zeros(lanes, p + m)], -1)], 1)
+    r12 = kkt.solve_refined(st, ctx, solve0, None, rhs_init, settings)
+    nan = fill(torch.nan)
+    false = fill(False, torch.bool)
+    it0 = Iterate(
+        x=r12.dx[:, 0], y=r12.dy[:, 1],
+        z=cones.bring_to_cone(cone, r12.dz[:, 1], gamma),
+        s=cones.bring_to_cone(cone, -r12.dz[:, 0], gamma),
+        kap=fill(1.0), tau=fill(1.0), cx=fill(0.0), by=fill(0.0),
+        hz=fill(0.0), pcost=nan, dcost=nan, gap=nan, relgap=nan,
+        has_relgap=false, pres=nan, dres=nan, pinfres=nan,
+        has_pinfres=false, dinfres=nan, has_dinfres=false, mu=nan,
+        kapovert=nan, sigma=fill(0.0), step=fill(0.0), step_aff=fill(0.0),
+        iter=fill(0, torch.int32), nitref1=r12.nitref[:, 0],
+        nitref2=r12.nitref[:, 1], nitref3=fill(0, torch.int32))
+    nh = settings.iter_max + 1
+    hist0 = History(*([torch.full((lanes, nh), torch.nan, dtype=c.dtype,
+                                  device=c.device)] * 9
+                      + [zeros(lanes, nh, dtype=torch.int32)] * 3))
+    state = LoopState(
+        it=it0, best=it0, rhs1=torch.cat([-c, b, h], -1),
+        pres_prev=fill(torch.finfo(c.dtype).max),
+        iter=fill(0, torch.int32), code=fill(int(ExitCode.FATAL), torch.int32),
+        done=false, hist=hist0)
+
+    e_vec = zeros(m)
+    e_vec[:st.l] = 1.0
+    if st.n_sc:
+        e_vec[st.l + torch.as_tensor(cone.head_offsets)] = 1.0
+    sel_rows = torch.arange(nh, device=c.device)
+
+    while not kkt.all_true(state.done):
+        stt = state
+        i = stt.iter
+        (rx, ry, rz), rt, w = _statistics(st, settings, stt.it._replace(
+            iter=i), G, A, c, h, b, res0s)
+        sel = sel_rows[None, :] == i[:, None]
+
+        def rec(row, val):
+            return torch.where(sel, val[:, None], row)
+
+        hist = History(*[rec(row, val) for row, val in zip(stt.hist, (
+            w.pcost, w.dcost, w.gap, w.pres, w.dres, w.kapovert, w.mu,
+            w.step, w.sigma, w.nitref1, w.nitref2, w.nitref3))])
+
+        # ---- exit logic
+        safeguard_trip = (i > 0) & ((w.pres > settings.safeguard
+                                     * stt.pres_prev) | (w.gap < 0.0))
+        code_full = full_check(w)
+        full_conv = code_full != _NOTCONV
+        zero_step = (i > 0) & (w.step == settings.stepmin * settings.gamma)
+        maxit_hit = i == settings.iter_max
+        nan_hit = torch.isnan(w.pcost)
+
+        code_best_red = red_check(stt.best)
+        red_or_numerics = torch.where(code_best_red == _NOTCONV,
+                                      _NUMERICS, code_best_red)
+        better = _is_better(w, stt.best)
+        code_cur_red = red_check(w)
+        maxit_code = torch.where(
+            better,
+            torch.where(code_cur_red == _NOTCONV, _MAXIT, code_cur_red),
+            torch.where(code_best_red == _NOTCONV, _MAXIT, code_best_red))
+        nan_keep = (i == 0) | better
+        nan_code = torch.where(nan_keep, _NOTCONV, red_or_numerics)
+
+        # priority: safeguard > full convergence > zero-step > maxit > NaN
+        exit_now = (safeguard_trip | full_conv | zero_step | maxit_hit
+                    | nan_hit)
+        code = torch.full_like(i, _NOTCONV)
+        restore = false
+        code = torch.where(nan_hit, nan_code, code)
+        restore = torch.where(nan_hit, ~nan_keep, restore)
+        code = torch.where(maxit_hit, maxit_code, code)
+        restore = torch.where(maxit_hit, ~better, restore)
+        code = torch.where(zero_step, red_or_numerics, code)
+        restore = restore | zero_step
+        code = torch.where(full_conv, code_full, code)
+        restore = restore & ~full_conv
+        code = torch.where(safeguard_trip, red_or_numerics, code)
+        restore = restore | safeguard_trip
+        code = code.to(torch.int32)
+
+        final_it = _where(restore, stt.best, w)
+        best = _where((i == 0) | better, w, stt.best)
+
+        # ---- step computation; lanes exiting now need no step
+        stepping = ~stt.done & ~exit_now
+        scal, lam = cones.update_scalings(cone, w.s, w.z)
+        solve_exact = kkt.factor(st, ctx, scal, settings, lanes)
+        rhs_aff = torch.cat([rx, -ry, w.s - rz], -1)
+        sol12 = kkt.solve_refined(
+            st, ctx, solve_exact, scal, torch.stack([stt.rhs1, rhs_aff], 1),
+            settings, stepping)
+        dx1, dy1, dz1 = sol12.dx[:, 0], sol12.dy[:, 0], sol12.dz[:, 0]
+        dx2, dy2, dz2 = sol12.dx[:, 1], sol12.dy[:, 1], sol12.dz[:, 1]
+
+        dtau_denom = (w.kap / w.tau - _dot(c, dx1) - _dot(b, dy1)
+                      - _dot(h, dz1))
+        dtauaff = (rt - w.kap + _dot(c, dx2) + _dot(b, dy2)
+                   + _dot(h, dz2)) / dtau_denom
+
+        dzaff = dz2 + dtauaff[:, None] * dz1
+        W_dzaff = cones.scale(cone, scal, dzaff)
+        dsaff_by_W = -W_dzaff - lam
+        dkapaff = -w.kap - w.kap / w.tau * dtauaff
+        step_aff = cones.line_search(cone, lam, dsaff_by_W, W_dzaff,
+                                     w.tau, dtauaff, w.kap, dkapaff,
+                                     settings.stepmin, settings.stepmax)
+        oms_aff = 1.0 - step_aff
+        sigma = torch.clamp(oms_aff * (oms_aff * oms_aff),
+                            settings.sigmamin, settings.sigmamax)
+
+        # combined RHS
+        ds1, _ = cones.conic_product(cone, lam, lam)
+        ds2, _ = cones.conic_product(cone, dsaff_by_W, W_dzaff)
+        sigmamu = sigma * w.mu
+        ds = ds1 + ds2 - sigmamu[:, None] * e_vec
+        lam_ds = cones.conic_division(cone, lam, ds)
+        W_lam_ds = cones.scale(cone, scal, lam_ds)
+        oms = (1.0 - sigma)[:, None]
+        rhs_comb = torch.cat([oms * rx, -oms * ry, -oms * rz + W_lam_ds], -1)
+        sol3 = kkt.solve_refined(st, ctx, solve_exact, scal,
+                                 rhs_comb[:, None, :], settings, stepping)
+        dx2c, dy2c, dz2c = sol3.dx[:, 0], sol3.dy[:, 0], sol3.dz[:, 0]
+
+        bkap = w.kap * w.tau + dkapaff * dtauaff - sigmamu
+        dtau = ((1.0 - sigma) * rt - bkap / w.tau + _dot(c, dx2c)
+                + _dot(b, dy2c) + _dot(h, dz2c)) / dtau_denom
+        dx = dx2c + dtau[:, None] * dx1
+        dy = dy2c + dtau[:, None] * dy1
+        dz = dz2c + dtau[:, None] * dz1
+
+        W_dz = cones.scale(cone, scal, dz)
+        ds_by_W = -(lam_ds + W_dz)
+        dkap = -(bkap + w.kap * dtau) / w.tau
+        step = settings.gamma * cones.line_search(
+            cone, lam, ds_by_W, W_dz, w.tau, dtau, w.kap, dkap,
+            settings.stepmin, settings.stepmax)
+        ds_final = cones.scale(cone, scal, ds_by_W)
+        sc = step[:, None]
+        stepped = w._replace(
+            x=w.x + sc * dx, y=w.y + sc * dy, z=w.z + sc * dz,
+            s=w.s + sc * ds_final, kap=w.kap + step * dkap,
+            tau=w.tau + step * dtau, sigma=sigma, step=step,
+            step_aff=step_aff, nitref1=sol12.nitref[:, 0],
+            nitref2=sol12.nitref[:, 1], nitref3=sol3.nitref[:, 0])
+
+        cont = LoopState(it=stepped, best=best, rhs1=stt.rhs1,
+                         pres_prev=w.pres, iter=i + 1,
+                         code=torch.full_like(code, _NOTCONV), done=false,
+                         hist=hist)
+        exit_state = LoopState(it=final_it, best=stt.best, rhs1=stt.rhs1,
+                               pres_prev=w.pres, iter=i, code=code,
+                               done=~false, hist=hist)
+        # exited lanes keep their state, as under vmap
+        state = _where(stt.done, stt, _where(exit_now, exit_state, cont))
+
+    return _finish_solution(st, settings, eq, state, (G, A, c, h, b), res0s)
+
+
+def _finish_solution(st, settings, eq, final: LoopState, gacbh,
+                     res0s) -> Solution:
+    """Exit-time recheck of the certificates at the returned iterate, then
+    backscale.  The code is upgraded when the recheck certifies a strictly
+    better tier (definitive > reduced accuracy > failure), never
+    downgraded.  The in-loop residuals are already exact f64 here, so the
+    recheck repeats the reference's tail for parity."""
+    G, A, c, h, b = gacbh
+    w = final.it
+    code = final.code
+    if st.dim_kkt and st.m:
+        full_check, red_check = _checks(settings)
+        _, _, w_re = _statistics(st, settings, w, G, A, c, h, b, res0s)
+        code_re_full = full_check(w_re)
+        code_re_red = red_check(w_re)
+        cand = torch.where(code_re_full != _NOTCONV, code_re_full,
+                           torch.where(code_re_red != _NOTCONV, code_re_red,
+                                       code))
+
+        def rank(cd):
+            definitive = (cd == _OPT) | (cd == _PINF) | (cd == _DINF)
+            reduced = (cd >= _OPT + _INACC) & (cd <= _DINF + _INACC)
+            return torch.where(definitive, 2, torch.where(reduced, 1, 0))
+
+        upgrade = rank(cand) > rank(code)
+        code = torch.where(upgrade, cand, code)
+        w = _where(upgrade, w_re, w)
+
+    tau = w.tau[:, None]
+    x = w.x / (eq.x_equil * tau)
+    y = w.y / (eq.A_equil * tau)
+    z = w.z / (eq.G_equil * tau)
+    s = w.s * eq.G_equil / tau
+    pinf = (code == _PINF) | (code == _PINF + _INACC)
+    dinf = (code == _DINF) | (code == _DINF + _INACC)
+    return Solution(exit_code=code, x=x, y=y, z=z, s=s, info=w, pinf=pinf,
+                    dinf=dinf, history=final.hist)
+
+
+def resolve_device(device=None) -> torch.device:
+    """The device a solve runs on: ``None`` means CUDA, which must exist;
+    the CPU (plain twins of the kernels) only when asked for."""
+    if device is None:
+        if not torch.cuda.is_available():
+            raise RuntimeError(
+                "eicos_tpu_torch solves on CUDA by default and no CUDA "
+                "device is available; pass device='cpu' to run the plain "
+                "torch path")
+        return torch.device("cuda")
+    return torch.device(device)
+
+
+def to_device(data: ProblemData, device, shared=None) -> ProblemData:
+    """Move problem values to ``device`` as float64 tensors.  With
+    ``shared=None`` ``data`` is one problem and gains a lane axis of 1;
+    otherwise the fields not in ``shared`` carry a leading lane axis and
+    the shared c/h/b are broadcast over the lanes (G and A stay shared)."""
+    def t(v):
+        return torch.as_tensor(v, dtype=torch.float64, device=device)
+
+    if shared is None:
+        return ProblemData(G=t(data.G), A=t(data.A), c=t(data.c)[None],
+                           h=t(data.h)[None], b=t(data.b)[None])
+    shared = tuple(shared)
+    vals = {f: t(getattr(data, f)) for f in ("G", "A", "c", "h", "b")}
+    batched = [f for f in vals if f not in shared]
+    if not batched:
+        raise ValueError("a batch needs at least one per-lane field")
+    lanes = vals[batched[0]].shape[0]
+    for f in ("c", "h", "b"):
+        if f in shared:
+            vals[f] = vals[f].expand(lanes, -1)
+    return ProblemData(**vals)
+
+
+def squeeze_lane(sol):
+    """The single-problem view of a one-lane batch result."""
+    if isinstance(sol, tuple):
+        return type(sol)(*[squeeze_lane(v) for v in sol])
+    return sol[0]
+
+
+def solve(structure: ProblemStructure, data: ProblemData,
+          settings: Settings = Settings(), device=None) -> Solution:
+    """Solve one problem; ``device=None`` means CUDA."""
+    dev = resolve_device(device)
+    return squeeze_lane(solve_batch(structure, to_device(data, dev),
+                                    settings))
