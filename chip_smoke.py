@@ -1,13 +1,25 @@
 """Smoke test of eicos_tpu_torch on one NVIDIA GPU: builds the CUDA kernels,
-holds each against its plain torch twin on the card, drives the main path
-(the 128-lane MPC01-scale banded LP batch of bench.py) through
-``BatchedSolver``, and re-solves lane 0 on the CPU plain path.
+holds each against its plain torch version on the card, and drives the
+port's paths through its entry points:
+
+  1. kernel checks at the paths' shapes (band factor and sweeps; dense
+     leaf LDL^T, dgemm in four forms, the two inverse-solve passes);
+  2. the main path as bench.py configures it: the 128-lane MPC01-scale
+     banded LP batch through ``BatchedSolver`` with a "reduced" rescue
+     (128/128 OPTIMAL, no lane rescued), lane 0 again on the CPU;
+  3. a forced rescue: 16 lanes with the primary cut at 3 iterations, all
+     16 rescued by the "reduced" path to OPTIMAL;
+  4. the "reduced" strategy at full width on the same 128 lanes (128/128
+     OPTIMAL, lane 0 against the CPU plain path, every objective against
+     phase 2's);
+  5. bench.py's SOCP problem under "reduced" (kept SOC rows), 8 lanes,
+     lane 0 against the CPU plain path.
 
     python3 chip_smoke.py
 
 Needs one CUDA device and nvcc.  Prints the card (``nvidia-smi`` name and
-power limit), the build time, each kernel's error and timing, the main
-path's outcome, a JSON line of per-kernel numbers, and as its last line
+power limit), the build time, each kernel's error and timing, each phase's
+outcome, a JSON line of per-kernel numbers, and as its last line
 ``{"ok": true, "device": {...}}``.  Any failed check exits non-zero
 before that line.
 """
@@ -22,6 +34,8 @@ import numpy as np
 
 HORIZON, NX, NU = 249, 2, 4       # bench.py's MPC01-family scale
 LANES = 128
+RESCUE_LANES = 16                 # phase 3
+SOC_LANES = 8                     # phase 5
 B = 128
 KP = 16
 HBM_BYTES_PER_S = 3.35e12         # H100 SXM HBM3 (NVIDIA data sheet)
@@ -29,6 +43,7 @@ F64_FLOP_PER_S = 67e12            # H100 SXM f64 tensor-core peak (same)
 KERNEL_TOL = 1e-10                # kernel vs plain twin, max relative error
 RESID_TOL = 1e-9                  # ||K x - b||_inf / ||b||_inf
 LANE_TOL = 1e-8                   # lane 0: GPU vs CPU objective, relative
+STRATEGY_TOL = 1e-7               # reduced vs banded objective, relative
 
 
 def fail(msg):
@@ -86,6 +101,13 @@ def rel_err(a, b):
     return float((a - b).abs().max() / b.abs().max())
 
 
+def bound(nbytes, ops):
+    """The least time (ms) for ``nbytes`` of HBM traffic and ``ops`` f64
+    operations, and which of the two bounds it."""
+    tb, to = nbytes / HBM_BYTES_PER_S * 1e3, ops / F64_FLOP_PER_S * 1e3
+    return (max(tb, to), "bytes" if tb >= to else "operations")
+
+
 def check_kernels(torch, band, plain):
     """Each kernel against its plain twin at the main path's shape, with
     times and bounds.  Returns the per-kernel records (launches filled in
@@ -138,11 +160,6 @@ def check_kernels(torch, band, plain):
     # unit-lower inverse (~B^3/6 FMAs)
     fac_ops = lanes * ((nb - 1) * 4 * B ** 3 + nb * (B ** 3 // 2 + B ** 3 // 3))
     records = []
-
-    def bound(nbytes, ops):
-        tb, to = nbytes / HBM_BYTES_PER_S * 1e3, ops / F64_FLOP_PER_S * 1e3
-        return (max(tb, to), "bytes" if tb >= to else "operations")
-
     b_ms, b_by = bound(fac_bytes, fac_ops)
     ms = cuda_ms(lambda: band.band_factor(Kd, Ks))
     pms = cuda_ms(lambda: plain.band_factor_plain(Kd, Ks), reps=5)
@@ -208,6 +225,178 @@ def check_kernels(torch, band, plain):
     return records
 
 
+def quasidefinite(torch, lanes, D, pos, seed):
+    """Random symmetric quasidefinite (lanes, D, D) f64 blocks, made on the
+    card: positive diagonal on the first ``pos`` rows, negative after,
+    every row diagonally dominant."""
+    g = torch.Generator(device="cuda")
+    g.manual_seed(seed)
+    M = torch.randn(lanes, D, D, generator=g, dtype=torch.float64,
+                    device="cuda") / D ** 0.5
+    M = 0.5 * (M + M.transpose(-1, -2))
+    sign = torch.where(torch.arange(D, device="cuda") < pos, 1.0, -1.0)
+    M.diagonal(dim1=-2, dim2=-1).copy_(
+        sign.to(M.dtype) * (1.0 + M.abs().sum(-1)))
+    return M
+
+
+def check_dense_kernels(torch, band, leaf, gemm, ldl):
+    """The dense path's kernels against their plain versions at the shapes
+    of the 128-lane reduced solve (Dp = 2048), with times and bounds.
+    Returns the per-kernel records (launches filled in later)."""
+    records = []
+    L, Dp = LANES, 2048
+
+    # ---- leaf_ldl: 128 lanes of mixed-sign quasidefinite 128-blocks
+    M = quasidefinite(torch, L, B, 80, seed=2)
+    Lk, dk = leaf.leaf_ldl(M)
+    Lp, dp = leaf.leaf_ldl_plain(M)
+    torch.cuda.synchronize()
+    errs = (rel_err(Lk, Lp), rel_err(dk, dp))
+    resid = rel_err(Lk @ M @ Lk.transpose(-1, -2), torch.diag_embed(dk))
+    # the band factor's first block row runs the same leaf device code
+    fb = band.band_factor(M[:, None].contiguous(),
+                          torch.zeros_like(M)[:, None])
+    same = torch.equal(fb.Dinv[:, 0], Lk) and torch.equal(fb.d[:, 0], dk)
+    print(f"leaf_ldl vs plain: max rel err Linv/d {errs[0]:.3e}/"
+          f"{errs[1]:.3e}; ||Linv M Linv' - diag(d)|| rel {resid:.3e}; "
+          f"bit-identical to band_factor's leaf: {same}")
+    if not max(errs) <= KERNEL_TOL or not resid <= RESID_TOL or not same:
+        fail("leaf_ldl disagrees with its plain version or the band leaf")
+    # bytes: the lower triangle of each block read, Linv and d written
+    b_ms, b_by = bound(L * (B * (B + 1) // 2 * 8 + B * B * 8 + B * 8),
+                       L * (B ** 3 // 2 + B ** 3 // 3))
+    ms = cuda_ms(lambda: leaf.leaf_ldl(M))
+    pms = cuda_ms(lambda: leaf.leaf_ldl_plain(M), reps=5)
+    print(f"leaf_ldl: {ms:.4f} ms (plain {pms:.3f} ms), bound {b_ms:.4f} ms "
+          f"by {b_by}")
+    records.append(dict(
+        name="leaf_ldl", route="cuda", source="eicos_tpu_torch/csrc/leaf_ldl.cu",
+        replaces="eicos_tpu/ops/pallas_leaf_ds.py:207",
+        max_abs_err=max(float((Lk - Lp).abs().max()),
+                        float((dk - dp).abs().max())),
+        ms=ms, plain_ms=pms, bound_ms=b_ms, bound_by=b_by, library_ms=None))
+    del M, Lk, dk, Lp, dp, fb
+
+    # ---- dgemm in four forms
+    g = torch.Generator(device="cuda")
+    g.manual_seed(4)
+
+    def rnd(*shape):
+        return torch.randn(*shape, generator=g, dtype=torch.float64,
+                           device="cuda")
+
+    h = Dp // 2
+    a, bm, c0 = rnd(L, h, h), rnd(L, h, h), rnd(L, h, h)
+    # label: (a, b, c, alpha/beta, (r, k, n) of one lane, shared b)
+    forms = {
+        "per-lane 128 x (1024x1024 @ 1024x1024)":
+            (a, bm, None, {}, (h, h, h), False),
+        "shared operand, 128 x 16 rows @ one 2048x2048":
+            (rnd(L, KP, Dp), rnd(Dp, Dp), None, {}, (KP, Dp, Dp), True),
+        "transposed operand, c - a @ b' (the Schur form)":
+            (a, bm.transpose(-1, -2), c0, dict(alpha=-1.0, beta=1.0),
+             (h, h, h), False),
+        "ragged 128 x (37x150 @ 150x77)":
+            (rnd(L, 37, 150), rnd(L, 150, 77), None, {}, (37, 150, 77),
+             False),
+    }
+    gemm_abs = 0.0
+    for label, (x, y, c, kw, (r, k, n), shared_b) in forms.items():
+        got = gemm.matmul(x, y, c=None if c is None else c.clone(), **kw)
+        want = gemm.matmul_plain(x, y, None if c is None else c.clone(), **kw)
+        torch.cuda.synchronize()
+        err = rel_err(got, want)
+        gemm_abs = max(gemm_abs, float((got - want).abs().max()))
+        ms = cuda_ms(lambda: gemm.matmul(x, y, c=c if c is None else
+                                         c.clone(), **kw), reps=5)
+        pms = cuda_ms(lambda: gemm.matmul_plain(
+            x, y, None if c is None else c.clone(), **kw), reps=5)
+        lms = cuda_ms(lambda: torch.matmul(x, y), reps=5)
+        nbytes = 8 * (L * r * k + (1 if shared_b else L) * k * n
+                      + (2 if c is not None else 1) * L * r * n)
+        f_ms, f_by = bound(nbytes, L * 2 * r * k * n)
+        print(f"dgemm {label}: rel err {err:.3e}, {ms:.4f} ms (plain "
+              f"{pms:.4f} ms, torch.matmul {lms:.4f} ms), bound {f_ms:.4f} "
+              f"ms by {f_by}")
+        if not err <= KERNEL_TOL:
+            fail(f"dgemm disagrees with its plain version ({label})")
+    b_ms, b_by = bound(L * 3 * h * h * 8, L * 2 * h ** 3)
+    ms = cuda_ms(lambda: gemm.matmul(a, bm), reps=10)
+    pms = cuda_ms(lambda: gemm.matmul_plain(a, bm), reps=10)
+    lms = cuda_ms(lambda: torch.matmul(a, bm), reps=10)
+    print(f"dgemm per-lane 1024^3: {ms:.4f} ms ({L * 2 * h ** 3 / ms / 1e9:.2f}"
+          f" TFLOP/s), plain {pms:.4f} ms, torch.matmul {lms:.4f} ms, bound "
+          f"{b_ms:.4f} ms by {b_by}")
+    records.append(dict(
+        name="dgemm", route="cuda", source="eicos_tpu_torch/csrc/dgemm.cu",
+        replaces="eicos_tpu/ops/pallas_gemm_ds.py:316", max_abs_err=gemm_abs,
+        ms=ms, plain_ms=pms, bound_ms=b_ms, bound_by=b_by, library_ms=lms))
+    del a, bm, c0, forms
+    torch.cuda.empty_cache()
+
+    # ---- linv_fwd / linv_bwd on a factor of the dense recursion
+    K = quasidefinite(torch, L, Dp, 1500, seed=3)
+    fac = ldl.ldl_factor(K.clone())
+    torch.cuda.synchronize()
+    fac_ms = cuda_ms(lambda: ldl.ldl_factor(K.clone()), reps=3)
+    fac_ops = L * 4 * Dp ** 3 / 3       # the four products of every node
+    print(f"ldl_factor, 128 x Dp 2048 (one clone of K included): "
+          f"{fac_ms:.2f} ms, {fac_ops / fac_ms / 1e9:.2f} TFLOP/s of node "
+          f"products; strict upper triangle of Linv all zero: "
+          f"{not bool(torch.triu(fac.Linv, 1).any())}")
+    Linv, d = fac.Linv, fac.d
+    g.manual_seed(5)
+    tri = Dp * (Dp + 1) // 2 * 8         # the lower triangle, in bytes
+    linv_abs = {"linv_fwd": 0.0, "linv_bwd": 0.0}
+    timing = {}
+    for k in (KP, 2):
+        r = rnd(L, k, Dp)
+        tk = gemm.linv_fwd(Linv, d, r)
+        tp = gemm.linv_fwd_plain(Linv, d, r)
+        xk = gemm.linv_bwd(Linv, tk)
+        xp = gemm.linv_bwd_plain(Linv, tk)
+        torch.cuda.synchronize()
+        resid = rel_err(torch.matmul(xk, K), r)
+        ef, eb = rel_err(tk, tp), rel_err(xk, xp)
+        linv_abs["linv_fwd"] = max(linv_abs["linv_fwd"],
+                                   float((tk - tp).abs().max()))
+        linv_abs["linv_bwd"] = max(linv_abs["linv_bwd"],
+                                   float((xk - xp).abs().max()))
+        print(f"k={k}: linv_fwd rel err {ef:.3e}, linv_bwd {eb:.3e}, "
+              f"residual ||K x - b|| / ||b|| {resid:.3e}")
+        if not max(ef, eb) <= KERNEL_TOL:
+            fail(f"linv kernels disagree with their plain versions (k={k})")
+        if not resid <= RESID_TOL:
+            fail(f"dense solve residual {resid} (k={k})")
+        LinvT = Linv.transpose(-1, -2)
+        io = 2 * L * k * Dp * 8
+        for name, fn, pfn, lfn, nbytes in (
+                ("linv_fwd", lambda: gemm.linv_fwd(Linv, d, r),
+                 lambda: gemm.linv_fwd_plain(Linv, d, r),
+                 lambda: torch.matmul(r, LinvT), L * (tri + Dp * 8) + io),
+                ("linv_bwd", lambda: gemm.linv_bwd(Linv, tk),
+                 lambda: gemm.linv_bwd_plain(Linv, tk),
+                 lambda: torch.matmul(tk, Linv), L * tri + io)):
+            b_ms, b_by = bound(nbytes, L * k * Dp * (Dp + 1))
+            timing[name, k] = (cuda_ms(fn), cuda_ms(pfn, reps=5),
+                               cuda_ms(lfn, reps=5), b_ms, b_by)
+            print(f"{name} k={k}: {timing[name, k][0]:.4f} ms, plain "
+                  f"{timing[name, k][1]:.4f} ms, torch.matmul "
+                  f"{timing[name, k][2]:.4f} ms, bound {b_ms:.4f} ms by "
+                  f"{b_by} ({nbytes / 1e9:.3f} GB)")
+    for name in ("linv_fwd", "linv_bwd"):
+        ms, pms, lms, b_ms, b_by = timing[name, 2]   # the path's k
+        records.append(dict(
+            name=name, route="cuda", source="eicos_tpu_torch/csrc/linv_solve.cu",
+            replaces="eicos_tpu/ops/pallas_gemm_ds.py:519",
+            max_abs_err=linv_abs[name], ms=ms, plain_ms=pms, bound_ms=b_ms,
+            bound_by=b_by, library_ms=lms))
+    del K, fac, Linv, d
+    torch.cuda.empty_cache()
+    return records
+
+
 def build_batch(pt, corpus, make_band_plan):
     """bench.py's batch: shared G/A/h, per-lane c and x0 (in b)."""
     rng = np.random.default_rng(7)
@@ -216,6 +405,22 @@ def build_batch(pt, corpus, make_band_plan):
     st = st.with_band_plan(make_band_plan(st, base.G, base.A))
     probs = []
     for _ in range(LANES):
+        c = np.asarray(base.c) + 0.02 * rng.standard_normal(st.n)
+        b = np.asarray(base.b).copy()
+        b[:NX] += 0.05 * rng.standard_normal(NX)
+        probs.append(pt.ProblemData(G=base.G, A=base.A, c=c, h=base.h, b=b))
+    shared = ("G", "A", "h")
+    return st, probs, pt.BatchedSolver.stack(probs, shared=shared), shared
+
+
+def build_socp_batch(pt, corpus, lanes):
+    """The first ``lanes`` lanes of bench.py's SOCP batch (lane rng 11),
+    without a band plan: the "reduced" strategy keeps its SOC rows."""
+    rng = np.random.default_rng(11)
+    st, base = corpus.make_mpc_soc(horizon=HORIZON, nx=NX, nu=NU, seed=5)
+    st = st.with_gsplit(base.G, base.A)
+    probs = []
+    for _ in range(lanes):
         c = np.asarray(base.c) + 0.02 * rng.standard_normal(st.n)
         b = np.asarray(base.b).copy()
         b[:NX] += 0.05 * rng.standard_normal(NX)
@@ -258,6 +463,79 @@ def profile_solve(torch, bs, batch):
         print(f"  {ms:9.3f} ms  {count:6d}x  {key[:90]}")
 
 
+def drive(torch, kernels, kkt, bs, batch):
+    """One solve with every launch count at 0 just before it: returns the
+    solution, the counts just after, the host syncs and the wall time."""
+    torch.cuda.synchronize()
+    kernels.reset_counts()
+    syncs0 = kkt.host_syncs
+    t0 = time.perf_counter()
+    sol = bs.solve(batch)
+    torch.cuda.synchronize()
+    return (sol, dict(kernels.COUNTS), kkt.host_syncs - syncs0,
+            time.perf_counter() - t0)
+
+
+def timed(torch, bs, batch, lanes, reps=3):
+    """Median wall time of ``reps`` solves after the first; prints it and
+    returns the last solution."""
+    times = []
+    for _ in range(reps):
+        t0 = time.perf_counter()
+        sol = bs.solve(batch)
+        torch.cuda.synchronize()
+        times.append(time.perf_counter() - t0)
+    med = float(np.median(times))
+    print(f"timed solves {times} s; median {lanes / med:.2f} solves/s; peak "
+          f"device memory {torch.cuda.max_memory_allocated() / 2 ** 30:.3f} "
+          f"GiB")
+    return sol
+
+
+def same_bits(torch, first, again, label):
+    """Two solves of one batch must give the same bits: every sum on the
+    path runs in a fixed order."""
+    same = all(torch.equal(a, b) for a, b in (
+        (first.exit_code, again.exit_code), (first.info.iter, again.info.iter),
+        (first.x, again.x), (first.y, again.y), (first.z, again.z)))
+    print(f"{label}: a repeated solve gives the same bits: {same}")
+    if not same:
+        fail(f"{label}: two solves of the same batch differ")
+
+
+def outcome(sol, label):
+    codes = sol.exit_code.cpu().numpy()
+    iters = sol.info.iter.cpu().numpy()
+    hist = {int(c): int((codes == c).sum()) for c in np.unique(codes)}
+    print(f"{label}: exit codes {hist}; iterations min/median/max "
+          f"{iters.min()}/{np.median(iters):g}/{iters.max()}")
+    return codes, iters, hist
+
+
+def need_launched(launches, names, label):
+    missing = [n for n in names if not launches[n] > 0]
+    if missing:
+        fail(f"{label}: kernels of the path never launched: {missing} "
+             f"({launches})")
+
+
+def same_as_cpu(pt, st, prob, settings, sol, label):
+    """Lane 0 again on the CPU plain path: same exit code and iteration
+    count, objective within LANE_TOL."""
+    t0 = time.perf_counter()
+    cpu = pt.solve(st, prob, settings, device="cpu")
+    t_cpu = time.perf_counter() - t0
+    g_code, g_it = int(sol.exit_code[0]), int(sol.info.iter[0])
+    g_pc, c_pc = float(sol.info.pcost[0]), float(cpu.info.pcost)
+    print(f"{label} lane 0: GPU code {g_code} iter {g_it} pcost {g_pc!r}; "
+          f"CPU plain code {int(cpu.exit_code)} iter {int(cpu.info.iter)} "
+          f"pcost {c_pc!r} ({t_cpu:.1f} s)")
+    if (int(cpu.exit_code) != g_code or int(cpu.info.iter) != g_it
+            or not abs(g_pc - c_pc) <= LANE_TOL * abs(c_pc)):
+        fail(f"{label}: lane 0 disagrees between the kernels and the plain "
+             f"path")
+
+
 def main():
     t_start = time.perf_counter()
     import torch
@@ -267,7 +545,7 @@ def main():
     sys.path.insert(0, os.path.dirname(os.path.abspath(__file__)))
     import eicos_tpu_torch as pt
     from eicos_tpu_torch import corpus, kkt
-    from eicos_tpu_torch.ops import band, kernels
+    from eicos_tpu_torch.ops import band, gemm, kernels, ldl, leaf
     from eicos_tpu_torch.ops import band_ldl as plain
     from eicos_tpu_torch.plan import make_band_plan
 
@@ -287,46 +565,37 @@ def main():
             if "registers" in line or "spill" in line:
                 print(f"  {name}: {line.strip()}")
 
-    records = check_kernels(torch, band, plain)
+    t0 = time.perf_counter()
+    band_records = check_kernels(torch, band, plain)
+    dense_records = check_dense_kernels(torch, band, leaf, gemm, ldl)
+    print(f"kernel checks: {time.perf_counter() - t0:.1f} s")
+    band_names = [r["name"] for r in band_records]
+    dense_names = [r["name"] for r in dense_records]
 
-    # ---- the main path: 128 lanes of the MPC01-scale LP
+    # ---- phase 2: the main path as bench.py configures it
+    t_phase = time.perf_counter()
     st, probs, batch, shared = build_batch(pt, corpus, make_band_plan)
     print(f"main path: n={st.n} p={st.p} m={st.m}, Dp={st.band.dim}, "
-          f"bwb={st.band.bwb}, {LANES} lanes")
+          f"bwb={st.band.bwb}, {LANES} lanes, rescue 'reduced'")
     settings = pt.Settings(kkt_strategy="banded")
-    bs = pt.BatchedSolver(st, settings, shared=shared)
+    rescue = pt.Settings(kkt_strategy="reduced")
+    bs = pt.BatchedSolver(st, settings, shared=shared, rescue=rescue)
     torch.cuda.reset_peak_memory_stats()
-    kernels.reset_counts()
-    syncs0 = kkt.host_syncs
-    t0 = time.perf_counter()
-    sol = bs.solve(batch)
-    torch.cuda.synchronize()
-    t_first = time.perf_counter() - t0
-    launches = dict(kernels.COUNTS)
-    syncs = kkt.host_syncs - syncs0
-    times = []
-    for _ in range(3):
-        t0 = time.perf_counter()
-        sol = bs.solve(batch)
-        torch.cuda.synchronize()
-        times.append(time.perf_counter() - t0)
-    codes = sol.exit_code.cpu().numpy()
-    iters = sol.info.iter.cpu().numpy()
-    hist = {int(c): int((codes == c).sum()) for c in np.unique(codes)}
-    med = float(np.median(times))
-    print(f"exit codes {hist}; iterations min/median/max "
-          f"{iters.min()}/{np.median(iters):g}/{iters.max()}")
-    print(f"first solve {t_first:.3f} s; timed solves {times} s; median "
-          f"{LANES / med:.2f} solves/s; peak device memory "
-          f"{torch.cuda.max_memory_allocated() / 2 ** 30:.3f} GiB")
-    print(f"host syncs per solve: {syncs}")
-    print(f"kernel launches per solve: {launches}")
+    sol, launches, syncs, t_first = drive(torch, kernels, kkt, bs, batch)
+    print(f"first solve {t_first:.3f} s; host syncs {syncs}; kernel "
+          f"launches {launches}; rescued lanes {list(bs.last_rescued)}")
+    need_launched(launches, band_names, "main path")
+    for r in band_records:
+        r["launches"] = launches[r["name"]]
+    first = sol
+    sol = timed(torch, bs, batch, LANES)
+    same_bits(torch, first, sol, "main path")
+    codes, iters, hist = outcome(sol, "main path")
     if hist != {0: LANES}:
         fail(f"not every lane exited OPTIMAL: {hist}")
-    if not all(launches[r["name"]] > 0 for r in records):
-        fail(f"a kernel of the main path was never launched: {launches}")
-    for r in records:
-        r["launches"] = launches[r["name"]]
+    if bs.last_rescued:
+        fail(f"the main path rescued lanes {list(bs.last_rescued)}")
+    banded_pcost = sol.info.pcost.cpu().numpy()
     # torch's own account of the synchronizing calls of one solve, beside
     # the loops' count (one per IPM iteration and refinement trip)
     import warnings
@@ -342,27 +611,81 @@ def main():
     print(f"synchronizing calls flagged by torch in one solve: {flagged} "
           f"(loop count {counted})")
     profile_solve(torch, bs, batch)
+    same_as_cpu(pt, st, probs[0], settings, sol, "main path")
+    print(f"phase 2: {time.perf_counter() - t_phase:.1f} s")
 
-    # ---- lane 0 again on the CPU plain path
-    t0 = time.perf_counter()
-    cpu = pt.solve(st, probs[0], settings, device="cpu")
-    t_cpu = time.perf_counter() - t0
-    g_pc = float(sol.info.pcost[0])
-    c_pc = float(cpu.info.pcost)
-    print(f"lane 0: GPU code {int(codes[0])} iter {int(iters[0])} pcost "
-          f"{g_pc!r}; CPU plain code {int(cpu.exit_code)} iter "
-          f"{int(cpu.info.iter)} pcost {c_pc!r} ({t_cpu:.1f} s)")
-    if (int(cpu.exit_code) != int(codes[0])
-            or int(cpu.info.iter) != int(iters[0])
-            or not abs(g_pc - c_pc) <= LANE_TOL * abs(c_pc)):
-        fail("lane 0 disagrees between the kernels and the plain path")
+    # ---- phase 3: forced rescue, the primary cut at 3 iterations
+    t_phase = time.perf_counter()
+    sub = pt.BatchedSolver.stack(probs[:RESCUE_LANES], shared=shared)
+    fs = pt.BatchedSolver(st, pt.Settings(kkt_strategy="banded", iter_max=3),
+                          shared=shared, rescue=rescue)
+    fsol, launches, syncs, t_f = drive(torch, kernels, kkt, fs, sub)
+    _, _, hist = outcome(fsol, "forced rescue")
+    print(f"forced rescue: {t_f:.3f} s; rescued lanes {list(fs.last_rescued)}"
+          f"; kernel launches {launches}")
+    if fs.last_rescued != tuple(range(RESCUE_LANES)):
+        fail(f"forced rescue took lanes {fs.last_rescued}, expected all "
+             f"{RESCUE_LANES}")
+    if hist != {0: RESCUE_LANES}:
+        fail(f"forced rescue: not every lane OPTIMAL: {hist}")
+    need_launched(launches, band_names + dense_names, "forced rescue")
+    print(f"phase 3: {time.perf_counter() - t_phase:.1f} s")
+
+    # ---- phase 4: the reduced strategy at full width
+    t_phase = time.perf_counter()
+    red = pt.Settings(kkt_strategy="reduced", dense_solve="inverse")
+    rs = pt.BatchedSolver(st, red, shared=shared)
+    torch.cuda.reset_peak_memory_stats()
+    rsol, launches, syncs, t_first = drive(torch, kernels, kkt, rs, batch)
+    Dp = -(-(st.n + st.p) // B) * B
+    print(f"reduced: Dp={Dp}, {LANES} lanes; first solve {t_first:.3f} s; "
+          f"host syncs {syncs}; kernel launches {launches}")
+    need_launched(launches, dense_names, "reduced")
+    for r in dense_records:
+        r["launches"] = launches[r["name"]]
+    first = rsol
+    rsol = timed(torch, rs, batch, LANES)
+    same_bits(torch, first, rsol, "reduced")
+    del first
+    codes, iters, hist = outcome(rsol, "reduced")
+    if hist != {0: LANES}:
+        fail(f"reduced: not every lane exited OPTIMAL: {hist}")
+    gap = np.abs(rsol.info.pcost.cpu().numpy() - banded_pcost)
+    worst = float((gap / np.abs(banded_pcost)).max())
+    print(f"reduced vs banded objective: max relative difference {worst:.3e}")
+    if not worst <= STRATEGY_TOL:
+        fail(f"reduced and banded objectives differ by {worst}")
+    profile_solve(torch, rs, batch)
+    same_as_cpu(pt, st, probs[0], red, rsol, "reduced")
+    del rs, rsol
+    torch.cuda.empty_cache()
+    print(f"phase 4: {time.perf_counter() - t_phase:.1f} s")
+
+    # ---- phase 5: the SOCP problem under "reduced"
+    t_phase = time.perf_counter()
+    sst, sprobs, sbatch, sshared = build_socp_batch(pt, corpus, SOC_LANES)
+    print(f"SOCP: n={sst.n} p={sst.p} m={sst.m} (ms={sst.m - sst.l} kept "
+          f"SOC rows), {SOC_LANES} lanes")
+    ss = pt.BatchedSolver(sst, red, shared=sshared)
+    torch.cuda.reset_peak_memory_stats()
+    ssol, launches, syncs, t_s = drive(torch, kernels, kkt, ss, sbatch)
+    outcome(ssol, "SOCP reduced")
+    print(f"SOCP reduced: {t_s:.3f} s ({SOC_LANES / t_s:.2f} solves/s, first "
+          f"solve); host syncs {syncs}; kernel launches {launches}; peak "
+          f"device memory {torch.cuda.max_memory_allocated() / 2 ** 30:.3f} "
+          f"GiB")
+    need_launched(launches, dense_names, "SOCP reduced")
+    print(f"SOCP reduced: exit codes by lane {ssol.exit_code.tolist()}")
+    same_bits(torch, ssol, ss.solve(sbatch), "SOCP reduced")
+    same_as_cpu(pt, sst, sprobs[0], red, ssol, "SOCP reduced")
+    print(f"phase 5: {time.perf_counter() - t_phase:.1f} s")
 
     order = ("name", "route", "source", "replaces", "launches",
              "max_abs_err", "ms", "plain_ms", "bound_ms", "bound_by",
              "library_ms")
     print(f"total {time.perf_counter() - t_start:.1f} s")
     print(json.dumps({"kernels": [{k: r[k] for k in order}
-                                  for r in records]}))
+                                  for r in band_records + dense_records]}))
     print(smi)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

@@ -8,9 +8,11 @@ Solves
 
 with the Mehrotra predictor-corrector interior-point method on the
 homogeneous self-dual embedding, lane-batched, in IEEE float64.  The
-banded KKT strategy's band LDL^T factor and solves run in hand-written
-CUDA kernels (``csrc/``), built with nvcc at first use; every kernel has a
-plain torch twin that runs for CPU tensors.
+"banded" KKT strategy's band LDL^T factor and solves, and the dense
+"reduced" strategy's leaf LDL^T, GEMM and inverse solves (the rescue
+pass's path), run in hand-written CUDA kernels (``csrc/``), built with
+nvcc at first use; every kernel has a plain torch version that runs for
+CPU tensors.
 
 Entry points run on CUDA unless the caller passes ``device="cpu"``.  The
 package imports torch, numpy and scipy, and nothing of JAX or

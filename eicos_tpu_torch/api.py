@@ -1,6 +1,6 @@
 """Object API: ``Solver`` (EiCOS's ``Solver`` constructor shape) and
-``BatchedSolver`` (lanes sharing one structure): a port of
-``eicos_tpu.api`` without the rescue pass, which is the next slice.
+``BatchedSolver`` (lanes sharing one structure), with the rescue pass: a
+port of ``eicos_tpu.api``.
 
 Both run on CUDA unless the caller passes ``device="cpu"``; without a CUDA
 device they raise instead of moving to the CPU on their own.
@@ -8,9 +8,11 @@ device they raise instead of moving to the CPU on their own.
 
 from __future__ import annotations
 
+import dataclasses
 from typing import Optional
 
 import numpy as np
+import torch
 
 from .exitcodes import ExitCode
 from .problem import ProblemData, make_problem
@@ -22,19 +24,40 @@ from .structure import ProblemStructure
 _FIELDS = ("G", "A", "c", "h", "b")
 
 
-def _no_rescue(rescue) -> None:
-    if rescue is not None:
-        raise NotImplementedError("rescue: next slice")
+def _rescue_settings(rescue: Optional[Settings]) -> Optional[Settings]:
+    """Normalize a rescue configuration as ``eicos_tpu.api`` does: a
+    rescue left at ``dense_solve="auto"`` is pinned to the inverse path
+    (the exact dense elimination); an explicit choice is kept."""
+    if rescue is None or rescue.dense_solve != "auto":
+        return rescue
+    return dataclasses.replace(rescue, dense_solve="inverse")
+
+
+def _code_rank(code: int) -> int:
+    """Quality tier of an exit code: 2 = definitive answer (optimal or a
+    full-accuracy infeasibility certificate), 1 = reduced-accuracy tier,
+    0 = failure (NUMERICS/MAXIT/OUTCONE/...)."""
+    if code in (0, 1, 2):
+        return 2
+    if code in (10, 11, 12):
+        return 1
+    return 0
 
 
 class Solver:
     """Single-problem solver: Solver(G, A, c, h, b, soc_dims); l is
-    inferred as m - sum(q).  A batch of one lane underneath."""
+    inferred as m - sum(q).  A batch of one lane underneath.
+
+    ``rescue``: optional fallback ``Settings``: when the primary exit is
+    not definitive (``_code_rank`` below 2), the problem is solved once
+    more under the fallback and the better result is kept.  The JAX
+    package's last tier, an exact-f64 re-solve on the host CPU when its
+    device computes in emulated f64, is not ported: the port computes in
+    IEEE f64 on the card."""
 
     def __init__(self, G, A, c, h, b, soc_dims=(),
                  settings: Settings = Settings(),
                  rescue: Optional[Settings] = None, device=None):
-        _no_rescue(rescue)
         self.device = resolve_device(device)
         c = np.asarray(c, dtype=np.float64).reshape(-1)
         h = np.zeros(0) if h is None else np.asarray(h, np.float64).reshape(-1)
@@ -56,7 +79,7 @@ class Solver:
         if settings.kkt_strategy in ("reduced", "banded", "normal"):
             self.structure = self.structure.with_gsplit(
                 self._data.G, self._data.A)
-        self.rescue = None
+        self.rescue = _rescue_settings(rescue)
         self._solution: Optional[Solution] = None
         self._dev: Optional[ProblemData] = None
 
@@ -80,9 +103,16 @@ class Solver:
         # device-resident values, cached until update_data
         if self._dev is None:
             self._dev = to_device(self._data, self.device)
-        self._solution = squeeze_lane(
-            solve_batch(self.structure, self._dev, self.settings))
-        return ExitCode(int(self._solution.exit_code))
+        sol = squeeze_lane(solve_batch(self.structure, self._dev,
+                                       self.settings))
+        code = int(sol.exit_code)
+        if self.rescue is not None and _code_rank(code) < 2:
+            rsol = squeeze_lane(solve_batch(self.structure, self._dev,
+                                            self.rescue))
+            if _code_rank(int(rsol.exit_code)) > _code_rank(code):
+                sol = rsol
+        self._solution = sol
+        return ExitCode(int(sol.exit_code))
 
     def solution(self) -> np.ndarray:
         """Primal solution x."""
@@ -106,17 +136,21 @@ class BatchedSolver:
     ``shared`` names ProblemData fields identical across lanes, passed
     without a lane axis: the updateData sweep of EiCOS (same G/A, new c/h/b)
     maps to ``shared=("G", "A", "h")`` with per-lane c and b.  Shared G and
-    A are equilibrated once and exist once on the device."""
+    A are equilibrated once and exist once on the device.
+
+    ``rescue``: optional fallback ``Settings``.  The lanes whose exit is
+    not definitive (``_code_rank`` below 2) are gathered into one batch and
+    solved again under the fallback; a lane takes the fallback's result
+    where its tier is better, and ``last_rescued`` lists those lanes."""
 
     def __init__(self, structure: ProblemStructure,
                  settings: Settings = Settings(), shared: tuple = (),
                  rescue: Optional[Settings] = None, device=None):
-        _no_rescue(rescue)
         self.device = resolve_device(device)
         self.structure = structure
         self.settings = settings
         self.shared = tuple(shared)
-        self.rescue = None
+        self.rescue = _rescue_settings(rescue)
         self.last_rescued: tuple = ()
         self._last_in = None
         self._last_dev = None
@@ -141,7 +175,53 @@ class BatchedSolver:
             self._last_dev = to_device(batch, self.device, self.shared)
         if self._last_dev is None:
             raise ValueError("no batch to solve")
-        return solve_batch(self.structure, self._last_dev, self.settings)
+        sols = solve_batch(self.structure, self._last_dev, self.settings)
+        if self.rescue is not None:
+            sols = self._apply_rescue(sols)
+        return sols
+
+    def _gather_lanes(self, dev: ProblemData, idx) -> ProblemData:
+        """The sub-batch of lanes ``idx``; shared G and A stay shared
+        (c, h and b always carry a lane axis on the device)."""
+        return ProblemData(**{
+            f: (getattr(dev, f) if f in self.shared and f in ("G", "A")
+                else getattr(dev, f)[idx]) for f in _FIELDS})
+
+    def _apply_rescue(self, sols: Solution) -> Solution:
+        """Solve the lanes without a definitive exit once more under the
+        rescue settings, as one batch, and merge in every lane whose tier
+        improves.  Fields whose per-lane shape differs between the two
+        configurations (the history, iter_max + 1 long) keep the
+        primary's values."""
+        codes = sols.exit_code.cpu().numpy()
+        lanes = np.flatnonzero([_code_rank(int(cd)) < 2 for cd in codes])
+        self.last_rescued = ()
+        if lanes.size == 0:
+            return sols
+        idx = torch.as_tensor(lanes, device=sols.exit_code.device)
+        rsols = solve_batch(self.structure,
+                            self._gather_lanes(self._last_dev, idx),
+                            self.rescue)
+        rcodes = rsols.exit_code.cpu().numpy()
+        take = np.array([j for j in range(lanes.size)
+                         if _code_rank(int(rcodes[j]))
+                         > _code_rank(int(codes[lanes[j]]))], dtype=np.int64)
+        if take.size == 0:
+            return sols
+        dest = torch.as_tensor(lanes[take], device=idx.device)
+        src = torch.as_tensor(take, device=idx.device)
+
+        def merge(full, sub):
+            if isinstance(full, tuple):
+                return type(full)(*[merge(f, s) for f, s in zip(full, sub)])
+            if full.shape[1:] != sub.shape[1:]:
+                return full
+            out = full.clone()
+            out[dest] = sub[src]
+            return out
+
+        self.last_rescued = tuple(int(v) for v in lanes[take])
+        return merge(sols, rsols)
 
     @staticmethod
     def stack(problems, shared: tuple = ()) -> ProblemData:

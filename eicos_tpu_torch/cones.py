@@ -4,8 +4,8 @@ batched over a leading lane axis: a port of ``eicos_tpu.cones``.
 Every vector is laid out [LP | SOC_0 | ... ] along its last axis, with the
 lane axis first: ``s``, ``z``, ``lam`` are (lanes, m).  ``scale2`` also
 takes (lanes, k, m) stacks of right-hand sides (iterative refinement).
-Per-cone work is segment arithmetic (``index_add_`` over the SOC part), so
-no Python loop runs over cones.
+Per-cone work is segment arithmetic (fixed-order segment sums over the SOC
+part, ``segsum``), so no Python loop runs over cones.
 
 Nesterov-Todd scalings keep the unexpanded closed form
 
@@ -25,6 +25,7 @@ from typing import NamedTuple
 
 import torch
 
+from .segsum import SegmentSum, segment_map, segment_sum
 from .structure import ConeStructure
 
 
@@ -46,6 +47,7 @@ class _ConeConsts(NamedTuple):
     seg: torch.Tensor           # (ms,) int64 cone id of each SOC entry
     is_head: torch.Tensor       # (ms,) bool
     head_offsets: torch.Tensor  # (n_sc,) int64
+    segs: SegmentSum            # the per-cone sums over the SOC part
 
 
 @functools.lru_cache(maxsize=64)
@@ -54,7 +56,8 @@ def _consts(st: ConeStructure, device: str) -> _ConeConsts:
         seg=torch.as_tensor(st.seg, dtype=torch.int64, device=device),
         is_head=torch.as_tensor(st.is_head, device=device),
         head_offsets=torch.as_tensor(st.head_offsets, dtype=torch.int64,
-                                     device=device))
+                                     device=device),
+        segs=segment_map(st.seg, device))
 
 
 def _k(st, x) -> _ConeConsts:
@@ -68,10 +71,9 @@ def _bc(t, x):
     return t.view(t.shape[0], *([1] * (x.dim() - 2)), t.shape[-1])
 
 
-def _seg_sum(st: ConeStructure, x):
+def seg_sum(st: ConeStructure, x):
     """Per-cone sum over the SOC part: (..., ms) -> (..., n_sc)."""
-    out = x.new_zeros(*x.shape[:-1], st.n_sc)
-    return out.index_add_(x.dim() - 1, _k(st, x).seg, x)
+    return segment_sum(_k(st, x).segs, x)
 
 
 def _expand(st: ConeStructure, pc):
@@ -103,8 +105,8 @@ def update_scalings(st: ConeStructure, s, z):
         is_head = _k(st, s).is_head
         s0 = _heads(st, s_s)
         z0 = _heads(st, z_s)
-        sres = 2.0 * s0 * s0 - _seg_sum(st, s_s * s_s)
-        zres = 2.0 * z0 * z0 - _seg_sum(st, z_s * z_s)
+        sres = 2.0 * s0 * s0 - seg_sum(st, s_s * s_s)
+        zres = 2.0 * z0 * z0 - seg_sum(st, z_s * z_s)
         snorm = torch.sqrt(sres)   # NaN if out of cone: propagates
         znorm = torch.sqrt(zres)
 
@@ -114,12 +116,12 @@ def update_scalings(st: ConeStructure, s, z):
         eta2 = snorm / znorm
         eta = torch.sqrt(eta2)
 
-        gamma = torch.sqrt(0.5 * (1.0 + _seg_sum(st, skbar * zkbar)))
+        gamma = torch.sqrt(0.5 * (1.0 + seg_sum(st, skbar * zkbar)))
         half_by_gamma = 0.5 / gamma
         a = half_by_gamma * (_heads(st, skbar) + _heads(st, zkbar))
         q_flat = torch.where(
             is_head, 0.0, _expand(st, half_by_gamma) * (skbar - zkbar))
-        w = _seg_sum(st, q_flat * q_flat)
+        w = seg_sum(st, q_flat * q_flat)
 
         one_a = 1.0 + a
         cc = one_a + w / one_a
@@ -141,7 +143,7 @@ def scale(st: ConeStructure, scal: Scaling, z):
         a, eta = _bc(scal.a, z), _bc(scal.eta, z)
         q = _bc(scal.q_flat, z)
         z0 = _heads(st, z_s)
-        zeta = _seg_sum(st, q * z_s)
+        zeta = seg_sum(st, q * z_s)
         factor = z0 + zeta / (1.0 + a)
         head_val = eta * (a * z0 + zeta)
         lam_s = torch.where(
@@ -159,7 +161,7 @@ def scale_winv_soc(st: ConeStructure, scal: Scaling, x_s):
         return x_s
     a, q = _bc(scal.a, x_s), _bc(scal.q_flat, x_s)
     x0 = _heads(st, x_s)
-    zeta = _seg_sum(st, q * x_s)
+    zeta = seg_sum(st, q * x_s)
     factor = x0 - zeta / (1.0 + a)
     inv_eta = 1.0 / _bc(scal.eta, x_s)
     head_val = inv_eta * (a * x0 - zeta)
@@ -178,7 +180,7 @@ def scale2(st: ConeStructure, scal: Scaling, x):
         eta2, cc, dd = _bc(scal.eta2, x), _bc(scal.cc, x), _bc(scal.dd, x)
         q = _bc(scal.q_flat, x)
         x0 = _heads(st, x_s)
-        qx = _seg_sum(st, q * x_s)
+        qx = seg_sum(st, q * x_s)
         head_val = eta2 * ((a * a + w) * x0 + cc * qx)
         tail_coeff = eta2 * (cc * x0 + dd * qx)
         y_s = torch.where(
@@ -195,7 +197,7 @@ def scale2_inv(st: ConeStructure, scal: Scaling, x):
     y_lp = x_lp / scal.v_lp
     if st.n_sc:
         x0 = _heads(st, x_s)
-        qx = _seg_sum(st, scal.q_flat * x_s)
+        qx = seg_sum(st, scal.q_flat * x_s)
         inv_eta2 = 1.0 / scal.eta2
         head_val = inv_eta2 * ((scal.a * scal.a + scal.w) * x0
                                - scal.cc * qx)
@@ -233,7 +235,7 @@ def scale2reg_inv_soc(st: ConeStructure, scal: Scaling, delta: float, x_s):
     m22 = c11 / detC + b * scal.w
     detM = m11 * m22 - m12 * m12
     u1 = _heads(st, x_s)
-    u2 = _seg_sum(st, scal.q_flat * x_s)
+    u2 = seg_sum(st, scal.q_flat * x_s)
     a1 = (m22 * u1 - m12 * u2) / detM
     a2 = (-m12 * u1 + m11 * u2) / detM
     be = _expand(st, b)
@@ -254,7 +256,7 @@ def conic_product(st: ConeStructure, u, v):
     if st.n_sc:
         u0 = _heads(st, u_s)
         v0 = _heads(st, v_s)
-        w0 = _seg_sum(st, u_s * v_s)
+        w0 = seg_sum(st, u_s * v_s)
         mu = mu + w0.abs().sum(-1)
         w_s = torch.where(
             _k(st, u).is_head, _expand(st, w0),
@@ -273,8 +275,8 @@ def conic_division(st: ConeStructure, u, w):
         is_head = _k(st, u).is_head
         u0 = _heads(st, u_s)
         w0 = _heads(st, w_s)
-        rho = 2.0 * u0 * u0 - _seg_sum(st, u_s * u_s)
-        zeta = _seg_sum(st, torch.where(is_head, 0.0, u_s * w_s))
+        rho = 2.0 * u0 * u0 - seg_sum(st, u_s * u_s)
+        zeta = seg_sum(st, torch.where(is_head, 0.0, u_s * w_s))
         factor = (zeta / u0 - w0) / rho
         head_val = (u0 * w0 - zeta) / rho
         v_s = torch.where(
@@ -314,7 +316,7 @@ def line_search(st: ConeStructure, lam, ds, dz, tau, dtau, kap, dkap,
     if st.n_sc:
         head = _k(st, lam).is_head
         lam0 = _heads(st, lam_s)
-        lknorm2 = 2.0 * lam0 * lam0 - _seg_sum(st, lam_s * lam_s)
+        lknorm2 = 2.0 * lam0 * lam0 - seg_sum(st, lam_s * lam_s)
         in_cone = lknorm2 > 0.0   # cones with lknorm2 <= 0 are skipped
         safe = torch.where(in_cone, lknorm2, 1.0)
         lknorm = torch.sqrt(safe)
@@ -324,13 +326,13 @@ def line_search(st: ConeStructure, lam, ds, dz, tau, dtau, kap, dkap,
 
         def conic_norm(d_s):
             d0 = _heads(st, d_s)
-            lkJd = 2.0 * lkbar0 * d0 - _seg_sum(st, lkbar * d_s)
+            lkJd = 2.0 * lkbar0 * d0 - seg_sum(st, lkbar * d_s)
             rho0 = lknorminv * lkJd
             factor = (lkJd + d0) / (lkbar0 + 1.0)
             tail = torch.where(
                 head, 0.0,
                 _expand(st, lknorminv) * (d_s - _expand(st, factor) * lkbar))
-            tail_norm = torch.sqrt(_seg_sum(st, tail * tail))
+            tail_norm = torch.sqrt(seg_sum(st, tail * tail))
             return tail_norm - rho0
 
         rhonorm = conic_norm(ds_s)
@@ -355,7 +357,7 @@ def bring_to_cone(st: ConeStructure, r, gamma: float):
     if st.n_sc:
         is_head = _k(st, r).is_head
         r0 = _heads(st, r_s)
-        tail_norm = torch.sqrt(_seg_sum(st, torch.where(is_head, 0.0,
+        tail_norm = torch.sqrt(seg_sum(st, torch.where(is_head, 0.0,
                                                         r_s * r_s)))
         cres = r0 - tail_norm
         cand = torch.where(cres <= 0.0, -cres, -torch.inf)

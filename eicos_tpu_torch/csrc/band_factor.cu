@@ -31,24 +31,25 @@
 //     shared panel;
 //   * L_k is written to HBM and into S; the Schur product reads both
 //     operands from S, and its result minus Kd_k becomes M in S;
-//   * the leaf eliminates M in place (lower triangle), 128 steps of a rank-1
-//     update with two barriers each;
-//   * the unit-lower inverse is formed column by column into the strict
-//     upper triangle of S (as Dinv^T), two threads per column joined by a
-//     warp shuffle, with no block barrier.
+//   * the leaf (leaf.cuh, shared with leaf_ldl.cu) eliminates M in place
+//     (lower triangle), 128 steps of a rank-1 update with two barriers
+//     each, and forms the unit-lower inverse column by column into the
+//     strict upper triangle of S (as Dinv^T), two threads per column joined
+//     by a warp shuffle, with no block barrier.
 // Products are plain f64 FMA loops over an 8x8 register tile per thread.
 // DMMA (mma.sync f64), a blocked leaf and TMA are later work.
 
 #include <cuda_runtime.h>
 
+#include "leaf.cuh"
+
 namespace {
 
-constexpr int B = 128;
-constexpr int SLD = B + 1;   // row stride of S
+constexpr int B = leaf::B;
+constexpr int SLD = leaf::SLD;   // row stride of S
 constexpr int PW = 32;       // Ks panel width
 constexpr int PLD = PW + 1;  // row stride of the panel
-constexpr int NT = 256;      // threads per CTA (16 x 16 tiles of 8 x 8)
-constexpr double TINY = 1e-150;
+constexpr int NT = leaf::NT;  // threads per CTA (16 x 16 tiles of 8 x 8)
 
 __global__ void __launch_bounds__(NT, 1)
 band_factor_kernel(const double* __restrict__ Kd,
@@ -162,36 +163,10 @@ band_factor_kernel(const double* __restrict__ Kd,
       __syncthreads();
     }
 
-    // leaf: unpivoted LDL^T of M, lower triangle of S, in place
-    for (int j = 0; j < B; ++j) {
-      double dj = S[j * SLD + j];
-      if (fabs(dj) < TINY) dj = dj < 0.0 ? -TINY : TINY;
-      for (int i = j + 1 + tid; i < B; i += NT) lvec[i] = S[i * SLD + j] / dj;
-      if (tid == 0) dcur[j] = dj;
-      __syncthreads();
-      const int nr = B - 1 - j;
-      for (int e = tid; e < nr * nr; e += NT) {
-        const int i = j + 1 + e / nr, c = j + 1 + e % nr;
-        if (c <= i) S[i * SLD + c] -= (dj * lvec[i]) * lvec[c];
-      }
-      for (int i = j + 1 + tid; i < B; i += NT) S[i * SLD + j] = lvec[i];
-      __syncthreads();
-    }
-
-    // unit-lower inverse X = Lkk^{-1}, stored as X^T in the strict upper
-    // triangle: X[i][c] = -(L[i][c] + sum_{c<t<i} L[i][t] X[t][c])
-    {
-      const int c = tid >> 1, h = tid & 1;
-      for (int i = 1; i < B; ++i) {
-        double part = 0.0;
-        if (i > c)
-          for (int t = c + 1 + h; t < i; t += 2)
-            part = fma(S[i * SLD + t], S[c * SLD + t], part);
-        part += __shfl_xor_sync(0xffffffffu, part, 1);
-        if (i > c && h == 0) S[c * SLD + i] = -(S[i * SLD + c] + part);
-        __syncwarp();
-      }
-    }
+    // leaf: unpivoted LDL^T of M, lower triangle of S, in place; then the
+    // unit-lower inverse as Dinv_k^T in the strict upper triangle
+    leaf::eliminate(S, dcur, lvec, tid);
+    leaf::unit_lower_inv(S, tid);
     __syncthreads();
     double* Dk = Dinv_l + k * blk;
     for (int e = tid; e < B * B; e += NT) {

@@ -14,6 +14,7 @@ from typing import NamedTuple
 
 import torch
 
+from . import cones
 from .structure import ProblemStructure
 
 
@@ -59,8 +60,7 @@ def equilibrate(st: ProblemStructure, G, A, c, h, b,
 
         if st.n_sc:
             soc = G_tmp[..., st.l:]
-            totals = soc.new_zeros(*soc.shape[:-1], st.n_sc).index_add_(
-                soc.dim() - 1, seg, soc)
+            totals = cones.seg_sum(st.cone, soc)
             G_tmp = torch.cat([G_tmp[..., :st.l], totals[..., seg]], -1)
 
         x_tmp = _sqrt_damped(x_tmp)

@@ -1,30 +1,46 @@
-"""KKT assembly, band factor and solve with iterative refinement: the
-banded strategy of ``eicos_tpu.kkt`` on its ``direct_band`` path, LP cone.
+"""KKT assembly, factor and solve with iterative refinement: the "banded"
+strategy of ``eicos_tpu.kkt`` on its ``direct_band`` path (LP cone) and
+its "reduced" strategy on the dense float64 inverse path.
 
-The factored system is the reduced quasidefinite KKT over [x | y],
+Both factor a quasidefinite system in which the LP rows of G are
+eliminated exactly ((W^2 + dI)^{-1} is diagonal on the LP cone, d =
+deltastat), with H = G_lp' (W_lp^2 + dI)^{-1} G_lp + dI:
 
-    K = [ H    A' ]     H = G' (W^2 + dI)^{-1} G + dI,   d = deltastat
-        [ A   -dI ]
+banded   K = [ H  A' ; A  -dI ] over [x | y], RCM-permuted by the
+         structure's ``BandPlan`` into 128-blocks with block bandwidth 1.
+         H is never formed: its contributions (one per singleton row of G
+         on the diagonal, a w x w outer product per few-nnz "scatter row",
+         and dI) are summed straight into the per-lane diagonal and
+         sub-diagonal band blocks, on top of a lane-invariant base of A, -dI
+         and identity padding pivots (``eicos_tpu.kkt._band_scatter_idx`` and
+         ``_band_gather_split``).  Contributions that land above the band or
+         on a padding column, which the reference sends to a dump slot the
+         band factor never reads, are dropped.  The factor and the two
+         sweeps of each solve run in ``ops/band.py``.
 
-with every G row eliminated exactly ((W^2 + dI)^{-1} is diagonal on the LP
-cone), RCM-permuted by the structure's ``BandPlan`` into 128-blocks with
-block bandwidth 1.  H is never formed: its contributions (one per
-singleton row of G on the diagonal, a w x w outer product per few-nnz
-"scatter row", and dI) are scattered straight into the per-lane diagonal
-and sub-diagonal band blocks, on top of a lane-invariant base of A, -dI and
-identity padding pivots (``eicos_tpu.kkt._band_scatter_idx`` and
-``_band_gather_split``).  Contributions that land above the band or on a
-padding column go to the dump slot, element (0, 0) of sub-diagonal block 0,
-which the band factor never reads.
+reduced  the dense (Dp, Dp) matrix over [z_soc | x | y], SOC rows kept,
 
-The factor and the two sweeps of each solve run in the kernels of
-``ops/band.py`` for CUDA tensors and in their plain twins for CPU tensors.
+             [ -(W_soc^2 + dI)   G_soc   0  ]
+             [  G_soc'           H       A' ]
+             [  0                A      -dI ]
+
+         on a lane-invariant base ``K0`` (``eicos_tpu.kkt.make_context``),
+         with H written in per factor: the singleton and scatter rows of
+         the gsplit summed straight into K, the gsplit's dense rows (or
+         every LP row without a gsplit) by one ``torch.matmul`` (an XLA dot
+         on the TPU too), then dI; the kept SOC block from
+         ``cones.w2_soc_dense``.  The factor and the solves run in
+         ``ops/ldl.py`` (the leaf, GEMM and inverse-solve kernels).
+
+Every sum over a static index map runs in a fixed order (``segsum``), so
+a solve on the card gives the same bits on every run.
+
 Iterative refinement runs against the exact regularized operator with the
 dense equilibrated G and A (``torch.matmul``, as the JAX package computes
 them on the CPU), in the reference's residual-first order, with per-lane
 and per-column stopping.
 
-Other structures raise ``NotImplementedError`` naming the slice they
+Other configurations raise ``NotImplementedError`` naming the slice they
 belong to; nothing falls back silently.
 """
 
@@ -38,7 +54,9 @@ import torch
 
 from . import cones
 from .ops.band import band_factor, band_solve
-from .ops.band_ldl import B, KP, pad_to_block
+from .ops.band_ldl import B, KP
+from .ops.ldl import ldl_factor, ldl_solve, pad_to_block
+from .segsum import SegmentSum, segment_map, segment_sum
 from .structure import ProblemStructure
 
 # host synchronisations of the solve loops (one per ``all_true`` call)
@@ -54,17 +72,28 @@ def all_true(t: torch.Tensor) -> bool:
 
 
 def require_slice(st: ProblemStructure, settings) -> None:
-    """Raise unless (structure, settings) lies on the ported slice: the
-    banded strategy, f64, LP cone, block bandwidth 1 and every G row in
-    the gsplit's singleton or scatter rows."""
-    if settings.kkt_strategy != "banded":
+    """Raise unless (structure, settings) lies on the ported slices: f64,
+    128-blocks, and either "reduced" on the inverse solve path or
+    "banded" with an LP cone, block bandwidth 1 and every G row in the
+    gsplit's singleton or scatter rows."""
+    if settings.kkt_strategy in ("full", "normal"):
         raise NotImplementedError(
-            f"kkt_strategy={settings.kkt_strategy!r}: the dense strategies "
-            "are the next slice of the port (only 'banded' is ported)")
+            f"kkt_strategy={settings.kkt_strategy!r}: the 'full' and "
+            "'normal' dense strategies are a later slice of the port (only "
+            "'banded' and 'reduced' are ported)")
     if settings.factor_dtype != "float64":
         raise NotImplementedError(
-            "factor_dtype='float32': the mixed-precision slice is not "
-            "ported yet")
+            "factor_dtype='float32': the mixed-precision slice (the f32 "
+            "leaf kernel K11) is not ported yet")
+    if settings.block != B:
+        raise NotImplementedError(f"LDL^T block size must be {B}")
+    if settings.kkt_strategy == "reduced":
+        if settings.dense_solve == "subst":
+            raise NotImplementedError(
+                "dense_solve='subst': the substitution kernels (K15/K16, "
+                "pallas_dense_ds) are a later slice of the port; 'inverse' "
+                "and 'auto' run the inverse path")
+        return
     plan = st.band
     if plan is None:
         raise ValueError(
@@ -77,7 +106,7 @@ def require_slice(st: ProblemStructure, settings) -> None:
         raise NotImplementedError(
             f"block bandwidth {plan.bwb}: the bwb 2-6 band kernels are a "
             "later slice of the port (only bwb = 1 is ported)")
-    if plan.block != B or settings.block != B:
+    if plan.block != B:
         raise NotImplementedError(f"band block size must be {B}")
     if plan.dim != pad_to_block(st.n + st.p, B):
         raise ValueError(f"band plan covers {plan.dim} rows, expected "
@@ -169,19 +198,43 @@ def _band_scatter_idx(n: int, Dp: int, perm: np.ndarray, split) -> np.ndarray:
     return np.concatenate(parts)
 
 
-class BandMaps(NamedTuple):
-    Dp: int
-    perm: torch.Tensor    # (Dp,) new -> old
-    iperm: torch.Tensor   # (Dp,) old -> new
-    scatter: torch.Tensor  # flat scatter targets of the H contributions
-    dmask: torch.Tensor   # (nb, B, B) True where the diag block holds H
-    dio: torch.Tensor     # (nb, B, B) index into [A.ravel() | consts]
-    smask: torch.Tensor   # same for the sub-diagonal blocks
-    sio: torch.Tensor
+class SplitMaps(NamedTuple):
+    """The gsplit's row lists on the device."""
+
     sing: torch.Tensor    # singleton rows of G and their columns
     scol: torch.Tensor
     spr: torch.Tensor     # scatter rows of G and their (padded) columns
     cols2: torch.Tensor
+    dense: torch.Tensor   # the remaining LP rows
+
+
+@functools.lru_cache(maxsize=16)
+def split_maps(st: ProblemStructure, device: str) -> Optional[SplitMaps]:
+    split = st.gsplit
+    if split is None:
+        return None
+
+    def t(a):
+        return torch.as_tensor(np.asarray(a, np.int64), dtype=torch.int64,
+                               device=device)
+
+    return SplitMaps(
+        sing=t(split.sing_rows), scol=t(split.sing_cols),
+        spr=t(split.spr_rows),
+        cols2=t(np.asarray(split.spr_cols, np.int64).reshape(
+            -1, max(split.spr_width, 1))),
+        dense=t(split.dense_rows))
+
+
+class BandMaps(NamedTuple):
+    Dp: int
+    perm: torch.Tensor    # (Dp,) new -> old
+    iperm: torch.Tensor   # (Dp,) old -> new
+    scatter: SegmentSum   # the H contributions' sums, dump slot dropped
+    dmask: torch.Tensor   # (nb, B, B) True where the diag block holds H
+    dio: torch.Tensor     # (nb, B, B) index into [A.ravel() | consts]
+    smask: torch.Tensor   # same for the sub-diagonal blocks
+    sio: torch.Tensor
 
 
 @functools.lru_cache(maxsize=16)
@@ -192,61 +245,118 @@ def band_maps(st: ProblemStructure, device: str) -> BandMaps:
     Dp = len(perm)
     iperm = np.empty_like(perm)
     iperm[perm] = np.arange(Dp)
-    split = st.gsplit
     (dmask, dio), (smask, sio) = _band_gather(n, p, Dp, perm)
 
     def t(a, dtype=torch.int64):
         return torch.as_tensor(np.asarray(a), dtype=dtype, device=device)
 
+    idx = _band_scatter_idx(n, Dp, perm, st.gsplit)
+    dump = (Dp // B) * B * B
     return BandMaps(
         Dp=Dp, perm=t(perm), iperm=t(iperm),
-        scatter=t(_band_scatter_idx(n, Dp, perm, split)),
+        scatter=segment_map(idx, device, keep=idx != dump),
         dmask=t(dmask, torch.bool), dio=t(dio),
-        smask=t(smask, torch.bool), sio=t(sio),
-        sing=t(np.asarray(split.sing_rows, np.int64)),
-        scol=t(np.asarray(split.sing_cols, np.int64)),
-        spr=t(np.asarray(split.spr_rows, np.int64)),
-        cols2=t(np.asarray(split.spr_cols, np.int64).reshape(
-            -1, max(split.spr_width, 1))))
+        smask=t(smask, torch.bool), sio=t(sio))
+
+
+class DenseMaps(NamedTuple):
+    """Static layout of the reduced strategy's dense K over
+    [z_soc | x | y]: ms kept SOC rows, me eliminated (LP) rows, and the
+    fixed-order sums of the gsplit's H contributions: ``hs`` of the
+    scatter rows' flattened (n_spr, w, w) values into flat (Dp * Dp)
+    positions of K, those whose two columns are real (a padded column
+    contributes 0 to a row and column that the reference crops), and
+    ``hd`` of the singleton rows' values onto the diagonal of H."""
+
+    Dp: int
+    ms: int
+    me: int
+    hs: Optional[SegmentSum]
+    hd: Optional[SegmentSum]
+
+
+@functools.lru_cache(maxsize=16)
+def dense_maps(st: ProblemStructure, device: str) -> DenseMaps:
+    n, p = st.n, st.p
+    ms = st.m - st.l          # "reduced" keeps every SOC row
+    Dp = pad_to_block(ms + n + p, B)
+    split = st.gsplit
+    hs = hd = None
+    if split is not None and split.n_spr:
+        cols2 = np.asarray(split.spr_cols, np.int64).reshape(
+            -1, split.spr_width)
+        ci = np.broadcast_to(cols2[:, :, None], (*cols2.shape,
+                                                 split.spr_width)).ravel()
+        cj = np.broadcast_to(cols2[:, None, :], (*cols2.shape[:1],
+                                                 split.spr_width,
+                                                 split.spr_width)).ravel()
+        hs = segment_map((ms + ci) * Dp + ms + cj, device,
+                         keep=(ci < n) & (cj < n))
+    if split is not None and split.n_sing:
+        hd = segment_map(split.sing_cols, device)
+    return DenseMaps(Dp=Dp, ms=ms, me=st.l, hs=hs, hd=hd)
 
 
 # ---------------------------------------------------------------- context
 
 class KKTContext(NamedTuple):
     """Per-solve constants: equilibrated G, A ((m, n), (p, n) shared or
-    with a leading lane axis), the static maps, the lane-invariant band
-    base and the iteration-invariant coefficients of the H scatter."""
+    with a leading lane axis), the static maps, the lane-invariant base of
+    the factored matrix (``Kd0``/``Ks0`` for "banded", ``K0`` for
+    "reduced") and the iteration-invariant coefficients of the gsplit's
+    H contributions."""
 
     G: torch.Tensor
     A: torch.Tensor
-    maps: BandMaps
-    Kd0: torch.Tensor    # ([L,] nb, B, B) A, -dI and padding pivots
-    Ks0: torch.Tensor
+    split: Optional[SplitMaps]
     spr_outer: Optional[torch.Tensor]   # ([L,] n_spr, w, w) g_i g_j
     sing_sq: Optional[torch.Tensor]     # ([L,] n_sing) g^2
+    band: Optional[BandMaps] = None
+    Kd0: Optional[torch.Tensor] = None  # ([L,] nb, B, B) A, -dI, padding
+    Ks0: Optional[torch.Tensor] = None
+    dense: Optional[DenseMaps] = None
+    K0: Optional[torch.Tensor] = None   # ([L,] Dp, Dp)
 
 
 def make_context(st: ProblemStructure, G, A, settings) -> KKTContext:
     require_slice(st, settings)
-    maps = band_maps(st, str(G.device))
-    delta = settings.deltastat
-    consts = torch.tensor([-delta, 0.0, 1.0], dtype=G.dtype,
-                          device=G.device)
-    other = torch.cat([A.reshape(*A.shape[:-2], -1),
-                       consts.expand(*A.shape[:-2], 3)], -1)
-    Kd0 = torch.where(maps.dmask, 0.0, other[..., maps.dio])
-    Ks0 = torch.where(maps.smask, 0.0, other[..., maps.sio])
-    split = st.gsplit
+    dev = str(G.device)
+    split = split_maps(st, dev)
     spr_outer = sing_sq = None
-    if split.n_spr:
+    if split is not None and st.gsplit.n_spr:
         Gpad = torch.cat([G, G.new_zeros(*G.shape[:-1], 1)], -1)
-        C = Gpad[..., maps.spr[:, None], maps.cols2]     # ([L,] n_spr, w)
+        C = Gpad[..., split.spr[:, None], split.cols2]   # ([L,] n_spr, w)
         spr_outer = C[..., :, :, None] * C[..., :, None, :]
-    if split.n_sing:
-        coef = G[..., maps.sing, maps.scol]
+    if split is not None and st.gsplit.n_sing:
+        coef = G[..., split.sing, split.scol]
         sing_sq = coef * coef
-    return KKTContext(G=G, A=A, maps=maps, Kd0=Kd0, Ks0=Ks0,
-                      spr_outer=spr_outer, sing_sq=sing_sq)
+    ctx = KKTContext(G=G, A=A, split=split, spr_outer=spr_outer,
+                     sing_sq=sing_sq)
+    delta = settings.deltastat
+    lead = A.shape[:-2]
+    if settings.kkt_strategy == "reduced":
+        dm = dense_maps(st, dev)
+        n, p, ms, l = st.n, st.p, dm.ms, st.l
+        D = ms + n + p
+        # z_soc and x diagonals are written per factor; -dI on y; 1 padding
+        diag0 = G.new_zeros(dm.Dp)
+        diag0[ms + n:D] = -delta
+        diag0[D:] = 1.0
+        K0 = torch.diag_embed(diag0.expand(*lead, dm.Dp)).contiguous()
+        if ms:
+            K0[..., :ms, ms:ms + n] = G[..., l:, :]
+            K0[..., ms:ms + n, :ms] = G[..., l:, :].transpose(-1, -2)
+        if p:
+            K0[..., ms:ms + n, ms + n:D] = A.transpose(-1, -2)
+            K0[..., ms + n:D, ms:ms + n] = A
+        return ctx._replace(dense=dm, K0=K0)
+    maps = band_maps(st, dev)
+    consts = torch.tensor([-delta, 0.0, 1.0], dtype=G.dtype, device=G.device)
+    other = torch.cat([A.reshape(*lead, -1), consts.expand(*lead, 3)], -1)
+    return ctx._replace(band=maps,
+                        Kd0=torch.where(maps.dmask, 0.0, other[..., maps.dio]),
+                        Ks0=torch.where(maps.smask, 0.0,
+                                        other[..., maps.sio]))
 
 
 def _band_scatter_vals(st, ctx: KKTContext, winv_lp, delta):
@@ -255,43 +365,94 @@ def _band_scatter_vals(st, ctx: KKTContext, winv_lp, delta):
     lanes = winv_lp.shape[0]
     vals = []
     if ctx.spr_outer is not None:
-        P = ctx.spr_outer * winv_lp[:, ctx.maps.spr][:, :, None, None]
-        vals.append(P.reshape(lanes, -1))
+        vals.append(_spr_vals(ctx, winv_lp).reshape(lanes, -1))
     if ctx.sing_sq is not None:
-        vals.append((ctx.sing_sq * winv_lp[:, ctx.maps.sing]).expand(
-            lanes, -1))
+        vals.append(_sing_vals(ctx, winv_lp))
     vals.append(winv_lp.new_full((lanes, st.n), delta))
     return torch.cat(vals, -1)
+
+
+def _spr_vals(ctx: KKTContext, winv_lp):
+    """(L, n_spr, w, w): w_r g_i g_j of every scatter row r."""
+    return ctx.spr_outer * winv_lp[:, ctx.split.spr][:, :, None, None]
+
+
+def _sing_vals(ctx: KKTContext, winv_lp):
+    """(L, n_sing): w_r g^2 of every singleton row r."""
+    return (ctx.sing_sq * winv_lp[:, ctx.split.sing]).expand(
+        winv_lp.shape[0], -1)
 
 
 def band_blocks(st, ctx: KKTContext, winv_lp, delta):
     """The per-lane band blocks (Kd, Ks), each (L, nb, B, B): the base
     plus the scattered H contributions."""
     lanes = winv_lp.shape[0]
-    Dp = ctx.maps.Dp
+    Dp = ctx.band.Dp
     nbb = (Dp // B) * B * B
-    buf = winv_lp.new_zeros(lanes, 2 * nbb).index_add_(
-        1, ctx.maps.scatter, _band_scatter_vals(st, ctx, winv_lp, delta))
+    buf = winv_lp.new_zeros(lanes, 2 * nbb)
+    buf[:, ctx.band.scatter.targets] = segment_sum(
+        ctx.band.scatter, _band_scatter_vals(st, ctx, winv_lp, delta))
     bufb = buf.view(lanes, 2, Dp // B, B, B)
     return ctx.Kd0 + bufb[:, 0], ctx.Ks0 + bufb[:, 1]
 
 
+def dense_matrix(st, ctx: KKTContext, scal: Optional[cones.Scaling],
+                 winv_lp, delta):
+    """The per-lane reduced K (L, Dp, Dp) for the current scaling
+    (``eicos_tpu.kkt``'s H assembly and ``_assemble_dense``), in the
+    reference's order of summation: H = [Gd' W^-1 Gd] + Hs + diag(hdiag
+    + d), where Hs (the scatter rows) and hdiag (the singleton rows)
+    are sums into zeros."""
+    lanes = winv_lp.shape[0]
+    dm = ctx.dense
+    n, ms, me = st.n, dm.ms, dm.me
+    G = ctx.G
+    K = ctx.K0.expand(lanes, dm.Dp, dm.Dp).clone()
+    Hx = K[:, ms:ms + n, ms:ms + n]          # zero in K0
+    split = ctx.split
+    hdiag = 0.0
+    if me and (split is None or not (st.gsplit.n_sing or st.gsplit.n_spr)):
+        Ge = G[..., :me, :]
+        Hx.copy_(Ge.transpose(-1, -2) @ (Ge * winv_lp[:, :, None]))
+    elif me:
+        if split.dense.numel():
+            Gd = G[..., split.dense, :]
+            Hx.copy_(Gd.transpose(-1, -2)
+                     @ (Gd * winv_lp[:, split.dense][:, :, None]))
+        if dm.hs is not None:
+            Kf = K.view(lanes, -1)
+            Kf[:, dm.hs.targets] += segment_sum(
+                dm.hs, _spr_vals(ctx, winv_lp).reshape(lanes, -1))
+        hdiag = winv_lp.new_zeros(lanes, n)
+        if dm.hd is not None:
+            hdiag[:, dm.hd.targets] = segment_sum(dm.hd,
+                                                  _sing_vals(ctx, winv_lp))
+    Hx.diagonal(dim1=-2, dim2=-1).add_(hdiag + delta)
+    if ms:
+        eye = torch.eye(ms, dtype=K.dtype, device=K.device)
+        W2s = eye if scal is None else cones.w2_soc_dense(st.cone, scal)
+        K[:, :ms, :ms] = -(W2s + delta * eye)
+    return K
+
+
 def factor(st: ProblemStructure, ctx: KKTContext,
            scal: Optional[cones.Scaling], settings, lanes: int):
-    """Assemble and factor the band for the current NT scaling (None =
-    identity scalings, the init factorization).  Returns
+    """Assemble and factor for the current NT scaling (None = identity
+    scalings, the init factorization).  Returns
     ``solve_exact(rhs) -> (dx, dy, dz)`` for packed right-hand sides
-    (L, k, n+p+m), one band solve without refinement."""
+    (L, k, n+p+m), one solve of the factored system without refinement."""
     n, p = st.n, st.p
-    D = n + p
     delta = settings.deltastat
     G = ctx.G
-    maps = ctx.maps
     if scal is None:
         winv_lp = G.new_full((lanes, st.l), 1.0 / (1.0 + delta))
     else:
         winv_lp = 1.0 / (scal.v_lp + delta)
+    if settings.kkt_strategy == "reduced":
+        return _factor_reduced(st, ctx, scal, winv_lp, delta)
 
+    maps = ctx.band
+    D = n + p
     Kd, Ks = band_blocks(st, ctx, winv_lp, delta)
     fac = band_factor(Kd, Ks)
     Gt = G.transpose(-1, -2)
@@ -308,6 +469,37 @@ def factor(st: ProblemStructure, ctx: KKTContext,
         dx, dy = x[..., :n], x[..., n:D]
         dz = (dx @ Gt - bz) * winv_lp[:, None, :]
         return dx, dy, dz
+
+    return solve_exact
+
+
+def _factor_reduced(st, ctx: KKTContext, scal, winv_lp, delta):
+    """The "reduced" arm of ``eicos_tpu.kkt.factor``: dense K over
+    [z_soc | x | y], ``ldl_factor``, and a ``solve_exact`` that eliminates
+    the LP rows around ``ldl_solve``."""
+    n, p = st.n, st.p
+    dm = ctx.dense
+    ms, me = dm.ms, dm.me
+    D = ms + n + p
+    fac = ldl_factor(dense_matrix(st, ctx, scal, winv_lp, delta))
+    Ge = ctx.G[..., :me, :]
+
+    def solve_exact(rhs):
+        k = rhs.shape[1]
+        if k > KP:
+            raise ValueError(f"at most {KP} right-hand sides, got {k}")
+        bx, by, bz = rhs[..., :n], rhs[..., n:n + p], rhs[..., n + p:]
+        bz_e, bz_s = bz[..., :me], bz[..., me:]
+        r1 = bx + (bz_e * winv_lp[:, None, :]) @ Ge if me else bx
+        rr = torch.cat([bz_s, r1, by,
+                        rhs.new_zeros(*rhs.shape[:-1], dm.Dp - D)], -1)
+        x = ldl_solve(fac, rr)
+        dx, dy = x[..., ms:ms + n], x[..., ms + n:D]
+        if me:
+            dz_e = (dx @ Ge.transpose(-1, -2) - bz_e) * winv_lp[:, None, :]
+        else:
+            dz_e = bz_e
+        return dx, dy, torch.cat([dz_e, x[..., :ms]], -1)
 
     return solve_exact
 

@@ -1,0 +1,140 @@
+"""f64 products of the dense LDL^T path: ``matmul`` (``csrc/dgemm.cu``)
+and the two passes of the inverse solve, ``linv_fwd`` and ``linv_bwd``
+(``csrc/linv_solve.cu``), the port of ``eicos_tpu.ops.pallas_gemm_ds``
+(``matmul_ds`` / ``_bmatmul_ds`` and ``PrechunkedOperand.rmatmul``).
+
+For a CUDA tensor each wrapper checks its inputs, launches its kernel on
+the current stream and counts the launch in ``kernels.COUNTS``; for a CPU
+tensor it runs the plain version beside it.  Nothing falls back from the
+kernel to the plain version.
+"""
+
+from __future__ import annotations
+
+from typing import Optional
+
+import torch
+
+from . import kernels
+from .band_ldl import B, KP
+
+
+def _lane_strides(t: torch.Tensor):
+    """(lane, row, column) strides of an (L, r, c) or shared (r, c)
+    operand; a shared operand has lane stride 0."""
+    if t.dim() == 2:
+        return 0, t.stride(0), t.stride(1)
+    return t.stride(0), t.stride(1), t.stride(2)
+
+
+def matmul_plain(a, b, c=None, alpha: float = 1.0, beta: float = 0.0):
+    """Plain version of ``matmul``."""
+    p = torch.matmul(a, b)
+    if alpha != 1.0:
+        p = p * alpha
+    if c is None:
+        return p
+    if beta == 0.0:
+        return c.copy_(p)
+    if beta != 1.0:
+        c.mul_(beta)
+    return c.add_(p)
+
+
+def matmul(a: torch.Tensor, b: torch.Tensor, *,
+           c: Optional[torch.Tensor] = None, alpha: float = 1.0,
+           beta: float = 0.0) -> torch.Tensor:
+    """alpha a @ b + beta c in f64, over a leading lane axis.
+
+    ``a`` is (L, r, k) or a shared (r, k), ``b`` (L, k, n) or a shared
+    (k, n), at least one of them per lane; either may be a strided view,
+    such as a transpose, which the kernel reads in place.  Without ``c``
+    the result is a new (L, r, n) tensor; with ``c``, an (L, r, n) view
+    with unit stride along its rows, the result is written into ``c``
+    (BLAS semantics: with ``beta = 0`` the old values of ``c`` are not
+    read) and ``c`` is returned."""
+    if kernels.on_cpu(a):
+        return matmul_plain(a, b, c, alpha, beta)
+    if a.dim() not in (2, 3) or b.dim() not in (2, 3) or (
+            a.dim() == 2 and b.dim() == 2):
+        raise ValueError(f"matmul takes (L, r, k) @ (L, k, n) with one side "
+                         f"possibly shared, got {tuple(a.shape)} @ "
+                         f"{tuple(b.shape)}")
+    lanes = a.shape[0] if a.dim() == 3 else b.shape[0]
+    r, k = a.shape[-2:]
+    n = b.shape[-1]
+    dev = a.device
+    kernels.check("a", a, (lanes, r, k)[3 - a.dim():], dev, contiguous=False)
+    kernels.check("b", b, (lanes, k, n)[3 - b.dim():], dev, contiguous=False)
+    if c is None:
+        c = torch.empty((lanes, r, n), dtype=a.dtype, device=dev)
+        beta = 0.0
+    kernels.check("c", c, (lanes, r, n), dev, contiguous=False,
+                  unit_rows=True)
+    with torch.cuda.device(dev):
+        kernels.launch(kernels.lib("dgemm").eicos_dgemm,
+                       lanes, r, n, k, float(alpha),
+                       a.data_ptr(), *_lane_strides(a),
+                       b.data_ptr(), *_lane_strides(b),
+                       float(beta), c.data_ptr(), c.stride(0), c.stride(1),
+                       kernels.stream(a))
+    kernels.COUNTS["dgemm"] += 1
+    return c
+
+
+# ------------------------------------------------------------ LDL^T solve
+
+def linv_fwd_plain(Linv, d, rhs):
+    """Plain version of ``linv_fwd``."""
+    return torch.matmul(rhs, Linv.transpose(-1, -2)) / d[:, None, :]
+
+
+def linv_bwd_plain(Linv, t):
+    """Plain version of ``linv_bwd``."""
+    return torch.matmul(t, Linv)
+
+
+def _check_solve(Linv, vecs, d=None):
+    lanes, Dp = Linv.shape[0], Linv.shape[-1]
+    k = vecs.shape[1]
+    if not 1 <= k <= KP:
+        raise ValueError(f"the inverse solve takes 1..{KP} right-hand "
+                         f"sides, got {k}")
+    if Dp % B:
+        raise ValueError(f"the inverse solve needs Dp a multiple of {B}, "
+                         f"got {Dp}")
+    kernels.check("Linv", Linv, (lanes, Dp, Dp), vecs.device)
+    if d is not None:
+        kernels.check("d", d, (lanes, Dp), vecs.device)
+    kernels.check("rhs", vecs, (lanes, k, Dp), vecs.device)
+    return lanes, Dp, k
+
+
+def linv_fwd(Linv: torch.Tensor, d: torch.Tensor,
+             rhs: torch.Tensor) -> torch.Tensor:
+    """t = (Linv rhs) / d for rhs (L, k, Dp) in the (k, Dp)-per-lane
+    layout, k <= 16; Linv (L, Dp, Dp) lower triangular, d (L, Dp)."""
+    if kernels.on_cpu(rhs):
+        return linv_fwd_plain(Linv, d, rhs)
+    lanes, Dp, k = _check_solve(Linv, rhs, d)
+    out = torch.empty_like(rhs)
+    with torch.cuda.device(rhs.device):
+        kernels.launch(kernels.lib("linv_solve").eicos_linv_fwd,
+                       Linv.data_ptr(), d.data_ptr(), rhs.data_ptr(),
+                       out.data_ptr(), lanes, Dp, k, kernels.stream(rhs))
+    kernels.COUNTS["linv_fwd"] += 1
+    return out
+
+
+def linv_bwd(Linv: torch.Tensor, t: torch.Tensor) -> torch.Tensor:
+    """x = Linv^T t for t (L, k, Dp), k <= 16."""
+    if kernels.on_cpu(t):
+        return linv_bwd_plain(Linv, t)
+    lanes, Dp, k = _check_solve(Linv, t)
+    out = torch.empty_like(t)
+    with torch.cuda.device(t.device):
+        kernels.launch(kernels.lib("linv_solve").eicos_linv_bwd,
+                       Linv.data_ptr(), t.data_ptr(), out.data_ptr(), lanes,
+                       Dp, k, kernels.stream(t))
+    kernels.COUNTS["linv_bwd"] += 1
+    return out

@@ -6,9 +6,11 @@ build at once, one ``nvcc`` process each.  A library's file name carries a
 hash of its source and flags, so an edited source rebuilds.  The libraries
 are bound with ``ctypes``: pointers and the stream pass as ``c_void_p``.
 
-``COUNTS`` holds one plain integer per kernel: its wrapper in ``band.py``
-adds one where it launches the kernel, and nowhere else, so a run can show
-that the main path went through the kernels.
+``COUNTS`` holds one plain integer per kernel: its wrapper (``band.py``,
+``leaf.py``, ``gemm.py``) adds one where it launches the kernel, and
+nowhere else, so a run can show that the main path went through the
+kernels.  The wrappers share the dispatch rule below: a CPU tensor takes
+the plain version, a CUDA tensor launches the kernel or raises.
 """
 
 from __future__ import annotations
@@ -27,15 +29,27 @@ NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
 
 # library name -> (source file, {C symbol: ctypes argtypes})
 _P, _I = ctypes.c_void_p, ctypes.c_int
+_LL, _D = ctypes.c_longlong, ctypes.c_double
 LIBS = {
     "band_factor": ("band_factor.cu",
                     {"eicos_band_factor": [_P] * 5 + [_I, _I, _P]}),
     "band_solve": ("band_solve.cu",
                    {"eicos_band_fwd": [_P] * 5 + [_I, _I, _I, _P],
                     "eicos_band_bwd": [_P] * 4 + [_I, _I, _I, _P]}),
+    "leaf_ldl": ("leaf_ldl.cu",
+                 {"eicos_leaf_ldl": [_P, _LL, _LL, _P, _LL, _LL, _P, _LL,
+                                     _I, _P]}),
+    "dgemm": ("dgemm.cu",
+              {"eicos_dgemm": [_I] * 4 + [_D, _P, _LL, _LL, _LL,
+                                          _P, _LL, _LL, _LL,
+                                          _D, _P, _LL, _LL, _P]}),
+    "linv_solve": ("linv_solve.cu",
+                   {"eicos_linv_fwd": [_P] * 4 + [_I, _I, _I, _P],
+                    "eicos_linv_bwd": [_P] * 3 + [_I, _I, _I, _P]}),
 }
 
-COUNTS = {"band_factor": 0, "band_fwd": 0, "band_bwd": 0}
+COUNTS = {"band_factor": 0, "band_fwd": 0, "band_bwd": 0, "leaf_ldl": 0,
+          "dgemm": 0, "linv_fwd": 0, "linv_bwd": 0}
 BUILD_LOG: dict = {}      # library name -> nvcc's output (ptxas -v report)
 
 _loaded: dict = {}
@@ -58,9 +72,13 @@ def _nvcc() -> str:
 
 
 def _lib_path(name: str) -> str:
-    src = os.path.join(CSRC, LIBS[name][0])
-    with open(src, "rb") as f:
-        h = hashlib.sha256(f.read() + " ".join(NVCC_FLAGS).encode())
+    """The library's build path, named by a hash of its source, the shared
+    headers (``csrc/*.cuh``) and the flags."""
+    h = hashlib.sha256(" ".join(NVCC_FLAGS).encode())
+    headers = sorted(f for f in os.listdir(CSRC) if f.endswith(".cuh"))
+    for f in [LIBS[name][0]] + headers:
+        with open(os.path.join(CSRC, f), "rb") as fh:
+            h.update(fh.read())
     return os.path.join(BUILD_DIR, f"{name}-{h.hexdigest()[:12]}.so")
 
 
@@ -106,3 +124,49 @@ def lib(name: str):
         fn.restype = ctypes.c_int
     _loaded[name] = cdll
     return cdll
+
+
+# ------------------------------------------------ shared by the wrappers
+
+def on_cpu(t) -> bool:
+    """True for a CPU tensor (plain version), False for a CUDA tensor
+    (kernel); any other device raises."""
+    if t.device.type == "cpu":
+        return True
+    if t.device.type != "cuda":
+        raise RuntimeError(f"kernels run on cuda or cpu, got {t.device}")
+    return False
+
+
+def check(name: str, t, shape: tuple, device, contiguous: bool = True,
+          unit_rows: bool = False) -> None:
+    """Raise ValueError unless ``t`` is f64 on ``device`` with ``shape``
+    and, with ``contiguous``, contiguous and 16-byte aligned; otherwise
+    any strides, or with ``unit_rows`` unit stride along the last axis."""
+    import torch
+
+    if t.device != device:
+        raise ValueError(f"{name}: on {t.device}, expected {device}")
+    if t.dtype != torch.float64:
+        raise ValueError(f"{name}: dtype {t.dtype}, expected float64")
+    if tuple(t.shape) != tuple(shape):
+        raise ValueError(f"{name}: shape {tuple(t.shape)}, expected {shape}")
+    if contiguous:
+        if not t.is_contiguous() or t.data_ptr() % 16:
+            raise ValueError(f"{name}: must be contiguous and 16-byte aligned")
+    elif unit_rows and t.shape[-1] > 1 and t.stride(-1) != 1:
+        raise ValueError(f"{name}: last axis must have unit stride")
+
+
+def launch(fn, *args) -> None:
+    """Call a kernel's C entry point and raise on a launch error."""
+    err = fn(*args)
+    if err != 0:
+        raise RuntimeError(f"{fn.__name__}: CUDA error {err}")
+
+
+def stream(t) -> int:
+    """The current CUDA stream of ``t``'s device, as an integer handle."""
+    import torch
+
+    return torch.cuda.current_stream(t.device).cuda_stream

@@ -1,0 +1,60 @@
+"""The leaf of the dense LDL^T recursion (``csrc/leaf_ldl.cu``): the port
+of ``eicos_tpu.ops.pallas_leaf_ds`` (``leaf_ldl_pallas_ds``, and
+``_leaf_ds_batch`` under the lane vmap).
+
+``leaf_ldl`` factors a batch of 128x128 f64 blocks, M = L diag(d) L^T,
+unpivoted with |d| clamped at 1e-150, and returns the unit-lower inverse
+Linv = L^{-1} and d.  Only the lower triangle of M is read.  For a CUDA
+tensor the wrapper launches the kernel and counts the launch in
+``kernels.COUNTS``; for a CPU tensor it runs the plain version, the
+reference's ``_unblocked_ldl`` + ``_unit_lower_inv`` (``ops/band_ldl.py``).
+"""
+
+from __future__ import annotations
+
+from typing import Optional
+
+import torch
+
+from . import kernels
+from .band_ldl import B, _unblocked_ldl, _unit_lower_inv
+
+
+def leaf_ldl_plain(Ms: torch.Tensor):
+    """Plain version of ``leaf_ldl``: (L, 128, 128) -> (Linv, d)."""
+    L, d = _unblocked_ldl(Ms)
+    return _unit_lower_inv(L), d
+
+
+def leaf_ldl(Ms: torch.Tensor, out: Optional[tuple] = None):
+    """(L, 128, 128) f64 symmetric blocks -> (Linv (L, 128, 128), d (L,
+    128)).  ``Ms`` may be a strided view (unit stride along its rows).
+    With ``out=(Linv, d)``, views of the same shapes, the result is
+    written there (the dense recursion writes each leaf straight into its
+    diagonal block of the factor) and ``out`` is returned."""
+    if kernels.on_cpu(Ms):
+        Linv, d = leaf_ldl_plain(Ms)
+        if out is None:
+            return Linv, d
+        out[0].copy_(Linv)
+        out[1].copy_(d)
+        return out
+    lanes = Ms.shape[0]
+    dev = Ms.device
+    kernels.check("Ms", Ms, (lanes, B, B), dev, contiguous=False,
+                  unit_rows=True)
+    if out is None:
+        out = (torch.empty((lanes, B, B), dtype=Ms.dtype, device=dev),
+               torch.empty((lanes, B), dtype=Ms.dtype, device=dev))
+    Linv, d = out
+    kernels.check("Linv", Linv, (lanes, B, B), dev, contiguous=False,
+                  unit_rows=True)
+    kernels.check("d", d, (lanes, B), dev, contiguous=False,
+                  unit_rows=True)
+    with torch.cuda.device(dev):
+        kernels.launch(kernels.lib("leaf_ldl").eicos_leaf_ldl,
+                       Ms.data_ptr(), Ms.stride(0), Ms.stride(1),
+                       Linv.data_ptr(), Linv.stride(0), Linv.stride(1),
+                       d.data_ptr(), d.stride(0), lanes, kernels.stream(Ms))
+    kernels.COUNTS["leaf_ldl"] += 1
+    return out

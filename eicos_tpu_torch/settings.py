@@ -8,16 +8,22 @@ Knobs that do nothing under native float64 on the GPU (they select TPU
 double-single machinery the port does not have, and are accepted so that a
 configuration written for ``eicos_tpu`` runs unchanged):
 
-  * ``pallas_leaf`` — the TPU leaf kernels; the port's band factor kernel
-    always runs its own f64 leaf;
+  * ``pallas_leaf`` — the TPU leaf kernels; the port's band factor and
+    dense leaf kernels always run their own f64 leaf;
   * ``band_gemm`` — float32 block products on the TPU's MXU; the port's
     block products are f64;
   * ``chunk_store`` — bf16/int8 chunk storage of the prechunked factor;
-    the port stores the factor in f64;
-  * ``dense_solve`` — the dense-path solve engine of the "reduced" /
-    "normal" / "full" strategies, which this slice does not port.
+    the port stores the factor in f64.
 
-``kkt_strategy`` other than "banded" and ``factor_dtype="float32"`` raise
+``dense_solve`` picks the solve of the dense "reduced" strategy: "inverse"
+and "auto" run the explicit-inverse path (``ops/ldl.ldl_solve``, two
+passes over L^{-1}), as the JAX package does off the TPU; "subst" raises
+``NotImplementedError`` until the substitution kernels (K15/K16) are
+ported.  Once they are, "auto" on a CUDA tensor moves to them, as it does
+on the TPU.  The rescue pass pins "auto" to "inverse"
+(``api._rescue_settings``).
+
+``kkt_strategy`` "full" and "normal" and ``factor_dtype="float32"`` raise
 ``NotImplementedError`` in the port until their slice lands.
 """
 
@@ -55,7 +61,7 @@ class Settings:
     pallas_leaf: str = "auto"    # no-op under native f64 (module doc)
     band_gemm: str = "float64"   # no-op under native f64
     chunk_store: str = "bf16"    # no-op under native f64
-    dense_solve: str = "auto"    # no-op on this slice
+    dense_solve: str = "auto"    # "reduced" solve path (module doc)
 
     def __post_init__(self):
         _check = {

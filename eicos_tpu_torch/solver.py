@@ -273,6 +273,9 @@ def solve_batch(structure: ProblemStructure, data: ProblemData,
     rhs_init = torch.stack([torch.cat([zeros(lanes, n), b, h], -1),
                             torch.cat([-c, zeros(lanes, p + m)], -1)], 1)
     r12 = kkt.solve_refined(st, ctx, solve0, None, rhs_init, settings)
+    # the loop holds one factor at a time (a dense factor is an (L, Dp,
+    # Dp) Linv): each is released before the next one is built
+    del solve0
     nan = fill(torch.nan)
     false = fill(False, torch.bool)
     it0 = Iterate(
@@ -360,6 +363,7 @@ def solve_batch(structure: ProblemStructure, data: ProblemData,
         # ---- step computation; lanes exiting now need no step
         stepping = ~stt.done & ~exit_now
         scal, lam = cones.update_scalings(cone, w.s, w.z)
+        solve_exact = None      # release the previous factor first
         solve_exact = kkt.factor(st, ctx, scal, settings, lanes)
         rhs_aff = torch.cat([rx, -ry, w.s - rz], -1)
         sol12 = kkt.solve_refined(

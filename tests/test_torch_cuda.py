@@ -75,8 +75,8 @@ def test_band_wrappers_check_inputs(cuda):
 
 def test_solver_on_card_matches_cpu(cuda):
     """Two lanes of a small MPC LP: the kernels' solve and the CPU plain
-    path give the same exit codes and iteration counts, and every kernel
-    was launched."""
+    path give the same exit codes and iteration counts, and every band
+    kernel was launched."""
     import eicos_tpu_torch as pt
     from eicos_tpu_torch import corpus
     from eicos_tpu_torch.ops import kernels
@@ -93,7 +93,143 @@ def test_solver_on_card_matches_cpu(cuda):
     settings = pt.Settings(kkt_strategy="banded")
     kernels.reset_counts()
     gpu = pt.BatchedSolver(st, settings, shared=("G", "A", "h")).solve(batch)
-    assert all(v > 0 for v in kernels.COUNTS.values())
+    assert all(kernels.COUNTS[n] > 0
+               for n in ("band_factor", "band_fwd", "band_bwd"))
+    cpu = pt.BatchedSolver(st, settings, shared=("G", "A", "h"),
+                           device="cpu").solve(batch)
+    assert torch.equal(gpu.exit_code.cpu(), cpu.exit_code)
+    assert torch.equal(gpu.info.iter.cpu(), cpu.info.iter)
+    np.testing.assert_allclose(gpu.info.pcost.cpu().numpy(),
+                               cpu.info.pcost.numpy(), rtol=1e-8)
+
+
+def quasidefinite(lanes, D, pos, seed):
+    """Symmetric quasidefinite (lanes, D, D) blocks: positive diagonal
+    on the first ``pos`` rows, negative after, every row dominant."""
+    rng = np.random.default_rng(seed)
+    M = rng.standard_normal((lanes, D, D)) / np.sqrt(D)
+    M = 0.5 * (M + M.transpose(0, 2, 1))
+    rows = np.abs(M).sum(-1)
+    sign = np.where(np.arange(D) < pos, 1.0, -1.0)
+    M[:, np.arange(D), np.arange(D)] = sign * (1.0 + rows)
+    return M
+
+
+def test_leaf_kernel_matches_plain_and_band_leaf(cuda):
+    """leaf_ldl against its plain version within 1e-10 relative (summation
+    order, and a substitution inverse against Newton-Schulz), read from and
+    written to strided views; and bit for bit the band factor's first leaf,
+    which runs the same device code."""
+    from eicos_tpu_torch.ops import band, kernels, leaf
+
+    M = torch.tensor(quasidefinite(3, 2 * B, 150, 3), device=cuda)
+    blk = M[:, B:, B:]
+    before = kernels.COUNTS["leaf_ldl"]
+    Linv = torch.zeros(3, 2 * B, 2 * B, dtype=torch.float64, device=cuda)
+    d = torch.zeros(3, 2 * B, dtype=torch.float64, device=cuda)
+    leaf.leaf_ldl(blk, out=(Linv[:, :B, B:], d[:, B:]))
+    Lp, dp = leaf.leaf_ldl_plain(blk)
+    torch.cuda.synchronize()
+    assert kernels.COUNTS["leaf_ldl"] == before + 1
+    assert rel(Linv[:, :B, B:], Lp) < 1e-10 and rel(d[:, B:], dp) < 1e-10
+    assert not Linv[:, B:].any() and not Linv[:, :B, :B].any()
+    Kd, Ks = (torch.tensor(a, device=cuda) for a in band_case(3, 2, 5))
+    fac = band.band_factor(Kd, Ks)
+    Lk, dk = leaf.leaf_ldl(Kd[:, 0])
+    assert torch.equal(Lk, fac.Dinv[:, 0]) and torch.equal(dk, fac.d[:, 0])
+
+
+@pytest.mark.parametrize("form", ["lanes", "shared_b", "shared_a",
+                                  "transposed", "beta"])
+def test_dgemm_kernel_matches_plain(cuda, form):
+    """dgemm against torch.matmul on the card on the ragged 37x150x77 case,
+    within 1e-12 relative (summation order only)."""
+    from eicos_tpu_torch.ops import gemm, kernels
+
+    rng = np.random.default_rng(4)
+    t = lambda *s: torch.tensor(rng.standard_normal(s), device=cuda)  # noqa
+    a, b = t(3, 37, 150), t(3, 150, 77)
+    c = None
+    kw = {}
+    if form == "shared_b":
+        b = t(150, 77)
+    elif form == "shared_a":
+        a = t(37, 150)
+    elif form == "transposed":
+        a = t(3, 150, 37).transpose(-1, -2)
+        b = t(3, 77, 150).transpose(-1, -2)
+    elif form == "beta":
+        c = t(3, 50, 90)[:, 5:42, 3:80]
+        kw = dict(alpha=-1.0, beta=1.0)
+    want = gemm.matmul_plain(a, b, None if c is None else c.clone(), **kw)
+    before = kernels.COUNTS["dgemm"]
+    got = gemm.matmul(a, b, c=c, **kw)
+    torch.cuda.synchronize()
+    assert kernels.COUNTS["dgemm"] == before + 1
+    assert rel(got, want) < 1e-12
+
+
+def test_linv_kernels_match_plain(cuda):
+    """linv_fwd / linv_bwd against their plain versions at k = 1, 2, 5, 16,
+    within 1e-10 relative, on a factor of the dense recursion."""
+    from eicos_tpu_torch.ops import gemm, kernels, ldl
+
+    K = torch.tensor(quasidefinite(2, 384, 250, 6))
+    fac = ldl.ldl_factor(K.clone())
+    Linv, d = fac.Linv.to(cuda), fac.d.to(cuda)
+    rng = np.random.default_rng(7)
+    before = dict(kernels.COUNTS)
+    for k in (1, 2, 5, 16):
+        r = torch.tensor(rng.standard_normal((2, k, 384)), device=cuda)
+        tk = gemm.linv_fwd(Linv, d, r)
+        assert rel(tk, gemm.linv_fwd_plain(Linv, d, r)) < 1e-10
+        assert rel(gemm.linv_bwd(Linv, tk),
+                   gemm.linv_bwd_plain(Linv, tk)) < 1e-10
+    torch.cuda.synchronize()
+    assert kernels.COUNTS["linv_fwd"] == before["linv_fwd"] + 4
+    assert kernels.COUNTS["linv_bwd"] == before["linv_bwd"] + 4
+
+
+def test_dense_wrappers_check_inputs(cuda):
+    from eicos_tpu_torch.ops import gemm, leaf
+
+    f64 = dict(dtype=torch.float64, device=cuda)
+    with pytest.raises(ValueError):
+        leaf.leaf_ldl(torch.zeros(2, B, B, dtype=torch.float32, device=cuda))
+    with pytest.raises(ValueError):
+        leaf.leaf_ldl(torch.zeros(2, B, 64, **f64))
+    with pytest.raises(ValueError):
+        gemm.matmul(torch.zeros(2, 4, 5, **f64), torch.zeros(2, 6, 3, **f64))
+    with pytest.raises(ValueError):
+        gemm.matmul(torch.zeros(2, 4, 5, **f64), torch.zeros(2, 5, 3))
+    Linv = torch.zeros(1, B, B, **f64)
+    d = torch.ones(1, B, **f64)
+    with pytest.raises(ValueError):
+        gemm.linv_fwd(Linv, d, torch.zeros(1, 17, B, **f64))
+    with pytest.raises(ValueError):
+        gemm.linv_fwd(Linv, d.cpu(), torch.zeros(1, 2, B, **f64))
+
+
+def test_reduced_solver_on_card_matches_cpu(cuda):
+    """Two lanes of a small MPC LP under "reduced" with a rescue: the
+    kernels' solve and the CPU plain path agree, and every dense kernel
+    was launched."""
+    import eicos_tpu_torch as pt
+    from eicos_tpu_torch import corpus
+    from eicos_tpu_torch.ops import kernels
+
+    st, base = corpus.make_mpc_like(horizon=30, nx=2, nu=4, seed=3)
+    st = st.with_gsplit(base.G, base.A)
+    rng = np.random.default_rng(7)
+    probs = [pt.ProblemData(G=base.G, A=base.A,
+                            c=base.c + 0.02 * rng.standard_normal(st.n),
+                            h=base.h, b=base.b) for _ in range(2)]
+    batch = pt.BatchedSolver.stack(probs, shared=("G", "A", "h"))
+    settings = pt.Settings(kkt_strategy="reduced")
+    kernels.reset_counts()
+    gpu = pt.BatchedSolver(st, settings, shared=("G", "A", "h")).solve(batch)
+    for name in ("leaf_ldl", "dgemm", "linv_fwd", "linv_bwd"):
+        assert kernels.COUNTS[name] > 0, name
     cpu = pt.BatchedSolver(st, settings, shared=("G", "A", "h"),
                            device="cpu").solve(batch)
     assert torch.equal(gpu.exit_code.cpu(), cpu.exit_code)

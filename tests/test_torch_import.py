@@ -73,15 +73,25 @@ def test_solve_needs_cuda_by_default(lp, no_cuda):
 
 
 def test_rescue_is_next_slice(lp):
+    """The rescue, once the next slice, is ported: a rescue left at
+    ``dense_solve="auto"`` is pinned to the inverse path and an explicit
+    "subst" is kept, as ``eicos_tpu.api._rescue_settings`` does."""
+    from eicos_tpu_torch.api import _rescue_settings
+
     st, _ = lp
-    with pytest.raises(NotImplementedError, match="rescue: next slice"):
-        pt.BatchedSolver(st, pt.Settings(kkt_strategy="banded"),
-                         rescue=pt.Settings(kkt_strategy="reduced"),
-                         device="cpu")
+    assert _rescue_settings(None) is None
+    r = _rescue_settings(pt.Settings(kkt_strategy="reduced"))
+    assert r.dense_solve == "inverse" and r.kkt_strategy == "reduced"
+    assert _rescue_settings(pt.Settings(dense_solve="subst")).dense_solve \
+        == "subst"
+    bs = pt.BatchedSolver(st, pt.Settings(kkt_strategy="banded"),
+                          rescue=pt.Settings(kkt_strategy="reduced"),
+                          device="cpu")
+    assert bs.rescue == r and bs.last_rescued == ()
 
 
-@pytest.mark.parametrize("case", ["full", "reduced", "float32", "bwb2",
-                                  "dense_rows", "soc"])
+@pytest.mark.parametrize("case", ["full", "normal", "float32", "bwb2",
+                                  "dense_rows", "soc", "subst"])
 def test_unported_configurations_raise(lp, case):
     """Each structure or setting the slice does not cover raises
     NotImplementedError naming its slice; nothing falls back."""
@@ -89,8 +99,10 @@ def test_unported_configurations_raise(lp, case):
 
     st, d = lp
     settings = pt.Settings(kkt_strategy="banded")
-    if case in ("full", "reduced"):
+    if case in ("full", "normal"):
         settings = pt.Settings(kkt_strategy=case)
+    elif case == "subst":
+        settings = pt.Settings(kkt_strategy="reduced", dense_solve="subst")
     elif case == "float32":
         settings = pt.Settings(kkt_strategy="banded", factor_dtype="float32")
     elif case == "bwb2":
