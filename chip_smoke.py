@@ -2,8 +2,10 @@
 holds each against its plain torch version on the card, and drives the
 port's paths through its entry points:
 
-  1. kernel checks at the paths' shapes (band factor and sweeps; dense
-     leaf LDL^T, dgemm in four forms, the two inverse-solve passes);
+  1. kernel checks at the paths' shapes (band factor and sweeps at block
+     bandwidth 1; the wide band factor and sweeps at block bandwidths 2, 3
+     and 6; dense leaf LDL^T, dgemm in four forms, the two inverse-solve
+     passes);
   2. the main path as bench.py configures it: the 128-lane MPC01-scale
      banded LP batch through ``BatchedSolver`` with a "reduced" rescue
      (128/128 OPTIMAL, no lane rescued), lane 0 again on the CPU;
@@ -13,7 +15,17 @@ port's paths through its entry points:
      OPTIMAL, lane 0 against the CPU plain path, every objective against
      phase 2's);
   5. bench.py's SOCP problem under "reduced" (kept SOC rows), 8 lanes,
-     lane 0 against the CPU plain path.
+     lane 0 against the CPU plain path;
+  6. the SOCP lane of the main path as bench.py configures it: 128 lanes
+     of the horizon-249 SOC-constrained MPC under "banded" with a keep_soc
+     plan (NT-scaled kept cones) and the "reduced" rescue;
+  7. the wide band at a real size: 64 lanes of a wide-stage MPC LP whose
+     plan has block bandwidth 3 (Dp = 4864) under "banded", through the
+     dense H assembly, the gathered band blocks and the wide kernels.
+
+Phases 6 and 7 must launch their band kernels, match the CPU plain path on
+lane 0, repeat bit for bit, and end every lane OPTIMAL; lanes that do not
+must end with the same code on the CPU plain path.
 
     python3 chip_smoke.py
 
@@ -36,6 +48,9 @@ HORIZON, NX, NU = 249, 2, 4       # bench.py's MPC01-family scale
 LANES = 128
 RESCUE_LANES = 16                 # phase 3
 SOC_LANES = 8                     # phase 5
+WIDE = dict(horizon=30, nx=64, nu=32, seed=3)   # phase 7: bwb 3, Dp 4864
+WIDE_LANES, WIDE_BWB, WIDE_DP = 64, 3, 4864
+WIDE_TOL = 1e-12                  # wide kernels vs plain twins, relative
 B = 128
 KP = 16
 HBM_BYTES_PER_S = 3.35e12         # H100 SXM HBM3 (NVIDIA data sheet)
@@ -155,10 +170,11 @@ def check_kernels(torch, band, plain):
     blk = B * B * 8
     # bytes: each input read once, each output written once
     fac_bytes = lanes * nb * (4 * blk + B * 8)
-    # ops: two B^3 products per block row after the first (2 B^3 flops
-    # each), the leaf (~B^3/6 rank-1 updates of 3 flops) and the
-    # unit-lower inverse (~B^3/6 FMAs)
-    fac_ops = lanes * ((nb - 1) * 4 * B ** 3 + nb * (B ** 3 // 2 + B ** 3 // 3))
+    # ops: per block row after the first, one product with the unit-lower
+    # Dinv and one symmetric Schur update of which the leaf reads the lower
+    # triangle (B^3 flops each), then the leaf (~B^3/6 rank-1 updates of 3
+    # flops) and the unit-lower inverse (~B^3/6 FMAs)
+    fac_ops = lanes * ((nb - 1) * 2 * B ** 3 + nb * (B ** 3 // 2 + B ** 3 // 3))
     records = []
     b_ms, b_by = bound(fac_bytes, fac_ops)
     ms = cuda_ms(lambda: band.band_factor(Kd, Ks))
@@ -188,9 +204,12 @@ def check_kernels(torch, band, plain):
     r = rhs16[:, :k].contiguous()
     rT = r.transpose(-1, -2).contiguous()
     w = band.band_fwd(fk, r)
-    fac_in = lanes * nb * 2 * blk
+    # bytes of the factor a sweep reads: L and the lower triangle of each
+    # unit-lower Dinv
+    tri = B * (B + 1) // 2 * 8
+    fac_in = lanes * nb * (blk + tri)
     io = 2 * lanes * k * nb * B * 8
-    sweep_ops = lanes * k * nb * 2 * 2 * B * B
+    sweep_ops = lanes * k * nb * (2 * B * B + B * (B + 1))
     for name, fn, pfn, lfn, nbytes in (
             ("band_fwd", lambda: band.band_fwd(fk, r),
              lambda: plain.band_fwd_plain(fk, r),
@@ -221,6 +240,211 @@ def check_kernels(torch, band, plain):
             max_abs_err=max(errs[kk][ei] for kk in errs), ms=ms,
             plain_ms=pms, bound_ms=b_ms, bound_by=b_by, library_ms=lms))
     del Lfull, LfullT
+    torch.cuda.empty_cache()
+    return records
+
+
+def random_wide_band(torch, lanes, nb, bw, seed):
+    """Random quasidefinite block-banded blocks made on the card: Kd
+    (lanes, nb, B, B) and Ksubs (lanes, nb, bw, B, B) with Ksubs[:, k, j-1]
+    = K[k, k-j] (zero for k < j), mixed-sign diagonal, every row
+    diagonally dominant."""
+    g = torch.Generator(device="cuda")
+    g.manual_seed(seed)
+
+    def rnd(*shape):
+        return torch.randn(*shape, generator=g, dtype=torch.float64,
+                           device="cuda")
+
+    Kd = 0.3 * rnd(lanes, nb, B, B) / B ** 0.5
+    Kd = Kd + Kd.transpose(-1, -2)
+    Ks = 0.3 * rnd(lanes, nb, bw, B, B) / B ** 0.5
+    rows = Kd.abs().sum(-1)
+    for j in range(1, bw + 1):
+        Ks[:, :j, j - 1] = 0.0
+        rows += Ks[:, :, j - 1].abs().sum(-1)
+        rows[:, :-j] += Ks[:, j:, j - 1].abs().sum(-2)
+    sign = torch.where(torch.rand(lanes, nb, B, generator=g, device="cuda")
+                       < 0.6, 1.0, -1.0).to(torch.float64)
+    Kd.diagonal(dim1=-2, dim2=-1).copy_(sign * (1.0 + rows))
+    return Kd, Ks.contiguous()
+
+
+def wide_matvec(Kd, Ks, x):
+    """K x for the block-banded K of (Kd, Ksubs); x (L, k, Dp)."""
+    lanes, k, Dp = x.shape
+    nb, bw = Ks.shape[1], Ks.shape[2]
+    xb = x.reshape(lanes, k, nb, B).permute(0, 2, 3, 1)    # (L, nb, B, k)
+    y = Kd @ xb
+    for j in range(1, min(bw, nb - 1) + 1):
+        y[:, j:] += Ks[:, j:, j - 1] @ xb[:, :-j]
+        y[:, :-j] += Ks[:, j:, j - 1].transpose(-1, -2) @ xb[:, j:]
+    return y.permute(0, 3, 1, 2).reshape(lanes, k, Dp)
+
+
+def check_wide_kernels(torch, band, plain):
+    """band_factor_bw, band_fwd_bw and band_bwd_bw against their plain
+    twins at block bandwidths 2, 3 and 6 (and against band_factor at 1),
+    with times, bounds and a library yardstick at phase 7's shape.
+    Returns the per-kernel records (launches filled in from phase 7)."""
+    # bw = 1: the wide kernels against the bandwidth-1 kernels
+    Kd, Ks = random_wide_band(torch, 8, 5, 1, seed=21)
+    narrow = band.band_factor(Kd, Ks[:, :, 0].contiguous())
+    wide = band.band_factor_bw(Kd, Ks)
+    r = torch.randn(8, 2, 5 * B, dtype=torch.float64, device="cuda")
+    torch.cuda.synchronize()
+    e1 = max(rel_err(wide.L[:, :, 0], narrow.L), rel_err(wide.Dinv, narrow.Dinv),
+             rel_err(wide.d, narrow.d),
+             rel_err(band.band_bwd_bw(wide, band.band_fwd_bw(wide, r)),
+                     band.band_solve(narrow, r)))
+    print(f"band_factor_bw / sweeps at bw = 1 vs band_factor / band_solve: "
+          f"max rel err {e1:.3e}")
+    if not e1 <= 1e-13:
+        fail(f"the wide kernels at bw = 1 disagree with the bw = 1 kernels: "
+             f"{e1}")
+    # the two hand-written routes to block bandwidth 1, timed side by side
+    # at the LP lane's shape: whether the wide kernels could take it over
+    nb1 = (HORIZON * (NX + NU) + HORIZON * NX + B - 1) // B
+    Kd, Ks = random_wide_band(torch, LANES, nb1, 1, seed=22)
+    Ks4 = Ks[:, :, 0].contiguous()
+    r = torch.randn(LANES, 2, nb1 * B, dtype=torch.float64, device="cuda")
+    narrow, wide = band.band_factor(Kd, Ks4), band.band_factor_bw(Kd, Ks)
+    print(f"bw = 1 at {LANES} lanes, nb {nb1}, k = 2 (ms, bandwidth-1 kernel "
+          f"/ wide kernel): factor "
+          f"{cuda_ms(lambda: band.band_factor(Kd, Ks4)):.4f} / "
+          f"{cuda_ms(lambda: band.band_factor_bw(Kd, Ks)):.4f}, forward "
+          f"{cuda_ms(lambda: band.band_fwd(narrow, r)):.4f} / "
+          f"{cuda_ms(lambda: band.band_fwd_bw(wide, r)):.4f}, backward "
+          f"{cuda_ms(lambda: band.band_bwd(narrow, r)):.4f} / "
+          f"{cuda_ms(lambda: band.band_bwd_bw(wide, r)):.4f}")
+    del Ks4, narrow, wide
+
+    errs = {"band_factor_bw": 0.0, "band_fwd_bw": 0.0, "band_bwd_bw": 0.0}
+    shapes = {2: (8, 7), 6: (8, 9), WIDE_BWB: (WIDE_LANES, WIDE_DP // B)}
+    for bw, (lanes, nb) in shapes.items():
+        Kd, Ks = random_wide_band(torch, lanes, nb, bw, seed=30 + bw)
+        for j in range(1, bw + 1):
+            Ks[:, :j, j - 1] = 1e300        # never read
+        fk = band.band_factor(Kd, Ks)
+        fp = plain.band_factor_bw_plain(Kd, Ks)
+        torch.cuda.synchronize()
+        for j in range(1, bw + 1):
+            Ks[:, :j, j - 1] = 0.0
+            if bool(fk.L[:, :j, j - 1].any()):
+                fail(f"band_factor_bw: L left of block column 0 is not zero "
+                     f"(bw={bw})")
+        fe = [rel_err(a, b) for a, b in zip(fk, fp)]
+        errs["band_factor_bw"] = max(
+            errs["band_factor_bw"],
+            *[float((a - b).abs().max()) for a, b in zip(fk, fp)])
+        print(f"bw={bw} ({lanes} lanes, nb {nb}): band_factor_bw vs plain, "
+              f"max rel err L/Dinv/d {fe}")
+        if not max(fe) <= WIDE_TOL:
+            fail(f"band_factor_bw disagrees with its plain twin (bw={bw})")
+        g = torch.Generator(device="cuda")
+        g.manual_seed(40 + bw)
+        rhs16 = torch.randn(lanes, KP, nb * B, generator=g,
+                            dtype=torch.float64, device="cuda")
+        for k in (KP, 2, 1):
+            r = rhs16[:, :k].contiguous()
+            wk = band.band_fwd(fk, r)
+            wp = plain.band_fwd_bw_plain(fk, r)
+            zk = band.band_bwd(fk, wk)
+            zp = plain.band_bwd_bw_plain(fk, wk)
+            resid = rel_err(wide_matvec(Kd, Ks, zk), r)
+            ef, eb = rel_err(wk, wp), rel_err(zk, zp)
+            errs["band_fwd_bw"] = max(errs["band_fwd_bw"],
+                                      float((wk - wp).abs().max()))
+            errs["band_bwd_bw"] = max(errs["band_bwd_bw"],
+                                      float((zk - zp).abs().max()))
+            print(f"bw={bw} k={k}: band_fwd_bw rel err {ef:.3e}, band_bwd_bw "
+                  f"{eb:.3e}, residual ||K x - b|| / ||b|| {resid:.3e}")
+            if not max(ef, eb) <= WIDE_TOL:
+                fail(f"wide band sweeps disagree with the plain twins "
+                     f"(bw={bw}, k={k})")
+            if not resid <= RESID_TOL:
+                fail(f"wide band solve residual {resid} (bw={bw}, k={k})")
+        del fp
+
+    # times and bounds at phase 7's shape (the last of the loop above)
+    bw, (lanes, nb) = WIDE_BWB, shapes[WIDE_BWB]
+    blk = B * B * 8
+    reach = sum(min(bw, k) for k in range(nb))     # blocks L[k, k-j] in use
+    tri = B * (B + 1) // 2 * 8         # the lower triangle of a block, bytes
+    # bytes: Kd, the Ksubs blocks in use read; those L blocks, Dinv, d written
+    fac_bytes = lanes * ((2 * nb + 2 * reach) * blk + nb * B * 8)
+    # ops a block row with mk = min(bw, k) blocks left of the diagonal:
+    # mk (mk - 1) / 2 general corrections of S (2 B^3 each), mk products
+    # S Dinv^T with a unit-lower Dinv (B^3), mk symmetric Schur updates of
+    # which the leaf reads the lower triangle (B^3), and the leaf with its
+    # unit-lower inverse (B^3 / 2 + B^3 / 3)
+    fac_ops = lanes * sum(
+        (min(bw, k) * (min(bw, k) - 1) + 2 * min(bw, k)) * B ** 3
+        + B ** 3 // 2 + B ** 3 // 3 for k in range(nb))
+    records = []
+    b_ms, b_by = bound(fac_bytes, fac_ops)
+    ms = cuda_ms(lambda: band.band_factor(Kd, Ks), reps=10)
+    pms = cuda_ms(lambda: plain.band_factor_bw_plain(Kd, Ks), reps=3)
+    print(f"band_factor_bw ({lanes} lanes, nb {nb}, bw {bw}): {ms:.4f} ms "
+          f"(plain {pms:.3f} ms), {fac_ops / ms / 1e9:.2f} TFLOP/s of the "
+          f"operations the function needs, bound "
+          f"{b_ms:.4f} ms by {b_by} ({fac_bytes / 1e9:.3f} GB, "
+          f"{fac_ops / 1e9:.2f} GFLOP)")
+    records.append(dict(
+        name="band_factor_bw", route="cuda",
+        source="eicos_tpu_torch/csrc/band_factor_bw.cu",
+        replaces="eicos_tpu/ops/pallas_band_ds.py:1922",
+        max_abs_err=errs["band_factor_bw"], ms=ms, plain_ms=pms,
+        bound_ms=b_ms, bound_by=b_by, library_ms=None))
+
+    # library yardstick for the sweeps: one dense batched triangular solve
+    # of the same unit-lower factor (built once, not timed)
+    Dp = nb * B
+    Lfull = torch.zeros(lanes, Dp, Dp, dtype=torch.float64, device="cuda")
+    Lkk = torch.linalg.inv(fk.Dinv)
+    for b in range(nb):
+        Lfull[:, b * B:(b + 1) * B, b * B:(b + 1) * B] = Lkk[:, b]
+        for j in range(1, min(bw, b) + 1):
+            Lfull[:, b * B:(b + 1) * B, (b - j) * B:(b - j + 1) * B] = \
+                fk.L[:, b, j - 1]
+    del Lkk
+    k = 2                       # the path's band solves take k <= 2
+    r = rhs16[:, :k].contiguous()
+    rT = r.transpose(-1, -2).contiguous()
+    w = band.band_fwd(fk, r)
+    # bytes of the factor a sweep reads: the L blocks in use and the lower
+    # triangle of each unit-lower Dinv
+    fac_in = lanes * (reach * blk + nb * tri)
+    io = 2 * lanes * k * Dp * 8
+    sweep_ops = lanes * k * (2 * reach * B * B + nb * B * (B + 1))
+    lib = {}
+    lib["band_fwd_bw"] = cuda_ms(lambda: torch.linalg.solve_triangular(
+        Lfull, rT, upper=False, unitriangular=True), reps=5)
+    Lfull = Lfull.transpose(-1, -2).contiguous()
+    lib["band_bwd_bw"] = cuda_ms(lambda: torch.linalg.solve_triangular(
+        Lfull, rT, upper=True, unitriangular=True), reps=5)
+    del Lfull
+    torch.cuda.empty_cache()
+    for name, fn, fn16, pfn, nbytes, line in (
+            ("band_fwd_bw", lambda: band.band_fwd(fk, r),
+             lambda: band.band_fwd(fk, rhs16),
+             lambda: plain.band_fwd_bw_plain(fk, r),
+             fac_in + lanes * nb * B * 8 + io, 2051),
+            ("band_bwd_bw", lambda: band.band_bwd(fk, w),
+             lambda: band.band_bwd(fk, rhs16),
+             lambda: plain.band_bwd_bw_plain(fk, w), fac_in + io, 2085)):
+        b_ms, b_by = bound(nbytes, sweep_ops)
+        ms, ms16, pms = cuda_ms(fn), cuda_ms(fn16), cuda_ms(pfn, reps=5)
+        print(f"{name}: {ms:.4f} ms at k={k} ({ms16:.4f} ms at k={KP}); "
+              f"plain {pms:.4f} ms; solve_triangular {lib[name]:.4f} ms; "
+              f"bound {b_ms:.4f} ms by {b_by} ({nbytes / 1e9:.3f} GB)")
+        records.append(dict(
+            name=name, route="cuda",
+            source="eicos_tpu_torch/csrc/band_solve_bw.cu",
+            replaces=f"eicos_tpu/ops/pallas_band_ds.py:{line}",
+            max_abs_err=errs[name], ms=ms, plain_ms=pms, bound_ms=b_ms,
+            bound_by=b_by, library_ms=lib[name]))
+    del Kd, Ks, fk, rhs16
     torch.cuda.empty_cache()
     return records
 
@@ -397,36 +621,47 @@ def check_dense_kernels(torch, band, leaf, gemm, ldl):
     return records
 
 
-def build_batch(pt, corpus, make_band_plan):
-    """bench.py's batch: shared G/A/h, per-lane c and x0 (in b)."""
-    rng = np.random.default_rng(7)
-    st, base = corpus.make_mpc_like(horizon=HORIZON, nx=NX, nu=NU, seed=3)
-    st = st.with_gsplit(base.G, base.A)
-    st = st.with_band_plan(make_band_plan(st, base.G, base.A))
-    probs = []
-    for _ in range(LANES):
-        c = np.asarray(base.c) + 0.02 * rng.standard_normal(st.n)
-        b = np.asarray(base.b).copy()
-        b[:NX] += 0.05 * rng.standard_normal(NX)
-        probs.append(pt.ProblemData(G=base.G, A=base.A, c=c, h=base.h, b=b))
-    shared = ("G", "A", "h")
-    return st, probs, pt.BatchedSolver.stack(probs, shared=shared), shared
-
-
-def build_socp_batch(pt, corpus, lanes):
-    """The first ``lanes`` lanes of bench.py's SOCP batch (lane rng 11),
-    without a band plan: the "reduced" strategy keeps its SOC rows."""
-    rng = np.random.default_rng(11)
-    st, base = corpus.make_mpc_soc(horizon=HORIZON, nx=NX, nu=NU, seed=5)
-    st = st.with_gsplit(base.G, base.A)
+def perturbed_lanes(pt, st, base, lanes, nx, seed):
+    """bench.py's lanes of one base problem: shared G/A/h, per-lane c and
+    x0 (the first ``nx`` entries of b)."""
+    rng = np.random.default_rng(seed)
     probs = []
     for _ in range(lanes):
         c = np.asarray(base.c) + 0.02 * rng.standard_normal(st.n)
         b = np.asarray(base.b).copy()
-        b[:NX] += 0.05 * rng.standard_normal(NX)
+        b[:nx] += 0.05 * rng.standard_normal(nx)
         probs.append(pt.ProblemData(G=base.G, A=base.A, c=c, h=base.h, b=b))
     shared = ("G", "A", "h")
     return st, probs, pt.BatchedSolver.stack(probs, shared=shared), shared
+
+
+def build_batch(pt, corpus, make_band_plan):
+    """bench.py's batch: shared G/A/h, per-lane c and x0 (in b)."""
+    st, base = corpus.make_mpc_like(horizon=HORIZON, nx=NX, nu=NU, seed=3)
+    st = st.with_gsplit(base.G, base.A)
+    st = st.with_band_plan(make_band_plan(st, base.G, base.A))
+    return perturbed_lanes(pt, st, base, LANES, NX, 7)
+
+
+def build_socp_batch(pt, corpus, lanes, make_band_plan=None):
+    """The first ``lanes`` lanes of bench.py's SOCP batch (lane rng 11):
+    without a band plan for the "reduced" strategy, which keeps its SOC
+    rows, or with bench.py's keep_soc plan for "banded"."""
+    st, base = corpus.make_mpc_soc(horizon=HORIZON, nx=NX, nu=NU, seed=5)
+    st = st.with_gsplit(base.G, base.A)
+    if make_band_plan is not None:
+        st = st.with_band_plan(make_band_plan(st, base.G, base.A,
+                                              keep_soc=True))
+    return perturbed_lanes(pt, st, base, lanes, NX, 11)
+
+
+def build_wide_batch(pt, corpus, make_band_plan):
+    """Phase 7's batch: a wide-stage MPC LP whose RCM plan has block
+    bandwidth 3, lanes made as bench.py makes them (lane rng 7)."""
+    st, base = corpus.make_mpc_like(**WIDE)
+    st = st.with_gsplit(base.G, base.A)
+    st = st.with_band_plan(make_band_plan(st, base.G, base.A))
+    return perturbed_lanes(pt, st, base, WIDE_LANES, WIDE["nx"], 7)
 
 
 def profile_solve(torch, bs, batch):
@@ -536,6 +771,59 @@ def same_as_cpu(pt, st, prob, settings, sol, label):
              f"path")
 
 
+def all_optimal_or_as_cpu(pt, st, probs, shared, settings, rescue, sol,
+                          label):
+    """Every lane must end OPTIMAL.  Lanes that do not are solved again on
+    the CPU plain path, same settings and rescue: the card must then give
+    each of them the CPU's code (a property of the method on that lane,
+    recorded as a finding), else a kernel or an assembly is wrong."""
+    codes = sol.exit_code.cpu().numpy()
+    bad = [int(i) for i in np.flatnonzero(codes != 0)]
+    if not bad:
+        print(f"{label}: every lane OPTIMAL")
+        return
+    t0 = time.perf_counter()
+    cpu = pt.BatchedSolver(st, settings, shared=shared, rescue=rescue,
+                           device="cpu").solve(pt.BatchedSolver.stack(
+                               [probs[i] for i in bad], shared=shared))
+    ccodes = cpu.exit_code.numpy()
+    print(f"{label}: lanes short of OPTIMAL {bad}: card codes "
+          f"{codes[bad].tolist()}, CPU plain path codes {ccodes.tolist()} "
+          f"({time.perf_counter() - t0:.1f} s)")
+    if ccodes.tolist() != codes[bad].tolist():
+        fail(f"{label}: lanes {bad} end short of OPTIMAL on the card with "
+             f"other codes than on the CPU plain path")
+
+
+def run_path(torch, pt, kernels, kkt, label, st, probs, batch, shared,
+             settings, rescue, names):
+    """Drive one path of the port at full width: a first solve with the
+    launch counts read around it, three timed solves, the bit-repeat check,
+    the exit codes before and after the rescue, every lane OPTIMAL (or as
+    on the CPU), one profiled solve, lane 0 on the CPU plain path.
+    Returns the launch counts of the first solve."""
+    lanes = len(probs)
+    bs = pt.BatchedSolver(st, settings, shared=shared, rescue=rescue)
+    torch.cuda.reset_peak_memory_stats()
+    sol, launches, syncs, t_first = drive(torch, kernels, kkt, bs, batch)
+    print(f"{label}: first solve {t_first:.3f} s; host syncs {syncs}; kernel "
+          f"launches {launches}; rescued lanes {list(bs.last_rescued)}")
+    need_launched(launches, names, label)
+    first = sol
+    sol = timed(torch, bs, batch, lanes)
+    same_bits(torch, first, sol, label)
+    del first
+    if rescue is not None:
+        outcome(pt.BatchedSolver(st, settings, shared=shared).solve(batch),
+                f"{label}, before the rescue")
+        print(f"{label}: last_rescued {list(bs.last_rescued)}")
+    outcome(sol, label)
+    all_optimal_or_as_cpu(pt, st, probs, shared, settings, rescue, sol, label)
+    profile_solve(torch, bs, batch)
+    same_as_cpu(pt, st, probs[0], settings, sol, label)
+    return launches
+
+
 def main():
     t_start = time.perf_counter()
     import torch
@@ -567,9 +855,11 @@ def main():
 
     t0 = time.perf_counter()
     band_records = check_kernels(torch, band, plain)
+    wide_records = check_wide_kernels(torch, band, plain)
     dense_records = check_dense_kernels(torch, band, leaf, gemm, ldl)
     print(f"kernel checks: {time.perf_counter() - t0:.1f} s")
     band_names = [r["name"] for r in band_records]
+    wide_names = [r["name"] for r in wide_records]
     dense_names = [r["name"] for r in dense_records]
 
     # ---- phase 2: the main path as bench.py configures it
@@ -680,12 +970,45 @@ def main():
     same_as_cpu(pt, sst, sprobs[0], red, ssol, "SOCP reduced")
     print(f"phase 5: {time.perf_counter() - t_phase:.1f} s")
 
+    # ---- phase 6: the SOCP lane of the main path (NT-scaled kept cones)
+    t_phase = time.perf_counter()
+    del ss, ssol, sbatch
+    torch.cuda.empty_cache()
+    kst, kprobs, kbatch, kshared = build_socp_batch(pt, corpus, LANES,
+                                                    make_band_plan)
+    print(f"SOCP lane: n={kst.n} p={kst.p} m={kst.m} l={kst.l}, "
+          f"{kst.n_sc} cones, keep_soc plan Dp={kst.band.dim} "
+          f"bwb={kst.band.bwb}, {LANES} lanes, rescue 'reduced'")
+    if kst.band.bwb != 1 or not kst.band.keep_soc:
+        fail(f"SOCP lane: unexpected plan (bwb {kst.band.bwb})")
+    run_path(torch, pt, kernels, kkt, "SOCP lane", kst, kprobs, kbatch,
+             kshared, settings, rescue, band_names)
+    del kbatch, kprobs
+    torch.cuda.empty_cache()
+    print(f"phase 6: {time.perf_counter() - t_phase:.1f} s")
+
+    # ---- phase 7: the wide band (block bandwidth 3) at a real size
+    t_phase = time.perf_counter()
+    wst, wprobs, wbatch, wshared = build_wide_batch(pt, corpus,
+                                                    make_band_plan)
+    print(f"wide band: n={wst.n} p={wst.p} m={wst.m}, Dp={wst.band.dim}, "
+          f"bwb={wst.band.bwb}, {WIDE_LANES} lanes, no rescue")
+    if (wst.band.bwb, wst.band.dim) != (WIDE_BWB, WIDE_DP):
+        fail(f"wide band: plan bwb {wst.band.bwb}, Dp {wst.band.dim}; "
+             f"expected {WIDE_BWB}, {WIDE_DP}")
+    launches = run_path(torch, pt, kernels, kkt, "wide band", wst, wprobs,
+                        wbatch, wshared, settings, None, wide_names)
+    for r in wide_records:
+        r["launches"] = launches[r["name"]]
+    print(f"phase 7: {time.perf_counter() - t_phase:.1f} s")
+
     order = ("name", "route", "source", "replaces", "launches",
              "max_abs_err", "ms", "plain_ms", "bound_ms", "bound_by",
              "library_ms")
     print(f"total {time.perf_counter() - t_start:.1f} s")
     print(json.dumps({"kernels": [{k: r[k] for k in order}
-                                  for r in band_records + dense_records]}))
+                                  for r in band_records + wide_records
+                                  + dense_records]}))
     print(smi)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

@@ -224,24 +224,26 @@ def scale2reg_inv_soc(st: ConeStructure, scal: Scaling, delta: float, x_s):
     """The SOC part of ``scale2reg_inv``: with W^2 = eta^2 I + U C U',
     U = [e, q], C = eta^2 [[2w, c], [c, d]],
     (W^2 + dI)^{-1} = b I - b^2 U (C^{-1} + b U'U)^{-1} U', b = 1/(eta^2+d).
-    """
-    b = 1.0 / (scal.eta2 + delta)
-    c11 = scal.eta2 * (2.0 * scal.w)
-    c12 = scal.eta2 * scal.cc
-    c22 = scal.eta2 * scal.dd
+    x_s is (L, ms) or (L, k, ms)."""
+    eta2, w = _bc(scal.eta2, x_s), _bc(scal.w, x_s)
+    q = _bc(scal.q_flat, x_s)
+    b = 1.0 / (eta2 + delta)
+    c11 = eta2 * (2.0 * w)
+    c12 = eta2 * _bc(scal.cc, x_s)
+    c22 = eta2 * _bc(scal.dd, x_s)
     detC = c11 * c22 - c12 * c12
     m11 = c22 / detC + b
     m12 = -c12 / detC
-    m22 = c11 / detC + b * scal.w
+    m22 = c11 / detC + b * w
     detM = m11 * m22 - m12 * m12
     u1 = _heads(st, x_s)
-    u2 = seg_sum(st, scal.q_flat * x_s)
+    u2 = seg_sum(st, q * x_s)
     a1 = (m22 * u1 - m12 * u2) / detM
     a2 = (-m12 * u1 + m11 * u2) / detM
     be = _expand(st, b)
     return be * x_s - be * be * (
         torch.where(_k(st, x_s).is_head, _expand(st, a1), 0.0)
-        + _expand(st, a2) * scal.q_flat)
+        + _expand(st, a2) * q)
 
 
 # --------------------------------------------------------- Jordan algebra

@@ -14,12 +14,15 @@
 //   M      = Lkk diag(d_k) Lkk^T, unpivoted, |d| clamped to >= 1e-150
 //   Dinv_k = Lkk^{-1}
 //
-// Bound: per block row, two 128^3 products (L_k and the Schur update), the
-// leaf elimination and the unit-lower inverse: ~10 MFLOP, against 4 x 128 KB
-// of HBM traffic (read Kd_k, Ks_k; write L_k, Dinv_k).  At ~20 FLOP per byte
-// the work sits at the H100's f64 balance point (67 TFLOP/s over 3.35 TB/s),
-// so bytes and operations bound it about equally; what bounds this design is
-// the strict sequence of a lane's block rows and the leaf's 256 barriers.
+// Bound: per block row the function needs two 128^3 products of which half
+// the operations are needed (L_k against a unit-lower Dinv, and a symmetric
+// Schur update of which the leaf reads the lower triangle), the leaf
+// elimination and the unit-lower inverse: ~6 MFLOP, against 4 x 128 KB of HBM
+// traffic (read Kd_k, Ks_k; write L_k, Dinv_k).  At ~11 FLOP per byte the
+// work sits below the H100's f64 balance point (67 TFLOP/s over 3.35 TB/s is
+// 20), so bytes bound it; what bounds this design is the strict sequence of
+// a lane's block rows and the leaf's 256 barriers.  This kernel computes
+// both products in full.
 //
 // Design: one CTA per lane (the bench batch is 128 lanes on 132 SMs) walks
 // the block rows in order; a CTA cannot share a carry with another, since

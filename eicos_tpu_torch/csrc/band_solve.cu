@@ -14,10 +14,11 @@
 // Right-hand sides keep the layout of eicos_tpu's band_solve_ds, (k, Dp) per
 // lane: row `col` of lane `l` is rhs[(l * k + col) * Dp + row].
 //
-// Bound: each sweep reads the whole factor, 2 x nb x 128 KB per lane
-// (0.54 GB for the bench's 128 lanes x 16 block rows), for 2 x 128^2 x k
-// FMAs per block row: at most 16 x 2 / 8 = 4 FLOP per byte, so the sweeps
-// are bound by HBM bytes.
+// Bound: each sweep needs the factor once, per lane and block row L (128 KB)
+// and the lower triangle of the unit-lower Dinv (64.5 KB): 0.40 GB for the
+// bench's 128 lanes x 16 block rows, for 2 x 128^2 x k FMAs per full block:
+// at most 16 x 2 / 8 = 4 FLOP per byte, so the sweeps are bound by HBM bytes.
+// These kernels read Dinv whole.
 //
 // Design: one CTA per lane walks the block rows in order (the carry y_{k-1}
 // or z_{k+1} lives in shared memory).  Each 128x128 factor block is staged

@@ -1,36 +1,53 @@
 """KKT assembly, factor and solve with iterative refinement: the "banded"
-strategy of ``eicos_tpu.kkt`` on its ``direct_band`` path (LP cone) and
-its "reduced" strategy on the dense float64 inverse path.
+strategy of ``eicos_tpu.kkt`` (LP and second-order cones, block bandwidth
+1..6) and its "reduced" strategy on the dense float64 inverse path.
 
-Both factor a quasidefinite system in which the LP rows of G are
-eliminated exactly ((W^2 + dI)^{-1} is diagonal on the LP cone, d =
-deltastat), with H = G_lp' (W_lp^2 + dI)^{-1} G_lp + dI:
+Both factor a quasidefinite system over [z_soc | x | y] in which the rows
+of G whose cone block has a closed-form inverse are eliminated exactly:
+the LP rows always ((W^2 + dI)^{-1} is diagonal there, d = deltastat), and
+under "banded" without a ``keep_soc`` plan the SOC rows too (a 2x2
+Woodbury per cone, ``cones.scale2reg_inv_soc``).  With G_e the eliminated
+and G_s the kept rows, H = G_e' (W_e^2 + dI)^{-1} G_e + dI:
 
-banded   K = [ H  A' ; A  -dI ] over [x | y], RCM-permuted by the
-         structure's ``BandPlan`` into 128-blocks with block bandwidth 1.
-         H is never formed: its contributions (one per singleton row of G
-         on the diagonal, a w x w outer product per few-nnz "scatter row",
-         and dI) are summed straight into the per-lane diagonal and
-         sub-diagonal band blocks, on top of a lane-invariant base of A, -dI
-         and identity padding pivots (``eicos_tpu.kkt._band_scatter_idx`` and
-         ``_band_gather_split``).  Contributions that land above the band or
-         on a padding column, which the reference sends to a dump slot the
-         band factor never reads, are dropped.  The factor and the two
-         sweeps of each solve run in ``ops/band.py``.
+             [ -(W_s^2 + dI)   G_s   0  ]
+         K = [  G_s'           H     A' ]
+             [  0              A    -dI ]
 
-reduced  the dense (Dp, Dp) matrix over [z_soc | x | y], SOC rows kept,
+banded   K is RCM-permuted by the structure's ``BandPlan`` into 128-blocks
+         with block bandwidth bwb, factored and solved in ``ops/band.py``.
+         Three ways to its band blocks, as in ``eicos_tpu.kkt.factor``:
 
-             [ -(W_soc^2 + dI)   G_soc   0  ]
-             [  G_soc'           H       A' ]
-             [  0                A      -dI ]
+         direct scatter (bwb = 1, every eliminated LP row a singleton or
+         scatter row of the gsplit, cones on narrow ``SOCSplit`` supports):
+         H is never formed; its contributions (one per singleton row on
+         the diagonal, a w x w outer product per scatter row, dI, and per
+         cone either the eliminating closed form or, on a ``keep_soc``
+         plan, the NT-scaled kept block and coupling) are summed straight
+         into the diagonal and sub-diagonal blocks, on top of a
+         lane-invariant base of A, -dI and identity padding pivots.
+         Contributions that land above the band or on a padding column,
+         which the reference sends to a dump slot the band factor never
+         reads, are dropped.  With kept cones the factor holds S K S,
+         S = diag(W_s^-1, I, I): kept block -(I + d W^-2), coupling
+         W^-1 G_s, and ``solve_exact`` scales the kept rows in and out.
 
-         on a lane-invariant base ``K0`` (``eicos_tpu.kkt.make_context``),
-         with H written in per factor: the singleton and scatter rows of
-         the gsplit summed straight into K, the gsplit's dense rows (or
-         every LP row without a gsplit) by one ``torch.matmul`` (an XLA dot
-         on the TPU too), then dI; the kept SOC block from
-         ``cones.w2_soc_dense``.  The factor and the solves run in
-         ``ops/ldl.py`` (the leaf, GEMM and inverse-solve kernels).
+         gathered from H (any bwb 1..6, no kept cones): the dense per-lane
+         H (n, n) is assembled as for "reduced" and the blocks Kd (L, nb,
+         B, B), Ksubs (L, nb, bwb, B, B) are gathered from H.ravel() and
+         the shared [A.ravel() | (-d, 0, 1)] by static maps.
+
+         gathered from K (a ``keep_soc`` plan off the scatter path): the
+         unscaled dense K of "reduced", its permuted blocks gathered.
+
+reduced  the dense (Dp, Dp) K with the SOC rows kept, on a lane-invariant
+         base ``K0`` (``eicos_tpu.kkt.make_context``).  The factor and the
+         solves run in ``ops/ldl.py`` (the leaf, GEMM and inverse-solve
+         kernels).
+
+The dense H is written per factor in the reference's order of summation:
+the gsplit's dense rows (or every eliminated row without a gsplit) by one
+``torch.matmul`` (an XLA dot outside any kernel on the TPU too), then the
+scatter rows, the singleton rows and dI.
 
 Every sum over a static index map runs in a fixed order (``segsum``), so
 a solve on the card gives the same bits on every run.
@@ -53,7 +70,7 @@ import numpy as np
 import torch
 
 from . import cones
-from .ops.band import band_factor, band_solve
+from .ops.band import BW_MAX, band_factor, band_solve
 from .ops.band_ldl import B, KP
 from .ops.ldl import ldl_factor, ldl_solve, pad_to_block
 from .segsum import SegmentSum, segment_map, segment_sum
@@ -71,11 +88,33 @@ def all_true(t: torch.Tensor) -> bool:
     return bool(t.all())
 
 
+def _keep_soc(st: ProblemStructure, settings) -> bool:
+    """"reduced" keeps the SOC blocks in the factor, as does "banded" when
+    its plan was built with ``keep_soc=True``; a banded plan without it
+    eliminates every cone row."""
+    if st.n_sc == 0:
+        return False
+    if settings.kkt_strategy == "reduced":
+        return True
+    return bool(getattr(st.band, "keep_soc", False))
+
+
+def _direct_band(st: ProblemStructure) -> bool:
+    """True where the H contributions scatter straight into the band
+    blocks (``eicos_tpu.kkt.factor``'s ``direct_band``): block bandwidth
+    1, every eliminated LP row a singleton or scatter row of the gsplit,
+    and narrow per-cone column supports (``SOCSplit``) where there are
+    cones."""
+    split = st.gsplit
+    return bool(st.band.bwb == 1 and split is not None
+                and not split.dense_rows and (split.n_sing or split.n_spr)
+                and (st.n_sc == 0 or st.socsplit is not None))
+
+
 def require_slice(st: ProblemStructure, settings) -> None:
     """Raise unless (structure, settings) lies on the ported slices: f64,
     128-blocks, and either "reduced" on the inverse solve path or
-    "banded" with an LP cone, block bandwidth 1 and every G row in the
-    gsplit's singleton or scatter rows."""
+    "banded" at block bandwidth 1..6."""
     if settings.kkt_strategy in ("full", "normal"):
         raise NotImplementedError(
             f"kkt_strategy={settings.kkt_strategy!r}: the 'full' and "
@@ -98,93 +137,121 @@ def require_slice(st: ProblemStructure, settings) -> None:
     if plan is None:
         raise ValueError(
             "kkt_strategy='banded' needs structure.with_band_plan(...)")
-    if getattr(plan, "keep_soc", False) or st.n_sc:
-        raise NotImplementedError(
-            "second-order cones under 'banded' (keep_soc plans included): "
-            "the SOCP lane is the next slice of the port")
-    if plan.bwb != 1:
-        raise NotImplementedError(
-            f"block bandwidth {plan.bwb}: the bwb 2-6 band kernels are a "
-            "later slice of the port (only bwb = 1 is ported)")
     if plan.block != B:
         raise NotImplementedError(f"band block size must be {B}")
-    if plan.dim != pad_to_block(st.n + st.p, B):
+    if not 1 <= plan.bwb <= BW_MAX:
+        raise NotImplementedError(
+            f"block bandwidth {plan.bwb}: the band kernels take 1..{BW_MAX} "
+            "(the reference's own bound; its wider plans run an XLA scan "
+            "that is not ported)")
+    ms = st.m - st.l if _keep_soc(st, settings) else 0
+    if plan.dim != pad_to_block(ms + st.n + st.p, B):
         raise ValueError(f"band plan covers {plan.dim} rows, expected "
-                         f"{pad_to_block(st.n + st.p, B)}")
-    split = st.gsplit
-    if split is None or not (split.n_sing or split.n_spr):
-        raise NotImplementedError(
-            "banded strategy without singleton/scatter rows "
-            "(structure.with_gsplit): the dense H assembly is a later "
-            "slice of the port")
-    if split.dense_rows:
-        raise NotImplementedError(
-            "gsplit dense rows (LP rows with more than spr_width nonzeros): "
-            "the dense H assembly is a later slice of the port")
+                         f"{pad_to_block(ms + st.n + st.p, B)}")
 
 
 # ------------------------------------------------------ static index maps
 
-def _band_gather(n: int, p: int, Dp: int, perm: np.ndarray):
-    """Static maps of the lane-invariant band base: for each position of
-    the (nb, B, B) diagonal and sub-diagonal blocks, whether it holds an H
-    entry (``from_h``, filled by the scatter) and otherwise its index into
-    the flat [A.ravel() | (-delta, 0, 1)] source
-    (``eicos_tpu.kkt._band_gather_split`` at bwb = 1, ms = 0)."""
-    D = n + p
+def _band_gather_split(n: int, p: int, Dp: int, perm: np.ndarray,
+                       bwb: int = 1, ms: int = 0):
+    """Static maps of the gathered band blocks
+    (``eicos_tpu.kkt._band_gather_idx`` and ``_band_gather_split``): for
+    each position of the (nb, B, B) diagonal blocks and of the (nb, bwb, B,
+    B) sub-diagonal blocks (block [k, j-1] is K[k, k-j]), a mask of the
+    positions that hold an H entry, their index into the per-lane
+    H.ravel(), and the others' index into the shared
+    [A.ravel() | (-delta, 0, 1)].  Returns (diag maps, sub maps).
+
+    ms == 0: K = [[H, A'], [A, -delta I]] over [x | y].  ms > 0 (kept
+    cones): K over [z_soc | x | y]; the per-lane NT-scaled blocks at the
+    z_soc coordinates map to the shared zero, and the direct scatter adds
+    them.  Padding rows get identity pivots."""
+    D = ms + n + p
     base_A = n * n
     c_negd = base_A + p * n
     c_zero, c_one = c_negd + 1, c_negd + 2
+    x0, y0 = ms, ms + n
 
     def src_block(ivec, jvec):
         ii = ivec[:, None].astype(np.int64)
         jj = jvec[None, :].astype(np.int64)
-        is_x_i, is_x_j = ii < n, jj < n
-        is_y_i = (ii >= n) & (ii < D)
-        is_y_j = (jj >= n) & (jj < D)
+        is_x_i, is_x_j = (ii >= x0) & (ii < y0), (jj >= x0) & (jj < y0)
+        is_y_i, is_y_j = (ii >= y0) & (ii < D), (jj >= y0) & (jj < D)
         out = np.full((len(ivec), len(jvec)), c_zero, np.int64)
-        out = np.where(is_x_i & is_x_j, ii * n + jj, out)
-        out = np.where(is_x_i & is_y_j, base_A + (jj - n) * n + ii, out)
-        out = np.where(is_y_i & is_x_j, base_A + (ii - n) * n + jj, out)
+        out = np.where(is_x_i & is_x_j, (ii - x0) * n + (jj - x0), out)
+        out = np.where(is_x_i & is_y_j, base_A + (jj - y0) * n + (ii - x0),
+                       out)
+        out = np.where(is_y_i & is_x_j, base_A + (ii - y0) * n + (jj - x0),
+                       out)
         diag = ii == jj
         out = np.where(diag & is_y_i, c_negd, out)
         return np.where(diag & (ii >= D), c_one, out)
 
     nb = Dp // B
     idx_diag = np.empty((nb, B, B), np.int64)
-    idx_sub = np.full((nb, B, B), c_zero, np.int64)
+    idx_subs = np.full((nb, bwb, B, B), c_zero, np.int64)
     for k in range(nb):
         rows = perm[k * B:(k + 1) * B]
         idx_diag[k] = src_block(rows, rows)
-        if k:
-            idx_sub[k] = src_block(rows, perm[(k - 1) * B:k * B])
+        for j in range(1, min(bwb, k) + 1):
+            idx_subs[k, j - 1] = src_block(rows,
+                                           perm[(k - j) * B:(k - j + 1) * B])
 
     def split(idx):
         from_h = idx < base_A
-        return from_h, np.where(from_h, 0, idx - base_A)
+        return (from_h, np.where(from_h, idx, 0),
+                np.where(from_h, 0, idx - base_A))
 
-    return split(idx_diag), split(idx_sub)
+    return split(idx_diag), split(idx_subs)
 
 
-def _band_scatter_idx(n: int, Dp: int, perm: np.ndarray, split) -> np.ndarray:
+def _soc_pad_maps(q: tuple, ms: int):
+    """Static (n_sc, dmax) pad maps of the per-cone block assembly
+    (``eicos_tpu.kkt._soc_pad_maps``): ``qidx`` maps (cone, slot) to its
+    offset in the SOC segment (a pad to ms, where a zero-extended array
+    reads 0) and ``valid`` marks the live slots."""
+    qa = np.asarray(q, np.int64)
+    dmax = int(qa.max())
+    offs = np.concatenate([[0], np.cumsum(qa)[:-1]])
+    slot = np.arange(dmax)[None, :]
+    valid = slot < qa[:, None]
+    return np.where(valid, offs[:, None] + slot, ms), valid
+
+
+def _band_scatter_idx(n: int, Dp: int, perm: np.ndarray, split,
+                      socsplit=None, keep_q: tuple = ()) -> np.ndarray:
     """Flat targets in a per-lane [diag | sub] buffer of 2 nb B B values
-    for the H contributions [spr (n_spr w w) | sing (n_sing) | dI (n)]
-    (``eicos_tpu.kkt._band_scatter_idx``, LP part).  Contributions above
-    the band or on a padding column go to the dump slot nb B B."""
+    for the contributions [spr (n_spr w w) | sing (n_sing) | dI (n) | soc]
+    (``eicos_tpu.kkt._band_scatter_idx``).  Contributions above the band
+    or on a padding column go to the dump slot nb B B.
+
+    The soc part is either the H contributions on the ``SOCSplit`` column
+    supports (eliminating layout, (n_sc, w, w)) or, with ``keep_q`` (the
+    cone dimensions of a ``keep_soc`` plan), the NT-scaled kept layout:
+    the per-cone blocks (n_sc, dmax, dmax) at the z_soc coordinates and
+    the coupling (n_sc, dmax, w) in both orientations, of which the one
+    inside the stored band survives; x coordinates shift by
+    ms = sum(keep_q)."""
     iperm = np.empty_like(perm)
     iperm[perm] = np.arange(len(perm))
     nbb = (Dp // B) * B * B
     dump = nbb
+    ms = int(sum(keep_q))
 
-    def pos(i, j):
-        bad = (i >= n) | (j >= n)
-        pi = iperm[np.minimum(i, n - 1)]
-        pj = iperm[np.minimum(j, n - 1)]
+    def gpos(gi, gj, bad):
+        # gi, gj: coordinates of K (arrays); bad marks pads
+        pi = iperm[np.minimum(gi, len(perm) - 1)]
+        pj = iperm[np.minimum(gj, len(perm) - 1)]
         bi, bj = pi // B, pj // B
         flat = (bi * B + pi % B) * B + pj % B
         out = np.where(bi == bj, flat,
                        np.where(bi == bj + 1, nbb + flat, dump))
         return np.where(bad, dump, out)
+
+    def pos(i, j):
+        # i, j: coordinates of H (the x block); n marks a padding column
+        return gpos(ms + np.minimum(i, n - 1), ms + np.minimum(j, n - 1),
+                    (i >= n) | (j >= n))
 
     parts = []
     if split.spr_width:
@@ -195,6 +262,21 @@ def _band_scatter_idx(n: int, Dp: int, perm: np.ndarray, split) -> np.ndarray:
     if sc.size:
         parts.append(pos(sc, sc))
     parts.append(pos(np.arange(n), np.arange(n)))
+    if socsplit is not None:
+        colsS = np.asarray(socsplit.cols, np.int64).reshape(
+            -1, socsplit.width)
+    if ms:
+        qidx, valid = _soc_pad_maps(keep_q, ms)
+        bad1 = ~valid                                    # (n_sc, dmax)
+        zi = np.minimum(qidx, ms - 1)
+        parts.append(gpos(zi[:, :, None], zi[:, None, :],
+                          bad1[:, :, None] | bad1[:, None, :]).ravel())
+        xj = ms + np.minimum(colsS, n - 1)
+        bad2 = bad1[:, :, None] | (colsS >= n)[:, None, :]
+        parts.append(gpos(zi[:, :, None], xj[:, None, :], bad2).ravel())
+        parts.append(gpos(xj[:, None, :], zi[:, :, None], bad2).ravel())
+    elif socsplit is not None:
+        parts.append(pos(colsS[:, :, None], colsS[:, None, :]).ravel())
     return np.concatenate(parts)
 
 
@@ -208,65 +290,90 @@ class SplitMaps(NamedTuple):
     dense: torch.Tensor   # the remaining LP rows
 
 
+def _t(a, device, dtype=torch.int64):
+    return torch.as_tensor(np.asarray(a), dtype=dtype, device=device)
+
+
 @functools.lru_cache(maxsize=16)
 def split_maps(st: ProblemStructure, device: str) -> Optional[SplitMaps]:
     split = st.gsplit
     if split is None:
         return None
-
-    def t(a):
-        return torch.as_tensor(np.asarray(a, np.int64), dtype=torch.int64,
-                               device=device)
-
     return SplitMaps(
-        sing=t(split.sing_rows), scol=t(split.sing_cols),
-        spr=t(split.spr_rows),
-        cols2=t(np.asarray(split.spr_cols, np.int64).reshape(
-            -1, max(split.spr_width, 1))),
-        dense=t(split.dense_rows))
+        sing=_t(split.sing_rows, device), scol=_t(split.sing_cols, device),
+        spr=_t(split.spr_rows, device),
+        cols2=_t(np.asarray(split.spr_cols, np.int64).reshape(
+            -1, max(split.spr_width, 1)), device),
+        dense=_t(split.dense_rows, device))
 
 
 class BandMaps(NamedTuple):
+    """Static maps of a banded plan: the permutation, then either the
+    direct scatter (``scatter``; the base holds zero under it) or the
+    gather of the band blocks from a per-lane flat source (``dih``/``sih``
+    where ``dmask``/``smask``, H.ravel() or the dense K.ravel()), and the
+    base's index into the shared [A.ravel() | (-delta, 0, 1)] elsewhere."""
+
     Dp: int
     perm: torch.Tensor    # (Dp,) new -> old
     iperm: torch.Tensor   # (Dp,) old -> new
-    scatter: SegmentSum   # the H contributions' sums, dump slot dropped
-    dmask: torch.Tensor   # (nb, B, B) True where the diag block holds H
-    dio: torch.Tensor     # (nb, B, B) index into [A.ravel() | consts]
-    smask: torch.Tensor   # same for the sub-diagonal blocks
-    sio: torch.Tensor
+    dmask: torch.Tensor   # (nb, B, B) True where the per-lane source fills
+    smask: torch.Tensor   # (nb, bwb, B, B), same for the sub-diagonals
+    scatter: Optional[SegmentSum] = None  # sums of the direct scatter
+    dio: Optional[torch.Tensor] = None    # index into [A.ravel() | consts]
+    sio: Optional[torch.Tensor] = None    # (None: the base is zero)
+    dih: Optional[torch.Tensor] = None    # index into the per-lane source
+    sih: Optional[torch.Tensor] = None
 
 
 @functools.lru_cache(maxsize=16)
 def band_maps(st: ProblemStructure, device: str) -> BandMaps:
     """The static maps of ``st``'s banded plan, on ``device``."""
-    n, p = st.n, st.p
-    perm = np.asarray(st.band.perm, np.int64)
+    n, p, plan = st.n, st.p, st.band
+    perm = np.asarray(plan.perm, np.int64)
     Dp = len(perm)
+    nb = Dp // B
     iperm = np.empty_like(perm)
     iperm[perm] = np.arange(Dp)
-    (dmask, dio), (smask, sio) = _band_gather(n, p, Dp, perm)
-
-    def t(a, dtype=torch.int64):
-        return torch.as_tensor(np.asarray(a), dtype=dtype, device=device)
-
-    idx = _band_scatter_idx(n, Dp, perm, st.gsplit)
-    dump = (Dp // B) * B * B
-    return BandMaps(
-        Dp=Dp, perm=t(perm), iperm=t(iperm),
-        scatter=segment_map(idx, device, keep=idx != dump),
-        dmask=t(dmask, torch.bool), dio=t(dio),
-        smask=t(smask, torch.bool), sio=t(sio))
+    keep = bool(plan.keep_soc and st.n_sc)
+    ms = st.cone.ms if keep else 0
+    common = dict(Dp=Dp, perm=_t(perm, device), iperm=_t(iperm, device))
+    if keep and not _direct_band(st):
+        # blocks of the permuted dense K over [z_soc | x | y]; the base
+        # only zeroes the blocks left of block column 0
+        rows = perm.reshape(nb, B)
+        dih = rows[:, :, None] * Dp + rows[:, None, :]
+        left = np.maximum(np.arange(nb)[:, None]
+                          - np.arange(1, plan.bwb + 1)[None, :], 0)
+        sih = rows[:, None, :, None] * Dp + rows[left][:, :, None, :]
+        smask = np.broadcast_to(
+            (np.arange(nb)[:, None] >= np.arange(1, plan.bwb + 1)[None, :]
+             )[:, :, None, None], sih.shape).copy()
+        return BandMaps(dmask=_t(dih >= 0, device, torch.bool),
+                        smask=_t(smask, device, torch.bool),
+                        dih=_t(dih, device), sih=_t(sih, device), **common)
+    (dmask, dih, dio), (smask, sih, sio) = _band_gather_split(
+        n, p, Dp, perm, plan.bwb, ms)
+    maps = dict(dmask=_t(dmask, device, torch.bool), dio=_t(dio, device),
+                smask=_t(smask, device, torch.bool), sio=_t(sio, device))
+    if _direct_band(st):
+        idx = _band_scatter_idx(n, Dp, perm, st.gsplit, st.socsplit,
+                                st.q if keep else ())
+        return BandMaps(scatter=segment_map(idx, device, keep=idx != nb * B * B),
+                        **maps, **common)
+    return BandMaps(dih=_t(dih, device), sih=_t(sih, device), **maps,
+                    **common)
 
 
 class DenseMaps(NamedTuple):
-    """Static layout of the reduced strategy's dense K over
-    [z_soc | x | y]: ms kept SOC rows, me eliminated (LP) rows, and the
-    fixed-order sums of the gsplit's H contributions: ``hs`` of the
-    scatter rows' flattened (n_spr, w, w) values into flat (Dp * Dp)
-    positions of K, those whose two columns are real (a padded column
-    contributes 0 to a row and column that the reference crops), and
-    ``hd`` of the singleton rows' values onto the diagonal of H."""
+    """Static layout of a dense matrix that holds H at offset ``ms`` with
+    row stride ``Dp`` (the reduced strategy's K over [z_soc | x | y], or H
+    alone with ms = 0, Dp = n): ms kept SOC rows, me eliminated rows, and
+    the fixed-order sums of the gsplit's H contributions: ``hs`` of the
+    scatter rows' flattened (n_spr, w, w) values into flat positions,
+    those whose two columns are real (a padded column contributes 0 to a
+    row and column that the reference crops), and ``hd`` of the singleton
+    rows' values onto the diagonal of H."""
 
     Dp: int
     ms: int
@@ -276,10 +383,13 @@ class DenseMaps(NamedTuple):
 
 
 @functools.lru_cache(maxsize=16)
-def dense_maps(st: ProblemStructure, device: str) -> DenseMaps:
+def dense_maps(st: ProblemStructure, device: str,
+               h_only: bool = False) -> DenseMaps:
+    """The maps of the dense K that keeps every SOC row, or with
+    ``h_only`` of a bare (n, n) H with every row eliminated."""
     n, p = st.n, st.p
-    ms = st.m - st.l          # "reduced" keeps every SOC row
-    Dp = pad_to_block(ms + n + p, B)
+    ms = 0 if h_only else st.m - st.l
+    Dp = n if h_only else pad_to_block(ms + n + p, B)
     split = st.gsplit
     hs = hd = None
     if split is not None and split.n_spr:
@@ -294,7 +404,26 @@ def dense_maps(st: ProblemStructure, device: str) -> DenseMaps:
                          keep=(ci < n) & (cj < n))
     if split is not None and split.n_sing:
         hd = segment_map(split.sing_cols, device)
-    return DenseMaps(Dp=Dp, ms=ms, me=st.l, hs=hs, hd=hd)
+    return DenseMaps(Dp=Dp, ms=ms, me=st.m if h_only else st.l, hs=hs, hd=hd)
+
+
+class SocMaps(NamedTuple):
+    """The per-cone pad maps and column supports on the device."""
+
+    qidx: torch.Tensor    # (n_sc, dmax) offset in the SOC segment, pad ms
+    valid: torch.Tensor   # (n_sc, dmax) bool
+    head: torch.Tensor    # (n_sc, dmax) bool, the cone's first slot
+    cols: torch.Tensor    # (n_sc, w) column support, pad n
+
+
+@functools.lru_cache(maxsize=16)
+def soc_maps(st: ProblemStructure, device: str) -> SocMaps:
+    qidx, valid = _soc_pad_maps(st.q, st.cone.ms)
+    head = (np.arange(qidx.shape[1])[None, :] == 0) & valid
+    return SocMaps(qidx=_t(qidx, device), valid=_t(valid, device, torch.bool),
+                   head=_t(head, device, torch.bool),
+                   cols=_t(np.asarray(st.socsplit.cols, np.int64).reshape(
+                       st.n_sc, st.socsplit.width), device))
 
 
 # ---------------------------------------------------------------- context
@@ -303,19 +432,43 @@ class KKTContext(NamedTuple):
     """Per-solve constants: equilibrated G, A ((m, n), (p, n) shared or
     with a leading lane axis), the static maps, the lane-invariant base of
     the factored matrix (``Kd0``/``Ks0`` for "banded", ``K0`` for
-    "reduced") and the iteration-invariant coefficients of the gsplit's
-    H contributions."""
+    "reduced" and for a banded ``keep_soc`` plan off the scatter path) and
+    the iteration-invariant coefficients of the H contributions."""
 
     G: torch.Tensor
     A: torch.Tensor
     split: Optional[SplitMaps]
     spr_outer: Optional[torch.Tensor]   # ([L,] n_spr, w, w) g_i g_j
     sing_sq: Optional[torch.Tensor]     # ([L,] n_sing) g^2
+    keep_soc: bool = False              # SOC rows stay in the factor
     band: Optional[BandMaps] = None
     Kd0: Optional[torch.Tensor] = None  # ([L,] nb, B, B) A, -dI, padding
-    Ks0: Optional[torch.Tensor] = None
+    Ks0: Optional[torch.Tensor] = None  # ([L,] nb, [bwb,] B, B)
     dense: Optional[DenseMaps] = None
     K0: Optional[torch.Tensor] = None   # ([L,] Dp, Dp)
+    soc: Optional[SocMaps] = None
+    soc_gsub: Optional[torch.Tensor] = None  # ([L,] n_sc, dmax, w) G_soc
+    soc_gram: Optional[torch.Tensor] = None  # ([L,] n_sc, w, w) Gq'Gq
+
+
+def _dense_base(st, dm: DenseMaps, G, A, delta):
+    """The lane-invariant part of the dense K over [z_soc | x | y]
+    (``eicos_tpu.kkt.make_context``): G_soc, A, -dI on y, 1 on padding;
+    the z_soc and x diagonal blocks are written per factor."""
+    n, p, ms, l = st.n, st.p, dm.ms, st.l
+    D = ms + n + p
+    lead = A.shape[:-2]
+    diag0 = G.new_zeros(dm.Dp)
+    diag0[ms + n:D] = -delta
+    diag0[D:] = 1.0
+    K0 = torch.diag_embed(diag0.expand(*lead, dm.Dp)).contiguous()
+    if ms:
+        K0[..., :ms, ms:ms + n] = G[..., l:, :]
+        K0[..., ms:ms + n, :ms] = G[..., l:, :].transpose(-1, -2)
+    if p:
+        K0[..., ms:ms + n, ms + n:D] = A.transpose(-1, -2)
+        K0[..., ms + n:D, ms:ms + n] = A
+    return K0
 
 
 def make_context(st: ProblemStructure, G, A, settings) -> KKTContext:
@@ -330,47 +483,40 @@ def make_context(st: ProblemStructure, G, A, settings) -> KKTContext:
     if split is not None and st.gsplit.n_sing:
         coef = G[..., split.sing, split.scol]
         sing_sq = coef * coef
+    keep = _keep_soc(st, settings)
     ctx = KKTContext(G=G, A=A, split=split, spr_outer=spr_outer,
-                     sing_sq=sing_sq)
+                     sing_sq=sing_sq, keep_soc=keep)
     delta = settings.deltastat
     lead = A.shape[:-2]
     if settings.kkt_strategy == "reduced":
         dm = dense_maps(st, dev)
-        n, p, ms, l = st.n, st.p, dm.ms, st.l
-        D = ms + n + p
-        # z_soc and x diagonals are written per factor; -dI on y; 1 padding
-        diag0 = G.new_zeros(dm.Dp)
-        diag0[ms + n:D] = -delta
-        diag0[D:] = 1.0
-        K0 = torch.diag_embed(diag0.expand(*lead, dm.Dp)).contiguous()
-        if ms:
-            K0[..., :ms, ms:ms + n] = G[..., l:, :]
-            K0[..., ms:ms + n, :ms] = G[..., l:, :].transpose(-1, -2)
-        if p:
-            K0[..., ms:ms + n, ms + n:D] = A.transpose(-1, -2)
-            K0[..., ms + n:D, ms:ms + n] = A
-        return ctx._replace(dense=dm, K0=K0)
+        return ctx._replace(dense=dm, K0=_dense_base(st, dm, G, A, delta))
     maps = band_maps(st, dev)
+    ctx = ctx._replace(band=maps)
+    direct = maps.scatter is not None
+    if keep and not direct:
+        dm = dense_maps(st, dev)
+        zero = G.new_zeros(())
+        return ctx._replace(dense=dm, K0=_dense_base(st, dm, G, A, delta),
+                            Kd0=zero, Ks0=zero)
+    if not direct:
+        ctx = ctx._replace(dense=dense_maps(st, dev, h_only=True))
+    elif st.n_sc:
+        sm = soc_maps(st, dev)
+        Gpad = G.new_zeros(*G.shape[:-2], st.m + 1, st.n + 1)
+        Gpad[..., :st.m, :st.n] = G
+        gsub = Gpad[..., (st.l + sm.qidx)[:, :, None], sm.cols[:, None, :]]
+        ctx = ctx._replace(soc=sm, soc_gsub=gsub)
+        if not keep:
+            ctx = ctx._replace(soc_gram=gsub.transpose(-1, -2) @ gsub)
     consts = torch.tensor([-delta, 0.0, 1.0], dtype=G.dtype, device=G.device)
     other = torch.cat([A.reshape(*lead, -1), consts.expand(*lead, 3)], -1)
-    return ctx._replace(band=maps,
-                        Kd0=torch.where(maps.dmask, 0.0, other[..., maps.dio]),
+    return ctx._replace(Kd0=torch.where(maps.dmask, 0.0, other[..., maps.dio]),
                         Ks0=torch.where(maps.smask, 0.0,
                                         other[..., maps.sio]))
 
 
-def _band_scatter_vals(st, ctx: KKTContext, winv_lp, delta):
-    """Per-lane H contributions ordered as the scatter targets:
-    [spr | sing | dI]."""
-    lanes = winv_lp.shape[0]
-    vals = []
-    if ctx.spr_outer is not None:
-        vals.append(_spr_vals(ctx, winv_lp).reshape(lanes, -1))
-    if ctx.sing_sq is not None:
-        vals.append(_sing_vals(ctx, winv_lp))
-    vals.append(winv_lp.new_full((lanes, st.n), delta))
-    return torch.cat(vals, -1)
-
+# ------------------------------------------------------ per-lane values
 
 def _spr_vals(ctx: KKTContext, winv_lp):
     """(L, n_spr, w, w): w_r g_i g_j of every scatter row r."""
@@ -383,42 +529,177 @@ def _sing_vals(ctx: KKTContext, winv_lp):
         winv_lp.shape[0], -1)
 
 
-def band_blocks(st, ctx: KKTContext, winv_lp, delta):
-    """The per-lane band blocks (Kd, Ks), each (L, nb, B, B): the base
-    plus the scattered H contributions."""
+def _soc_pad(ctx: KKTContext, x_s):
+    """(L, ms) values over the SOC segment -> (L, n_sc, dmax), pads 0."""
+    return torch.cat([x_s, x_s.new_zeros(x_s.shape[0], 1)], -1)[
+        :, ctx.soc.qidx]
+
+
+def _soc_scaled_kept_vals(st, ctx: KKTContext, scal, delta, lanes: int):
+    """The per-cone NT-scaled kept blocks -(I + delta W^-2) as (L, n_sc,
+    dmax, dmax) padded values (``eicos_tpu.kkt._soc_scaled_kept_vals``),
+    with W^-2 = eta^-2 [a^2+w, -c q'; -c q, I + d q q'] per cone.  The
+    factor then holds S K S with S = diag(W^-1, I, I): its kept pivot
+    block is O(1) and solidly negative, which bounds the growth of the
+    unpivoted elimination by ~1/(2 sqrt(delta)).  Pad rows and columns
+    are zero and their targets are dropped."""
+    sm = ctx.soc
+    dmax = sm.qidx.shape[1]
+    eye = torch.eye(dmax, dtype=ctx.G.dtype, device=ctx.G.device)
+    eye_v = eye * (sm.valid[:, :, None] & sm.valid[:, None, :])
+    if scal is None:
+        return (-(1.0 + delta) * eye_v).expand(lanes, -1, -1, -1)
+    cone = st.cone
+    inv_eta2 = 1.0 / scal.eta2
+    diag_flat = torch.where(
+        cones._k(cone, scal.a).is_head, cones._expand(cone, inv_eta2 * (scal.a * scal.a + scal.w)),
+        cones._expand(cone, inv_eta2))
+    dpad = _soc_pad(ctx, diag_flat)                     # (L, n_sc, dmax)
+    qpad = _soc_pad(ctx, scal.q_flat)
+    e = sm.head.to(qpad.dtype)
+    ec = (-inv_eta2 * scal.cc)[:, :, None, None]
+    ed = (inv_eta2 * scal.dd)[:, :, None, None]
+    W2i = (dpad[..., :, None] * eye
+           + ec * (e[:, :, None] * qpad[..., None, :]
+                   + qpad[..., :, None] * e[:, None, :])
+           + ed * qpad[..., :, None] * qpad[..., None, :])
+    return -(eye_v + delta * W2i)
+
+
+def _soc_coupling_vals(st, ctx: KKTContext, scal, lanes: int):
+    """The per-cone W^-1 G_soc coupling blocks (L, n_sc, dmax, w) on the
+    ``SOCSplit`` column supports (``eicos_tpu.kkt._soc_coupling_vals``).
+    W^-1 = eta^-1 [a, -q'; -q, I + qq'/(1+a)] per cone:
+    head row  = eta^-1 (a g0 - q'G1),
+    tail rows = eta^-1 (G1 - q (g0 - q'G1/(1+a)))."""
+    Gsub = ctx.soc_gsub
+    if scal is None:
+        return Gsub.expand(lanes, *Gsub.shape[-3:])
+    qpad = _soc_pad(ctx, scal.q_flat)
+    qG = (qpad[..., None] * Gsub).sum(-2)               # q'G1, (L, n_sc, w)
+    g0 = Gsub[..., 0, :]
+    head = scal.a[..., None] * g0 - qG
+    t = -(g0 - qG / (1.0 + scal.a)[..., None])
+    tails = Gsub + qpad[..., None] * t[..., None, :]
+    out = torch.where(ctx.soc.head[:, :, None], head[..., None, :], tails)
+    return out * (1.0 / scal.eta)[..., None, None]
+
+
+def _soc_band_vals(st, ctx: KKTContext, scal, delta, lanes: int):
+    """The per-cone H contributions of the eliminating layout, (L, n_sc,
+    w, w) on the ``SOCSplit`` supports (``eicos_tpu.kkt._soc_band_vals``):
+    Gq' (W^2 + dI)^{-1} Gq = b Gq'Gq - b^2 [v1 v2] Minv [v1 v2]' with
+    v1 = Gq' e, v2 = Gq' q, the closed form of
+    ``cones.scale2reg_inv_soc`` (a 2x2 Woodbury)."""
+    gram = ctx.soc_gram
+    if scal is None:
+        return (gram * (1.0 / (1.0 + delta))).expand(lanes,
+                                                     *gram.shape[-3:])
+    Gsub = ctx.soc_gsub
+    qpad = _soc_pad(ctx, scal.q_flat)
+    v1 = Gsub[..., 0, :].expand(lanes, -1, -1)          # head row of Gq
+    v2 = (qpad[..., None] * Gsub).sum(-2)
+    b = 1.0 / (scal.eta2 + delta)
+    c11 = scal.eta2 * (2.0 * scal.w)
+    c12 = scal.eta2 * scal.cc
+    c22 = scal.eta2 * scal.dd
+    detC = c11 * c22 - c12 * c12
+    m11 = c22 / detC + b
+    m12 = -c12 / detC
+    m22 = c11 / detC + b * scal.w
+    detM = m11 * m22 - m12 * m12
+    mi11 = (m22 / detM)[..., None, None]
+    mi12 = (-m12 / detM)[..., None, None]
+    mi22 = (m11 / detM)[..., None, None]
+    o11 = v1[..., :, None] * v1[..., None, :]
+    o12 = v1[..., :, None] * v2[..., None, :] + v2[..., :, None] * v1[..., None, :]
+    o22 = v2[..., :, None] * v2[..., None, :]
+    corr = mi11 * o11 + mi12 * o12 + mi22 * o22
+    b1 = b[..., None, None]
+    return b1 * gram - b1 * b1 * corr
+
+
+def _band_scatter_vals(st, ctx: KKTContext, winv_lp, delta, scal=None):
+    """Per-lane contributions ordered as the scatter targets: [spr | sing
+    | dI | soc], the soc part being the eliminating closed form or, on a
+    ``keep_soc`` plan, the kept blocks and then the coupling twice (once
+    per orientation)."""
+    lanes = winv_lp.shape[0]
+    vals = []
+    if ctx.spr_outer is not None:
+        vals.append(_spr_vals(ctx, winv_lp).reshape(lanes, -1))
+    if ctx.sing_sq is not None:
+        vals.append(_sing_vals(ctx, winv_lp))
+    vals.append(winv_lp.new_full((lanes, st.n), delta))
+    if st.n_sc and ctx.keep_soc:
+        vals.append(_soc_scaled_kept_vals(st, ctx, scal, delta,
+                                          lanes).reshape(lanes, -1))
+        coup = _soc_coupling_vals(st, ctx, scal, lanes).reshape(lanes, -1)
+        vals += [coup, coup]
+    elif st.n_sc:
+        vals.append(_soc_band_vals(st, ctx, scal, delta,
+                                   lanes).reshape(lanes, -1))
+    return torch.cat(vals, -1)
+
+
+def band_blocks(st, ctx: KKTContext, winv_lp, delta, scal=None):
+    """The per-lane band blocks (Kd, Ks), each (L, nb, B, B), of the
+    direct scatter: the base plus the scattered contributions."""
     lanes = winv_lp.shape[0]
     Dp = ctx.band.Dp
     nbb = (Dp // B) * B * B
     buf = winv_lp.new_zeros(lanes, 2 * nbb)
     buf[:, ctx.band.scatter.targets] = segment_sum(
-        ctx.band.scatter, _band_scatter_vals(st, ctx, winv_lp, delta))
+        ctx.band.scatter, _band_scatter_vals(st, ctx, winv_lp, delta, scal))
     bufb = buf.view(lanes, 2, Dp // B, B, B)
-    return ctx.Kd0 + bufb[:, 0], ctx.Ks0 + bufb[:, 1]
+    return ctx.Kd0 + bufb[:, 0], ctx.Ks0[..., 0, :, :] + bufb[:, 1]
 
 
-def dense_matrix(st, ctx: KKTContext, scal: Optional[cones.Scaling],
-                 winv_lp, delta):
-    """The per-lane reduced K (L, Dp, Dp) for the current scaling
-    (``eicos_tpu.kkt``'s H assembly and ``_assemble_dense``), in the
-    reference's order of summation: H = [Gd' W^-1 Gd] + Hs + diag(hdiag
-    + d), where Hs (the scatter rows) and hdiag (the singleton rows)
-    are sums into zeros."""
+def _gathered_blocks(ctx: KKTContext, flat):
+    """(Kd (L, nb, B, B), Ksubs (L, nb, bwb, B, B)) gathered from the
+    per-lane ``flat`` source (H.ravel() or K.ravel()) and the base."""
+    maps = ctx.band
+    return (torch.where(maps.dmask, flat[:, maps.dih], ctx.Kd0),
+            torch.where(maps.smask, flat[:, maps.sih], ctx.Ks0))
+
+
+def _elim_soc(st, scal, delta, x_s):
+    """(W_soc^2 + dI)^{-1} x over the SOC segment, x_s (L, k, ms): the
+    closed form of ``cones.scale2reg_inv_soc`` (identity scalings when
+    ``scal`` is None)."""
+    if scal is None:
+        return x_s * (1.0 / (1.0 + delta))
+    return cones.scale2reg_inv_soc(st.cone, scal, delta, x_s)
+
+
+def _assemble_h(st, ctx: KKTContext, dm: DenseMaps, K, scal, winv_lp, delta):
+    """Write H = G_e' (W_e^2 + dI)^{-1} G_e + dI over the ``dm.me``
+    eliminated rows into its block of ``K`` (L, Dp, Dp), zero there on
+    entry, in the reference's order of summation
+    (``eicos_tpu.kkt.factor``): H = [Gd' W^-1 Gd] + Hs + diag(hdiag + d),
+    where Hs (the scatter rows) and hdiag (the singleton rows) are sums
+    into zeros and Gd holds the gsplit's dense rows and, where the cones
+    are eliminated too, the SOC rows; without a gsplit one product over
+    every eliminated row.  The products are ``torch.matmul``."""
     lanes = winv_lp.shape[0]
-    dm = ctx.dense
-    n, ms, me = st.n, dm.ms, dm.me
+    n, l, ms, me = st.n, st.l, dm.ms, dm.me
     G = ctx.G
-    K = ctx.K0.expand(lanes, dm.Dp, dm.Dp).clone()
-    Hx = K[:, ms:ms + n, ms:ms + n]          # zero in K0
+    Hx = K[:, ms:ms + n, ms:ms + n]
     split = ctx.split
+    use_split = split is not None and (st.gsplit.n_sing or st.gsplit.n_spr)
+    rows = split.dense if use_split else slice(0, l)
+    Gd = G[..., rows, :]
+    WiGd = Gd * winv_lp[:, rows][:, :, None]
+    if me > l:
+        Gs = G[..., l:, :]
+        WiGs = _elim_soc(st, scal, delta, Gs.transpose(-1, -2).expand(
+            lanes, n, me - l)).transpose(-1, -2)
+        Gd = torch.cat([Gd, Gs], -2)
+        WiGd = torch.cat([WiGd, WiGs], -2)
+    if Gd.shape[-2]:
+        Hx.copy_(Gd.transpose(-1, -2) @ WiGd)
     hdiag = 0.0
-    if me and (split is None or not (st.gsplit.n_sing or st.gsplit.n_spr)):
-        Ge = G[..., :me, :]
-        Hx.copy_(Ge.transpose(-1, -2) @ (Ge * winv_lp[:, :, None]))
-    elif me:
-        if split.dense.numel():
-            Gd = G[..., split.dense, :]
-            Hx.copy_(Gd.transpose(-1, -2)
-                     @ (Gd * winv_lp[:, split.dense][:, :, None]))
+    if use_split:
         if dm.hs is not None:
             Kf = K.view(lanes, -1)
             Kf[:, dm.hs.targets] += segment_sum(
@@ -428,6 +709,19 @@ def dense_matrix(st, ctx: KKTContext, scal: Optional[cones.Scaling],
             hdiag[:, dm.hd.targets] = segment_sum(dm.hd,
                                                   _sing_vals(ctx, winv_lp))
     Hx.diagonal(dim1=-2, dim2=-1).add_(hdiag + delta)
+
+
+def dense_matrix(st, ctx: KKTContext, scal: Optional[cones.Scaling],
+                 winv_lp, delta):
+    """The per-lane dense K (L, Dp, Dp) over [z_soc | x | y] for the
+    current scaling (``eicos_tpu.kkt``'s H assembly and
+    ``_assemble_dense``): the base, H over the LP rows, and the kept SOC
+    block -(W_soc^2 + dI)."""
+    lanes = winv_lp.shape[0]
+    dm = ctx.dense
+    ms = dm.ms
+    K = ctx.K0.expand(lanes, dm.Dp, dm.Dp).clone()
+    _assemble_h(st, ctx, dm, K, scal, winv_lp, delta)
     if ms:
         eye = torch.eye(ms, dtype=K.dtype, device=K.device)
         W2s = eye if scal is None else cones.w2_soc_dense(st.cone, scal)
@@ -440,49 +734,59 @@ def factor(st: ProblemStructure, ctx: KKTContext,
     """Assemble and factor for the current NT scaling (None = identity
     scalings, the init factorization).  Returns
     ``solve_exact(rhs) -> (dx, dy, dz)`` for packed right-hand sides
-    (L, k, n+p+m), one solve of the factored system without refinement."""
-    n, p = st.n, st.p
+    (L, k, n+p+m), one solve of the factored system without refinement.
+
+    The factored system runs over [z_soc | x | y] with the ``ms`` kept SOC
+    rows first (none when the cones are eliminated), and the ``me``
+    eliminated rows of G enter through the exact Schur complement.  On
+    the banded direct scatter with kept cones the factor holds S K S with
+    S = diag(W^-1, I, I), and the kept rows of the right-hand side and of
+    the solution pass through ``cones.scale_winv_soc``."""
+    n, p, l = st.n, st.p, st.l
     delta = settings.deltastat
     G = ctx.G
     if scal is None:
-        winv_lp = G.new_full((lanes, st.l), 1.0 / (1.0 + delta))
+        winv_lp = G.new_full((lanes, l), 1.0 / (1.0 + delta))
     else:
         winv_lp = 1.0 / (scal.v_lp + delta)
-    if settings.kkt_strategy == "reduced":
-        return _factor_reduced(st, ctx, scal, winv_lp, delta)
-
-    maps = ctx.band
-    D = n + p
-    Kd, Ks = band_blocks(st, ctx, winv_lp, delta)
-    fac = band_factor(Kd, Ks)
-    Gt = G.transpose(-1, -2)
-
-    def solve_exact(rhs):
-        k = rhs.shape[1]
-        if k > KP:
-            raise ValueError(f"at most {KP} right-hand sides, got {k}")
-        bx, by, bz = rhs[..., :n], rhs[..., n:n + p], rhs[..., n + p:]
-        r1 = bx + (bz * winv_lp[:, None, :]) @ G
-        rr = torch.cat([r1, by, rhs.new_zeros(*rhs.shape[:-1], maps.Dp - D)],
-                       -1)
-        x = band_solve(fac, rr[..., maps.perm])[..., maps.iperm]
-        dx, dy = x[..., :n], x[..., n:D]
-        dz = (dx @ Gt - bz) * winv_lp[:, None, :]
-        return dx, dy, dz
-
-    return solve_exact
-
-
-def _factor_reduced(st, ctx: KKTContext, scal, winv_lp, delta):
-    """The "reduced" arm of ``eicos_tpu.kkt.factor``: dense K over
-    [z_soc | x | y], ``ldl_factor``, and a ``solve_exact`` that eliminates
-    the LP rows around ``ldl_solve``."""
-    n, p = st.n, st.p
-    dm = ctx.dense
-    ms, me = dm.ms, dm.me
+    ms = st.m - l if ctx.keep_soc else 0
+    me = l if ctx.keep_soc else st.m
     D = ms + n + p
-    fac = ldl_factor(dense_matrix(st, ctx, scal, winv_lp, delta))
-    Ge = ctx.G[..., :me, :]
+    scaled_kept = False
+
+    if settings.kkt_strategy == "reduced":
+        Dp = ctx.dense.Dp
+        fac = ldl_factor(dense_matrix(st, ctx, scal, winv_lp, delta))
+
+        def padded_solve(rr):
+            return ldl_solve(fac, rr)
+    else:
+        maps = ctx.band
+        Dp = maps.Dp
+        if maps.scatter is not None:
+            scaled_kept = ctx.keep_soc and scal is not None
+            fac = band_factor(*band_blocks(st, ctx, winv_lp, delta, scal))
+        else:
+            if ctx.keep_soc:
+                # a keep_soc plan off the scatter path: the unscaled dense K
+                src = dense_matrix(st, ctx, scal, winv_lp, delta)
+            else:
+                src = G.new_zeros(lanes, n, n)
+                _assemble_h(st, ctx, ctx.dense, src, scal, winv_lp, delta)
+            fac = band_factor(*_gathered_blocks(ctx, src.view(lanes, -1)))
+            del src
+
+        def padded_solve(rr):
+            return band_solve(fac, rr[..., maps.perm])[..., maps.iperm]
+
+    Ge = G[..., :me, :]
+
+    def welim(v):
+        # (W^2 + dI)^{-1} on the eliminated rows of v (L, k, me)
+        v_lp = v[..., :l] * winv_lp[:, None, :]
+        if me == l:
+            return v_lp
+        return torch.cat([v_lp, _elim_soc(st, scal, delta, v[..., l:])], -1)
 
     def solve_exact(rhs):
         k = rhs.shape[1]
@@ -490,16 +794,18 @@ def _factor_reduced(st, ctx: KKTContext, scal, winv_lp, delta):
             raise ValueError(f"at most {KP} right-hand sides, got {k}")
         bx, by, bz = rhs[..., :n], rhs[..., n:n + p], rhs[..., n + p:]
         bz_e, bz_s = bz[..., :me], bz[..., me:]
-        r1 = bx + (bz_e * winv_lp[:, None, :]) @ Ge if me else bx
+        if scaled_kept:
+            bz_s = cones.scale_winv_soc(st.cone, scal, bz_s)
+        r1 = bx + welim(bz_e) @ Ge if me else bx
         rr = torch.cat([bz_s, r1, by,
-                        rhs.new_zeros(*rhs.shape[:-1], dm.Dp - D)], -1)
-        x = ldl_solve(fac, rr)
+                        rhs.new_zeros(*rhs.shape[:-1], Dp - D)], -1)
+        x = padded_solve(rr)
+        dzs = x[..., :ms]
+        if scaled_kept:
+            dzs = cones.scale_winv_soc(st.cone, scal, dzs)
         dx, dy = x[..., ms:ms + n], x[..., ms + n:D]
-        if me:
-            dz_e = (dx @ Ge.transpose(-1, -2) - bz_e) * winv_lp[:, None, :]
-        else:
-            dz_e = bz_e
-        return dx, dy, torch.cat([dz_e, x[..., :ms]], -1)
+        dz_e = welim(dx @ Ge.transpose(-1, -2) - bz_e) if me else bz_e
+        return dx, dy, torch.cat([dz_e, dzs], -1)
 
     return solve_exact
 

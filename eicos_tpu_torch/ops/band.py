@@ -1,6 +1,14 @@
-"""Wrappers of the band LDL^T kernels (``csrc/band_factor.cu``,
-``csrc/band_solve.cu``): the port of ``eicos_tpu.ops.pallas_band_ds`` at
-bwb = 1.
+"""Wrappers of the band LDL^T kernels: the port of
+``eicos_tpu.ops.pallas_band_ds`` at block bandwidth 1
+(``csrc/band_factor.cu``, ``csrc/band_solve.cu``) and 2..6
+(``csrc/band_factor_bw.cu``, ``csrc/band_solve_bw.cu``).
+
+``band_factor``, ``band_fwd``, ``band_bwd`` and ``band_solve`` dispatch on
+the layout: sub-diagonal blocks ``Ks`` (lanes, nb, 128, 128) are block
+bandwidth 1; (lanes, nb, bw, 128, 128) with ``Ks[:, k, j-1] = K[k, k-j]``
+is block bandwidth bw, where bw = 1 runs the bandwidth-1 kernels, 2..6 the
+wide ones and more raises (the reference's own bound).  The factor's ``L``
+has the layout of the ``Ks`` it came from.
 
 For a CUDA tensor each wrapper checks its inputs, allocates its outputs
 with ``torch.empty``, launches its kernel on the current stream and counts
@@ -14,14 +22,23 @@ from __future__ import annotations
 import torch
 
 from . import kernels
-from .band_ldl import (B, KP, BandFactors, band_bwd_plain,
-                       band_factor_plain, band_fwd_plain)
+from .band_ldl import (B, KP, BandFactors, band_bwd_bw_plain, band_bwd_plain,
+                       band_factor_bw_plain, band_factor_plain,
+                       band_fwd_bw_plain, band_fwd_plain)
+
+BW_MAX = 6    # widest block band of the wide kernels
 
 
 def band_factor(Kd: torch.Tensor, Ks: torch.Tensor) -> BandFactors:
-    """Block-tridiagonal LDL^T of (lanes, nb, 128, 128) f64 diagonal and
-    sub-diagonal blocks (Ks[:, 0] is ignored) -> L, Dinv (lanes, nb, 128,
-    128) and d (lanes, nb, 128)."""
+    """Block-banded LDL^T of (lanes, nb, 128, 128) f64 diagonal blocks and
+    the sub-diagonal blocks ``Ks`` in either layout -> L (as ``Ks``), Dinv
+    (lanes, nb, 128, 128) and d (lanes, nb, 128).  ``Ks[:, 0]`` (``Ks[:, k,
+    j-1]`` for k < j) is ignored."""
+    if Ks.dim() == 5:
+        if Ks.shape[2] == 1:
+            fac = band_factor(Kd, Ks[:, :, 0])
+            return fac._replace(L=fac.L[:, :, None])
+        return band_factor_bw(Kd, Ks)
     if kernels.on_cpu(Kd):
         return band_factor_plain(Kd, Ks)
     lanes, nb = Kd.shape[0], Kd.shape[1]
@@ -39,46 +56,129 @@ def band_factor(Kd: torch.Tensor, Ks: torch.Tensor) -> BandFactors:
     return BandFactors(L=L, Dinv=Dinv, d=d)
 
 
+def _check_bw(bw: int) -> None:
+    if not 1 <= bw <= BW_MAX:
+        raise ValueError(f"block bandwidth {bw}: the wide band kernels take "
+                         f"1..{BW_MAX}")
+
+
+def band_factor_bw(Kd: torch.Tensor, Ksubs: torch.Tensor) -> BandFactors:
+    """The wide band factor: ``Kd`` (lanes, nb, 128, 128), ``Ksubs``
+    (lanes, nb, bw, 128, 128) f64 with ``Ksubs[:, k, j-1] = K[k, k-j]``,
+    1 <= bw <= 6 -> L (layout of ``Ksubs``), Dinv, d.  ``Ksubs[:, k, j-1]``
+    for k < j (a block left of block column 0) is ignored whatever it
+    holds, and ``L[:, k, j-1]`` is written as zeros there, so the sweeps
+    need no test."""
+    bw = Ksubs.shape[2]
+    _check_bw(bw)
+    if kernels.on_cpu(Kd):
+        return band_factor_bw_plain(Kd, Ksubs)
+    lanes, nb = Kd.shape[0], Kd.shape[1]
+    kernels.check("Kd", Kd, (lanes, nb, B, B), Kd.device)
+    kernels.check("Ksubs", Ksubs, (lanes, nb, bw, B, B), Kd.device)
+    L = torch.empty_like(Ksubs)
+    Dinv = torch.empty_like(Kd)
+    d = torch.empty((lanes, nb, B), dtype=Kd.dtype, device=Kd.device)
+    with torch.cuda.device(Kd.device):
+        kernels.launch(kernels.lib("band_factor_bw").eicos_band_factor_bw,
+                       Kd.data_ptr(), Ksubs.data_ptr(), L.data_ptr(),
+                       Dinv.data_ptr(), d.data_ptr(), lanes, nb, bw,
+                       kernels.stream(Kd))
+    kernels.COUNTS["band_factor_bw"] += 1
+    return BandFactors(L=L, Dinv=Dinv, d=d)
+
+
 def _check_fac(fac: BandFactors, rhs: torch.Tensor):
     lanes, nb = fac.L.shape[0], fac.L.shape[1]
     k = rhs.shape[1]
     if not 1 <= k <= KP:
         raise ValueError(f"band solve takes 1..{KP} right-hand sides, got {k}")
-    kernels.check("L", fac.L, (lanes, nb, B, B), rhs.device)
+    kernels.check("L", fac.L, (lanes, nb, *fac.L.shape[2:-2], B, B),
+                  rhs.device)
     kernels.check("Dinv", fac.Dinv, (lanes, nb, B, B), rhs.device)
     kernels.check("d", fac.d, (lanes, nb, B), rhs.device)
     kernels.check("rhs", rhs, (lanes, k, nb * B), rhs.device)
     return lanes, nb, k
 
 
+def _narrow(fac: BandFactors):
+    """The 4-d view of a factor of block bandwidth 1, ``None`` for a wider
+    one."""
+    if fac.L.dim() == 4:
+        return fac
+    if fac.L.shape[2] == 1:
+        return fac._replace(L=fac.L[:, :, 0])
+    return None
+
+
 def band_fwd(fac: BandFactors, rhs: torch.Tensor) -> torch.Tensor:
     """Forward sweep and pivot scaling: rhs (lanes, k, Dp) -> w with
-    y_k = Dinv_k (x_k - L_k y_{k-1}), w = y / d."""
+    y_k = Dinv_k (x_k - sum_j L[k,k-j] y_{k-j}), w = y / d."""
+    narrow = _narrow(fac)
+    if narrow is None:
+        return band_fwd_bw(fac, rhs)
     if kernels.on_cpu(rhs):
-        return band_fwd_plain(fac, rhs)
-    lanes, nb, k = _check_fac(fac, rhs)
+        return band_fwd_plain(narrow, rhs)
+    lanes, nb, k = _check_fac(narrow, rhs)
     out = torch.empty_like(rhs)
     with torch.cuda.device(rhs.device):
         kernels.launch(kernels.lib("band_solve").eicos_band_fwd,
-                       fac.L.data_ptr(), fac.Dinv.data_ptr(), fac.d.data_ptr(),
-                       rhs.data_ptr(), out.data_ptr(), lanes, nb, k,
-                       kernels.stream(rhs))
+                       narrow.L.data_ptr(), fac.Dinv.data_ptr(),
+                       fac.d.data_ptr(), rhs.data_ptr(), out.data_ptr(),
+                       lanes, nb, k, kernels.stream(rhs))
     kernels.COUNTS["band_fwd"] += 1
     return out
 
 
 def band_bwd(fac: BandFactors, w: torch.Tensor) -> torch.Tensor:
     """Backward sweep: w (lanes, k, Dp) -> z with
-    z_k = Dinv_k^T (w_k - L_{k+1}^T z_{k+1})."""
+    z_k = Dinv_k^T (w_k - sum_j L[k+j,k]^T z_{k+j})."""
+    narrow = _narrow(fac)
+    if narrow is None:
+        return band_bwd_bw(fac, w)
     if kernels.on_cpu(w):
-        return band_bwd_plain(fac, w)
-    lanes, nb, k = _check_fac(fac, w)
+        return band_bwd_plain(narrow, w)
+    lanes, nb, k = _check_fac(narrow, w)
     out = torch.empty_like(w)
     with torch.cuda.device(w.device):
         kernels.launch(kernels.lib("band_solve").eicos_band_bwd,
-                       fac.L.data_ptr(), fac.Dinv.data_ptr(), w.data_ptr(),
+                       narrow.L.data_ptr(), fac.Dinv.data_ptr(), w.data_ptr(),
                        out.data_ptr(), lanes, nb, k, kernels.stream(w))
     kernels.COUNTS["band_bwd"] += 1
+    return out
+
+
+def band_fwd_bw(fac: BandFactors, rhs: torch.Tensor) -> torch.Tensor:
+    """The wide forward sweep: ``fac.L`` (lanes, nb, bw, 128, 128), rhs
+    (lanes, k, Dp), k <= 16 -> w."""
+    bw = fac.L.shape[2]
+    _check_bw(bw)
+    if kernels.on_cpu(rhs):
+        return band_fwd_bw_plain(fac, rhs)
+    lanes, nb, k = _check_fac(fac, rhs)
+    out = torch.empty_like(rhs)
+    with torch.cuda.device(rhs.device):
+        kernels.launch(kernels.lib("band_solve_bw").eicos_band_fwd_bw,
+                       fac.L.data_ptr(), fac.Dinv.data_ptr(), fac.d.data_ptr(),
+                       rhs.data_ptr(), out.data_ptr(), lanes, nb, bw, k,
+                       kernels.stream(rhs))
+    kernels.COUNTS["band_fwd_bw"] += 1
+    return out
+
+
+def band_bwd_bw(fac: BandFactors, w: torch.Tensor) -> torch.Tensor:
+    """The wide backward sweep: w (lanes, k, Dp) -> z."""
+    bw = fac.L.shape[2]
+    _check_bw(bw)
+    if kernels.on_cpu(w):
+        return band_bwd_bw_plain(fac, w)
+    lanes, nb, k = _check_fac(fac, w)
+    out = torch.empty_like(w)
+    with torch.cuda.device(w.device):
+        kernels.launch(kernels.lib("band_solve_bw").eicos_band_bwd_bw,
+                       fac.L.data_ptr(), fac.Dinv.data_ptr(), w.data_ptr(),
+                       out.data_ptr(), lanes, nb, bw, k, kernels.stream(w))
+    kernels.COUNTS["band_bwd_bw"] += 1
     return out
 
 

@@ -1,12 +1,16 @@
-"""Block-tridiagonal (bwb = 1) LDL^T factor and solves in plain torch f64.
+"""Block-banded LDL^T factor and solves in plain torch f64: block
+bandwidth 1 (``band_factor_plain`` ...) and any block bandwidth
+(``band_factor_bw_plain`` ...).
 
 This module is the plain twin of the CUDA kernels in ``ops/band.py``: it
 computes the same function, and runs wherever a tensor lies on the CPU (the
 tests, and the solver on ``device="cpu"``).  It follows
-``eicos_tpu.ops.band_ldl.band_ldl_factor`` / ``band_ldl_solve`` at bwb = 1,
-with the leaf of ``eicos_tpu.ops.ldl`` (``_unblocked_ldl``: unpivoted
-rank-1 elimination, pivots clamped at +-1e-150; ``_unit_lower_inv``:
-Newton-Schulz doubling), written over an explicit leading lane axis.
+``eicos_tpu.ops.band_ldl.band_ldl_factor`` / ``band_ldl_solve``, with the
+leaf of ``eicos_tpu.ops.ldl`` (``_unblocked_ldl``: unpivoted rank-1
+elimination, pivots clamped at +-1e-150; ``_unit_lower_inv``:
+Newton-Schulz doubling), written over an explicit leading lane axis; the
+reference's ``lax.scan`` with ring carries is a Python loop over block
+rows here.
 
 Factor of one lane, block rows k = 0..nb-1 (Ks[0] is never read):
 
@@ -17,6 +21,18 @@ Factor of one lane, block rows k = 0..nb-1 (Ks[0] is never read):
 
 Solve: forward  y_k = Dinv_k (x_k - L_k y_{k-1}),  w = y / d;
        backward z_k = Dinv_k^T (w_k - L_{k+1}^T z_{k+1}).
+
+At block bandwidth bw, with L[k, k-j] stored at ``L[:, k, j-1]`` and terms
+that reach above block row 0 left out (the reference's ring starts them at
+L = 0, Dinv = I, d = 1, which contributes exact zeros):
+
+    for j = bw..1:  S = Ksubs[k, j-1]
+                        - sum_{q=j+1..bw} (L[k,k-q] d_{k-q}) L[k-j,k-q]^T
+                    L[k,k-j] = S Dinv_{k-j}^T / d_{k-j}
+    M = Kd_k - sum_{q=1..bw} (L[k,k-q] d_{k-q}) L[k,k-q]^T, then the leaf
+
+    forward  y_k = Dinv_k (x_k - sum_j L[k,k-j] y_{k-j}),  w = y / d
+    backward z_k = Dinv_k^T (w_k - sum_j L[k+j,k]^T z_{k+j})
 """
 
 from __future__ import annotations
@@ -31,7 +47,9 @@ KP = 16       # most right-hand sides one band solve takes
 
 
 class BandFactors(NamedTuple):
-    L: torch.Tensor      # (lanes, nb, B, B) sub-diagonal blocks L[k, k-1]
+    # (lanes, nb, B, B) sub-diagonal blocks L[k, k-1] at block bandwidth 1;
+    # (lanes, nb, bw, B, B) with L[:, k, j-1] = L[k, k-j] from the bw forms
+    L: torch.Tensor
     Dinv: torch.Tensor   # (lanes, nb, B, B) inverses of the unit-lower leaves
     d: torch.Tensor      # (lanes, nb, B) pivots
 
@@ -140,3 +158,67 @@ def band_solve_plain(fac: BandFactors, rhs: torch.Tensor) -> torch.Tensor:
     """Plain twin of ``band_solve``: K x = rhs for rhs (lanes, k, Dp), the
     layout of ``eicos_tpu``'s ``band_solve_ds`` (KP, D) per lane."""
     return band_bwd_plain(fac, band_fwd_plain(fac, rhs))
+
+
+def band_factor_bw_plain(Kd: torch.Tensor, Ksubs: torch.Tensor) -> BandFactors:
+    """Plain twin of the ``band_factor_bw`` kernel: f64 diagonal blocks
+    (lanes, nb, B, B) and sub-diagonal blocks (lanes, nb, bw, B, B) with
+    ``Ksubs[:, k, j-1] = K[k, k-j]`` -> ``BandFactors`` with L of the same
+    5-d layout.  ``Ksubs[:, k, j-1]`` for k < j is never read, and
+    ``L[:, k, j-1]`` is zero there."""
+    nb, bw = Ksubs.shape[1], Ksubs.shape[2]
+    rows, Dinvs, ds = [], [], []
+    for k in range(nb):
+        row = [None] * bw
+        for j in range(bw, 0, -1):
+            if k < j:
+                row[j - 1] = torch.zeros_like(Kd[:, 0])
+                continue
+            S = Ksubs[:, k, j - 1]
+            for q in range(j + 1, min(bw, k) + 1):
+                S = S - (row[q - 1] * ds[k - q][:, None, :]
+                         ) @ rows[k - j][q - j - 1].transpose(-1, -2)
+            row[j - 1] = (S @ Dinvs[k - j].transpose(-1, -2)
+                          ) / ds[k - j][:, None, :]
+        M = Kd[:, k]
+        for q in range(1, min(bw, k) + 1):
+            M = M - (row[q - 1] * ds[k - q][:, None, :]
+                     ) @ row[q - 1].transpose(-1, -2)
+        Lkk, dk = _unblocked_ldl(M)
+        rows.append(row)
+        Dinvs.append(_unit_lower_inv(Lkk))
+        ds.append(dk)
+    return BandFactors(L=torch.stack([torch.stack(r, 1) for r in rows], 1),
+                       Dinv=torch.stack(Dinvs, 1), d=torch.stack(ds, 1))
+
+
+def band_fwd_bw_plain(fac: BandFactors, rhs: torch.Tensor) -> torch.Tensor:
+    """Plain twin of ``band_fwd_bw``: rhs (lanes, k, Dp) -> w (lanes, k, Dp)
+    with y_k = Dinv_k (x_k - sum_j L[k,k-j] y_{k-j}) and w = y / d."""
+    nb, bw = fac.L.shape[1], fac.L.shape[2]
+    out = torch.empty_like(rhs)
+    ys = []
+    for b in range(nb):
+        acc = rhs[:, :, b * B:(b + 1) * B].transpose(-1, -2)
+        for j in range(1, min(bw, b) + 1):
+            acc = acc - fac.L[:, b, j - 1] @ ys[b - j]
+        ys.append(fac.Dinv[:, b] @ acc)
+        out[:, :, b * B:(b + 1) * B] = (ys[b] / fac.d[:, b, :, None]
+                                        ).transpose(-1, -2)
+    return out
+
+
+def band_bwd_bw_plain(fac: BandFactors, w: torch.Tensor) -> torch.Tensor:
+    """Plain twin of ``band_bwd_bw``: w (lanes, k, Dp) -> z (lanes, k, Dp)
+    with z_k = Dinv_k^T (w_k - sum_j L[k+j,k]^T z_{k+j}), bottom block
+    first."""
+    nb, bw = fac.L.shape[1], fac.L.shape[2]
+    out = torch.empty_like(w)
+    zs = [None] * nb
+    for b in range(nb - 1, -1, -1):
+        acc = w[:, :, b * B:(b + 1) * B].transpose(-1, -2)
+        for j in range(1, min(bw, nb - 1 - b) + 1):
+            acc = acc - fac.L[:, b + j, j - 1].transpose(-1, -2) @ zs[b + j]
+        zs[b] = fac.Dinv[:, b].transpose(-1, -2) @ acc
+        out[:, :, b * B:(b + 1) * B] = zs[b].transpose(-1, -2)
+    return out

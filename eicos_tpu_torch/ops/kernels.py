@@ -36,6 +36,11 @@ LIBS = {
     "band_solve": ("band_solve.cu",
                    {"eicos_band_fwd": [_P] * 5 + [_I, _I, _I, _P],
                     "eicos_band_bwd": [_P] * 4 + [_I, _I, _I, _P]}),
+    "band_factor_bw": ("band_factor_bw.cu",
+                       {"eicos_band_factor_bw": [_P] * 5 + [_I, _I, _I, _P]}),
+    "band_solve_bw": ("band_solve_bw.cu",
+                      {"eicos_band_fwd_bw": [_P] * 5 + [_I] * 4 + [_P],
+                       "eicos_band_bwd_bw": [_P] * 4 + [_I] * 4 + [_P]}),
     "leaf_ldl": ("leaf_ldl.cu",
                  {"eicos_leaf_ldl": [_P, _LL, _LL, _P, _LL, _LL, _P, _LL,
                                      _I, _P]}),
@@ -48,8 +53,9 @@ LIBS = {
                     "eicos_linv_bwd": [_P] * 3 + [_I, _I, _I, _P]}),
 }
 
-COUNTS = {"band_factor": 0, "band_fwd": 0, "band_bwd": 0, "leaf_ldl": 0,
-          "dgemm": 0, "linv_fwd": 0, "linv_bwd": 0}
+COUNTS = {"band_factor": 0, "band_fwd": 0, "band_bwd": 0,
+          "band_factor_bw": 0, "band_fwd_bw": 0, "band_bwd_bw": 0,
+          "leaf_ldl": 0, "dgemm": 0, "linv_fwd": 0, "linv_bwd": 0}
 BUILD_LOG: dict = {}      # library name -> nvcc's output (ptxas -v report)
 
 _loaded: dict = {}

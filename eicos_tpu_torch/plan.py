@@ -1,11 +1,11 @@
 """Host-side symbolic planning for the banded KKT strategy: a port of
-``eicos_tpu.plan`` (the ``keep_soc=False`` layout).
+``eicos_tpu.plan``.
 
-A Reverse-Cuthill-McKee ordering of the reduced KKT pattern [x | y]
-(native library, SciPy fallback) and a block bandwidth: the numeric
-factorization is then a regular block-banded LDL^T.  Runs once per
-sparsity pattern; the ``BandPlan`` is hashable and lives on the
-``ProblemStructure``.
+A Reverse-Cuthill-McKee ordering of the reduced KKT pattern, [x | y] or
+with kept cones [z_soc | x | y] (native library, SciPy fallback), and a
+block bandwidth: the numeric factorization is then a regular block-banded
+LDL^T.  Runs once per sparsity pattern; the ``BandPlan`` is hashable and
+lives on the ``ProblemStructure``.
 """
 
 from __future__ import annotations
@@ -23,8 +23,13 @@ from .structure import ProblemStructure
 class BandPlan:
     """RCM permutation (over the padded reduced dimension) + block band.
 
-    ``keep_soc`` mirrors the reference's field; a plan that keeps the SOC
-    blocks in the factor belongs to the SOCP slice and is refused here."""
+    ``keep_soc``: the plan covers [z_soc | x | y] (ms + n + p) with the
+    per-cone SOC blocks kept in the factor in NT-scaled form (kept block
+    -(I + delta W^-2), coupling W^-1 G_soc; ``kkt._soc_scaled_kept_vals``):
+    eliminating the cones squares their conditioning, and keeping them
+    unscaled lets the unpivoted elimination grow like 1/delta once cone
+    eigenvalues fall below delta.  False: [x | y] (n + p) with every G row
+    eliminated."""
 
     perm: tuple   # (Dp,) new->old index map; identity on padding rows
     bwb: int      # block bandwidth (in 128-blocks)
@@ -38,24 +43,45 @@ class BandPlan:
 
 def make_band_plan(st: ProblemStructure, G, A, block: int = 128,
                    keep_soc: bool = False) -> BandPlan:
-    """The banded plan of the fully eliminated KKT pattern: H = G'G (plus
-    diag) and the A blocks over [x | y].  Returns a plan whose permutation
+    """The banded plan from the problem's sparsity pattern.
+
+    ``keep_soc=False``: the fully eliminated KKT, H = G'G (plus diag) and
+    the A blocks over [x | y].  ``keep_soc=True`` (needs cones): the
+    partially eliminated KKT over [z_soc | x | y], per-cone dense blocks,
+    the coupling on each cone's union column support (W^-1 mixes the rows
+    within a cone), H_lp = G_lp'G_lp and the A blocks.  The permutation
     covers the padded dimension (identity on padding)."""
     import scipy.sparse as sp
 
-    if keep_soc and st.n_sc:
-        raise NotImplementedError(
-            "make_band_plan(keep_soc=True): the SOCP kept-cone layout is "
-            "the next slice of the port")
     n, p = st.n, st.p
-    D = n + p
-    Gs = sp.csc_matrix(np.asarray(G) != 0)
-    H = (Gs.T @ Gs).astype(bool) + sp.eye(n, dtype=bool)
-    if p:
-        As = sp.csc_matrix(np.asarray(A) != 0)
-        K = sp.bmat([[H, As.T], [As, None]], format="csc")
+    keep_soc = bool(keep_soc and st.n_sc)
+    if keep_soc:
+        l, ms = st.l, st.cone.ms
+        D = ms + n + p
+        Glp = sp.csc_matrix(np.asarray(G)[:l] != 0)
+        Gsc = sp.csc_matrix(np.asarray(G)[l:] != 0)
+        H = (Glp.T @ Glp).astype(bool) + sp.eye(n, dtype=bool)
+        Wp = sp.block_diag([sp.coo_matrix(np.ones((d, d), dtype=bool))
+                            for d in st.q], format="csc")
+        Gsc = (Wp @ Gsc).astype(bool)
+        blocks = [[Wp, Gsc, None], [Gsc.T, H, None], [None, None, None]]
+        if p:
+            As = sp.csc_matrix(np.asarray(A) != 0)
+            blocks[1][2] = As.T
+            blocks[2][1] = As
+            blocks[2][2] = sp.eye(p, dtype=bool)
+        else:
+            blocks = [r[:2] for r in blocks[:2]]
+        K = sp.bmat(blocks, format="csc")
     else:
-        K = H.tocsc()
+        D = n + p
+        Gs = sp.csc_matrix(np.asarray(G) != 0)
+        H = (Gs.T @ Gs).astype(bool) + sp.eye(n, dtype=bool)
+        if p:
+            As = sp.csc_matrix(np.asarray(A) != 0)
+            K = sp.bmat([[H, As.T], [As, None]], format="csc")
+        else:
+            K = H.tocsc()
     K = (K + K.T + sp.eye(D, dtype=bool)).tocsc()
     perm = native.rcm_order(D, K.indptr.astype(np.int64),
                             K.indices.astype(np.int64))
@@ -67,4 +93,4 @@ def make_band_plan(st: ProblemStructure, G, A, block: int = 128,
     full_perm = np.concatenate([perm, np.arange(D, Dp)])
     return BandPlan(perm=tuple(int(v) for v in full_perm),
                     bwb=min(band_blocks(int(bw), block), Dp // block),
-                    block=block, keep_soc=False)
+                    block=block, keep_soc=keep_soc)

@@ -4,7 +4,7 @@
 leading lane axis on the fields that vary per lane (``api.BatchedSolver``
 names the shared ones).  ``from_reference`` rebuilds the JAX package's
 structure and data in the port, so that both packages solve the identical
-instance.
+instance, and ``scaling_from_reference`` its Nesterov-Todd scalings.
 """
 
 from __future__ import annotations
@@ -96,3 +96,17 @@ def from_reference(fields: dict, G, A, c, h, b):
                            c=np.asarray(c, np.float64),
                            h=np.asarray(h, np.float64),
                            b=np.asarray(b, np.float64))
+
+
+def scaling_from_reference(scalings, device="cpu"):
+    """The port's ``cones.Scaling`` from the JAX package's per-lane
+    ``cones.Scaling`` tuples (one per lane, fields as NumPy arrays), lanes
+    stacked along a new leading axis."""
+    import torch
+
+    from .cones import Scaling
+
+    return Scaling(*[
+        torch.as_tensor(np.stack([np.asarray(getattr(sc, f), np.float64)
+                                  for sc in scalings]), device=device)
+        for f in Scaling._fields])

@@ -236,3 +236,158 @@ def test_reduced_solver_on_card_matches_cpu(cuda):
     assert torch.equal(gpu.info.iter.cpu(), cpu.info.iter)
     np.testing.assert_allclose(gpu.info.pcost.cpu().numpy(),
                                cpu.info.pcost.numpy(), rtol=1e-8)
+
+
+def wide_band_case(lanes, nb, bw, seed):
+    """Random quasidefinite block-banded blocks with Ksubs[:, k, j-1] =
+    K[k, k-j] (zero for k < j), every row diagonally dominant."""
+    rng = np.random.default_rng(seed)
+    Kd = 0.3 * rng.standard_normal((lanes, nb, B, B)) / np.sqrt(B)
+    Kd = Kd + Kd.transpose(0, 1, 3, 2)
+    Ks = 0.3 * rng.standard_normal((lanes, nb, bw, B, B)) / np.sqrt(B)
+    rows = np.abs(Kd).sum(-1)
+    for j in range(1, bw + 1):
+        Ks[:, :j, j - 1] = 0.0
+        rows += np.abs(Ks[:, :, j - 1]).sum(-1)
+        rows[:, :-j] += np.abs(Ks[:, j:, j - 1]).sum(-2)
+    sign = np.where(rng.random((lanes, nb, B)) < 0.6, 1.0, -1.0)
+    Kd[:, :, np.arange(B), np.arange(B)] = sign * (1.0 + rows)
+    return Kd, Ks
+
+
+@pytest.mark.parametrize("bw,nb", [(2, 5), (3, 7), (6, 9), (6, 4)])
+def test_wide_band_kernels_match_plain(cuda, bw, nb):
+    """band_factor_bw, band_fwd_bw and band_bwd_bw against their plain
+    twins within 1e-12 relative (summation order, and a substitution leaf
+    inverse against Newton-Schulz), at block counts that are no multiple
+    of the bandwidth and one below it (nb = 4 < bw = 6); garbage left of
+    block column 0 is never read and L is zero there."""
+    from eicos_tpu_torch.ops import band, kernels
+    from eicos_tpu_torch.ops import band_ldl as plain
+
+    Kd, Ks = (torch.tensor(a, device=cuda)
+              for a in wide_band_case(3, nb, bw, 10 * bw + nb))
+    for j in range(1, bw + 1):
+        Ks[:, :j, j - 1] = 1e300
+    before = dict(kernels.COUNTS)
+    fk = band.band_factor(Kd, Ks)
+    fp = plain.band_factor_bw_plain(Kd, Ks)
+    for a, b in zip(fk, fp):
+        assert rel(a, b) < 1e-12
+    for j in range(1, bw + 1):
+        assert not fk.L[:, :j, j - 1].any()
+    rng = np.random.default_rng(1)
+    for k in (1, 2, 16):
+        r = torch.tensor(rng.standard_normal((3, k, nb * B)), device=cuda)
+        assert rel(band.band_fwd(fk, r), plain.band_fwd_bw_plain(fk, r)) < 1e-12
+        assert rel(band.band_bwd(fk, r), plain.band_bwd_bw_plain(fk, r)) < 1e-12
+    torch.cuda.synchronize()
+    assert kernels.COUNTS["band_factor_bw"] == before["band_factor_bw"] + 1
+    assert kernels.COUNTS["band_fwd_bw"] == before["band_fwd_bw"] + 3
+    assert kernels.COUNTS["band_bwd_bw"] == before["band_bwd_bw"] + 3
+    assert kernels.COUNTS["band_factor"] == before["band_factor"]
+
+
+def test_wide_band_kernel_at_bw1_matches_band_factor(cuda):
+    """At block bandwidth 1 the wide factor and sweeps agree with the
+    bandwidth-1 kernels within 1e-13 relative (the same leaf device code;
+    the products sum in another order)."""
+    from eicos_tpu_torch.ops import band
+
+    Kd, Ks = (torch.tensor(a, device=cuda) for a in wide_band_case(3, 5, 1, 3))
+    narrow = band.band_factor(Kd, Ks[:, :, 0].contiguous())
+    wide = band.band_factor_bw(Kd, Ks)
+    assert rel(wide.L[:, :, 0], narrow.L) < 1e-13
+    assert rel(wide.Dinv, narrow.Dinv) < 1e-13 and rel(wide.d, narrow.d) < 1e-13
+    r = torch.tensor(np.random.default_rng(2).standard_normal((3, 2, 5 * B)),
+                     device=cuda)
+    assert rel(band.band_bwd_bw(wide, band.band_fwd_bw(wide, r)),
+               band.band_solve(narrow, r)) < 1e-13
+
+
+def test_wide_band_wrappers_check_inputs(cuda):
+    from eicos_tpu_torch.ops import band
+
+    Kd, Ks = (torch.tensor(a, device=cuda) for a in wide_band_case(1, 8, 7, 0))
+    with pytest.raises(ValueError):
+        band.band_factor(Kd, Ks)
+    with pytest.raises(ValueError):
+        band.band_factor(Kd, Ks[:, :, :2])      # not contiguous
+
+
+@pytest.mark.parametrize("gsplit", [True, False], ids=["scatter", "dense"])
+def test_keep_soc_solver_on_card_matches_cpu(cuda, gsplit):
+    """Four lanes of a small SOCP under "banded" with a keep_soc plan.
+    With a gsplit the NT-scaled kept cones go through the direct scatter:
+    the kernels' solve and the CPU plain path give the same exit codes and
+    iteration counts.  Without one the band blocks are gathered from the
+    unscaled dense K, whose endgame turns on the last bits (one lane of
+    this batch ends at CLOSE_TO_OPTIMAL on the CPU and at OPTIMAL on an
+    H100): there each lane's exit tier is no worse than the CPU's and its
+    objective is within 1e-7 relative of the CPU's "reduced" solve."""
+    import eicos_tpu_torch as pt
+    from eicos_tpu_torch import corpus
+    from eicos_tpu_torch.api import _code_rank
+    from eicos_tpu_torch.ops import kernels
+    from eicos_tpu_torch.plan import make_band_plan
+
+    st, base = corpus.make_mpc_soc(horizon=30, nx=2, nu=4, seed=5)
+    if gsplit:
+        st = st.with_gsplit(base.G, base.A)
+    st = st.with_band_plan(make_band_plan(st, base.G, base.A, keep_soc=True))
+    rng = np.random.default_rng(11)
+    probs = [pt.ProblemData(G=base.G, A=base.A,
+                            c=base.c + 0.02 * rng.standard_normal(st.n),
+                            h=base.h, b=base.b) for _ in range(4)]
+    batch = pt.BatchedSolver.stack(probs, shared=("G", "A", "h"))
+    settings = pt.Settings(kkt_strategy="banded")
+    kernels.reset_counts()
+    gpu = pt.BatchedSolver(st, settings, shared=("G", "A", "h")).solve(batch)
+    assert all(kernels.COUNTS[n] > 0
+               for n in ("band_factor", "band_fwd", "band_bwd"))
+    cpu = pt.BatchedSolver(st, settings, shared=("G", "A", "h"),
+                           device="cpu").solve(batch)
+    if gsplit:
+        assert torch.equal(gpu.exit_code.cpu(), cpu.exit_code)
+        assert torch.equal(gpu.info.iter.cpu(), cpu.info.iter)
+        np.testing.assert_allclose(gpu.info.pcost.cpu().numpy(),
+                                   cpu.info.pcost.numpy(), rtol=1e-8)
+        return
+    red = pt.BatchedSolver(st, pt.Settings(kkt_strategy="reduced"),
+                           shared=("G", "A", "h"), device="cpu").solve(batch)
+    assert not red.exit_code.any()
+    for i in range(4):
+        assert _code_rank(int(gpu.exit_code[i])) >= _code_rank(
+            int(cpu.exit_code[i])), i
+    np.testing.assert_allclose(gpu.info.pcost.cpu().numpy(),
+                               red.info.pcost.numpy(), rtol=1e-7)
+
+
+def test_wide_band_solver_on_card_matches_cpu(cuda):
+    """Two lanes of a wide-stage LP (block bandwidth 2): the wide kernels'
+    solve equals the CPU plain path, and each wide kernel was launched."""
+    import eicos_tpu_torch as pt
+    from eicos_tpu_torch import corpus
+    from eicos_tpu_torch.ops import kernels
+    from eicos_tpu_torch.plan import make_band_plan
+
+    st, base = corpus.make_mpc_like(horizon=6, nx=40, nu=20, seed=3)
+    st = st.with_gsplit(base.G, base.A)
+    st = st.with_band_plan(make_band_plan(st, base.G, base.A))
+    assert st.band.bwb == 2
+    rng = np.random.default_rng(7)
+    probs = [pt.ProblemData(G=base.G, A=base.A,
+                            c=base.c + 0.02 * rng.standard_normal(st.n),
+                            h=base.h, b=base.b) for _ in range(2)]
+    batch = pt.BatchedSolver.stack(probs, shared=("G", "A", "h"))
+    settings = pt.Settings(kkt_strategy="banded")
+    kernels.reset_counts()
+    gpu = pt.BatchedSolver(st, settings, shared=("G", "A", "h")).solve(batch)
+    assert all(kernels.COUNTS[n] > 0
+               for n in ("band_factor_bw", "band_fwd_bw", "band_bwd_bw"))
+    cpu = pt.BatchedSolver(st, settings, shared=("G", "A", "h"),
+                           device="cpu").solve(batch)
+    assert torch.equal(gpu.exit_code.cpu(), cpu.exit_code)
+    assert torch.equal(gpu.info.iter.cpu(), cpu.info.iter)
+    np.testing.assert_allclose(gpu.info.pcost.cpu().numpy(),
+                               cpu.info.pcost.numpy(), rtol=1e-8)
