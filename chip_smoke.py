@@ -4,8 +4,8 @@ port's paths through its entry points:
 
   1. kernel checks at the paths' shapes (band factor and sweeps at block
      bandwidth 1; the wide band factor and sweeps at block bandwidths 2, 3
-     and 6; dense leaf LDL^T, dgemm in four forms, the two inverse-solve
-     passes);
+     and 6; dense leaf LDL^T in f64 and f32, dgemm in four forms, the two
+     inverse-solve passes, the substitution pack and its two sweeps);
   2. the main path as bench.py configures it: the 128-lane MPC01-scale
      banded LP batch through ``BatchedSolver`` with a "reduced" rescue
      (128/128 OPTIMAL, no lane rescued), lane 0 again on the CPU;
@@ -21,7 +21,18 @@ port's paths through its entry points:
      plan (NT-scaled kept cones) and the "reduced" rescue;
   7. the wide band at a real size: 64 lanes of a wide-stage MPC LP whose
      plan has block bandwidth 3 (Dp = 4864) under "banded", through the
-     dense H assembly, the gathered band blocks and the wide kernels.
+     dense H assembly, the gathered band blocks and the wide kernels;
+  8. "reduced" at ``dense_solve="auto"`` on the 128 LP lanes: on the card
+     that is the substitution form (pack and sweeps, no inverse-solve
+     launch), 128/128 OPTIMAL, objectives as phase 2's, lane 0 against the
+     CPU under ``dense_solve="subst"``;
+  9. "normal" on 128 lanes of the SOCP problem (every cone eliminated, Dp
+     = 2048, substitution form);
+ 10. "full", the default ``Settings()``: ``Solver(G, A, c, h, b)`` on lane
+     0 of the LP (Dp = 7040), then 8 lanes (cut from 128 for memory and
+     time) on the inverse path and on the substitution sweeps;
+ 11. "reduced" with ``factor_dtype="float32"`` on the 128 LP lanes (the
+     f32 leaf kernel, ``torch.matmul`` products).
 
 Phases 6 and 7 must launch their band kernels, match the CPU plain path on
 lane 0, repeat bit for bit, and end every lane OPTIMAL; lanes that do not
@@ -59,6 +70,12 @@ KERNEL_TOL = 1e-10                # kernel vs plain twin, max relative error
 RESID_TOL = 1e-9                  # ||K x - b||_inf / ||b||_inf
 LANE_TOL = 1e-8                   # lane 0: GPU vs CPU objective, relative
 STRATEGY_TOL = 1e-7               # reduced vs banded objective, relative
+SUBST_TOL = 1e-12                 # substitution sweeps vs plain, relative
+F32_LEAF_TOL = 2e-4               # f32 leaf vs plain and vs the f64 leaf
+FULL_LANES = 8                    # phase 10 (cut from 128: Dp = 7040)
+FULL_DP = 7040
+CPU_LANES = 4                     # phases 9, 11: lanes solved again on the CPU
+INACC_TOL = 1e-4                  # objective of a reduced-accuracy exit
 
 
 def fail(msg):
@@ -621,6 +638,228 @@ def check_dense_kernels(torch, band, leaf, gemm, ldl):
     return records
 
 
+def check_subst_kernels(torch, leaf, ldl, dense, kernels):
+    """The substitution path's kernels (dense_pack, dense_fwd, dense_bwd)
+    and the f32 leaf against their plain versions, with times, bounds and
+    library yardsticks; the two dense factors and the two solve pairs side
+    by side.  Returns the per-kernel records (launches filled in later)."""
+    records = []
+    L, Dp = LANES, 2048
+    nb = Dp // B
+    nblk = nb * (nb - 1) // 2
+    blk = B * B * 8
+    tri = B * (B + 1) // 2 * 8
+    g = torch.Generator(device="cuda")
+    g.manual_seed(15)
+
+    def rnd(*shape):
+        return torch.randn(*shape, generator=g, dtype=torch.float64,
+                           device="cuda")
+
+    K = quasidefinite(torch, L, Dp, 1500, seed=3)
+    kernels.reset_counts()
+    inv = ldl.ldl_factor(K.clone())
+    n_inv = kernels.COUNTS["dgemm"]
+    kernels.reset_counts()
+    K2 = K.clone()
+    fs = ldl.ldl_factor_subst(K2)       # K2 now holds L below its diagonal
+    n_sub = kernels.COUNTS["dgemm"]
+    torch.cuda.synchronize()
+    fac = fs.pre
+    same_pack = torch.equal(fac.Lp, dense.pack_dense_plain(K2))
+    same_d = torch.equal(fs.d, inv.d)
+    same_x = all(torch.equal(fac.Xinv[:, i],
+                             inv.Linv[:, i * B:(i + 1) * B, i * B:(i + 1) * B])
+                 for i in range(nb))
+    print(f"dense_pack equal to its plain version bit for bit: {same_pack}; "
+          f"ldl_factor_subst's d and leaf inverses bit-equal to "
+          f"ldl_factor's: {same_d}, {same_x}; dgemm launches a factor: "
+          f"{n_inv} (inverse) / {n_sub} (substitution)")
+    if not (same_pack and same_d and same_x):
+        fail("dense_pack or the substitution factor disagrees")
+
+    errs = {"dense_fwd": 0.0, "dense_bwd": 0.0}
+
+    def check_sweeps(fac, Kmat, inv_fac, lanes, dp, k, label):
+        r = rnd(lanes, k, dp)
+        wk = dense.dense_fwd(fac, r)
+        wp = dense.dense_fwd_plain(fac, r)
+        zk = dense.dense_bwd(fac, wk)
+        zp = dense.dense_bwd_plain(fac, wk)
+        torch.cuda.synchronize()
+        resid = rel_err(torch.matmul(zk, Kmat), r)
+        ef, eb = rel_err(wk, wp), rel_err(zk, zp)
+        errs["dense_fwd"] = max(errs["dense_fwd"],
+                                float((wk - wp).abs().max()))
+        errs["dense_bwd"] = max(errs["dense_bwd"],
+                                float((zk - zp).abs().max()))
+        line = (f"{label} k={k}: dense_fwd rel err {ef:.3e}, dense_bwd "
+                f"{eb:.3e}, residual ||K x - b|| / ||b|| {resid:.3e}")
+        if inv_fac is not None:
+            line += (f", vs the inverse solve "
+                     f"{rel_err(zk, ldl.ldl_solve(inv_fac, r)):.3e}")
+        print(line)
+        if not max(ef, eb) <= SUBST_TOL:
+            fail(f"substitution sweeps disagree with their plain versions "
+                 f"({label}, k={k})")
+        if not resid <= RESID_TOL:
+            fail(f"substitution solve residual {resid} ({label}, k={k})")
+        return r, wk
+
+    for k in (KP, 2):
+        r, wk = check_sweeps(fac, K, inv, L, Dp, k, f"{L} x Dp {Dp}")
+
+    # ---- times at the path's shape (k = 2), bounds, library yardsticks
+    def sweep_bound(lanes, nb_, k):
+        nblk_ = nb_ * (nb_ - 1) // 2
+        io = 2 * lanes * k * nb_ * B * 8
+        nbytes = lanes * (nblk_ * blk + nb_ * tri)
+        ops = lanes * k * (2 * nblk_ * B * B + nb_ * B * (B + 1))
+        return nbytes, io, ops
+
+    nbytes, io, ops = sweep_bound(L, nb, 2)
+    # library yardstick: one dense triangular solve with the unit-lower L
+    Lfull = torch.tril(K2, -1)
+    Lkk = torch.linalg.inv(fac.Xinv)
+    for i in range(nb):
+        Lfull[:, i * B:(i + 1) * B, i * B:(i + 1) * B] = Lkk[:, i]
+    del Lkk
+    rT = r.transpose(-1, -2).contiguous()
+    lib_f = cuda_ms(lambda: torch.linalg.solve_triangular(
+        Lfull, rT, upper=False, unitriangular=True), reps=5)
+    Lfull = Lfull.transpose(-1, -2).contiguous()
+    lib_b = cuda_ms(lambda: torch.linalg.solve_triangular(
+        Lfull, rT, upper=True, unitriangular=True), reps=5)
+    del Lfull
+    torch.cuda.empty_cache()
+    r16 = rnd(L, KP, Dp)
+    for name, fn, fn16, pfn, lms, extra, line in (
+            ("dense_fwd", lambda: dense.dense_fwd(fac, r),
+             lambda: dense.dense_fwd(fac, r16),
+             lambda: dense.dense_fwd_plain(fac, r), lib_f, L * Dp * 8, 301),
+            ("dense_bwd", lambda: dense.dense_bwd(fac, wk),
+             lambda: dense.dense_bwd(fac, r16),
+             lambda: dense.dense_bwd_plain(fac, wk), lib_b, 0, 365)):
+        b_ms, b_by = bound(nbytes + extra + io, ops)
+        ms, ms16, pms = cuda_ms(fn), cuda_ms(fn16), cuda_ms(pfn, reps=5)
+        print(f"{name}: {ms:.4f} ms at k=2 ({ms16:.4f} ms at k={KP}); plain "
+              f"{pms:.4f} ms; solve_triangular {lms:.4f} ms; bound "
+              f"{b_ms:.4f} ms by {b_by} ({(nbytes + extra + io) / 1e9:.3f} "
+              f"GB)")
+        records.append(dict(
+            name=name, route="cuda",
+            source="eicos_tpu_torch/csrc/dense_solve.cu",
+            replaces=f"eicos_tpu/ops/pallas_dense_ds.py:{line}",
+            max_abs_err=errs[name], ms=ms, plain_ms=pms, bound_ms=b_ms,
+            bound_by=b_by, library_ms=lms))
+    # the two solve pairs in turns (inverse, substitution, substitution,
+    # inverse)
+    pairs = []
+    for which in ("inv", "sub", "sub", "inv"):
+        pairs.append(cuda_ms(
+            (lambda: ldl.ldl_solve(inv, r)) if which == "inv"
+            else (lambda: ldl.ldl_solve(fs, r))))
+    print(f"one solve, k=2, ms: inverse pair {pairs[0]:.4f} / {pairs[3]:.4f}"
+          f", substitution pair {pairs[1]:.4f} / {pairs[2]:.4f}")
+
+    # ---- dense_pack: time, bound, library (one advanced-indexing call)
+    rows, cols = torch.tril_indices(nb, nb, -1, device="cuda")
+    view = K2.view(L, nb, B, nb, B).permute(0, 1, 3, 2, 4)
+    b_ms, b_by = bound(2 * L * nblk * blk, 0)
+    ms = cuda_ms(lambda: dense.pack_dense(K2, fac.Xinv, fac.d))
+    pms = cuda_ms(lambda: dense.pack_dense_plain(K2), reps=5)
+    lms = cuda_ms(lambda: view[:, rows, cols], reps=5)
+    print(f"dense_pack: {ms:.4f} ms (plain {pms:.4f} ms, one indexing call "
+          f"{lms:.4f} ms), bound {b_ms:.4f} ms by {b_by} "
+          f"({2 * L * nblk * blk / 1e9:.3f} GB)")
+    records.insert(0, dict(
+        name="dense_pack", route="cuda",
+        source="eicos_tpu_torch/csrc/dense_pack.cu",
+        replaces="eicos_tpu/ops/pallas_dense_ds.py:139", max_abs_err=0.0,
+        ms=ms, plain_ms=pms, bound_ms=b_ms, bound_by=b_by, library_ms=lms))
+    del view, K2, inv, fs, fac
+    torch.cuda.empty_cache()
+
+    # ---- the two factors in turns (one clone of K in each)
+    t_fac = []
+    for which in ("inv", "sub", "sub", "inv"):
+        t_fac.append(cuda_ms(
+            (lambda: ldl.ldl_factor(K.clone())) if which == "inv"
+            else (lambda: ldl.ldl_factor_subst(K.clone())), reps=3))
+        torch.cuda.empty_cache()
+    print(f"factor, {L} x Dp {Dp}, ms: ldl_factor {t_fac[0]:.2f} / "
+          f"{t_fac[3]:.2f}, ldl_factor_subst with its pack {t_fac[1]:.2f} / "
+          f"{t_fac[2]:.2f}")
+    del K
+    torch.cuda.empty_cache()
+
+    # ---- the "full" strategy's shape: 4 lanes, Dp 7040, k = 2
+    Lf, nbf = 4, FULL_DP // B
+    Kf = quasidefinite(torch, Lf, FULL_DP, 5000, seed=16)
+    K2 = Kf.clone()
+    fs = ldl.ldl_factor_subst(K2)
+    del K2
+    r, wk = check_sweeps(fs.pre, Kf, None, Lf, FULL_DP, 2,
+                         f"{Lf} x Dp {FULL_DP}")
+    nbytes, io, ops = sweep_bound(Lf, nbf, 2)
+    for name, fn, extra in (
+            ("dense_fwd", lambda: dense.dense_fwd(fs.pre, r),
+             Lf * FULL_DP * 8),
+            ("dense_bwd", lambda: dense.dense_bwd(fs.pre, wk), 0)):
+        b_ms, b_by = bound(nbytes + extra + io, ops)
+        print(f"{name} at {Lf} x Dp {FULL_DP}, k=2: "
+              f"{cuda_ms(fn, reps=5):.4f} ms, bound {b_ms:.4f} ms by {b_by}")
+    del Kf, fs, r, wk
+    torch.cuda.empty_cache()
+
+    # ---- leaf_ldl at f32
+    M = quasidefinite(torch, L, B, 80, seed=2)
+    M32 = M.to(torch.float32)
+    Lk, dk = leaf.leaf_ldl(M32)
+    Lp_, dp_ = leaf.leaf_ldl_plain(M32)
+    L64, d64 = leaf.leaf_ldl(M)
+    torch.cuda.synchronize()
+    e_plain = max(rel_err(Lk, Lp_), rel_err(dk, dp_))
+    e_64 = max(rel_err(Lk.double(), L64), rel_err(dk.double(), d64))
+    resid = rel_err(Lk.double() @ M32.double() @ Lk.double().transpose(-1, -2),
+                    torch.diag_embed(dk.double()))
+    print(f"leaf_ldl f32 vs plain: max rel err {e_plain:.3e}; vs the f64 "
+          f"leaf {e_64:.3e}; ||Linv M Linv' - diag(d)|| rel {resid:.3e} "
+          f"(tolerance {F32_LEAF_TOL})")
+    if (Lk.dtype != torch.float32 or not max(e_plain, e_64) <= F32_LEAF_TOL
+            or not resid <= F32_LEAF_TOL):
+        fail("leaf_ldl at f32 disagrees with its plain version or the f64 "
+             "leaf")
+    b_ms, b_by = bound(L * (B * (B + 1) // 2 * 4 + B * B * 4 + B * 4),
+                       L * (B ** 3 // 2 + B ** 3 // 3))
+    ms = cuda_ms(lambda: leaf.leaf_ldl(M32))
+    pms = cuda_ms(lambda: leaf.leaf_ldl_plain(M32), reps=5)
+    print(f"leaf_ldl f32: {ms:.4f} ms (plain {pms:.3f} ms; the f64 leaf "
+          f"{cuda_ms(lambda: leaf.leaf_ldl(M)):.4f} ms), bound {b_ms:.4f} ms "
+          f"by {b_by}")
+    records.append(dict(
+        name="leaf_ldl_f32", route="cuda",
+        source="eicos_tpu_torch/csrc/leaf_ldl_f32.cu",
+        replaces="eicos_tpu/ops/pallas_leaf.py:56",
+        max_abs_err=max(float((Lk - Lp_).abs().max()),
+                        float((dk - dp_).abs().max())),
+        ms=ms, plain_ms=pms, bound_ms=b_ms, bound_by=b_by, library_ms=None))
+
+    # ---- the whole f32 factor and solve (f32 leaf, torch.matmul products
+    # and passes) against the f64 ones
+    Kq = quasidefinite(torch, 8, 4 * B, 300, seed=17)
+    rq = rnd(8, 2, 4 * B)
+    x64 = ldl.ldl_solve(ldl.ldl_factor(Kq.clone()), rq)
+    x32 = ldl.ldl_solve(ldl.ldl_factor(Kq.to(torch.float32)),
+                        rq.to(torch.float32))
+    e_32 = rel_err(x32.double(), x64)
+    print(f"ldl_factor + ldl_solve at f32, 8 x Dp {4 * B}: {x32.dtype}, rel "
+          f"err vs the f64 solve {e_32:.3e} (tolerance {F32_LEAF_TOL})")
+    if x32.dtype != torch.float32 or not e_32 <= F32_LEAF_TOL:
+        fail("the f32 factor and solve disagree with the f64 ones")
+    return records
+
+
 def perturbed_lanes(pt, st, base, lanes, nx, seed):
     """bench.py's lanes of one base problem: shared G/A/h, per-lane c and
     x0 (the first ``nx`` entries of b)."""
@@ -713,7 +952,7 @@ def drive(torch, kernels, kkt, bs, batch):
 
 def timed(torch, bs, batch, lanes, reps=3):
     """Median wall time of ``reps`` solves after the first; prints it and
-    returns the last solution."""
+    returns the last solution and the median solves/s."""
     times = []
     for _ in range(reps):
         t0 = time.perf_counter()
@@ -724,7 +963,7 @@ def timed(torch, bs, batch, lanes, reps=3):
     print(f"timed solves {times} s; median {lanes / med:.2f} solves/s; peak "
           f"device memory {torch.cuda.max_memory_allocated() / 2 ** 30:.3f} "
           f"GiB")
-    return sol
+    return sol, lanes / med
 
 
 def same_bits(torch, first, again, label):
@@ -795,6 +1034,56 @@ def all_optimal_or_as_cpu(pt, st, probs, shared, settings, rescue, sol,
              f"other codes than on the CPU plain path")
 
 
+def code_rank(code):
+    """Exit tier: 2 definitive, 1 reduced accuracy, 0 failure."""
+    return 2 if code in (0, 1, 2) else (1 if code in (10, 11, 12) else 0)
+
+
+def tiers_as_cpu(pt, st, probs, shared, settings, sol, lanes, label):
+    """Paths whose endgame turns on the last bits ("normal" on a SOCP, an
+    f32 factor): the lanes ``lanes`` are solved again on the CPU plain
+    path; codes and iteration counts are printed.  Such a lane can end
+    OPTIMAL on one device and CLOSE_TO_OPTIMAL on the other, so the card
+    must answer (definitive or reduced-accuracy exit) exactly where the
+    CPU does, with the CPU's objective within INACC_TOL."""
+    t0 = time.perf_counter()
+    cpu = pt.BatchedSolver(st, settings, shared=shared, device="cpu").solve(
+        pt.BatchedSolver.stack([probs[i] for i in lanes], shared=shared))
+    codes = sol.exit_code.cpu().numpy()[lanes].tolist()
+    ccodes = cpu.exit_code.numpy().tolist()
+    pc = sol.info.pcost.cpu().numpy()[lanes]
+    cpc = cpu.info.pcost.numpy()
+    print(f"{label}: lanes {lanes} on the card: codes {codes}, iterations "
+          f"{sol.info.iter.cpu().numpy()[lanes].tolist()}; CPU plain path: "
+          f"codes {ccodes}, iterations {cpu.info.iter.numpy().tolist()} "
+          f"({time.perf_counter() - t0:.1f} s)")
+    for j, lane in enumerate(lanes):
+        if bool(code_rank(codes[j])) != bool(code_rank(ccodes[j])):
+            fail(f"{label}: lane {lane} ends with code {codes[j]} on the "
+                 f"card and {ccodes[j]} on the CPU plain path: one has an "
+                 f"answer, the other fails")
+        if code_rank(codes[j]) and not (abs(pc[j] - cpc[j])
+                                        <= INACC_TOL * abs(cpc[j])):
+            fail(f"{label}: lane {lane} objective {pc[j]} vs CPU {cpc[j]}")
+
+
+def objectives_close(sol, want, tol_by_tier, label):
+    """The first ``len(want)`` lanes, where they exit with an answer, must
+    have the reference objective ``want``: within ``tol_by_tier[tier]``
+    relative, tier 2 definitive, 1 reduced accuracy."""
+    codes = sol.exit_code.cpu().numpy()[:len(want)]
+    pc = sol.info.pcost.cpu().numpy()[:len(want)]
+    for tier, tol in tol_by_tier.items():
+        sel = np.array([code_rank(int(c)) == tier for c in codes])
+        if not sel.any():
+            continue
+        worst = float((np.abs(pc[sel] - want[sel]) / np.abs(want[sel])).max())
+        print(f"{label}: {int(sel.sum())} lanes of tier {tier}, objective vs "
+              f"the reference path's: max relative difference {worst:.3e}")
+        if not worst <= tol:
+            fail(f"{label}: objectives of tier {tier} differ by {worst}")
+
+
 def run_path(torch, pt, kernels, kkt, label, st, probs, batch, shared,
              settings, rescue, names):
     """Drive one path of the port at full width: a first solve with the
@@ -810,7 +1099,7 @@ def run_path(torch, pt, kernels, kkt, label, st, probs, batch, shared,
           f"launches {launches}; rescued lanes {list(bs.last_rescued)}")
     need_launched(launches, names, label)
     first = sol
-    sol = timed(torch, bs, batch, lanes)
+    sol, _ = timed(torch, bs, batch, lanes)
     same_bits(torch, first, sol, label)
     del first
     if rescue is not None:
@@ -833,7 +1122,7 @@ def main():
     sys.path.insert(0, os.path.dirname(os.path.abspath(__file__)))
     import eicos_tpu_torch as pt
     from eicos_tpu_torch import corpus, kkt
-    from eicos_tpu_torch.ops import band, gemm, kernels, ldl, leaf
+    from eicos_tpu_torch.ops import band, dense, gemm, kernels, ldl, leaf
     from eicos_tpu_torch.ops import band_ldl as plain
     from eicos_tpu_torch.plan import make_band_plan
 
@@ -844,6 +1133,10 @@ def main():
     print(smi)
     print(f"torch {torch.__version__}, CUDA {torch.version.cuda}, "
           f"{torch.cuda.get_device_name(0)}")
+
+    # the f32 products of factor_dtype="float32" must run in full f32
+    if torch.backends.cuda.matmul.allow_tf32:
+        fail("torch.backends.cuda.matmul.allow_tf32 is on")
 
     t0 = time.perf_counter()
     kernels.build()
@@ -857,10 +1150,14 @@ def main():
     band_records = check_kernels(torch, band, plain)
     wide_records = check_wide_kernels(torch, band, plain)
     dense_records = check_dense_kernels(torch, band, leaf, gemm, ldl)
+    subst_records = check_subst_kernels(torch, leaf, ldl, dense, kernels)
     print(f"kernel checks: {time.perf_counter() - t0:.1f} s")
     band_names = [r["name"] for r in band_records]
     wide_names = [r["name"] for r in wide_records]
     dense_names = [r["name"] for r in dense_records]
+    subst_names = ["leaf_ldl", "dgemm", "dense_pack", "dense_fwd",
+                   "dense_bwd"]
+    linv_names = ["linv_fwd", "linv_bwd"]
 
     # ---- phase 2: the main path as bench.py configures it
     t_phase = time.perf_counter()
@@ -878,7 +1175,7 @@ def main():
     for r in band_records:
         r["launches"] = launches[r["name"]]
     first = sol
-    sol = timed(torch, bs, batch, LANES)
+    sol, _ = timed(torch, bs, batch, LANES)
     same_bits(torch, first, sol, "main path")
     codes, iters, hist = outcome(sol, "main path")
     if hist != {0: LANES}:
@@ -934,7 +1231,7 @@ def main():
     for r in dense_records:
         r["launches"] = launches[r["name"]]
     first = rsol
-    rsol = timed(torch, rs, batch, LANES)
+    rsol, inverse_rate = timed(torch, rs, batch, LANES)
     same_bits(torch, first, rsol, "reduced")
     del first
     codes, iters, hist = outcome(rsol, "reduced")
@@ -947,6 +1244,8 @@ def main():
         fail(f"reduced and banded objectives differ by {worst}")
     profile_solve(torch, rs, batch)
     same_as_cpu(pt, st, probs[0], red, rsol, "reduced")
+    red0 = (int(rsol.exit_code[0]), int(rsol.info.iter[0]),
+            float(rsol.info.pcost[0]))
     del rs, rsol
     torch.cuda.empty_cache()
     print(f"phase 4: {time.perf_counter() - t_phase:.1f} s")
@@ -968,6 +1267,7 @@ def main():
     print(f"SOCP reduced: exit codes by lane {ssol.exit_code.tolist()}")
     same_bits(torch, ssol, ss.solve(sbatch), "SOCP reduced")
     same_as_cpu(pt, sst, sprobs[0], red, ssol, "SOCP reduced")
+    soc_red_pcost = ssol.info.pcost.cpu().numpy()
     print(f"phase 5: {time.perf_counter() - t_phase:.1f} s")
 
     # ---- phase 6: the SOCP lane of the main path (NT-scaled kept cones)
@@ -1002,13 +1302,168 @@ def main():
         r["launches"] = launches[r["name"]]
     print(f"phase 7: {time.perf_counter() - t_phase:.1f} s")
 
+    # ---- phase 8: "reduced" at dense_solve="auto": substitution on the card
+    t_phase = time.perf_counter()
+    del wbatch, wprobs
+    torch.cuda.empty_cache()
+    auto = pt.Settings(kkt_strategy="reduced")
+    us = pt.BatchedSolver(st, auto, shared=shared)
+    torch.cuda.reset_peak_memory_stats()
+    usol, launches, syncs, t_first = drive(torch, kernels, kkt, us, batch)
+    print(f"reduced on substitution: {LANES} lanes; first solve "
+          f"{t_first:.3f} s; host syncs {syncs}; kernel launches {launches}")
+    need_launched(launches, subst_names, "reduced on substitution")
+    if any(launches[n] for n in linv_names):
+        fail(f"reduced on substitution launched the inverse solves: "
+             f"{launches}")
+    for r in subst_records:
+        if r["name"] != "leaf_ldl_f32":
+            r["launches"] = launches[r["name"]]
+    first = usol
+    usol, subst_rate = timed(torch, us, batch, LANES)
+    same_bits(torch, first, usol, "reduced on substitution")
+    del first
+    codes, iters, hist = outcome(usol, "reduced on substitution")
+    if hist != {0: LANES}:
+        fail(f"reduced on substitution: not every lane OPTIMAL: {hist}")
+    objectives_close(usol, banded_pcost, {2: STRATEGY_TOL},
+                     "reduced on substitution")
+    print(f"reduced, batch solves/s: inverse path {inverse_rate:.2f} (phase "
+          f"4), substitution path {subst_rate:.2f}")
+    profile_solve(torch, us, batch)
+    same_as_cpu(pt, st, probs[0],
+                pt.Settings(kkt_strategy="reduced", dense_solve="subst"),
+                usol, "reduced on substitution")
+    del us, usol
+    torch.cuda.empty_cache()
+    print(f"phase 8: {time.perf_counter() - t_phase:.1f} s")
+
+    # ---- phase 9: "normal" on the SOCP problem (every cone eliminated)
+    t_phase = time.perf_counter()
+    nst, nprobs, nbatch, nshared = build_socp_batch(pt, corpus, LANES)
+    normal = pt.Settings(kkt_strategy="normal")
+    ns = pt.BatchedSolver(nst, normal, shared=nshared)
+    torch.cuda.reset_peak_memory_stats()
+    nsol, launches, syncs, t_first = drive(torch, kernels, kkt, ns, nbatch)
+    print(f"normal: n={nst.n} p={nst.p} m={nst.m}, Dp="
+          f"{-(-(nst.n + nst.p) // B) * B}, {LANES} lanes; first solve "
+          f"{t_first:.3f} s; host syncs {syncs}; kernel launches {launches}")
+    need_launched(launches, subst_names, "normal")
+    first = nsol
+    nsol, _ = timed(torch, ns, nbatch, LANES, reps=2)
+    same_bits(torch, first, nsol, "normal")
+    del first
+    codes, iters, hist = outcome(nsol, "normal")
+    print(f"normal: exit codes of lanes 0-{SOC_LANES - 1} "
+          f"{codes[:SOC_LANES].tolist()}")
+    # lanes 0-7 are phase 5's: the objective of the kept-cone solve
+    objectives_close(nsol, soc_red_pcost, {2: STRATEGY_TOL, 1: INACC_TOL},
+                     "normal, lanes of phase 5")
+    if any(code_rank(int(c)) == 0 for c in codes):
+        print("normal: some lanes end without an answer")
+    # the lanes short of OPTIMAL, at most CPU_LANES of them, on the CPU
+    short = [int(i) for i in np.flatnonzero(codes != 0)][:CPU_LANES]
+    profile_solve(torch, ns, nbatch)
+    tiers_as_cpu(pt, nst, nprobs, nshared, normal, nsol, short or [0],
+                 "normal")
+    del ns, nsol, nbatch, nprobs
+    torch.cuda.empty_cache()
+    print(f"phase 9: {time.perf_counter() - t_phase:.1f} s")
+
+    # ---- phase 10: "full", the default Settings()
+    t_phase = time.perf_counter()
+    p0 = probs[0]
+    kernels.reset_counts()
+    one = pt.Solver(p0.G, p0.A, p0.c, p0.h, p0.b)
+    t0 = time.perf_counter()
+    code = one.solve()
+    torch.cuda.synchronize()
+    launches = dict(kernels.COUNTS)
+    info = one.get_info()
+    Dp_full = -(-(st.n + st.p + st.m) // B) * B
+    print(f"full, Solver at default settings, lane 0: Dp={Dp_full}; code "
+          f"{int(code)} iter {int(info.iter)} pcost {float(info.pcost)!r} in "
+          f"{time.perf_counter() - t0:.3f} s; kernel launches {launches}; "
+          f"'reduced' on the card (phase 4): code {red0[0]} iter {red0[1]} "
+          f"pcost {red0[2]!r}")
+    if Dp_full != FULL_DP:
+        fail(f"full: Dp {Dp_full}, expected {FULL_DP}")
+    need_launched(launches, ["leaf_ldl", "dgemm"] + linv_names, "full")
+    if launches["dense_fwd"] or launches["dense_pack"]:
+        fail("full at default settings left the inverse path")
+    # lane 0 against "reduced" on the card: a CPU solve at Dp 7040 would
+    # take minutes
+    if (int(code) != 0 or red0[0] != 0
+            or not abs(float(info.pcost) - red0[2])
+            <= STRATEGY_TOL * abs(red0[2])):
+        fail("full: lane 0 disagrees with the reduced strategy")
+    del one
+    fbatch = pt.BatchedSolver.stack(probs[:FULL_LANES], shared=shared)
+    for label, cfg, must, never in (
+            ("full", pt.Settings(), linv_names, ["dense_pack", "dense_fwd",
+                                                 "dense_bwd"]),
+            ("full on substitution", pt.Settings(dense_solve="subst"),
+             ["dense_pack", "dense_fwd", "dense_bwd"], linv_names)):
+        fs_ = pt.BatchedSolver(st, cfg, shared=shared)
+        torch.cuda.reset_peak_memory_stats()
+        fsol, launches, syncs, t_first = drive(torch, kernels, kkt, fs_,
+                                               fbatch)
+        print(f"{label}: {FULL_LANES} lanes (cut from {LANES}), Dp="
+              f"{Dp_full}; first solve {t_first:.3f} s; host syncs {syncs}; "
+              f"kernel launches {launches}")
+        need_launched(launches, ["leaf_ldl", "dgemm"] + must, label)
+        if any(launches[n] for n in never):
+            fail(f"{label}: launched {never}: {launches}")
+        again, rate = timed(torch, fs_, fbatch, FULL_LANES, reps=1)
+        same_bits(torch, fsol, again, label)
+        codes, iters, hist = outcome(fsol, label)
+        if hist != {0: FULL_LANES}:
+            fail(f"{label}: not every lane OPTIMAL: {hist}")
+        objectives_close(fsol, banded_pcost[:FULL_LANES], {2: STRATEGY_TOL},
+                         label)
+        profile_solve(torch, fs_, fbatch)
+        del fs_, fsol, again
+        torch.cuda.empty_cache()
+    del fbatch
+    print(f"phase 10: {time.perf_counter() - t_phase:.1f} s")
+
+    # ---- phase 11: "reduced" with an f32 factor
+    t_phase = time.perf_counter()
+    f32 = pt.Settings(kkt_strategy="reduced", factor_dtype="float32")
+    hs = pt.BatchedSolver(st, f32, shared=shared)
+    torch.cuda.reset_peak_memory_stats()
+    hsol, launches, syncs, t_first = drive(torch, kernels, kkt, hs, batch)
+    print(f"reduced, f32 factor: {LANES} lanes; first solve {t_first:.3f} s; "
+          f"host syncs {syncs}; kernel launches {launches}")
+    need_launched(launches, ["leaf_ldl_f32"], "reduced, f32 factor")
+    if any(launches[n] for n in ["leaf_ldl", "dgemm", "dense_fwd"]
+           + linv_names):
+        fail(f"reduced, f32 factor: launched an f64 dense kernel: {launches}")
+    for r in subst_records:
+        if r["name"] == "leaf_ldl_f32":
+            r["launches"] = launches[r["name"]]
+    again, _ = timed(torch, hs, batch, LANES, reps=2)
+    same = torch.equal(hsol.exit_code, again.exit_code) and torch.equal(
+        hsol.x, again.x)
+    print(f"reduced, f32 factor: a repeated solve gives the same bits: "
+          f"{same} (printed, not checked: the f32 products are cuBLAS's)")
+    codes, iters, hist = outcome(hsol, "reduced, f32 factor")
+    # a lane that claims an answer under the f32 factor must have it
+    objectives_close(hsol, banded_pcost, {2: 1e-6, 1: INACC_TOL},
+                     "reduced, f32 factor")
+    profile_solve(torch, hs, batch)
+    tiers_as_cpu(pt, st, probs, shared, f32, hsol, list(range(CPU_LANES)),
+                 "reduced, f32 factor")
+    del hs, hsol, again
+    print(f"phase 11: {time.perf_counter() - t_phase:.1f} s")
+
     order = ("name", "route", "source", "replaces", "launches",
              "max_abs_err", "ms", "plain_ms", "bound_ms", "bound_by",
              "library_ms")
     print(f"total {time.perf_counter() - t_start:.1f} s")
     print(json.dumps({"kernels": [{k: r[k] for k in order}
                                   for r in band_records + wide_records
-                                  + dense_records]}))
+                                  + dense_records + subst_records]}))
     print(smi)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

@@ -1,13 +1,14 @@
-"""KKT assembly, factor and solve with iterative refinement: the "banded"
-strategy of ``eicos_tpu.kkt`` (LP and second-order cones, block bandwidth
-1..6) and its "reduced" strategy on the dense float64 inverse path.
+"""KKT assembly, factor and solve with iterative refinement: the four
+strategies of ``eicos_tpu.kkt``: "banded" (LP and second-order cones,
+block bandwidth 1..6) and the dense "reduced", "normal" and "full".
 
-Both factor a quasidefinite system over [z_soc | x | y] in which the rows
-of G whose cone block has a closed-form inverse are eliminated exactly:
-the LP rows always ((W^2 + dI)^{-1} is diagonal there, d = deltastat), and
-under "banded" without a ``keep_soc`` plan the SOC rows too (a 2x2
-Woodbury per cone, ``cones.scale2reg_inv_soc``).  With G_e the eliminated
-and G_s the kept rows, H = G_e' (W_e^2 + dI)^{-1} G_e + dI:
+"banded", "reduced" and "normal" factor a quasidefinite system over
+[z_soc | x | y] in which the rows of G whose cone block has a closed-form
+inverse are eliminated exactly: the LP rows always ((W^2 + dI)^{-1} is
+diagonal there, d = deltastat), and under "normal" and under "banded"
+without a ``keep_soc`` plan the SOC rows too (a 2x2 Woodbury per cone,
+``cones.scale2reg_inv_soc``).  With G_e the eliminated and G_s the kept
+rows, H = G_e' (W_e^2 + dI)^{-1} G_e + dI:
 
              [ -(W_s^2 + dI)   G_s   0  ]
          K = [  G_s'           H     A' ]
@@ -41,8 +42,29 @@ banded   K is RCM-permuted by the structure's ``BandPlan`` into 128-blocks
 
 reduced  the dense (Dp, Dp) K with the SOC rows kept, on a lane-invariant
          base ``K0`` (``eicos_tpu.kkt.make_context``).  The factor and the
-         solves run in ``ops/ldl.py`` (the leaf, GEMM and inverse-solve
-         kernels).
+         solves run in ``ops/ldl.py``.
+
+normal   the same with every cone row eliminated: K over [x | y].
+
+full     nothing eliminated: the dense K over [z | x | y] (the
+         reference's elimination order), -(W^2 + dI) from
+         ``cones.w2_dense`` on a base that holds G, A, dI and -dI.
+
+The dense strategies solve on one of two paths (``_use_subst``, as
+``eicos_tpu.kkt._use_subst``): the explicit inverse (``ldl_factor``: the
+leaf, GEMM and inverse-solve kernels) or the substitution form
+(``ldl_factor_subst``: the leaf and GEMM kernels, the pack and the two
+sweeps of ``ops/dense.py``).  ``dense_solve="auto"`` follows the device of
+the tensors, as every dispatch of the port does: on a CUDA tensor "reduced"
+and "normal" take the substitution form, as on the TPU, and on a CPU
+tensor the inverse, as the JAX package does there; "full" stays on the
+inverse unless "subst" is asked for.  "subst" on a CPU tensor runs the
+plain versions of the pack and the sweeps.
+
+``factor_dtype="float32"`` (dense strategies only) factors and solves in
+f32 on the inverse path: G, the scalings, H and K are cast as the
+reference casts them, the leaf is the f32 leaf kernel, the products are
+``torch.matmul``, and the directions are cast back for the f64 refinement.
 
 The dense H is written per factor in the reference's order of summation:
 the gsplit's dense rows (or every eliminated row without a gsplit) by one
@@ -57,8 +79,9 @@ dense equilibrated G and A (``torch.matmul``, as the JAX package computes
 them on the CPU), in the reference's residual-first order, with per-lane
 and per-column stopping.
 
-Other configurations raise ``NotImplementedError`` naming the slice they
-belong to; nothing falls back silently.
+What is not ported raises ``NotImplementedError`` (a block size other
+than 128, block bandwidth above 6, f32 under "banded"); nothing falls back
+silently.
 """
 
 from __future__ import annotations
@@ -72,7 +95,7 @@ import torch
 from . import cones
 from .ops.band import BW_MAX, band_factor, band_solve
 from .ops.band_ldl import B, KP
-from .ops.ldl import ldl_factor, ldl_solve, pad_to_block
+from .ops.ldl import ldl_factor, ldl_factor_subst, ldl_solve, pad_to_block
 from .segsum import SegmentSum, segment_map, segment_sum
 from .structure import ProblemStructure
 
@@ -90,13 +113,14 @@ def all_true(t: torch.Tensor) -> bool:
 
 def _keep_soc(st: ProblemStructure, settings) -> bool:
     """"reduced" keeps the SOC blocks in the factor, as does "banded" when
-    its plan was built with ``keep_soc=True``; a banded plan without it
-    eliminates every cone row."""
+    its plan was built with ``keep_soc=True``; "normal" and a banded plan
+    without it eliminate every cone row."""
     if st.n_sc == 0:
         return False
     if settings.kkt_strategy == "reduced":
         return True
-    return bool(getattr(st.band, "keep_soc", False))
+    return bool(settings.kkt_strategy == "banded"
+                and getattr(st.band, "keep_soc", False))
 
 
 def _direct_band(st: ProblemStructure) -> bool:
@@ -112,27 +136,17 @@ def _direct_band(st: ProblemStructure) -> bool:
 
 
 def require_slice(st: ProblemStructure, settings) -> None:
-    """Raise unless (structure, settings) lies on the ported slices: f64,
-    128-blocks, and either "reduced" on the inverse solve path or
-    "banded" at block bandwidth 1..6."""
-    if settings.kkt_strategy in ("full", "normal"):
-        raise NotImplementedError(
-            f"kkt_strategy={settings.kkt_strategy!r}: the 'full' and "
-            "'normal' dense strategies are a later slice of the port (only "
-            "'banded' and 'reduced' are ported)")
-    if settings.factor_dtype != "float64":
-        raise NotImplementedError(
-            "factor_dtype='float32': the mixed-precision slice (the f32 "
-            "leaf kernel K11) is not ported yet")
+    """Raise unless (structure, settings) is ported: 128-blocks; under
+    "banded" f64 and a plan at block bandwidth 1..6."""
     if settings.block != B:
         raise NotImplementedError(f"LDL^T block size must be {B}")
-    if settings.kkt_strategy == "reduced":
-        if settings.dense_solve == "subst":
-            raise NotImplementedError(
-                "dense_solve='subst': the substitution kernels (K15/K16, "
-                "pallas_dense_ds) are a later slice of the port; 'inverse' "
-                "and 'auto' run the inverse path")
+    if settings.kkt_strategy != "banded":
         return
+    if settings.factor_dtype != "float64":
+        raise NotImplementedError(
+            "factor_dtype='float32' under kkt_strategy='banded': the "
+            "reference factors it with its XLA-scan band_ldl_factor, which "
+            "is not ported (the dense strategies take float32)")
     plan = st.band
     if plan is None:
         raise ValueError(
@@ -383,12 +397,13 @@ class DenseMaps(NamedTuple):
 
 
 @functools.lru_cache(maxsize=16)
-def dense_maps(st: ProblemStructure, device: str,
-               h_only: bool = False) -> DenseMaps:
-    """The maps of the dense K that keeps every SOC row, or with
-    ``h_only`` of a bare (n, n) H with every row eliminated."""
+def dense_maps(st: ProblemStructure, device: str, h_only: bool = False,
+               keep: bool = True) -> DenseMaps:
+    """The maps of the dense K that keeps every SOC row, with ``keep``
+    false of the K over [x | y] with every row eliminated ("normal"), or
+    with ``h_only`` of a bare (n, n) H with every row eliminated."""
     n, p = st.n, st.p
-    ms = 0 if h_only else st.m - st.l
+    ms = 0 if h_only or not keep else st.m - st.l
     Dp = n if h_only else pad_to_block(ms + n + p, B)
     split = st.gsplit
     hs = hd = None
@@ -404,7 +419,7 @@ def dense_maps(st: ProblemStructure, device: str,
                          keep=(ci < n) & (cj < n))
     if split is not None and split.n_sing:
         hd = segment_map(split.sing_cols, device)
-    return DenseMaps(Dp=Dp, ms=ms, me=st.m if h_only else st.l, hs=hs, hd=hd)
+    return DenseMaps(Dp=Dp, ms=ms, me=st.m - ms, hs=hs, hd=hd)
 
 
 class SocMaps(NamedTuple):
@@ -431,12 +446,16 @@ def soc_maps(st: ProblemStructure, device: str) -> SocMaps:
 class KKTContext(NamedTuple):
     """Per-solve constants: equilibrated G, A ((m, n), (p, n) shared or
     with a leading lane axis), the static maps, the lane-invariant base of
-    the factored matrix (``Kd0``/``Ks0`` for "banded", ``K0`` for
-    "reduced" and for a banded ``keep_soc`` plan off the scatter path) and
-    the iteration-invariant coefficients of the H contributions."""
+    the factored matrix (``Kd0``/``Ks0`` for "banded", ``K0`` for the
+    dense strategies and for a banded ``keep_soc`` plan off the scatter
+    path) and the iteration-invariant coefficients of the H contributions.
+    ``Gf`` is G in the type the factor is assembled in (G itself at f64);
+    the coefficients and, under "reduced" and "normal", ``K0`` are in that
+    type too."""
 
     G: torch.Tensor
     A: torch.Tensor
+    Gf: torch.Tensor
     split: Optional[SplitMaps]
     spr_outer: Optional[torch.Tensor]   # ([L,] n_spr, w, w) g_i g_j
     sing_sq: Optional[torch.Tensor]     # ([L,] n_sing) g^2
@@ -471,26 +490,55 @@ def _dense_base(st, dm: DenseMaps, G, A, delta):
     return K0
 
 
+def _full_base(st, G, A, delta):
+    """The lane-invariant part of the "full" K over [z | x | y]
+    (``eicos_tpu.kkt.make_context``): G, A, +dI on x, -dI on y, 1 on
+    padding; the z diagonal block is written per factor."""
+    n, p, m = st.n, st.p, st.m
+    D = m + n + p
+    Dp = pad_to_block(D, B)
+    lead = A.shape[:-2]
+    diag0 = G.new_zeros(Dp)
+    diag0[m:m + n] = delta
+    diag0[m + n:D] = -delta
+    diag0[D:] = 1.0
+    K0 = torch.diag_embed(diag0.expand(*lead, Dp)).contiguous()
+    if m:
+        K0[..., :m, m:m + n] = G
+        K0[..., m:m + n, :m] = G.transpose(-1, -2)
+    if p:
+        K0[..., m:m + n, m + n:D] = A.transpose(-1, -2)
+        K0[..., m + n:D, m:m + n] = A
+    return K0
+
+
 def make_context(st: ProblemStructure, G, A, settings) -> KKTContext:
     require_slice(st, settings)
     dev = str(G.device)
+    delta = settings.deltastat
+    if settings.kkt_strategy == "full":
+        return KKTContext(G=G, A=A, Gf=G, split=None, spr_outer=None,
+                          sing_sq=None, K0=_full_base(st, G, A, delta))
+    fdtype = (torch.float32 if settings.factor_dtype == "float32"
+              else G.dtype)
+    Gf = G.to(fdtype)
     split = split_maps(st, dev)
     spr_outer = sing_sq = None
     if split is not None and st.gsplit.n_spr:
-        Gpad = torch.cat([G, G.new_zeros(*G.shape[:-1], 1)], -1)
+        Gpad = torch.cat([Gf, Gf.new_zeros(*Gf.shape[:-1], 1)], -1)
         C = Gpad[..., split.spr[:, None], split.cols2]   # ([L,] n_spr, w)
         spr_outer = C[..., :, :, None] * C[..., :, None, :]
     if split is not None and st.gsplit.n_sing:
-        coef = G[..., split.sing, split.scol]
+        coef = Gf[..., split.sing, split.scol]
         sing_sq = coef * coef
     keep = _keep_soc(st, settings)
-    ctx = KKTContext(G=G, A=A, split=split, spr_outer=spr_outer,
+    ctx = KKTContext(G=G, A=A, Gf=Gf, split=split, spr_outer=spr_outer,
                      sing_sq=sing_sq, keep_soc=keep)
-    delta = settings.deltastat
     lead = A.shape[:-2]
-    if settings.kkt_strategy == "reduced":
-        dm = dense_maps(st, dev)
-        return ctx._replace(dense=dm, K0=_dense_base(st, dm, G, A, delta))
+    if settings.kkt_strategy in ("reduced", "normal"):
+        dm = dense_maps(st, dev, keep=keep)
+        return ctx._replace(
+            dense=dm, K0=_dense_base(st, dm, G, A, delta).to(fdtype))
     maps = band_maps(st, dev)
     ctx = ctx._replace(band=maps)
     direct = maps.scatter is not None
@@ -683,7 +731,7 @@ def _assemble_h(st, ctx: KKTContext, dm: DenseMaps, K, scal, winv_lp, delta):
     every eliminated row.  The products are ``torch.matmul``."""
     lanes = winv_lp.shape[0]
     n, l, ms, me = st.n, st.l, dm.ms, dm.me
-    G = ctx.G
+    G = ctx.Gf
     Hx = K[:, ms:ms + n, ms:ms + n]
     split = ctx.split
     use_split = split is not None and (st.gsplit.n_sing or st.gsplit.n_spr)
@@ -715,8 +763,9 @@ def dense_matrix(st, ctx: KKTContext, scal: Optional[cones.Scaling],
                  winv_lp, delta):
     """The per-lane dense K (L, Dp, Dp) over [z_soc | x | y] for the
     current scaling (``eicos_tpu.kkt``'s H assembly and
-    ``_assemble_dense``): the base, H over the LP rows, and the kept SOC
-    block -(W_soc^2 + dI)."""
+    ``_assemble_dense``): the base, H over the eliminated rows, and the
+    kept SOC block -(W_soc^2 + dI); in the type of ``ctx.K0``, with
+    ``scal`` and ``winv_lp`` in that type."""
     lanes = winv_lp.shape[0]
     dm = ctx.dense
     ms = dm.ms
@@ -729,6 +778,72 @@ def dense_matrix(st, ctx: KKTContext, scal: Optional[cones.Scaling],
     return K
 
 
+def _use_subst(K: torch.Tensor, settings) -> bool:
+    """True where the dense factor of ``K`` takes the substitution form
+    (``eicos_tpu.kkt._use_subst``, with the tensor's device in the place
+    of the TPU gate): f64 only; never under ``dense_solve="inverse"``;
+    always under "subst"; under "auto" on a CUDA tensor, except for the
+    "full" strategy, which the reference keeps on the inverse path."""
+    if settings.dense_solve == "inverse" or K.dtype != torch.float64:
+        return False
+    if settings.dense_solve == "subst":
+        return True
+    return settings.kkt_strategy != "full" and K.device.type == "cuda"
+
+
+def _factor_dense(K: torch.Tensor, settings):
+    """The dense factor of the f64 ``K``, which is consumed: substitution
+    form or explicit inverse (``_use_subst``)."""
+    if _use_subst(K, settings):
+        return ldl_factor_subst(K)
+    return ldl_factor(K)
+
+
+def _factor_in_dtype(K: torch.Tensor, settings):
+    """Factor ``K`` (f64, or already cast) in ``settings.factor_dtype``:
+    an f32 factor stays f32 and takes the inverse path."""
+    if settings.factor_dtype == "float32":
+        return ldl_factor(K.to(torch.float32))
+    return _factor_dense(K, settings)
+
+
+def _solve_padded(fac, rr: torch.Tensor) -> torch.Tensor:
+    """``ldl_solve`` in the factor's type, cast back to the type of rr."""
+    return ldl_solve(fac, rr.to(fac.d.dtype)).to(rr.dtype)
+
+
+def _factor_full(st: ProblemStructure, ctx: KKTContext,
+                 scal: Optional[cones.Scaling], settings, lanes: int):
+    """``factor`` for the "full" strategy: K over [z | x | y] with
+    -(W^2 + dI) written into the base, nothing eliminated."""
+    n, p, m = st.n, st.p, st.m
+    delta = settings.deltastat
+    D = m + n + p
+    Dp = ctx.K0.shape[-1]
+    K = ctx.K0.expand(lanes, Dp, Dp).clone()
+    if m:
+        if scal is None:
+            blk = K.new_zeros(m, m)
+            blk.diagonal().fill_(-1.0 - delta)
+        else:
+            # -W^2 - dI, in place in the dense W^2
+            blk = cones.w2_dense(st.cone, scal).neg_()
+            blk.diagonal(dim1=-2, dim2=-1).sub_(delta)
+        K[:, :m, :m] = blk
+        del blk
+    fac = _factor_in_dtype(K, settings)
+    del K
+
+    def solve_exact(rhs):
+        bx, by, bz = rhs[..., :n], rhs[..., n:n + p], rhs[..., n + p:]
+        rr = torch.cat([bz, bx, by,
+                        rhs.new_zeros(*rhs.shape[:-1], Dp - D)], -1)
+        x = _solve_padded(fac, rr)
+        return x[..., m:m + n], x[..., m + n:D], x[..., :m]
+
+    return solve_exact
+
+
 def factor(st: ProblemStructure, ctx: KKTContext,
            scal: Optional[cones.Scaling], settings, lanes: int):
     """Assemble and factor for the current NT scaling (None = identity
@@ -736,15 +851,23 @@ def factor(st: ProblemStructure, ctx: KKTContext,
     ``solve_exact(rhs) -> (dx, dy, dz)`` for packed right-hand sides
     (L, k, n+p+m), one solve of the factored system without refinement.
 
-    The factored system runs over [z_soc | x | y] with the ``ms`` kept SOC
-    rows first (none when the cones are eliminated), and the ``me``
-    eliminated rows of G enter through the exact Schur complement.  On
-    the banded direct scatter with kept cones the factor holds S K S with
-    S = diag(W^-1, I, I), and the kept rows of the right-hand side and of
-    the solution pass through ``cones.scale_winv_soc``."""
+    Except under "full", the factored system runs over [z_soc | x | y]
+    with the ``ms`` kept SOC rows first (none when the cones are
+    eliminated), and the ``me`` eliminated rows of G enter through the
+    exact Schur complement.  On the banded direct scatter with kept cones
+    the factor holds S K S with S = diag(W^-1, I, I), and the kept rows of
+    the right-hand side and of the solution pass through
+    ``cones.scale_winv_soc``.  Under ``factor_dtype="float32"`` the
+    assembly, the factor and ``solve_exact`` compute in f32 and the
+    directions are cast back."""
+    if settings.kkt_strategy == "full":
+        return _factor_full(st, ctx, scal, settings, lanes)
     n, p, l = st.n, st.p, st.l
     delta = settings.deltastat
-    G = ctx.G
+    G = ctx.Gf
+    fdtype = G.dtype
+    if scal is not None and fdtype != ctx.G.dtype:
+        scal = cones.Scaling(*[a.to(fdtype) for a in scal])
     if scal is None:
         winv_lp = G.new_full((lanes, l), 1.0 / (1.0 + delta))
     else:
@@ -754,9 +877,11 @@ def factor(st: ProblemStructure, ctx: KKTContext,
     D = ms + n + p
     scaled_kept = False
 
-    if settings.kkt_strategy == "reduced":
+    if settings.kkt_strategy in ("reduced", "normal"):
         Dp = ctx.dense.Dp
-        fac = ldl_factor(dense_matrix(st, ctx, scal, winv_lp, delta))
+        K = dense_matrix(st, ctx, scal, winv_lp, delta)
+        fac = _factor_in_dtype(K, settings)
+        del K
 
         def padded_solve(rr):
             return ldl_solve(fac, rr)
@@ -792,6 +917,8 @@ def factor(st: ProblemStructure, ctx: KKTContext,
         k = rhs.shape[1]
         if k > KP:
             raise ValueError(f"at most {KP} right-hand sides, got {k}")
+        out_dtype = rhs.dtype
+        rhs = rhs.to(fdtype)
         bx, by, bz = rhs[..., :n], rhs[..., n:n + p], rhs[..., n + p:]
         bz_e, bz_s = bz[..., :me], bz[..., me:]
         if scaled_kept:
@@ -805,7 +932,8 @@ def factor(st: ProblemStructure, ctx: KKTContext,
             dzs = cones.scale_winv_soc(st.cone, scal, dzs)
         dx, dy = x[..., ms:ms + n], x[..., ms + n:D]
         dz_e = welim(dx @ Ge.transpose(-1, -2) - bz_e) if me else bz_e
-        return dx, dy, torch.cat([dz_e, dzs], -1)
+        dz = torch.cat([dz_e, dzs], -1)
+        return dx.to(out_dtype), dy.to(out_dtype), dz.to(out_dtype)
 
     return solve_exact
 

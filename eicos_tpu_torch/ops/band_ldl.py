@@ -67,13 +67,14 @@ def _unblocked_ldl(M: torch.Tensor):
     """LDL^T of (lanes, B, B) symmetric blocks -> (L unit-lower, d).
 
     Pivots are clamped away from zero at +-1e-150 (the reference's f64
-    clamp): a clamped pivot yields an inaccurate direction that iterative
-    refinement absorbs, where 0 would poison the solve with inf/NaN."""
+    clamp; 1e-20 for f32 blocks): a clamped pivot yields an inaccurate
+    direction that iterative refinement absorbs, where 0 would poison the
+    solve with inf/NaN."""
     Bn = M.shape[-1]
     M = M.clone()
     L = torch.zeros_like(M)
     d = torch.zeros(M.shape[:-1], dtype=M.dtype, device=M.device)
-    tiny = 1e-150
+    tiny = 1e-20 if M.dtype == torch.float32 else 1e-150
     for j in range(Bn):
         dj = M[:, j, j]
         dj = torch.where(dj.abs() < tiny,

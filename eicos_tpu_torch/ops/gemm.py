@@ -7,6 +7,12 @@ For a CUDA tensor each wrapper checks its inputs, launches its kernel on
 the current stream and counts the launch in ``kernels.COUNTS``; for a CPU
 tensor it runs the plain version beside it.  Nothing falls back from the
 kernel to the plain version.
+
+float32 operands (``Settings.factor_dtype="float32"``) are no kernel's
+business: the reference leaves its f32 products to XLA's dots outside any
+Pallas kernel, and ``matmul`` sends them to ``torch.matmul`` on either
+device (full f32: ``torch.backends.cuda.matmul.allow_tf32`` must be off,
+as it is by default).
 """
 
 from __future__ import annotations
@@ -44,7 +50,8 @@ def matmul_plain(a, b, c=None, alpha: float = 1.0, beta: float = 0.0):
 def matmul(a: torch.Tensor, b: torch.Tensor, *,
            c: Optional[torch.Tensor] = None, alpha: float = 1.0,
            beta: float = 0.0) -> torch.Tensor:
-    """alpha a @ b + beta c in f64, over a leading lane axis.
+    """alpha a @ b + beta c in f64 (f32 operands: ``torch.matmul``, module
+    doc), over a leading lane axis.
 
     ``a`` is (L, r, k) or a shared (r, k), ``b`` (L, k, n) or a shared
     (k, n), at least one of them per lane; either may be a strided view,
@@ -53,7 +60,7 @@ def matmul(a: torch.Tensor, b: torch.Tensor, *,
     with unit stride along its rows, the result is written into ``c``
     (BLAS semantics: with ``beta = 0`` the old values of ``c`` are not
     read) and ``c`` is returned."""
-    if kernels.on_cpu(a):
+    if kernels.on_cpu(a) or a.dtype == torch.float32:
         return matmul_plain(a, b, c, alpha, beta)
     if a.dim() not in (2, 3) or b.dim() not in (2, 3) or (
             a.dim() == 2 and b.dim() == 2):

@@ -7,8 +7,8 @@ hash of its source and flags, so an edited source rebuilds.  The libraries
 are bound with ``ctypes``: pointers and the stream pass as ``c_void_p``.
 
 ``COUNTS`` holds one plain integer per kernel: its wrapper (``band.py``,
-``leaf.py``, ``gemm.py``) adds one where it launches the kernel, and
-nowhere else, so a run can show that the main path went through the
+``leaf.py``, ``gemm.py``, ``dense.py``) adds one where it launches the
+kernel, and nowhere else, so a run can show that the main path went through the
 kernels.  The wrappers share the dispatch rule below: a CPU tensor takes
 the plain version, a CUDA tensor launches the kernel or raises.
 """
@@ -51,11 +51,20 @@ LIBS = {
     "linv_solve": ("linv_solve.cu",
                    {"eicos_linv_fwd": [_P] * 4 + [_I, _I, _I, _P],
                     "eicos_linv_bwd": [_P] * 3 + [_I, _I, _I, _P]}),
+    "leaf_ldl_f32": ("leaf_ldl_f32.cu",
+                     {"eicos_leaf_ldl_f32": [_P, _LL, _LL, _P, _LL, _LL, _P,
+                                             _LL, _I, _P]}),
+    "dense_pack": ("dense_pack.cu",
+                   {"eicos_dense_pack": [_P, _P, _I, _I, _P]}),
+    "dense_solve": ("dense_solve.cu",
+                    {"eicos_dense_fwd": [_P] * 5 + [_I, _I, _I, _P],
+                     "eicos_dense_bwd": [_P] * 4 + [_I, _I, _I, _P]}),
 }
 
 COUNTS = {"band_factor": 0, "band_fwd": 0, "band_bwd": 0,
           "band_factor_bw": 0, "band_fwd_bw": 0, "band_bwd_bw": 0,
-          "leaf_ldl": 0, "dgemm": 0, "linv_fwd": 0, "linv_bwd": 0}
+          "leaf_ldl": 0, "dgemm": 0, "linv_fwd": 0, "linv_bwd": 0,
+          "leaf_ldl_f32": 0, "dense_pack": 0, "dense_fwd": 0, "dense_bwd": 0}
 BUILD_LOG: dict = {}      # library name -> nvcc's output (ptxas -v report)
 
 _loaded: dict = {}
@@ -145,16 +154,18 @@ def on_cpu(t) -> bool:
 
 
 def check(name: str, t, shape: tuple, device, contiguous: bool = True,
-          unit_rows: bool = False) -> None:
-    """Raise ValueError unless ``t`` is f64 on ``device`` with ``shape``
-    and, with ``contiguous``, contiguous and 16-byte aligned; otherwise
-    any strides, or with ``unit_rows`` unit stride along the last axis."""
+          unit_rows: bool = False, dtype=None) -> None:
+    """Raise ValueError unless ``t`` is of ``dtype`` (f64 unless given) on
+    ``device`` with ``shape`` and, with ``contiguous``, contiguous and
+    16-byte aligned; otherwise any strides, or with ``unit_rows`` unit
+    stride along the last axis."""
     import torch
 
+    dtype = torch.float64 if dtype is None else dtype
     if t.device != device:
         raise ValueError(f"{name}: on {t.device}, expected {device}")
-    if t.dtype != torch.float64:
-        raise ValueError(f"{name}: dtype {t.dtype}, expected float64")
+    if t.dtype != dtype:
+        raise ValueError(f"{name}: dtype {t.dtype}, expected {dtype}")
     if tuple(t.shape) != tuple(shape):
         raise ValueError(f"{name}: shape {tuple(t.shape)}, expected {shape}")
     if contiguous:

@@ -1,6 +1,7 @@
-"""Dense LDL^T with an explicit unit-lower inverse, batched over lanes: the
-port of ``eicos_tpu.ops.ldl`` (``ldl_factor``, ``_ldl_rec``, ``_leaf``,
-``_mm``, ``ldl_solve``) on its float64 inverse path.
+"""Dense LDL^T batched over lanes, with an explicit unit-lower inverse
+(``ldl_factor``) or in substitution form (``ldl_factor_subst``): the port
+of ``eicos_tpu.ops.ldl`` (``ldl_factor``, ``_ldl_rec``, ``_ldl_rec_subst``,
+``ldl_factor_subst``, ``_leaf``, ``_mm``, ``ldl_solve``).
 
 The factor is the reference's recursive half-splitting: a node of size D
 (a multiple of 128) splits at h = (nb // 2) 128, factors its leading half,
@@ -8,9 +9,24 @@ forms L21 = K21 L11^{-T} / d1, updates the trailing half with the Schur
 complement K22 - (L21 d1) L21^T, factors that, and assembles its inverse
 [L11inv 0; -L22inv L21 L11inv  L22inv].  Leaves of 128 go to
 ``leaf.leaf_ldl`` and the four products of a node to ``gemm.matmul``, so
-for a CUDA tensor the recursion and the solves run in the kernels only.
+for a CUDA f64 tensor the recursion and the solves run in the kernels
+only.
 
-Two departures from the JAX code, neither of which changes a value:
+The substitution form keeps L itself: the same recursion, the same calls
+in the same order for L21, the Schur update and the leaves, so its pivots
+and leaf inverses have the bits of ``ldl_factor``'s.  A node assembles its
+inverse only where something reads it (the reference's ``need_inv``): a
+left child always (its parent's L21 product), a right child only if its
+parent assembles.  The root and its right spine skip their two assembly
+products.  The solves then run the substitution sweeps of ``ops/dense.py``
+on the packed blocks of L.
+
+At float32 (``Settings.factor_dtype``) the leaf is the f32 leaf kernel and
+every product and the two passes of a solve are ``torch.matmul``, as the
+reference leaves them to XLA's f32 dots outside any Pallas kernel; there
+is no f32 substitution form.
+
+Departures from the JAX code, none of which changes a value:
 
 * The factor is built in place.  One (L, Dp, Dp) ``Linv`` is allocated
   zeroed, each leaf and each L21inv product is written straight into its
@@ -20,8 +36,15 @@ Two departures from the JAX code, neither of which changes a value:
 * There is no ``ldl_prechunk``: the TPU needs a bf16 chunk decomposition
   of Linv for its double-single solve kernel, while the solve kernels here
   read the f64 Linv as it is, so ``kkt`` calls ``ldl_solve`` on the
-  factor directly.  ``_mm_sym`` (the TPU's half-work symmetric Schur
-  product) is not ported either: the reference's f64 path runs ``_mm``.
+  factor directly.
+* ``_mm_sym`` (the half-work symmetric Schur product of
+  ``_ldl_rec_subst``) is not ported: in the reference it runs on the TPU's
+  double-single path only (``ds=False`` everywhere else sends it to
+  ``_mm``), so both recursions here form the Schur update in full.
+* The substitution recursion leaves L where K was: each L21 overwrites the
+  K21 block it was computed from, so the consumed K is the reference's
+  ``Loff`` and no second (L, Dp, Dp) buffer exists.  Leaf inverses go
+  straight into one (L, nb, 128, 128) tensor.
 """
 
 from __future__ import annotations
@@ -31,12 +54,22 @@ from typing import NamedTuple
 import torch
 
 from .band_ldl import B, pad_to_block  # noqa: F401  (re-exported)
-from .gemm import linv_bwd, linv_fwd, matmul
+from .dense import DenseFac, dense_solve, pack_dense
+from .gemm import (linv_bwd, linv_bwd_plain, linv_fwd, linv_fwd_plain,
+                   matmul)
 from .leaf import leaf_ldl
 
 
 class LDLFactors(NamedTuple):
     Linv: torch.Tensor   # (L, Dp, Dp) inverse of the unit-lower factor
+    d: torch.Tensor      # (L, Dp) pivots
+
+
+class LDLSubstFactors(NamedTuple):
+    """Substitution-form factor: the packed blocks of L and the leaf
+    inverses (``dense.DenseFac``) for the sweeps of ``ops/dense.py``."""
+
+    pre: DenseFac
     d: torch.Tensor      # (L, Dp) pivots
 
 
@@ -63,14 +96,68 @@ def _ldl_rec(K: torch.Tensor, Linv: torch.Tensor, d: torch.Tensor) -> None:
     matmul(L22inv, matmul(L21, L11inv), c=Linv[:, h:, :h], alpha=-1.0)
 
 
-def ldl_factor(K: torch.Tensor) -> LDLFactors:
-    """Factor the padded symmetric (L, Dp, Dp) K, Dp a multiple of 128
-    (the reference's ``block``), into ``LDLFactors``.  K is consumed: its
-    blocks below the leading one hold Schur complements afterwards."""
+def _ldl_rec_subst(K: torch.Tensor, Linv, Xinv: torch.Tensor,
+                   d: torch.Tensor) -> None:
+    """``_ldl_rec`` that keeps L: factor the (L, D, D) view K into the
+    leaf inverses Xinv (L, D / 128, 128, 128) and d (L, D), leaving every
+    L21 in the block of K it came from; with ``Linv`` (an (L, D, D) zeroed
+    view) the node's inverse is assembled there too, without it (None) the
+    node needs none."""
+    D = K.shape[-1]
+    if D <= B:
+        leaf_ldl(K, out=(Xinv[:, 0], d))
+        if Linv is not None:
+            Linv.copy_(Xinv[:, 0])
+        return
+    h = (D // B // 2) * B
+    d1 = d[:, :h]
+    if Linv is None:
+        L11inv = K.new_zeros(K.shape[0], h, h)
+    else:
+        L11inv = Linv[:, :h, :h]
+    _ldl_rec_subst(K[:, :h, :h], L11inv, Xinv[:, :h // B], d1)
+    L21 = matmul(K[:, h:, :h], L11inv.transpose(-1, -2))
+    L21 /= d1[:, None, :]
+    K22 = K[:, h:, h:]
+    matmul(L21 * d1[:, None, :], L21.transpose(-1, -2), c=K22, alpha=-1.0,
+           beta=1.0)
+    K[:, h:, :h] = L21
+    if Linv is None:
+        del L11inv, L21       # nothing reads them again
+        _ldl_rec_subst(K22, None, Xinv[:, h // B:], d[:, h:])
+        return
+    L22inv = Linv[:, h:, h:]
+    _ldl_rec_subst(K22, L22inv, Xinv[:, h // B:], d[:, h:])
+    matmul(L22inv, matmul(L21, L11inv), c=Linv[:, h:, :h], alpha=-1.0)
+
+
+def _check_padded(K: torch.Tensor):
     lanes, Dp = K.shape[0], K.shape[-1]
     if Dp % B or K.shape[-2] != Dp:
         raise ValueError(f"K must be (L, Dp, Dp) with Dp a multiple of {B}, "
                          f"got {tuple(K.shape)}")
+    return lanes, Dp
+
+
+def ldl_factor_subst(K: torch.Tensor) -> LDLSubstFactors:
+    """Factor the padded symmetric f64 (L, Dp, Dp) K into the substitution
+    form.  K is consumed: afterwards its strictly-block-lower blocks hold
+    L, which ``dense.pack_dense`` packs, and the caller can free it."""
+    lanes, Dp = _check_padded(K)
+    if K.dtype != torch.float64:
+        raise ValueError(f"the substitution form is f64, got {K.dtype}")
+    Xinv = K.new_empty(lanes, Dp // B, B, B)
+    d = K.new_empty(lanes, Dp)
+    _ldl_rec_subst(K, None, Xinv, d)
+    return LDLSubstFactors(pre=pack_dense(K, Xinv, d), d=d)
+
+
+def ldl_factor(K: torch.Tensor) -> LDLFactors:
+    """Factor the padded symmetric (L, Dp, Dp) K, f64 or f32, Dp a
+    multiple of 128 (the reference's ``block``), into ``LDLFactors``.  K
+    is consumed: its blocks below the leading one hold Schur complements
+    afterwards."""
+    lanes, Dp = _check_padded(K)
     # strictly upper blocks are never written and stay exact zeros
     Linv = torch.zeros_like(K)
     d = K.new_empty(lanes, Dp)
@@ -78,7 +165,13 @@ def ldl_factor(K: torch.Tensor) -> LDLFactors:
     return LDLFactors(Linv=Linv, d=d)
 
 
-def ldl_solve(fac: LDLFactors, rhs: torch.Tensor) -> torch.Tensor:
+def ldl_solve(fac, rhs: torch.Tensor) -> torch.Tensor:
     """K x = rhs for rhs (L, k, Dp), k <= 16 (the port's (k, Dp)-per-lane
-    layout): x = Linv^T ((Linv rhs) / d), two passes over Linv."""
+    layout).  ``LDLSubstFactors``: the two substitution sweeps.
+    ``LDLFactors``: x = Linv^T ((Linv rhs) / d), two passes over Linv,
+    which at f32 are two ``torch.matmul``."""
+    if isinstance(fac, LDLSubstFactors):
+        return dense_solve(fac.pre, rhs)
+    if fac.Linv.dtype == torch.float32:
+        return linv_bwd_plain(fac.Linv, linv_fwd_plain(fac.Linv, fac.d, rhs))
     return linv_bwd(fac.Linv, linv_fwd(fac.Linv, fac.d, rhs))

@@ -15,16 +15,28 @@ configuration written for ``eicos_tpu`` runs unchanged):
   * ``chunk_store`` — bf16/int8 chunk storage of the prechunked factor;
     the port stores the factor in f64.
 
-``dense_solve`` picks the solve of the dense "reduced" strategy: "inverse"
-and "auto" run the explicit-inverse path (``ops/ldl.ldl_solve``, two
-passes over L^{-1}), as the JAX package does off the TPU; "subst" raises
-``NotImplementedError`` until the substitution kernels (K15/K16) are
-ported.  Once they are, "auto" on a CUDA tensor moves to them, as it does
-on the TPU.  The rescue pass pins "auto" to "inverse"
+``kkt_strategy``: all four run.  "full" (the default) factors the dense K
+over [z | x | y]; "reduced" eliminates the LP rows and keeps the SOC rows;
+"normal" eliminates every cone row; "banded" factors the RCM-permuted band
+(block bandwidth 1..6; wider plans raise ``NotImplementedError``).
+
+``dense_solve`` picks the solve of the dense strategies: "inverse" is the
+explicit-inverse path (``ops/ldl.ldl_factor``, two passes over L^{-1}),
+"subst" the substitution form (``ops/ldl.ldl_factor_subst``, the packed
+blocks of L and the two sweeps of ``ops/dense.py``).  "auto" follows the
+device the solve runs on, as every dispatch of the port does: on CUDA
+"reduced" and "normal" take "subst" (as on the TPU) and "full" stays on
+"inverse" (as in the reference); on the CPU all three take "inverse" (as
+the JAX package does there).  "subst" on the CPU runs the plain versions
+of the pack and the sweeps.  The rescue pass pins "auto" to "inverse"
 (``api._rescue_settings``).
 
-``kkt_strategy`` "full" and "normal" and ``factor_dtype="float32"`` raise
-``NotImplementedError`` in the port until their slice lands.
+``factor_dtype="float32"`` factors and solves the dense strategies in f32
+(the f32 leaf kernel, ``torch.matmul`` products, always the inverse path)
+under the f64 refinement.  ``deltastat`` is below f32's epsilon, so such a
+solve may end short of OPTIMAL where f64 does not, as in the JAX package.
+Under "banded" it raises ``NotImplementedError`` (the reference's XLA-scan
+band factor is not ported).  ``block`` must be 128.
 """
 
 import dataclasses
@@ -61,7 +73,7 @@ class Settings:
     pallas_leaf: str = "auto"    # no-op under native f64 (module doc)
     band_gemm: str = "float64"   # no-op under native f64
     chunk_store: str = "bf16"    # no-op under native f64
-    dense_solve: str = "auto"    # "reduced" solve path (module doc)
+    dense_solve: str = "auto"    # dense strategies' solve path (module doc)
 
     def __post_init__(self):
         _check = {

@@ -195,7 +195,7 @@ def test_dense_wrappers_check_inputs(cuda):
 
     f64 = dict(dtype=torch.float64, device=cuda)
     with pytest.raises(ValueError):
-        leaf.leaf_ldl(torch.zeros(2, B, B, dtype=torch.float32, device=cuda))
+        leaf.leaf_ldl(torch.zeros(2, B, B, dtype=torch.float16, device=cuda))
     with pytest.raises(ValueError):
         leaf.leaf_ldl(torch.zeros(2, B, 64, **f64))
     with pytest.raises(ValueError):
@@ -211,9 +211,9 @@ def test_dense_wrappers_check_inputs(cuda):
 
 
 def test_reduced_solver_on_card_matches_cpu(cuda):
-    """Two lanes of a small MPC LP under "reduced" with a rescue: the
-    kernels' solve and the CPU plain path agree, and every dense kernel
-    was launched."""
+    """Two lanes of a small MPC LP under "reduced" on the inverse path:
+    the kernels' solve and the CPU plain path agree, and every kernel of
+    that path was launched."""
     import eicos_tpu_torch as pt
     from eicos_tpu_torch import corpus
     from eicos_tpu_torch.ops import kernels
@@ -225,11 +225,12 @@ def test_reduced_solver_on_card_matches_cpu(cuda):
                             c=base.c + 0.02 * rng.standard_normal(st.n),
                             h=base.h, b=base.b) for _ in range(2)]
     batch = pt.BatchedSolver.stack(probs, shared=("G", "A", "h"))
-    settings = pt.Settings(kkt_strategy="reduced")
+    settings = pt.Settings(kkt_strategy="reduced", dense_solve="inverse")
     kernels.reset_counts()
     gpu = pt.BatchedSolver(st, settings, shared=("G", "A", "h")).solve(batch)
     for name in ("leaf_ldl", "dgemm", "linv_fwd", "linv_bwd"):
         assert kernels.COUNTS[name] > 0, name
+    assert kernels.COUNTS["dense_fwd"] == 0
     cpu = pt.BatchedSolver(st, settings, shared=("G", "A", "h"),
                            device="cpu").solve(batch)
     assert torch.equal(gpu.exit_code.cpu(), cpu.exit_code)
@@ -391,3 +392,179 @@ def test_wide_band_solver_on_card_matches_cpu(cuda):
     assert torch.equal(gpu.info.iter.cpu(), cpu.info.iter)
     np.testing.assert_allclose(gpu.info.pcost.cpu().numpy(),
                                cpu.info.pcost.numpy(), rtol=1e-8)
+
+
+# ------------------------------------- substitution path, f32 leaf, "full"
+
+@pytest.mark.parametrize("D", [128, 384, 640])
+def test_dense_pack_and_sweeps_match_plain(cuda, D):
+    """dense_pack bit for bit (it moves values), dense_fwd / dense_bwd
+    within 1e-12 relative of their plain versions at k = 1, 2, 5, 16, and
+    the substitution factor's pivots and leaf inverses with the bits of
+    the inverse factor's."""
+    from eicos_tpu_torch.ops import dense, kernels, ldl
+
+    K = torch.tensor(quasidefinite(2, D, 2 * D // 3, 8), device=cuda)
+    before = dict(kernels.COUNTS)
+    K2 = K.clone()
+    fs = ldl.ldl_factor_subst(K2)
+    inv = ldl.ldl_factor(K.clone())
+    torch.cuda.synchronize()
+    nb = D // B
+    assert kernels.COUNTS["dense_pack"] == before["dense_pack"] + (nb > 1)
+    assert torch.equal(fs.pre.Lp, dense.pack_dense_plain(K2))
+    assert torch.equal(fs.d, inv.d)
+    for i in range(nb):
+        assert torch.equal(fs.pre.Xinv[:, i],
+                           inv.Linv[:, i * B:(i + 1) * B, i * B:(i + 1) * B])
+    rng = np.random.default_rng(9)
+    for k in (1, 2, 5, 16):
+        r = torch.tensor(rng.standard_normal((2, k, D)), device=cuda)
+        w = dense.dense_fwd(fs.pre, r)
+        assert rel(w, dense.dense_fwd_plain(fs.pre, r)) < 1e-12
+        z = dense.dense_bwd(fs.pre, w)
+        assert rel(z, dense.dense_bwd_plain(fs.pre, w)) < 1e-12
+        assert rel(torch.matmul(z, K), r) < 1e-11
+        assert rel(ldl.ldl_solve(fs, r), ldl.ldl_solve(inv, r)) < 1e-11
+    torch.cuda.synchronize()
+    assert kernels.COUNTS["dense_fwd"] == before["dense_fwd"] + 8
+    assert kernels.COUNTS["dense_bwd"] == before["dense_bwd"] + 8
+
+
+def test_leaf_f32_kernel_matches_plain(cuda):
+    """leaf_ldl at f32 against its plain version and the f64 leaf within
+    2e-4 relative (f32 over 128 dependent steps), into strided views."""
+    from eicos_tpu_torch.ops import kernels, leaf
+
+    M = torch.tensor(quasidefinite(3, 2 * B, 150, 3), device=cuda)
+    blk = M[:, B:, B:].to(torch.float32)
+    before = kernels.COUNTS["leaf_ldl_f32"]
+    Linv = torch.zeros(3, 2 * B, 2 * B, dtype=torch.float32, device=cuda)
+    d = torch.zeros(3, 2 * B, dtype=torch.float32, device=cuda)
+    leaf.leaf_ldl(blk, out=(Linv[:, :B, B:], d[:, B:]))
+    Lp, dp = leaf.leaf_ldl_plain(blk)
+    L64, d64 = leaf.leaf_ldl(M[:, B:, B:])
+    torch.cuda.synchronize()
+    assert kernels.COUNTS["leaf_ldl_f32"] == before + 1
+    assert rel(Linv[:, :B, B:], Lp) < 2e-4 and rel(d[:, B:], dp) < 2e-4
+    assert rel(Linv[:, :B, B:].double(), L64) < 2e-4
+    assert rel(d[:, B:].double(), d64) < 2e-4
+    assert not Linv[:, B:].any() and not Linv[:, :B, :B].any()
+
+
+def test_subst_wrappers_check_inputs(cuda):
+    from eicos_tpu_torch.ops import dense, ldl
+
+    f64 = dict(dtype=torch.float64, device=cuda)
+    fac = dense.DenseFac(Lp=torch.zeros(1, 1, B, B, **f64),
+                         Xinv=torch.zeros(1, 2, B, B, **f64),
+                         d=torch.ones(1, 2 * B, **f64))
+    with pytest.raises(ValueError):
+        dense.dense_fwd(fac, torch.zeros(1, 17, 2 * B, **f64))
+    with pytest.raises(ValueError):
+        dense.dense_fwd(fac, torch.zeros(1, 2, 3 * B, **f64))
+    with pytest.raises(ValueError):
+        dense.dense_bwd(fac._replace(Lp=fac.Lp.cpu()),
+                        torch.zeros(1, 2, 2 * B, **f64))
+    with pytest.raises(ValueError):
+        dense.pack_dense(torch.zeros(1, 200, 200, **f64), fac.Xinv, fac.d)
+    with pytest.raises(ValueError):
+        ldl.ldl_factor_subst(torch.zeros(1, B, B, dtype=torch.float32,
+                                         device=cuda))
+
+
+def _lp_batch(pt, corpus, lanes=2):
+    st, base = corpus.make_mpc_like(horizon=30, nx=2, nu=4, seed=3)
+    st = st.with_gsplit(base.G, base.A)
+    rng = np.random.default_rng(7)
+    probs = [pt.ProblemData(G=base.G, A=base.A,
+                            c=base.c + 0.02 * rng.standard_normal(st.n),
+                            h=base.h, b=base.b) for _ in range(lanes)]
+    return st, probs, pt.BatchedSolver.stack(probs, shared=("G", "A", "h"))
+
+
+@pytest.mark.parametrize("cfg,must,never", [
+    (dict(kkt_strategy="reduced"), ("dense_pack", "dense_fwd", "dense_bwd"),
+     ("linv_fwd", "linv_bwd")),
+    (dict(kkt_strategy="normal"), ("dense_pack", "dense_fwd", "dense_bwd"),
+     ("linv_fwd", "linv_bwd")),
+    (dict(), ("linv_fwd", "linv_bwd"), ("dense_fwd", "dense_bwd")),
+    (dict(dense_solve="subst"), ("dense_pack", "dense_fwd", "dense_bwd"),
+     ("linv_fwd", "linv_bwd")),
+], ids=["reduced-auto", "normal-auto", "full", "full-subst"])
+def test_dense_strategies_on_card_match_cpu(cuda, cfg, must, never):
+    """Two lanes of a small MPC LP under the dense strategies: on the card
+    ``dense_solve="auto"`` takes the substitution kernels under "reduced"
+    and "normal" and the inverse kernels under "full"; each agrees with
+    the CPU plain path (under "subst" where the card took it)."""
+    import eicos_tpu_torch as pt
+    from eicos_tpu_torch import corpus
+    from eicos_tpu_torch.ops import kernels
+
+    st, _, batch = _lp_batch(pt, corpus)
+    settings = pt.Settings(**cfg)
+    kernels.reset_counts()
+    gpu = pt.BatchedSolver(st, settings, shared=("G", "A", "h")).solve(batch)
+    for name in ("leaf_ldl", "dgemm") + must:
+        assert kernels.COUNTS[name] > 0, name
+    for name in never:
+        assert kernels.COUNTS[name] == 0, name
+    if "dense_fwd" in must:
+        cfg = dict(cfg, dense_solve="subst")
+    cpu = pt.BatchedSolver(st, pt.Settings(**cfg), shared=("G", "A", "h"),
+                           device="cpu").solve(batch)
+    assert torch.equal(gpu.exit_code.cpu(), cpu.exit_code)
+    assert int(cpu.exit_code[0]) == 0
+    assert torch.equal(gpu.info.iter.cpu(), cpu.info.iter)
+    np.testing.assert_allclose(gpu.info.pcost.cpu().numpy(),
+                               cpu.info.pcost.numpy(), rtol=1e-8)
+
+
+def test_solver_at_default_settings_on_card(cuda):
+    """``Solver(G, A, c, h, b).solve()``: the default device and the
+    default ``Settings()``."""
+    import eicos_tpu_torch as pt
+    from eicos_tpu_torch import corpus
+
+    _, probs, _ = _lp_batch(pt, corpus, lanes=1)
+    p0 = probs[0]
+    s = pt.Solver(p0.G, p0.A, p0.c, p0.h, p0.b)
+    assert s.device.type == "cuda"
+    assert s.solve() == pt.ExitCode.OPTIMAL
+    ref = pt.Solver(p0.G, p0.A, p0.c, p0.h, p0.b, device="cpu")
+    assert ref.solve() == pt.ExitCode.OPTIMAL
+    assert abs(float(s.get_info().pcost) - float(ref.get_info().pcost)) \
+        <= 1e-8 * abs(float(ref.get_info().pcost))
+
+
+def test_f32_factor_on_card_launches_f32_leaf(cuda):
+    """``factor_dtype="float32"`` under "reduced": the f32 leaf kernel and
+    no f64 dense kernel; one refined solve agrees with the CPU plain path
+    at 1e-9 (the raw f32 directions differ at f32 rounding)."""
+    import eicos_tpu_torch as pt
+    from eicos_tpu_torch import corpus, kkt
+    from eicos_tpu_torch.equilibrate import equilibrate
+    from eicos_tpu_torch.ops import kernels
+
+    st, probs, _ = _lp_batch(pt, corpus, lanes=1)
+    p0 = probs[0]
+    settings = pt.Settings(kkt_strategy="reduced", factor_dtype="float32")
+    out = {}
+    for dev in ("cuda", "cpu"):
+        t = lambda a: torch.as_tensor(np.asarray(a), dtype=torch.float64,  # noqa
+                                      device=dev)
+        eq = equilibrate(st, t(p0.G), t(p0.A), t(p0.c)[None], t(p0.h)[None],
+                         t(p0.b)[None])
+        ctx = kkt.make_context(st, eq.G, eq.A, settings)
+        kernels.reset_counts()
+        solve = kkt.factor(st, ctx, None, settings, 1)
+        rhs = torch.cat([torch.zeros(1, st.n, dtype=torch.float64,
+                                     device=dev), eq.b, eq.h], -1)[:, None]
+        out[dev] = kkt.solve_refined(st, ctx, solve, None, rhs, settings)
+        if dev == "cuda":
+            assert kernels.COUNTS["leaf_ldl_f32"] > 0
+            for name in ("leaf_ldl", "dgemm", "linv_fwd", "dense_fwd"):
+                assert kernels.COUNTS[name] == 0, name
+    for f in ("dx", "dy", "dz"):
+        assert rel(getattr(out["cuda"], f).cpu(), getattr(out["cpu"], f)) \
+            < 1e-9, f

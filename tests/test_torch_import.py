@@ -1,7 +1,7 @@
 """The port stands alone: importing it loads neither JAX nor eicos_tpu, its
 sources import neither, and its entry points run on CUDA unless asked for
 the CPU.  The configurations it covers solve as the JAX package solves
-them; those it does not cover raise."""
+them; the few it does not cover raise."""
 
 import pathlib
 import re
@@ -91,26 +91,75 @@ def test_rescue_is_next_slice(lp):
     assert bs.rescue == r and bs.last_rescued == ()
 
 
-@pytest.mark.parametrize("case", ["full", "normal", "float32", "subst",
-                                  "bwb7"])
+@pytest.mark.parametrize("case", ["float32", "bwb7", "block64"])
 def test_unported_configurations_raise(lp, case):
-    """Each structure or setting the slices do not cover raises
-    NotImplementedError naming its slice; nothing falls back."""
+    """Each structure or setting the port does not cover raises
+    NotImplementedError; nothing falls back: f32 under "banded" (the
+    dense strategies take it), block bandwidth above 6, a block size
+    other than 128."""
     import dataclasses
 
     st, d = lp
     settings = pt.Settings(kkt_strategy="banded")
-    if case in ("full", "normal"):
-        settings = pt.Settings(kkt_strategy=case)
-    elif case == "subst":
-        settings = pt.Settings(kkt_strategy="reduced", dense_solve="subst")
-    elif case == "float32":
+    if case == "float32":
         settings = pt.Settings(kkt_strategy="banded", factor_dtype="float32")
     elif case == "bwb7":
         st = dataclasses.replace(st, band=dataclasses.replace(st.band,
                                                               bwb=7))
+    elif case == "block64":
+        settings = pt.Settings(kkt_strategy="reduced", block=64)
     with pytest.raises(NotImplementedError):
         pt.solve(st, d, settings, device="cpu")
+
+
+@pytest.mark.parametrize("case", ["full", "normal", "subst", "float32"])
+def test_dense_configurations_solve(case):
+    """The dense configurations that raised before they were ported solve
+    as the JAX package solves them: "full" (the default ``Settings()``),
+    "normal", "reduced" on the substitution sweeps and "reduced" with an
+    f32 factor: the same exit code and iteration count, the objective
+    within 1e-8 relative; under the f32 factor, whose late iterations turn
+    on the last bits, the same exit tier and the objective at 1e-6."""
+    import eicos_tpu as jt
+    from eicos_tpu import corpus as jcorpus
+
+    from eicos_tpu_torch import problem
+    from eicos_tpu_torch.api import _code_rank
+
+    cfg = {"full": {}, "normal": dict(kkt_strategy="normal"),
+           "subst": dict(kkt_strategy="reduced", dense_solve="subst"),
+           "float32": dict(kkt_strategy="reduced",
+                           factor_dtype="float32")}[case]
+    jst, d = jcorpus.make_mpc_like(horizon=4, nx=2, nu=2,
+                                   seed=2 if case == "float32" else 1)
+    if case != "full":
+        jst = jst.with_gsplit(d.G, d.A)
+    st, pd = problem.from_reference(problem.structure_fields(jst), d.G, d.A,
+                                    d.c, d.h, d.b)
+    ref = jt.solve(jst, d, jt.Settings(**cfg))
+    sol = pt.solve(st, pd, pt.Settings(**cfg), device="cpu")
+    want = float(ref.info.pcost)
+    assert int(ref.exit_code) == 0
+    if case == "float32":
+        assert _code_rank(int(sol.exit_code)) == 2
+        assert abs(float(sol.info.pcost) - want) <= 1e-6 * abs(want)
+        return
+    assert int(sol.exit_code) == 0
+    assert int(sol.info.iter) == int(ref.info.iter)
+    assert abs(float(sol.info.pcost) - want) <= 1e-8 * abs(want)
+
+
+def test_solver_default_settings_on_cpu(lp):
+    """``Solver(G, A, c, h, b, device="cpu").solve()`` at the default
+    ``Settings()`` ("full") returns OPTIMAL, with the objective of the
+    banded solve of the same problem."""
+    st, d = lp
+    s = pt.Solver(d.G, d.A, d.c, d.h, d.b, device="cpu")
+    assert s.get_settings().kkt_strategy == "full"
+    assert s.solve() == pt.ExitCode.OPTIMAL
+    banded = pt.solve(st, d, pt.Settings(kkt_strategy="banded"), device="cpu")
+    want = float(banded.info.pcost)
+    assert abs(float(s.get_info().pcost) - want) <= 1e-7 * abs(want)
 
 
 def _reference_case(case):
