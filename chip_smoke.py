@@ -4,8 +4,10 @@ port's paths through its entry points:
 
   1. kernel checks at the paths' shapes (band factor and sweeps at block
      bandwidth 1; the wide band factor and sweeps at block bandwidths 2, 3
-     and 6; dense leaf LDL^T in f64 and f32, dgemm in four forms, the two
-     inverse-solve passes, the substitution pack and its two sweeps);
+     and 6; dense leaf LDL^T in f64 and f32, dgemm in nine forms, among
+     them the recursion's products with their structure flags, its
+     machine code checked for DMMA, the two inverse-solve passes, the
+     substitution pack and its two sweeps);
   2. the main path as bench.py configures it: the 128-lane MPC01-scale
      banded LP batch through ``BatchedSolver`` with a "reduced" rescue
      (128/128 OPTIMAL, no lane rescued), lane 0 again on the CPU;
@@ -49,6 +51,7 @@ before that line.
 
 import json
 import os
+import shutil
 import subprocess
 import sys
 import time
@@ -302,7 +305,8 @@ def wide_matvec(Kd, Ks, x):
 def check_wide_kernels(torch, band, plain):
     """band_factor_bw, band_fwd_bw and band_bwd_bw against their plain
     twins at block bandwidths 2, 3 and 6 (and against band_factor at 1),
-    with times, bounds and a library yardstick at phase 7's shape.
+    the sweeps also at 1 and 3 lanes, with times, bounds and a library
+    yardstick at phase 7's shape.
     Returns the per-kernel records (launches filled in from phase 7)."""
     # bw = 1: the wide kernels against the bandwidth-1 kernels
     Kd, Ks = random_wide_band(torch, 8, 5, 1, seed=21)
@@ -337,6 +341,31 @@ def check_wide_kernels(torch, band, plain):
     del Ks4, narrow, wide
 
     errs = {"band_factor_bw": 0.0, "band_fwd_bw": 0.0, "band_bwd_bw": 0.0}
+    # the sweeps at 1 and 3 lanes of phase 7's block count: 2 and 6 CTAs on
+    # the card
+    for lanes in (1, 3):
+        nb = WIDE_DP // B
+        Kd, Ks = random_wide_band(torch, lanes, nb, WIDE_BWB, seed=50 + lanes)
+        fk = band.band_factor(Kd, Ks)
+        r16 = torch.randn(lanes, KP, nb * B, dtype=torch.float64,
+                          device="cuda")
+        for k in (KP, 2, 1):
+            r = r16[:, :k].contiguous()
+            wk = band.band_fwd(fk, r)
+            zk = band.band_bwd(fk, wk)
+            wp = plain.band_fwd_bw_plain(fk, r)
+            zp = plain.band_bwd_bw_plain(fk, wk)
+            ef, eb = rel_err(wk, wp), rel_err(zk, zp)
+            errs["band_fwd_bw"] = max(errs["band_fwd_bw"],
+                                      float((wk - wp).abs().max()))
+            errs["band_bwd_bw"] = max(errs["band_bwd_bw"],
+                                      float((zk - zp).abs().max()))
+            print(f"{lanes} lane(s), nb {nb}, bw {WIDE_BWB}, k={k}: "
+                  f"band_fwd_bw rel err {ef:.3e}, band_bwd_bw {eb:.3e}")
+            if not max(ef, eb) <= WIDE_TOL:
+                fail(f"wide band sweeps disagree with the plain twins "
+                     f"({lanes} lanes, k={k})")
+    del Kd, Ks, fk, r16
     shapes = {2: (8, 7), 6: (8, 9), WIDE_BWB: (WIDE_LANES, WIDE_DP // B)}
     for bw, (lanes, nb) in shapes.items():
         Kd, Ks = random_wide_band(torch, lanes, nb, bw, seed=30 + bw)
@@ -481,6 +510,53 @@ def quasidefinite(torch, lanes, D, pos, seed):
     return M
 
 
+def gemm_work(lanes, r, k, n, shared_b, c_read, kw):
+    """(operations, bytes) a dgemm call needs: a triangular operand and a
+    lower-only result count their nonzero triangle only."""
+    ops = 2 * r * k * n
+    a_el, b_el, c_el = r * k, k * n, r * n
+    if kw.get("a_tri"):
+        ops, a_el = n * r * (r + 1), r * (r + 1) // 2
+    elif kw.get("b_tri"):
+        ops, b_el = r * k * (k + 1), k * (k + 1) // 2
+    elif kw.get("c_lower"):
+        ops, c_el = k * r * (r + 1), r * (r + 1) // 2
+    read_c = c_read and kw.get("beta", 0.0) != 0.0
+    nbytes = 8 * (lanes * (a_el + (1 + read_c) * c_el)
+                  + (1 if shared_b else lanes) * b_el)
+    return lanes * ops, nbytes
+
+
+def node_ops(D, assemble):
+    """f64 operations of the dense recursion's node products at size D,
+    each counted as ``gemm_work`` counts it: (a) L21 with the upper
+    triangular L11inv^T, (b) the lower-only Schur update, and where the
+    node assembles its inverse (``assemble``) (c) L21 L11inv and (d) with
+    the lower triangular L22inv.  The substitution form assembles at a
+    left child and below an assembling node only."""
+    if D <= B:
+        return 0
+    h = (D // B // 2) * B
+    h2 = D - h
+    ops = h2 * h * (h + 1) + h * h2 * (h2 + 1)
+    if assemble:
+        ops += h2 * h * (h + 1) + h * h2 * (h2 + 1)
+    return ops + node_ops(h, True) + node_ops(h2, assemble)
+
+
+def dgemm_sass(kernels):
+    """The DMMA instructions in dgemm's machine code (cuobjdump)."""
+    tool = shutil.which("cuobjdump") or "/usr/local/cuda/bin/cuobjdump"
+    sass = subprocess.run([tool, "-sass", kernels.lib_path("dgemm")],
+                          capture_output=True, text=True, check=True).stdout
+    ops = [line.split("*/")[1].split(";")[0].strip()
+           for line in sass.splitlines() if "DMMA" in line and "*/" in line]
+    print(f"dgemm SASS: {len(ops)} DMMA instructions (f64 tensor cores), "
+          f"e.g. {ops[0] if ops else None!r}")
+    if not ops:
+        fail("dgemm's machine code holds no DMMA instruction")
+
+
 def check_dense_kernels(torch, band, leaf, gemm, ldl):
     """The dense path's kernels against their plain versions at the shapes
     of the 128-lane reduced solve (Dp = 2048), with times and bounds.
@@ -519,7 +595,7 @@ def check_dense_kernels(torch, band, leaf, gemm, ldl):
         ms=ms, plain_ms=pms, bound_ms=b_ms, bound_by=b_by, library_ms=None))
     del M, Lk, dk, Lp, dp, fb
 
-    # ---- dgemm in four forms
+    # ---- dgemm: the general forms and the recursion's flagged products
     g = torch.Generator(device="cuda")
     g.manual_seed(4)
 
@@ -529,39 +605,62 @@ def check_dense_kernels(torch, band, leaf, gemm, ldl):
 
     h = Dp // 2
     a, bm, c0 = rnd(L, h, h), rnd(L, h, h), rnd(L, h, h)
-    # label: (a, b, c, alpha/beta, (r, k, n) of one lane, shared b)
+    big = rnd(L, Dp, Dp)               # a node's K: the views below
+    tri = torch.tril(rnd(L, h, h))     # L11inv, L22inv: zeros above
+    sch = dict(alpha=-1.0, beta=1.0, c_lower=True)
+    # label: (a, b, c, kwargs, (r, k, n) of one lane, shared b)
     forms = {
         "per-lane 128 x (1024x1024 @ 1024x1024)":
             (a, bm, None, {}, (h, h, h), False),
-        "shared operand, 128 x 16 rows @ one 2048x2048":
+        "shared operand, 128 x 16 rows @ one 2048x2048 (folded into M)":
             (rnd(L, KP, Dp), rnd(Dp, Dp), None, {}, (KP, Dp, Dp), True),
-        "transposed operand, c - a @ b' (the Schur form)":
+        "transposed operand, c - a @ b' (unflagged)":
             (a, bm.transpose(-1, -2), c0, dict(alpha=-1.0, beta=1.0),
              (h, h, h), False),
         "ragged 128 x (37x150 @ 150x77)":
             (rnd(L, 37, 150), rnd(L, 150, 77), None, {}, (37, 150, 77),
              False),
+        "(a) L21 = K[:, h:, :h] @ L11inv' (b upper)":
+            (big[:, h:, :h], tri.transpose(-1, -2), None,
+             dict(b_tri="upper"), (h, h, h), False),
+        "(b) Schur c - (L21 d1) @ L21' (c lower)":
+            (a, bm.transpose(-1, -2), c0, sch, (h, h, h), False),
+        "(b) Schur into K[:, h:, h:] (c lower)":
+            (a, bm.transpose(-1, -2), big[:, h:, h:], sch, (h, h, h),
+             False),
+        "(c) X = L21 @ L11inv (b lower)":
+            (a, tri, None, dict(b_tri="lower"), (h, h, h), False),
+        "(d) -L22inv @ X into a block of Linv (a lower)":
+            (tri, a, big[:, :h, h:], dict(alpha=-1.0, a_tri="lower"),
+             (h, h, h), False),
     }
     gemm_abs = 0.0
     for label, (x, y, c, kw, (r, k, n), shared_b) in forms.items():
-        got = gemm.matmul(x, y, c=None if c is None else c.clone(), **kw)
-        want = gemm.matmul_plain(x, y, None if c is None else c.clone(), **kw)
+        c_in = None if c is None else c.clone()
+        got = gemm.matmul(x, y, c=c, **kw).clone()
+        if c is not None:
+            c.copy_(c_in)
+        want = gemm.matmul_plain(x, y, c, **kw).clone()
         torch.cuda.synchronize()
         err = rel_err(got, want)
         gemm_abs = max(gemm_abs, float((got - want).abs().max()))
-        ms = cuda_ms(lambda: gemm.matmul(x, y, c=c if c is None else
-                                         c.clone(), **kw), reps=5)
-        pms = cuda_ms(lambda: gemm.matmul_plain(
-            x, y, None if c is None else c.clone(), **kw), reps=5)
+        if c is not None and kw.get("c_lower"):
+            up = torch.ones(r, n, dtype=torch.bool, device="cuda").triu(1)
+            if not torch.equal(got[:, up], c_in[:, up]):
+                fail(f"dgemm wrote above the diagonal ({label})")
+        del want, got, c_in
+        ms = cuda_ms(lambda: gemm.matmul(x, y, c=c, **kw), reps=5)
+        pms = cuda_ms(lambda: gemm.matmul_plain(x, y, c, **kw), reps=5)
         lms = cuda_ms(lambda: torch.matmul(x, y), reps=5)
-        nbytes = 8 * (L * r * k + (1 if shared_b else L) * k * n
-                      + (2 if c is not None else 1) * L * r * n)
-        f_ms, f_by = bound(nbytes, L * 2 * r * k * n)
-        print(f"dgemm {label}: rel err {err:.3e}, {ms:.4f} ms (plain "
-              f"{pms:.4f} ms, torch.matmul {lms:.4f} ms), bound {f_ms:.4f} "
-              f"ms by {f_by}")
+        ops, nbytes = gemm_work(L, r, k, n, shared_b, c is not None, kw)
+        f_ms, f_by = bound(nbytes, ops)
+        print(f"dgemm {label}: rel err {err:.3e}, {ms:.4f} ms "
+              f"({ops / ms / 1e9:.2f} TFLOP/s of the operations it needs; "
+              f"plain {pms:.4f} ms, torch.matmul {lms:.4f} ms), bound "
+              f"{f_ms:.4f} ms by {f_by}")
         if not err <= KERNEL_TOL:
             fail(f"dgemm disagrees with its plain version ({label})")
+    del big, tri, forms
     b_ms, b_by = bound(L * 3 * h * h * 8, L * 2 * h ** 3)
     ms = cuda_ms(lambda: gemm.matmul(a, bm), reps=10)
     pms = cuda_ms(lambda: gemm.matmul_plain(a, bm), reps=10)
@@ -573,7 +672,7 @@ def check_dense_kernels(torch, band, leaf, gemm, ldl):
         name="dgemm", route="cuda", source="eicos_tpu_torch/csrc/dgemm.cu",
         replaces="eicos_tpu/ops/pallas_gemm_ds.py:316", max_abs_err=gemm_abs,
         ms=ms, plain_ms=pms, bound_ms=b_ms, bound_by=b_by, library_ms=lms))
-    del a, bm, c0, forms
+    del a, bm, c0
     torch.cuda.empty_cache()
 
     # ---- linv_fwd / linv_bwd on a factor of the dense recursion
@@ -581,11 +680,12 @@ def check_dense_kernels(torch, band, leaf, gemm, ldl):
     fac = ldl.ldl_factor(K.clone())
     torch.cuda.synchronize()
     fac_ms = cuda_ms(lambda: ldl.ldl_factor(K.clone()), reps=3)
-    fac_ops = L * 4 * Dp ** 3 / 3       # the four products of every node
+    fac_ops = L * node_ops(Dp, True)
     print(f"ldl_factor, 128 x Dp 2048 (one clone of K included): "
-          f"{fac_ms:.2f} ms, {fac_ops / fac_ms / 1e9:.2f} TFLOP/s of node "
-          f"products; strict upper triangle of Linv all zero: "
-          f"{not bool(torch.triu(fac.Linv, 1).any())}")
+          f"{fac_ms:.2f} ms, {fac_ops / fac_ms / 1e9:.2f} TFLOP/s of the node "
+          f"products it needs ({fac_ops / 1e9:.1f} GFLOP: triangular and "
+          f"lower-only products at half); strict upper triangle of Linv all "
+          f"zero: {not bool(torch.triu(fac.Linv, 1).any())}")
     Linv, d = fac.Linv, fac.d
     g.manual_seed(5)
     tri = Dp * (Dp + 1) // 2 * 8         # the lower triangle, in bytes
@@ -677,6 +777,8 @@ def check_subst_kernels(torch, leaf, ldl, dense, kernels):
           f"{n_inv} (inverse) / {n_sub} (substitution)")
     if not (same_pack and same_d and same_x):
         fail("dense_pack or the substitution factor disagrees")
+    if (n_inv, n_sub) != (60, 52):
+        fail(f"dgemm launches a factor {n_inv} / {n_sub}, expected 60 / 52")
 
     errs = {"dense_fwd": 0.0, "dense_bwd": 0.0}
 
@@ -789,7 +891,9 @@ def check_subst_kernels(torch, leaf, ldl, dense, kernels):
         torch.cuda.empty_cache()
     print(f"factor, {L} x Dp {Dp}, ms: ldl_factor {t_fac[0]:.2f} / "
           f"{t_fac[3]:.2f}, ldl_factor_subst with its pack {t_fac[1]:.2f} / "
-          f"{t_fac[2]:.2f}")
+          f"{t_fac[2]:.2f}; node products they need: "
+          f"{L * node_ops(Dp, True) / 1e9:.1f} / "
+          f"{L * node_ops(Dp, False) / 1e9:.1f} GFLOP")
     del K
     torch.cuda.empty_cache()
 
@@ -1141,6 +1245,7 @@ def main():
     t0 = time.perf_counter()
     kernels.build()
     print(f"kernel build: {time.perf_counter() - t0:.2f} s")
+    dgemm_sass(kernels)
     for name, log in kernels.BUILD_LOG.items():
         for line in log.splitlines():
             if "registers" in line or "spill" in line:

@@ -1,5 +1,5 @@
 // dgemm: lane-batched f64 C = alpha * A @ B + beta * C with strided
-// operands.
+// operands, on the f64 tensor cores.
 //
 // Replaces the double-single GEMM kernels of eicos_tpu/ops/pallas_gemm_ds.py:
 // the lane-tiled _make_bmm_kernel (via _bmm_call / _bmatmul_ds, the form of
@@ -8,7 +8,9 @@
 // BigOperand.rmatmul with one shared right operand).  Those split each f64
 // operand into (hi, lo) f32 pairs, chunk them to bf16 and fold the partial
 // products with TwoSum; this kernel multiplies in native IEEE f64.  A shared
-// operand is a lane stride of 0, so both TPU kernels are this one kernel.
+// operand is a lane stride of 0, so both TPU kernels are this one kernel
+// (the wrapper folds a shared right operand's lanes into M where A's lanes
+// follow one another, so B is read once).
 //
 // Operand element (l, i, j) lives at ptr[l*s_lane + i*s_row + j*s_col], so
 // a transposed view (L11inv^T, L21^T in the dense recursion) is read in
@@ -17,98 +19,283 @@
 // C is not read.  Ragged edges are masked.
 //
 // Bound: 2 r k n flops against 8 (r k + k n + 2 r n) bytes per lane, so at
-// the dense recursion's sizes (k >= 128) it is bound by f64 operations.
+// the dense recursion's sizes (k >= 128) it is bound by f64 operations:
+// Hopper's f64 rate (67 TFLOP/s) is reached only through the tensor cores
+// (DMMA; wgmma has no f64 type): the FMA pipes give half of it.
 //
-// Design: a 64x64 tile of C per CTA, 256 threads with a 4x4 register tile
-// each (rows ty + 16 r, columns tx + 16 c), and the contraction staged
-// through shared memory in panels of 16: A's 64x16 panel and B's 16x64
-// panel, each loaded along whichever of its axes is contiguous in memory,
-// so that neighbouring threads read neighbouring addresses for plain and
-// transposed views alike.  Plain FMA on the f64 pipes; no overlap of the
-// next panel's loads with the current panel's FMAs.  DMMA (mma.sync f64),
-// double buffering and TMA are later work.
+// Design:
+// - mma.sync m16n8k8 f64 (sm_90), 2048 flops an instruction.  A CTA of 8
+//   warps computes a 128x128 tile of C; each warp a 64x32 block, 4x4 MMA
+//   tiles, 64 accumulators a thread.
+// - The contraction runs through a ring of STAGES = 2 cp.async stages of
+//   depth BK = 32 in dynamic shared memory (160 KB), one __syncthreads() a
+//   stage, the next stage's loads in flight while the tensor cores work on
+//   this one.  Timed side by side on the H100, this beat 4 stages of depth
+//   16 by 4-6 % (PERF.md); 3 stages of depth 32 do not fit.
+//   Each operand is copied along whichever of its axes is contiguous in
+//   memory, 16 bytes a thread where the operand is 16-byte aligned and 8
+//   bytes (zero-filled past the edge) otherwise, and kept in shared memory
+//   in that orientation.  A thread's two k-slots of an MMA take adjacent
+//   contraction indices, so a K-contiguous operand gives both in one
+//   16-byte load.  Rows of BK + 8 (K contiguous) or 128 + 2 doubles keep
+//   the fragment loads free of bank conflicts.
+// - No work on known zeros (flags): with a triangular A or B each C tile
+//   clips its contraction range to where the operand can be nonzero, and
+//   with a lower-only C (the symmetric Schur update, of which only the
+//   lower triangle is read again) tiles strictly above the diagonal exit at
+//   once and diagonal tiles write only j <= i.  The zeros the clip skips
+//   are exact, so the result is the full product's up to summation order.
+// - Each C element is summed by one thread in one fixed order (no split-K,
+//   no atomics): a repeated call gives the same bits.
 
 #include <cuda_runtime.h>
 
 namespace {
 
-constexpr int BM = 64;
-constexpr int BN = 64;
-constexpr int BK = 16;
+constexpr int BM = 128;
+constexpr int BN = 128;
+constexpr int BK = 32;
+constexpr int STAGES = 2;
 constexpr int NT = 256;
-constexpr int TM = BM / 16;   // rows per thread
-constexpr int TN = BN / 16;   // columns per thread
+constexpr int LDK = BK + 8;    // a K-contiguous operand: rows of BK
+// an M- (or N-) contiguous tile of ROWS rows (of A) or columns (of B):
+// rows of ROWS + 2; a stage of it, in doubles
+template <int ROWS>
+constexpr int LDX = ROWS + 2;
+template <int ROWS>
+constexpr int STAGE = ROWS * LDK > BK * LDX<ROWS> ? ROWS * LDK
+                                                  : BK * LDX<ROWS>;
+constexpr int OPA = STAGE<BM>, OPB = STAGE<BN>;
+constexpr int WM = 64, WN = 32;          // warp tile
+constexpr int MT = WM / 16, NTL = WN / 8;
 
-__global__ void __launch_bounds__(NT)
-dgemm_kernel(int M, int N, int K, double alpha,
-             const double* __restrict__ A, long long a_lane, long long a_row,
-             long long a_col, const double* __restrict__ Bm, long long b_lane,
-             long long b_row, long long b_col, double beta,
-             double* __restrict__ C, long long c_lane, long long c_row) {
-  __shared__ double As[BK][BM + 1];
-  __shared__ double Bs[BK][BN + 1];
+// flag bits (ops/gemm.py)
+constexpr int C_LOWER = 1;
+constexpr int A_LOWER = 2, A_UPPER = 4, B_LOWER = 8, B_UPPER = 16;
+
+__device__ __forceinline__ void cp16(double* dst, const double* src,
+                                     int bytes) {
+  const unsigned s = (unsigned)__cvta_generic_to_shared(dst);
+  asm volatile("cp.async.cg.shared.global [%0], [%1], 16, %2;\n" ::"r"(s),
+               "l"(src), "r"(bytes));
+}
+
+__device__ __forceinline__ void cp8(double* dst, const double* src,
+                                    int bytes) {
+  const unsigned s = (unsigned)__cvta_generic_to_shared(dst);
+  asm volatile("cp.async.ca.shared.global [%0], [%1], 8, %2;\n" ::"r"(s),
+               "l"(src), "r"(bytes));
+}
+
+__device__ __forceinline__ void commit() {
+  asm volatile("cp.async.commit_group;\n" ::);
+}
+
+template <int N>
+__device__ __forceinline__ void wait_groups() {
+  asm volatile("cp.async.wait_group %0;\n" ::"n"(N));
+}
+
+// One operand tile, ROWS (outer: rows of A or columns of B) x BK, into S.
+// Element (x, k) of the operand is at g[x * s_x + k * s_k]; x < nx and
+// k < nk are in range, the rest is zero-filled.  KC: K is the contiguous
+// axis (s_k == 1, S[x * LDK + k]); else x is (s_x == 1, S[k * LDX + x]),
+// or neither is and the tile is copied element by element.  vec: 16-byte
+// copies (the operand is 16-byte aligned along its contiguous axis).
+template <bool KC, int ROWS>
+__device__ __forceinline__ void load_tile(double* S, const double* g,
+                                          long long s_x, long long s_k,
+                                          int x0, int nx, int k0, int nk,
+                                          bool vec, int tid) {
+  if (vec) {
+#pragma unroll
+    for (int q = 0; q < ROWS * BK / 2 / NT; ++q) {
+      const int c = tid + NT * q;
+      int x, k;
+      if (KC) {
+        x = c / (BK / 2);
+        k = (c % (BK / 2)) * 2;
+      } else {
+        k = c / (ROWS / 2);
+        x = (c % (ROWS / 2)) * 2;
+      }
+      const int gx = x0 + x, gk = k0 + k;
+      int n = KC ? nk - gk : nx - gx;
+      n = n < 0 ? 0 : (n > 2 ? 2 : n);
+      if ((KC ? gx >= nx : gk >= nk)) n = 0;
+      const double* src = n ? g + (long long)gx * s_x + (long long)gk * s_k : g;
+      cp16(KC ? S + x * LDK + k : S + k * LDX<ROWS> + x, src, 8 * n);
+    }
+  } else {
+#pragma unroll 4
+    for (int q = 0; q < ROWS * BK / NT; ++q) {
+      const int c = tid + NT * q;
+      int x, k;
+      if (KC) {
+        x = c / BK;
+        k = c % BK;
+      } else {
+        k = c / ROWS;
+        x = c % ROWS;
+      }
+      const int gx = x0 + x, gk = k0 + k;
+      const bool in = gx < nx && gk < nk;
+      const double* src = in ? g + (long long)gx * s_x + (long long)gk * s_k : g;
+      cp8(KC ? S + x * LDK + k : S + k * LDX<ROWS> + x, src, in ? 8 : 0);
+    }
+  }
+}
+
+// Elements (x, k) and (x, k + 1) of a tile: one 16-byte load where K is
+// the contiguous axis.  The thread's MMA k-slots t and t + 4 carry
+// contraction indices 2t and 2t + 1 of the step, in A and B alike: the
+// k-slots of an MMA are summed, so any one-to-one map that the two
+// operands share gives the product.
+template <bool KC, int ROWS>
+__device__ __forceinline__ double2 frag2(const double* S, int x, int k) {
+  if (KC) return *reinterpret_cast<const double2*>(S + x * LDK + k);
+  return make_double2(S[k * LDX<ROWS> + x], S[(k + 1) * LDX<ROWS> + x]);
+}
+
+__device__ __forceinline__ void mma16x8x8(double (&d)[4], const double (&a)[4],
+                                          const double (&b)[2]) {
+  asm volatile(
+      "mma.sync.aligned.m16n8k8.row.col.f64.f64.f64.f64 {%0,%1,%2,%3}, "
+      "{%4,%5,%6,%7}, {%8,%9}, {%0,%1,%2,%3};\n"
+      : "+d"(d[0]), "+d"(d[1]), "+d"(d[2]), "+d"(d[3])
+      : "d"(a[0]), "d"(a[1]), "d"(a[2]), "d"(a[3]), "d"(b[0]), "d"(b[1]));
+}
+
+template <bool AK, bool BKC>
+__global__ void __launch_bounds__(NT, 1)
+dgemm_kernel(int M, int N, int K, double alpha, const double* __restrict__ A,
+             long long a_lane, long long a_row, long long a_col, bool a_vec,
+             const double* __restrict__ Bm, long long b_lane, long long b_row,
+             long long b_col, bool b_vec, double beta, double* __restrict__ C,
+             long long c_lane, long long c_row, int flags) {
+  extern __shared__ double smem[];
+  const int i0 = blockIdx.y * BM, j0 = blockIdx.x * BN;
+  if ((flags & C_LOWER) && j0 > i0 + BM - 1) return;   // above the diagonal
+
+  // the contraction range this tile needs
+  int kb = 0, ke = K;
+  if (flags & A_LOWER) ke = min(ke, i0 + BM);
+  if (flags & A_UPPER) kb = max(kb, i0);
+  if (flags & B_LOWER) kb = max(kb, j0);
+  if (flags & B_UPPER) ke = min(ke, j0 + BN);
+  const int kt0 = kb / BK;
+  const int ntiles = ke > kb ? (ke + BK - 1) / BK - kt0 : 0;
 
   const int tid = threadIdx.x;
-  const int tx = tid & 15, ty = tid >> 4;
-  const int i0 = blockIdx.y * BM, j0 = blockIdx.x * BN;
-  const long long lane = blockIdx.z;
-  A += lane * a_lane;
-  Bm += lane * b_lane;
-  C += lane * c_lane;
-  const bool a_rowmajor = a_col == 1;
-  const bool b_rowmajor = b_col == 1;
+  const int lane_id = tid & 31, warp = tid >> 5;
+  const int g = lane_id >> 2, t = lane_id & 3;
+  const int wm = (warp / (BN / WN)) * WM, wn = (warp % (BN / WN)) * WN;
+  const long long l = blockIdx.z;
+  A += l * a_lane;
+  Bm += l * b_lane;
+  C += l * c_lane;
 
-  double acc[TM][TN];
-#pragma unroll
-  for (int r = 0; r < TM; ++r)
-#pragma unroll
-    for (int c = 0; c < TN; ++c) acc[r][c] = 0.0;
+  double* As = smem;                   // STAGES x OPA
+  double* Bs = smem + STAGES * OPA;    // STAGES x OPB
 
-  for (int k0 = 0; k0 < K; k0 += BK) {
+  auto load = [&](int stage, int kt) {
+    const int k0 = kt * BK;
+    load_tile<AK, BM>(As + stage * OPA, A, a_row, a_col, i0, M, k0, K, a_vec,
+                      tid);
+    load_tile<BKC, BN>(Bs + stage * OPB, Bm, b_col, b_row, j0, N, k0, K,
+                       b_vec, tid);
+  };
+
+  double acc[MT][NTL][4];
 #pragma unroll
-    for (int q = 0; q < BM * BK / NT; ++q) {
-      const int e = tid + NT * q;
-      const int i = a_rowmajor ? e / BK : e % BM;
-      const int kk = a_rowmajor ? e % BK : e / BM;
-      const int gi = i0 + i, gk = k0 + kk;
-      As[kk][i] = (gi < M && gk < K) ? A[gi * a_row + gk * a_col] : 0.0;
-    }
+  for (int mi = 0; mi < MT; ++mi)
 #pragma unroll
-    for (int q = 0; q < BK * BN / NT; ++q) {
-      const int e = tid + NT * q;
-      const int j = b_rowmajor ? e % BN : e / BK;
-      const int kk = b_rowmajor ? e / BN : e % BK;
-      const int gj = j0 + j, gk = k0 + kk;
-      Bs[kk][j] = (gj < N && gk < K) ? Bm[gk * b_row + gj * b_col] : 0.0;
-    }
-    __syncthreads();
+    for (int ni = 0; ni < NTL; ++ni)
 #pragma unroll
-    for (int kk = 0; kk < BK; ++kk) {
-      double a[TM], b[TN];
+      for (int e = 0; e < 4; ++e) acc[mi][ni][e] = 0.0;
+
 #pragma unroll
-      for (int r = 0; r < TM; ++r) a[r] = As[kk][ty + 16 * r];
-#pragma unroll
-      for (int c = 0; c < TN; ++c) b[c] = Bs[kk][tx + 16 * c];
-#pragma unroll
-      for (int r = 0; r < TM; ++r)
-#pragma unroll
-        for (int c = 0; c < TN; ++c) acc[r][c] = fma(a[r], b[c], acc[r][c]);
-    }
-    __syncthreads();
+  for (int s = 0; s < STAGES - 1; ++s) {
+    if (s < ntiles) load(s, kt0 + s);
+    commit();
   }
-
+  for (int it = 0; it < ntiles; ++it) {
+    wait_groups<STAGES - 2>();
+    __syncthreads();   // stage it ready; stage it - 1 free for everyone
+    if (it + STAGES - 1 < ntiles)
+      load((it + STAGES - 1) % STAGES, kt0 + it + STAGES - 1);
+    commit();
+    const double* as = As + (it % STAGES) * OPA;
+    const double* bs = Bs + (it % STAGES) * OPB;
 #pragma unroll
-  for (int r = 0; r < TM; ++r) {
-    const int gi = i0 + ty + 16 * r;
-    if (gi >= M) continue;
+    for (int kk = 0; kk < BK; kk += 8) {
+      double af[MT][4], bf[NTL][2];
 #pragma unroll
-    for (int c = 0; c < TN; ++c) {
-      const int gj = j0 + tx + 16 * c;
-      if (gj >= N) continue;
-      double* p = C + gi * c_row + gj;
-      *p = beta == 0.0 ? alpha * acc[r][c] : alpha * acc[r][c] + beta * *p;
+      for (int mi = 0; mi < MT; ++mi) {
+        const int x = wm + mi * 16 + g;
+        const double2 lo = frag2<AK, BM>(as, x, kk + 2 * t);
+        const double2 hi = frag2<AK, BM>(as, x + 8, kk + 2 * t);
+        af[mi][0] = lo.x;
+        af[mi][1] = hi.x;
+        af[mi][2] = lo.y;
+        af[mi][3] = hi.y;
+      }
+#pragma unroll
+      for (int ni = 0; ni < NTL; ++ni) {
+        const double2 v = frag2<BKC, BN>(bs, wn + ni * 8 + g, kk + 2 * t);
+        bf[ni][0] = v.x;
+        bf[ni][1] = v.y;
+      }
+#pragma unroll
+      for (int mi = 0; mi < MT; ++mi)
+#pragma unroll
+        for (int ni = 0; ni < NTL; ++ni) mma16x8x8(acc[mi][ni], af[mi], bf[ni]);
     }
   }
+  wait_groups<0>();
+
+  const bool lower = flags & C_LOWER;
+#pragma unroll
+  for (int mi = 0; mi < MT; ++mi) {
+#pragma unroll
+    for (int h = 0; h < 2; ++h) {
+      const int gi = i0 + wm + mi * 16 + g + 8 * h;
+      if (gi >= M) continue;
+      double* crow = C + (long long)gi * c_row;
+#pragma unroll
+      for (int ni = 0; ni < NTL; ++ni) {
+#pragma unroll
+        for (int e = 0; e < 2; ++e) {
+          const int gj = j0 + wn + ni * 8 + 2 * t + e;
+          if (gj >= N || (lower && gj > gi)) continue;
+          const double v = acc[mi][ni][2 * h + e];
+          crow[gj] = beta == 0.0 ? alpha * v : alpha * v + beta * crow[gj];
+        }
+      }
+    }
+  }
+}
+
+template <bool AK, bool BKC>
+int launch(dim3 grid, size_t smem, cudaStream_t stream, int M, int N, int K,
+           double alpha, const double* A, long long a_lane, long long a_row,
+           long long a_col, bool a_vec, const double* B, long long b_lane,
+           long long b_row, long long b_col, bool b_vec, double beta,
+           double* C, long long c_lane, long long c_row, int flags) {
+  cudaError_t err = cudaFuncSetAttribute(
+      dgemm_kernel<AK, BKC>, cudaFuncAttributeMaxDynamicSharedMemorySize,
+      (int)smem);
+  if (err != cudaSuccess) return (int)err;
+  dgemm_kernel<AK, BKC><<<grid, NT, smem, stream>>>(
+      M, N, K, alpha, A, a_lane, a_row, a_col, a_vec, B, b_lane, b_row, b_col,
+      b_vec, beta, C, c_lane, c_row, flags);
+  return (int)cudaGetLastError();
+}
+
+// 16-byte copies along the contiguous axis: the base and the other two
+// strides keep every pair of elements 16-byte aligned
+bool aligned16(const double* p, long long s_lane, long long s_other) {
+  return ((size_t)p % 16 == 0) && s_lane % 2 == 0 && s_other % 2 == 0;
 }
 
 }  // namespace
@@ -116,17 +303,41 @@ dgemm_kernel(int M, int N, int K, double alpha,
 // C (lanes, M, N) = alpha * A (lanes, M, K) @ B (lanes, K, N) + beta * C,
 // every operand addressed through its (lane, row, column) strides in
 // elements (column stride 1 for C; lane stride 0 for a shared operand).
-// Launches on `stream`; returns the CUDA error code of the launch.
+// flags: 1 write only C's elements with j <= i (tiles above the diagonal
+// are not computed); 2 / 4 A lower / upper triangular (square), 8 / 16 B
+// lower / upper triangular: its structural zeros are skipped.  Launches
+// on `stream`; returns the CUDA error code of the launch.
 extern "C" int eicos_dgemm(int lanes, int M, int N, int K, double alpha,
                            const double* A, long long a_lane, long long a_row,
                            long long a_col, const double* B, long long b_lane,
                            long long b_row, long long b_col, double beta,
                            double* C, long long c_lane, long long c_row,
-                           void* stream) {
+                           int flags, void* stream) {
   if (lanes <= 0 || M <= 0 || N <= 0) return 0;
+  if (lanes > 65535) return (int)cudaErrorInvalidValue;
   dim3 grid((N + BN - 1) / BN, (M + BM - 1) / BM, lanes);
-  dgemm_kernel<<<grid, NT, 0, (cudaStream_t)stream>>>(
-      M, N, K, alpha, A, a_lane, a_row, a_col, B, b_lane, b_row, b_col, beta,
-      C, c_lane, c_row);
-  return (int)cudaGetLastError();
+  const size_t smem = STAGES * (OPA + OPB) * sizeof(double);
+  cudaStream_t st = (cudaStream_t)stream;
+  // the contiguous axis of each operand: K (A's columns, B's rows) or not
+  const bool ak = a_col == 1 || (a_row != 1 && a_col <= a_row);
+  const bool bk = b_row == 1 || (b_col != 1 && b_row <= b_col);
+  const bool a_vec = (ak ? a_col == 1 : a_row == 1) &&
+                     aligned16(A, a_lane, ak ? a_row : a_col);
+  const bool b_vec = (bk ? b_row == 1 : b_col == 1) &&
+                     aligned16(B, b_lane, bk ? b_col : b_row);
+  if (ak && bk)
+    return launch<true, true>(grid, smem, st, M, N, K, alpha, A, a_lane, a_row,
+                              a_col, a_vec, B, b_lane, b_row, b_col, b_vec,
+                              beta, C, c_lane, c_row, flags);
+  if (ak)
+    return launch<true, false>(grid, smem, st, M, N, K, alpha, A, a_lane,
+                               a_row, a_col, a_vec, B, b_lane, b_row, b_col,
+                               b_vec, beta, C, c_lane, c_row, flags);
+  if (bk)
+    return launch<false, true>(grid, smem, st, M, N, K, alpha, A, a_lane,
+                               a_row, a_col, a_vec, B, b_lane, b_row, b_col,
+                               b_vec, beta, C, c_lane, c_row, flags);
+  return launch<false, false>(grid, smem, st, M, N, K, alpha, A, a_lane, a_row,
+                              a_col, a_vec, B, b_lane, b_row, b_col, b_vec,
+                              beta, C, c_lane, c_row, flags);
 }

@@ -47,7 +47,7 @@ LIBS = {
     "dgemm": ("dgemm.cu",
               {"eicos_dgemm": [_I] * 4 + [_D, _P, _LL, _LL, _LL,
                                           _P, _LL, _LL, _LL,
-                                          _D, _P, _LL, _LL, _P]}),
+                                          _D, _P, _LL, _LL, _I, _P]}),
     "linv_solve": ("linv_solve.cu",
                    {"eicos_linv_fwd": [_P] * 4 + [_I, _I, _I, _P],
                     "eicos_linv_bwd": [_P] * 3 + [_I, _I, _I, _P]}),
@@ -86,7 +86,7 @@ def _nvcc() -> str:
     return path
 
 
-def _lib_path(name: str) -> str:
+def lib_path(name: str) -> str:
     """The library's build path, named by a hash of its source, the shared
     headers (``csrc/*.cuh``) and the flags."""
     h = hashlib.sha256(" ".join(NVCC_FLAGS).encode())
@@ -101,14 +101,14 @@ def build(names=None) -> None:
     """Compile every library that is not built yet, all in parallel.
     Raises RuntimeError with nvcc's output if one fails."""
     names = list(LIBS) if names is None else list(names)
-    todo = [n for n in names if not os.path.exists(_lib_path(n))]
+    todo = [n for n in names if not os.path.exists(lib_path(n))]
     if not todo:
         return
     os.makedirs(BUILD_DIR, exist_ok=True)
     nvcc = _nvcc()
     procs = {}
     for n in todo:
-        out = _lib_path(n)
+        out = lib_path(n)
         tmp = f"{out}.{os.getpid()}.tmp"
         cmd = [nvcc, *NVCC_FLAGS, "-o", tmp,
                os.path.join(CSRC, LIBS[n][0])]
@@ -132,7 +132,7 @@ def lib(name: str):
     if name in _loaded:
         return _loaded[name]
     build()
-    cdll = ctypes.CDLL(_lib_path(name))
+    cdll = ctypes.CDLL(lib_path(name))
     for sym, argtypes in LIBS[name][1].items():
         fn = getattr(cdll, sym)
         fn.argtypes = argtypes

@@ -10,7 +10,11 @@ complement K22 - (L21 d1) L21^T, factors that, and assembles its inverse
 [L11inv 0; -L22inv L21 L11inv  L22inv].  Leaves of 128 go to
 ``leaf.leaf_ldl`` and the four products of a node to ``gemm.matmul``, so
 for a CUDA f64 tensor the recursion and the solves run in the kernels
-only.
+only.  Each product names its structure, so the kernel skips known zeros:
+L11inv^T is upper triangular in L21 = K21 L11inv^T, L11inv lower in
+X = L21 L11inv, L22inv lower in -L22inv X, and the Schur update writes
+only K22's lower triangle.  Both recursions pass the same flags in the
+same calls, so their pivots and leaf inverses keep the same bits.
 
 The substitution form keeps L itself: the same recursion, the same calls
 in the same order for L21, the Schur update and the leaves, so its pivots
@@ -37,10 +41,11 @@ Departures from the JAX code, none of which changes a value:
   of Linv for its double-single solve kernel, while the solve kernels here
   read the f64 Linv as it is, so ``kkt`` calls ``ldl_solve`` on the
   factor directly.
-* ``_mm_sym`` (the half-work symmetric Schur product of
-  ``_ldl_rec_subst``) is not ported: in the reference it runs on the TPU's
-  double-single path only (``ds=False`` everywhere else sends it to
-  ``_mm``), so both recursions here form the Schur update in full.
+* The counterpart of ``_mm_sym`` (the reference's half-work symmetric
+  Schur product, which it runs on the TPU's double-single path only) is
+  ``matmul(..., c_lower=True)`` in both recursions: half the work, and
+  without ``_mm_sym``'s mirror, because nothing reads K22's upper
+  triangle.  K's strict upper triangle is left stale.
 * The substitution recursion leaves L where K was: each L21 overwrites the
   K21 block it was computed from, so the consumed K is the reference's
   ``Loff`` and no second (L, Dp, Dp) buffer exists.  Leaf inverses go
@@ -85,15 +90,16 @@ def _ldl_rec(K: torch.Tensor, Linv: torch.Tensor, d: torch.Tensor) -> None:
     d1 = d[:, :h]
     _ldl_rec(K[:, :h, :h], L11inv, d1)
     # K21 = L21 D1 L11^T  =>  L21 = K21 L11^{-T} D1^{-1}
-    L21 = matmul(K[:, h:, :h], L11inv.transpose(-1, -2))
+    L21 = matmul(K[:, h:, :h], L11inv.transpose(-1, -2), b_tri="upper")
     L21 /= d1[:, None, :]
     K22 = K[:, h:, h:]
     matmul(L21 * d1[:, None, :], L21.transpose(-1, -2), c=K22, alpha=-1.0,
-           beta=1.0)
+           beta=1.0, c_lower=True)
     L22inv = Linv[:, h:, h:]
     _ldl_rec(K22, L22inv, d[:, h:])
     # [L11 0; L21 L22]^{-1} = [L11inv 0; -L22inv L21 L11inv, L22inv]
-    matmul(L22inv, matmul(L21, L11inv), c=Linv[:, h:, :h], alpha=-1.0)
+    matmul(L22inv, matmul(L21, L11inv, b_tri="lower"), c=Linv[:, h:, :h],
+           alpha=-1.0, a_tri="lower")
 
 
 def _ldl_rec_subst(K: torch.Tensor, Linv, Xinv: torch.Tensor,
@@ -116,11 +122,11 @@ def _ldl_rec_subst(K: torch.Tensor, Linv, Xinv: torch.Tensor,
     else:
         L11inv = Linv[:, :h, :h]
     _ldl_rec_subst(K[:, :h, :h], L11inv, Xinv[:, :h // B], d1)
-    L21 = matmul(K[:, h:, :h], L11inv.transpose(-1, -2))
+    L21 = matmul(K[:, h:, :h], L11inv.transpose(-1, -2), b_tri="upper")
     L21 /= d1[:, None, :]
     K22 = K[:, h:, h:]
     matmul(L21 * d1[:, None, :], L21.transpose(-1, -2), c=K22, alpha=-1.0,
-           beta=1.0)
+           beta=1.0, c_lower=True)
     K[:, h:, :h] = L21
     if Linv is None:
         del L11inv, L21       # nothing reads them again
@@ -128,7 +134,8 @@ def _ldl_rec_subst(K: torch.Tensor, Linv, Xinv: torch.Tensor,
         return
     L22inv = Linv[:, h:, h:]
     _ldl_rec_subst(K22, L22inv, Xinv[:, h // B:], d[:, h:])
-    matmul(L22inv, matmul(L21, L11inv), c=Linv[:, h:, :h], alpha=-1.0)
+    matmul(L22inv, matmul(L21, L11inv, b_tri="lower"), c=Linv[:, h:, :h],
+           alpha=-1.0, a_tri="lower")
 
 
 def _check_padded(K: torch.Tensor):
@@ -142,7 +149,8 @@ def _check_padded(K: torch.Tensor):
 def ldl_factor_subst(K: torch.Tensor) -> LDLSubstFactors:
     """Factor the padded symmetric f64 (L, Dp, Dp) K into the substitution
     form.  K is consumed: afterwards its strictly-block-lower blocks hold
-    L, which ``dense.pack_dense`` packs, and the caller can free it."""
+    L, which ``dense.pack_dense`` packs, its strict upper triangle is
+    stale, and the caller can free it."""
     lanes, Dp = _check_padded(K)
     if K.dtype != torch.float64:
         raise ValueError(f"the substitution form is f64, got {K.dtype}")
@@ -156,7 +164,8 @@ def ldl_factor(K: torch.Tensor) -> LDLFactors:
     """Factor the padded symmetric (L, Dp, Dp) K, f64 or f32, Dp a
     multiple of 128 (the reference's ``block``), into ``LDLFactors``.  K
     is consumed: its blocks below the leading one hold Schur complements
-    afterwards."""
+    afterwards, of which only the lower triangles are current (the strict
+    upper triangle of K is left stale)."""
     lanes, Dp = _check_padded(K)
     # strictly upper blocks are never written and stay exact zeros
     Linv = torch.zeros_like(K)

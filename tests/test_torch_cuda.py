@@ -139,11 +139,17 @@ def test_leaf_kernel_matches_plain_and_band_leaf(cuda):
     assert torch.equal(Lk, fac.Dinv[:, 0]) and torch.equal(dk, fac.d[:, 0])
 
 
-@pytest.mark.parametrize("form", ["lanes", "shared_b", "shared_a",
-                                  "transposed", "beta"])
+@pytest.mark.parametrize("form", [
+    "lanes", "shared_b", "shared_a", "transposed", "beta", "ragged",
+    "unaligned", "c_lower", "c_lower_block", "a_lower", "a_upper", "b_lower",
+    "b_upper", "b_upper_transposed", "folded"])
 def test_dgemm_kernel_matches_plain(cuda, form):
-    """dgemm against torch.matmul on the card on the ragged 37x150x77 case,
-    within 1e-12 relative (summation order only)."""
+    """dgemm against its plain version on the card within 1e-12 relative
+    (summation order only): ragged shapes (37x150x77, 129x300x65), an
+    operand whose rows are not 16-byte aligned, a c that is a block of a
+    larger matrix, each structure flag on exactly triangular operands (a
+    lower-only c keeps its strict upper triangle bit for bit), and the
+    shared right operand folded into one product."""
     from eicos_tpu_torch.ops import gemm, kernels
 
     rng = np.random.default_rng(4)
@@ -161,12 +167,84 @@ def test_dgemm_kernel_matches_plain(cuda, form):
     elif form == "beta":
         c = t(3, 50, 90)[:, 5:42, 3:80]
         kw = dict(alpha=-1.0, beta=1.0)
+    elif form == "ragged":
+        a, b = t(3, 129, 300), t(3, 300, 65)
+    elif form == "unaligned":
+        a = t(3, 129, 301)[:, :, 1:]        # rows start 8 bytes off
+        b = t(3, 301, 65)[:, 1:]
+    elif form == "c_lower":
+        a, b = t(3, 300, 150), t(3, 150, 300)
+        c = t(3, 300, 300)
+        kw = dict(alpha=-1.0, beta=1.0, c_lower=True)
+    elif form == "c_lower_block":           # the Schur form into K[:, h:, h:]
+        x = t(3, 384, 128)
+        a, b = x, x.transpose(-1, -2)
+        c = t(3, 640, 640)[:, 256:, 256:]
+        kw = dict(alpha=-1.0, beta=1.0, c_lower=True)
+    elif form in ("a_lower", "a_upper"):
+        tri = torch.tril if form == "a_lower" else torch.triu
+        a, b = tri(t(3, 300, 300)), t(3, 300, 77)
+        kw = dict(a_tri=form[2:])
+    elif form in ("b_lower", "b_upper"):
+        tri = torch.tril if form == "b_lower" else torch.triu
+        a, b = t(3, 37, 300), tri(t(3, 300, 300))
+        kw = dict(b_tri=form[2:])
+    elif form == "b_upper_transposed":      # L21 = K21 L11inv^T
+        a = t(3, 512, 640)[:, 256:, :256]
+        b = torch.tril(t(3, 256, 256)).transpose(-1, -2)
+        kw = dict(b_tri="upper")
+    elif form == "folded":
+        a, b = t(3, 16, 300), t(300, 260)
     want = gemm.matmul_plain(a, b, None if c is None else c.clone(), **kw)
     before = kernels.COUNTS["dgemm"]
     got = gemm.matmul(a, b, c=c, **kw)
     torch.cuda.synchronize()
     assert kernels.COUNTS["dgemm"] == before + 1
     assert rel(got, want) < 1e-12
+    if kw.get("c_lower"):
+        up = torch.ones(c.shape[-2:], dtype=torch.bool, device=cuda).triu(1)
+        assert torch.equal(got[:, up], want[:, up])
+
+
+def test_dgemm_repeats_bits_and_checks_flags(cuda):
+    """A repeated product gives the same bits (one fixed summation order,
+    no atomics); a triangular flag on a non-square operand and c_lower
+    without c raise."""
+    from eicos_tpu_torch.ops import gemm
+
+    rng = np.random.default_rng(5)
+    t = lambda *s: torch.tensor(rng.standard_normal(s), device=cuda)  # noqa
+    a, b = t(4, 300, 520), t(4, 520, 260)
+    assert torch.equal(gemm.matmul(a, b), gemm.matmul(a, b))
+    with pytest.raises(ValueError):
+        gemm.matmul(a, b, a_tri="lower")
+    with pytest.raises(ValueError):
+        gemm.matmul(a, b, b_tri="upper")
+    with pytest.raises(ValueError):
+        gemm.matmul(a, b, c_lower=True)
+    with pytest.raises(ValueError):
+        gemm.matmul(a, t(4, 520, 520), b_tri="diagonal")
+
+
+def test_subst_factor_bits_equal_inverse_factor_on_card(cuda):
+    """At Dp 1152 (nb 9, uneven splits, tiles clipped by the triangle
+    flags) ``ldl_factor_subst``'s pivots and leaf inverses have the bits
+    of ``ldl_factor``'s: both recursions make the same products with the
+    same flags."""
+    from eicos_tpu_torch.ops import ldl
+
+    K = torch.tensor(quasidefinite(2, 9 * B, 700, 12), device=cuda)
+    inv = ldl.ldl_factor(K.clone())
+    fs = ldl.ldl_factor_subst(K.clone())
+    torch.cuda.synchronize()
+    assert torch.equal(fs.d, inv.d)
+    for i in range(9):
+        assert torch.equal(fs.pre.Xinv[:, i],
+                           inv.Linv[:, i * B:(i + 1) * B, i * B:(i + 1) * B])
+    assert not torch.triu(inv.Linv, 1).any()
+    r = torch.tensor(np.random.default_rng(13).standard_normal((2, 2, 9 * B)),
+                     device=cuda)
+    assert rel(torch.matmul(ldl.ldl_solve(inv, r), K), r) < 1e-11
 
 
 def test_linv_kernels_match_plain(cuda):
@@ -287,6 +365,55 @@ def test_wide_band_kernels_match_plain(cuda, bw, nb):
     assert kernels.COUNTS["band_fwd_bw"] == before["band_fwd_bw"] + 3
     assert kernels.COUNTS["band_bwd_bw"] == before["band_bwd_bw"] + 3
     assert kernels.COUNTS["band_factor"] == before["band_factor"]
+
+
+def random_band_factor(lanes, nb, bw, device, seed):
+    """A synthetic factor for the sweeps: random L blocks (zero left of
+    block column 0), unit-lower Dinv with exact zeros above the diagonal,
+    pivots of both signs away from zero; made on the card."""
+    g = torch.Generator(device=device)
+    g.manual_seed(seed)
+    f64 = dict(dtype=torch.float64, device=device, generator=g)
+    L = 0.3 * torch.randn(lanes, nb, bw, B, B, **f64) / B ** 0.5
+    for j in range(1, bw + 1):
+        L[:, :j, j - 1] = 0.0
+    Dinv = torch.tril(0.3 * torch.randn(lanes, nb, B, B, **f64) / B ** 0.5, -1)
+    Dinv.diagonal(dim1=-2, dim2=-1).fill_(1.0)
+    d = torch.randn(lanes, nb, B, **f64)
+    d = torch.where(d < 0, d - 0.5, d + 0.5)
+    from eicos_tpu_torch.ops.band_ldl import BandFactors
+    return BandFactors(L=L, Dinv=Dinv, d=d)
+
+
+@pytest.mark.parametrize("nb", [2, 5, 38])
+@pytest.mark.parametrize("bw", [1, 2, 3, 4, 5, 6])
+def test_wide_band_sweeps_match_plain(cuda, bw, nb):
+    """band_fwd_bw and band_bwd_bw against their plain twins within 1e-12
+    relative at 1, 3, 64 and 130 lanes (2 to 260 CTAs in clusters of 2),
+    k = 1, 2, 16, with block counts below, at and far above the bandwidth;
+    a repeated sweep gives the same bits."""
+    from eicos_tpu_torch.ops import band, kernels
+    from eicos_tpu_torch.ops import band_ldl as plain
+
+    rng = np.random.default_rng(bw * 100 + nb)
+    for lanes in (1, 3, 64, 130):
+        fac = random_band_factor(lanes, nb, bw, cuda, seed=lanes + bw + nb)
+        for k in (1, 2, 16):
+            r = torch.tensor(rng.standard_normal((lanes, k, nb * B)),
+                             device=cuda)
+            before = dict(kernels.COUNTS)
+            w = band.band_fwd_bw(fac, r)
+            z = band.band_bwd_bw(fac, w)
+            torch.cuda.synchronize()
+            assert kernels.COUNTS["band_fwd_bw"] == before["band_fwd_bw"] + 1
+            assert kernels.COUNTS["band_bwd_bw"] == before["band_bwd_bw"] + 1
+            assert rel(w, plain.band_fwd_bw_plain(fac, r)) < 1e-12, (lanes, k)
+            assert rel(z, plain.band_bwd_bw_plain(fac, w)) < 1e-12, (lanes, k)
+            if lanes == 3:
+                assert torch.equal(w, band.band_fwd_bw(fac, r))
+                assert torch.equal(z, band.band_bwd_bw(fac, w))
+        del fac
+        torch.cuda.empty_cache()
 
 
 def test_wide_band_kernel_at_bw1_matches_band_factor(cuda):
