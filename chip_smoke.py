@@ -2,9 +2,9 @@
 holds each against its plain torch version on the card, and drives the
 port's paths through its entry points:
 
-  1. kernel checks at the paths' shapes (band factor and sweeps at block
-     bandwidth 1; the wide band factor and sweeps at block bandwidths 2, 3
-     and 6; dense leaf LDL^T in f64 and f32, dgemm in nine forms, among
+  1. kernel checks at the paths' shapes (the band factor and sweeps at
+     block bandwidth 1, through the 4-d layout, and at block bandwidths 2,
+     3 and 6; the blocked dense leaf LDL^T in f64 and f32, dgemm in nine forms, among
      them the recursion's products with their structure flags, its
      machine code checked for DMMA, the two inverse-solve passes, the
      substitution pack and its two sweeps);
@@ -144,9 +144,10 @@ def bound(nbytes, ops):
 
 
 def check_kernels(torch, band, plain):
-    """Each kernel against its plain twin at the main path's shape, with
-    times and bounds.  Returns the per-kernel records (launches filled in
-    later from the main path)."""
+    """The band kernels at block bandwidth 1 (the wide kernels, through the
+    4-d layout of ``ops/band.py``) against the bandwidth-1 plain twins at
+    the main path's shape, with times and bounds.  Returns the per-kernel
+    records (launches filled in later from the main path)."""
     nb = (HORIZON * (NX + NU) + HORIZON * NX + B - 1) // B   # 16
     Kd_np, Ks_np = random_band(LANES, nb, seed=0)
     Kd = torch.tensor(Kd_np, device="cuda")
@@ -160,10 +161,11 @@ def check_kernels(torch, band, plain):
     torch.cuda.synchronize()
     fac_err = max(rel_err(a, b) for a, b in zip(fk, fp))
     fac_abs = max(float((a - b).abs().max()) for a, b in zip(fk, fp))
-    print(f"band_factor vs plain: max rel err L/Dinv/d "
+    print(f"band_factor_bw at bw 1 vs plain: max rel err L/Dinv/d "
           f"{[rel_err(a, b) for a, b in zip(fk, fp)]}")
     if not fac_err <= KERNEL_TOL:
-        fail(f"band_factor disagrees with its plain twin: {fac_err}")
+        fail(f"band_factor_bw at bw 1 disagrees with its plain twin: "
+             f"{fac_err}")
 
     errs = {}
     for k in (KP, 2, 1):
@@ -178,9 +180,9 @@ def check_kernels(torch, band, plain):
                       / r.abs().max())
         errs[k] = (rel_err(wk, wp), rel_err(zk, zp), rel_err(xk, xp), resid,
                    float((wk - wp).abs().max()), float((zk - zp).abs().max()))
-        print(f"k={k}: band_fwd rel err {errs[k][0]:.3e}, band_bwd "
-              f"{errs[k][1]:.3e}, band_solve vs plain {errs[k][2]:.3e}, "
-              f"residual {resid:.3e}")
+        print(f"k={k}: band_fwd_bw at bw 1 rel err {errs[k][0]:.3e}, "
+              f"band_bwd_bw {errs[k][1]:.3e}, band_solve vs plain "
+              f"{errs[k][2]:.3e}, residual {resid:.3e}")
         if not max(errs[k][:3]) <= KERNEL_TOL:
             fail(f"band solve kernels disagree with the plain twins (k={k})")
         if not resid <= RESID_TOL:
@@ -199,12 +201,12 @@ def check_kernels(torch, band, plain):
     b_ms, b_by = bound(fac_bytes, fac_ops)
     ms = cuda_ms(lambda: band.band_factor(Kd, Ks))
     pms = cuda_ms(lambda: plain.band_factor_plain(Kd, Ks), reps=5)
-    print(f"band_factor: {ms:.4f} ms (plain {pms:.3f} ms), bound "
-          f"{b_ms:.4f} ms by {b_by} ({fac_bytes / 1e9:.3f} GB, "
-          f"{fac_ops / 1e9:.2f} GFLOP)")
+    print(f"band_factor_bw at bw 1 ({lanes} lanes, nb {nb}): {ms:.4f} ms "
+          f"(plain {pms:.3f} ms), bound {b_ms:.4f} ms by {b_by} "
+          f"({fac_bytes / 1e9:.3f} GB, {fac_ops / 1e9:.2f} GFLOP)")
     records.append(dict(
-        name="band_factor", route="cuda",
-        source="eicos_tpu_torch/csrc/band_factor.cu",
+        name="band_factor_bw", route="cuda",
+        source="eicos_tpu_torch/csrc/band_factor_bw.cu",
         replaces="eicos_tpu/ops/pallas_band_ds.py:1689",
         max_abs_err=fac_abs, ms=ms, plain_ms=pms, bound_ms=b_ms,
         bound_by=b_by, library_ms=None))
@@ -247,13 +249,13 @@ def check_kernels(torch, band, plain):
         lms = cuda_ms(lfn)
         ms16 = cuda_ms(lambda: (band.band_fwd(fk, rhs16) if name == "band_fwd"
                                 else band.band_bwd(fk, rhs16)))
-        print(f"{name}: {ms:.4f} ms at k={k} ({ms16:.4f} ms at k={KP}); "
-              f"plain {pms:.4f} ms; solve_triangular {lms:.4f} ms; bound "
-              f"{b_ms:.4f} ms by {b_by} ({nbytes / 1e9:.3f} GB)")
+        print(f"{name}_bw at bw 1: {ms:.4f} ms at k={k} ({ms16:.4f} ms at "
+              f"k={KP}); plain {pms:.4f} ms; solve_triangular {lms:.4f} ms; "
+              f"bound {b_ms:.4f} ms by {b_by} ({nbytes / 1e9:.3f} GB)")
         ei = 4 if name == "band_fwd" else 5
         records.append(dict(
-            name=name, route="cuda",
-            source="eicos_tpu_torch/csrc/band_solve.cu",
+            name=f"{name}_bw", route="cuda",
+            source="eicos_tpu_torch/csrc/band_solve_bw.cu",
             replaces=("eicos_tpu/ops/pallas_band_ds.py:1457"
                       if name == "band_fwd"
                       else "eicos_tpu/ops/pallas_band_ds.py:1497"),
@@ -302,43 +304,33 @@ def wide_matvec(Kd, Ks, x):
     return y.permute(0, 3, 1, 2).reshape(lanes, k, Dp)
 
 
-def check_wide_kernels(torch, band, plain):
+def check_wide_kernels(torch, band, plain, kernels):
     """band_factor_bw, band_fwd_bw and band_bwd_bw against their plain
-    twins at block bandwidths 2, 3 and 6 (and against band_factor at 1),
-    the sweeps also at 1 and 3 lanes, with times, bounds and a library
-    yardstick at phase 7's shape.
-    Returns the per-kernel records (launches filled in from phase 7)."""
-    # bw = 1: the wide kernels against the bandwidth-1 kernels
+    twins at block bandwidths 2, 3 and 6 (the 4-d layout at 1 onto the same
+    kernels), the sweeps also at 1 and 3 lanes, with times, bounds and a
+    library yardstick at phase 7's shape.
+    Returns the per-kernel records at that shape (launches filled in from
+    phase 7), which ride along the main path's records as "bw3"."""
+    # bw = 1: the 4-d layout of ops/band.py is a view onto the wide kernels
     Kd, Ks = random_wide_band(torch, 8, 5, 1, seed=21)
+    before = dict(kernels.COUNTS)
     narrow = band.band_factor(Kd, Ks[:, :, 0].contiguous())
     wide = band.band_factor_bw(Kd, Ks)
     r = torch.randn(8, 2, 5 * B, dtype=torch.float64, device="cuda")
+    x4 = band.band_solve(narrow, r)
+    x5 = band.band_solve(wide, r)
     torch.cuda.synchronize()
-    e1 = max(rel_err(wide.L[:, :, 0], narrow.L), rel_err(wide.Dinv, narrow.Dinv),
-             rel_err(wide.d, narrow.d),
-             rel_err(band.band_bwd_bw(wide, band.band_fwd_bw(wide, r)),
-                     band.band_solve(narrow, r)))
-    print(f"band_factor_bw / sweeps at bw = 1 vs band_factor / band_solve: "
-          f"max rel err {e1:.3e}")
-    if not e1 <= 1e-13:
-        fail(f"the wide kernels at bw = 1 disagree with the bw = 1 kernels: "
-             f"{e1}")
-    # the two hand-written routes to block bandwidth 1, timed side by side
-    # at the LP lane's shape: whether the wide kernels could take it over
-    nb1 = (HORIZON * (NX + NU) + HORIZON * NX + B - 1) // B
-    Kd, Ks = random_wide_band(torch, LANES, nb1, 1, seed=22)
-    Ks4 = Ks[:, :, 0].contiguous()
-    r = torch.randn(LANES, 2, nb1 * B, dtype=torch.float64, device="cuda")
-    narrow, wide = band.band_factor(Kd, Ks4), band.band_factor_bw(Kd, Ks)
-    print(f"bw = 1 at {LANES} lanes, nb {nb1}, k = 2 (ms, bandwidth-1 kernel "
-          f"/ wide kernel): factor "
-          f"{cuda_ms(lambda: band.band_factor(Kd, Ks4)):.4f} / "
-          f"{cuda_ms(lambda: band.band_factor_bw(Kd, Ks)):.4f}, forward "
-          f"{cuda_ms(lambda: band.band_fwd(narrow, r)):.4f} / "
-          f"{cuda_ms(lambda: band.band_fwd_bw(wide, r)):.4f}, backward "
-          f"{cuda_ms(lambda: band.band_bwd(narrow, r)):.4f} / "
-          f"{cuda_ms(lambda: band.band_bwd_bw(wide, r)):.4f}")
-    del Ks4, narrow, wide
+    counted = {n: kernels.COUNTS[n] - before[n] for n in
+               ("band_factor_bw", "band_fwd_bw", "band_bwd_bw")}
+    same = (torch.equal(narrow.L, wide.L[:, :, 0])
+            and torch.equal(narrow.Dinv, wide.Dinv)
+            and torch.equal(narrow.d, wide.d) and torch.equal(x4, x5))
+    print(f"bw = 1 in the 4-d layout: the wide kernels' bits {same}, "
+          f"launches {counted}")
+    if not same or counted != {"band_factor_bw": 2, "band_fwd_bw": 2,
+                               "band_bwd_bw": 2}:
+        fail("the 4-d layout does not run the wide kernels")
+    del narrow, wide, x4, x5
 
     errs = {"band_factor_bw": 0.0, "band_fwd_bw": 0.0, "band_bwd_bw": 0.0}
     # the sweeps at 1 and 3 lanes of phase 7's block count: 2 and 6 CTAs on
@@ -1253,7 +1245,7 @@ def main():
 
     t0 = time.perf_counter()
     band_records = check_kernels(torch, band, plain)
-    wide_records = check_wide_kernels(torch, band, plain)
+    wide_records = check_wide_kernels(torch, band, plain, kernels)
     dense_records = check_dense_kernels(torch, band, leaf, gemm, ldl)
     subst_records = check_subst_kernels(torch, leaf, ldl, dense, kernels)
     print(f"kernel checks: {time.perf_counter() - t0:.1f} s")
@@ -1566,9 +1558,13 @@ def main():
              "max_abs_err", "ms", "plain_ms", "bound_ms", "bound_by",
              "library_ms")
     print(f"total {time.perf_counter() - t_start:.1f} s")
-    print(json.dumps({"kernels": [{k: r[k] for k in order}
-                                  for r in band_records + wide_records
-                                  + dense_records + subst_records]}))
+    # one entry a kernel: the band kernels at the main path's bandwidth 1,
+    # with phase 7's bandwidth-3 readings beside them under "bw3"
+    wide = {r["name"]: {k: r[k] for k in order[4:]} for r in wide_records}
+    print(json.dumps({"kernels": [
+        {k: r[k] for k in order} | ({"bw3": wide[r["name"]]}
+                                    if r["name"] in wide else {})
+        for r in band_records + dense_records + subst_records]}))
     print(smi)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

@@ -7,12 +7,17 @@ Solves
                 Gx + s = h,  s in K = R^l_+ x SOC(q_1) x ... x SOC(q_N)
 
 with the Mehrotra predictor-corrector interior-point method on the
-homogeneous self-dual embedding, lane-batched, in IEEE float64.  The
-"banded" KKT strategy's band LDL^T factor and solves, and the dense
-"reduced" strategy's leaf LDL^T, GEMM and inverse solves (the rescue
-pass's path), run in hand-written CUDA kernels (``csrc/``), built with
-nvcc at first use; every kernel has a plain torch version that runs for
-CPU tensors.
+homogeneous self-dual embedding, lane-batched, in IEEE float64.  All four
+KKT strategies of the reference run on the card: "banded" (the band LDL^T
+factor and sweeps, block bandwidths 1..6), "reduced", "normal" and "full"
+(the dense recursion's blocked leaf LDL^T, DMMA GEMM, and the inverse or
+substitution solves), the rescue pass, and ``factor_dtype="float32"`` on
+the dense strategies.  Every TPU kernel of the reference has a hand-written
+CUDA kernel here (``csrc/``, built with nvcc at first use), and every
+kernel has a plain torch version that runs for CPU tensors.
+``Solver.solve(verbose=True)`` prints the reference's iteration table
+after the solve; ``save_problem``/``load_problem`` read and write the
+reference's npz files.
 
 Entry points run on CUDA unless the caller passes ``device="cpu"``.  The
 package imports torch, numpy and scipy, and nothing of JAX or
@@ -25,6 +30,7 @@ from .structure import ConeStructure, ProblemStructure
 from .problem import ProblemData
 from .solver import solve, Solution
 from .api import Solver, BatchedSolver
+from .io import save_problem, load_problem
 
 __version__ = "0.1.0"
 
@@ -38,4 +44,6 @@ __all__ = [
     "Solution",
     "Solver",
     "BatchedSolver",
+    "save_problem",
+    "load_problem",
 ]

@@ -15,6 +15,7 @@ import numpy as np
 import torch
 
 from .exitcodes import ExitCode
+from .kkt import require_no_live
 from .problem import ProblemData, make_problem
 from .settings import Settings
 from .solver import (Solution, resolve_device, solve_batch, squeeze_lane,
@@ -27,7 +28,10 @@ _FIELDS = ("G", "A", "c", "h", "b")
 def _rescue_settings(rescue: Optional[Settings]) -> Optional[Settings]:
     """Normalize a rescue configuration as ``eicos_tpu.api`` does: a
     rescue left at ``dense_solve="auto"`` is pinned to the inverse path
-    (the exact dense elimination); an explicit choice is kept."""
+    (the exact dense elimination); an explicit choice is kept.  A rescue
+    with ``verbose_live`` raises here, before it could go unused."""
+    if rescue is not None:
+        require_no_live(rescue)
     if rescue is None or rescue.dense_solve != "auto":
         return rescue
     return dataclasses.replace(rescue, dense_solve="inverse")
@@ -83,6 +87,32 @@ class Solver:
         self._solution: Optional[Solution] = None
         self._dev: Optional[ProblemData] = None
 
+    @classmethod
+    def from_csc(cls, n, m, p, l, ncones, q, Gpr, Gjc, Gir, Apr, Ajc, Air,
+                 c, h, b, settings: Settings = Settings(),
+                 rescue: Optional[Settings] = None, device=None):
+        """The reference's "traditional interface", in its argument order:
+        G (m, n) and A (p, n) in CSC arrays (values, column pointers, row
+        indices; ``None`` values for an empty matrix), ``q[:ncones]`` the
+        SOC sizes.  The object is built by ``__init__``, so ``device``,
+        ``rescue`` and, under "banded", the band plan are set as there
+        (``eicos_tpu``'s ``from_csc`` sets neither a rescue nor a band
+        plan)."""
+        import scipy.sparse as sp
+
+        G = (sp.csc_matrix((Gpr, Gir, Gjc), shape=(m, n))
+             if Gpr is not None else None)
+        A = (sp.csc_matrix((Apr, Air, Ajc), shape=(p, n))
+             if Apr is not None else None)
+        qq = tuple(int(d) for d in (q[:ncones] if q is not None else ()))
+        if l + sum(qq) != m:
+            raise ValueError(f"l + sum(q) = {l + sum(qq)} != m = {m}")
+        c = np.zeros(n) if c is None else c
+        h = np.zeros(m) if h is None else h
+        b = np.zeros(p) if b is None else b
+        return cls(G, A, c, h, b, soc_dims=qq, settings=settings,
+                   rescue=rescue, device=device)
+
     def update_data(self, G=None, A=None, c=None, h=None, b=None):
         """Replace problem values; dimensions must match."""
         st = self.structure
@@ -99,7 +129,10 @@ class Solver:
         self._solution = None
         self._dev = None
 
-    def solve(self) -> ExitCode:
+    def solve(self, verbose: bool = False) -> ExitCode:
+        """Solve (and, under ``rescue``, re-solve once); with ``verbose``
+        print the reference's iteration table and summary afterwards, from
+        one host copy of the solution."""
         # device-resident values, cached until update_data
         if self._dev is None:
             self._dev = to_device(self._data, self.device)
@@ -112,6 +145,13 @@ class Solver:
             if _code_rank(int(rsol.exit_code)) > _code_rank(code):
                 sol = rsol
         self._solution = sol
+        if verbose:
+            from .utils.printing import (host_copy, print_iteration_table,
+                                         print_summary)
+
+            host = host_copy(sol)
+            print_iteration_table(host)
+            print_summary(self.structure, host)
         return ExitCode(int(sol.exit_code))
 
     def solution(self) -> np.ndarray:

@@ -50,7 +50,15 @@
 
 #include <cuda_runtime.h>
 
+#include "mma_f64.cuh"
+
 namespace {
+
+using mma::commit;
+using mma::cp16;
+using mma::cp8;
+using mma::mma16x8x8;
+using mma::wait_groups;
 
 constexpr int BM = 128;
 constexpr int BN = 128;
@@ -72,29 +80,6 @@ constexpr int MT = WM / 16, NTL = WN / 8;
 // flag bits (ops/gemm.py)
 constexpr int C_LOWER = 1;
 constexpr int A_LOWER = 2, A_UPPER = 4, B_LOWER = 8, B_UPPER = 16;
-
-__device__ __forceinline__ void cp16(double* dst, const double* src,
-                                     int bytes) {
-  const unsigned s = (unsigned)__cvta_generic_to_shared(dst);
-  asm volatile("cp.async.cg.shared.global [%0], [%1], 16, %2;\n" ::"r"(s),
-               "l"(src), "r"(bytes));
-}
-
-__device__ __forceinline__ void cp8(double* dst, const double* src,
-                                    int bytes) {
-  const unsigned s = (unsigned)__cvta_generic_to_shared(dst);
-  asm volatile("cp.async.ca.shared.global [%0], [%1], 8, %2;\n" ::"r"(s),
-               "l"(src), "r"(bytes));
-}
-
-__device__ __forceinline__ void commit() {
-  asm volatile("cp.async.commit_group;\n" ::);
-}
-
-template <int N>
-__device__ __forceinline__ void wait_groups() {
-  asm volatile("cp.async.wait_group %0;\n" ::"n"(N));
-}
 
 // One operand tile, ROWS (outer: rows of A or columns of B) x BK, into S.
 // Element (x, k) of the operand is at g[x * s_x + k * s_k]; x < nx and
@@ -146,24 +131,9 @@ __device__ __forceinline__ void load_tile(double* S, const double* g,
   }
 }
 
-// Elements (x, k) and (x, k + 1) of a tile: one 16-byte load where K is
-// the contiguous axis.  The thread's MMA k-slots t and t + 4 carry
-// contraction indices 2t and 2t + 1 of the step, in A and B alike: the
-// k-slots of an MMA are summed, so any one-to-one map that the two
-// operands share gives the product.
 template <bool KC, int ROWS>
 __device__ __forceinline__ double2 frag2(const double* S, int x, int k) {
-  if (KC) return *reinterpret_cast<const double2*>(S + x * LDK + k);
-  return make_double2(S[k * LDX<ROWS> + x], S[(k + 1) * LDX<ROWS> + x]);
-}
-
-__device__ __forceinline__ void mma16x8x8(double (&d)[4], const double (&a)[4],
-                                          const double (&b)[2]) {
-  asm volatile(
-      "mma.sync.aligned.m16n8k8.row.col.f64.f64.f64.f64 {%0,%1,%2,%3}, "
-      "{%4,%5,%6,%7}, {%8,%9}, {%0,%1,%2,%3};\n"
-      : "+d"(d[0]), "+d"(d[1]), "+d"(d[2]), "+d"(d[3])
-      : "d"(a[0]), "d"(a[1]), "d"(a[2]), "d"(a[3]), "d"(b[0]), "d"(b[1]));
+  return mma::frag2<KC, LDK, LDX<ROWS>>(S, x, k);
 }
 
 template <bool AK, bool BKC>

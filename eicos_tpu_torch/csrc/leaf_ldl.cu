@@ -10,21 +10,23 @@
 // recursion (ops/ldl.py) calls it once per 128-block leaf, with all lanes
 // in one launch.
 //
-// Bound: per block, ~B^3/3 flops of rank-1 updates and ~B^3/6 FMAs of the
-// inverse (~1 MFLOP) against 256 KB of HBM traffic (read M, write Linv):
-// ~4 FLOP per byte, so bytes bound it at the card's balance (67 TFLOP/s over
-// 3.35 TB/s is 20).  What bounds this design instead is latency: the
-// elimination is 128 dependent steps with two block barriers each, and the
-// inverse walks 127 dependent rows.
+// Bound: per block, ~B^3/3 flops of the elimination and ~B^3/6 FMAs of the
+// inverse (~1 MFLOP) against the lower triangle of M read and Linv and d
+// written (~197 KB): ~5 FLOP per byte, so bytes bound it at the card's
+// balance (67 TFLOP/s over 3.35 TB/s is 20): 0.0076 ms for 128 blocks.
+// What bounds it in practice is latency: a block's elimination is a chain
+// of dependent steps on one SM.
 //
 // Design: one CTA of 256 threads per block.  The block is staged into
-// shared memory (row stride 129) and eliminated and inverted there by the
-// same device code as the band factor's leaf (leaf.cuh), so the two kernels
-// give the same bits for the same block.  M, Linv and d are addressed
-// through lane and row strides, so the recursion reads a diagonal block of
-// K and writes a diagonal block of Linv in place.  At fewer lanes than the
-// card's 132 SMs the card is underfilled; several blocks per CTA or a
-// blocked leaf are later work.
+// shared memory (row stride 136) and factored and inverted there by the
+// blocked leaf of leaf.cuh (panels of 16 columns, a warp-local diagonal
+// factor, one thread a row for the substitution below it, the trailing
+// update and the block inverse on DMMA: ~3 block barriers a panel and one
+// a block row of the inverse, against the rank-1 loop's 256), the device
+// code the band factor runs, so the two give the same bits for the same
+// block.  M, Linv and d are addressed through lane and row strides, so the
+// recursion reads a diagonal block of K and writes a diagonal block of
+// Linv in place (M is read whole before Linv is written).
 
 #include <cuda_runtime.h>
 
@@ -34,44 +36,35 @@ namespace {
 
 using leaf::B;
 using leaf::NT;
-using leaf::SLD;
 
 __global__ void __launch_bounds__(NT, 1)
-leaf_ldl_kernel(const double* __restrict__ M, long long m_lane,
-                long long m_row, double* __restrict__ Linv, long long x_lane,
-                long long x_row, double* __restrict__ d, long long d_lane) {
-  extern __shared__ double smem[];
-  double* S = smem;           // B x SLD
-  double* dvec = S + B * SLD;
-  double* lvec = dvec + B;
+leaf_ldl_kernel(const double* M, long long m_lane, long long m_row,
+                double* Linv, long long x_lane, long long x_row,
+                double* __restrict__ d, long long d_lane) {
+  constexpr int LD = leaf::ld<double>();
+  extern __shared__ __align__(16) double smem[];
+  double* S = smem;               // B x LD
+  double* W = S + B * LD;         // B x WLD
+  double* dvec = W + B * leaf::WLD;  // 2 B
 
   const int tid = threadIdx.x;
-  const double* Ml = M + blockIdx.x * m_lane;
-  for (int e = tid; e < B * B; e += NT) {
-    const int i = e / B, j = e % B;
-    if (j <= i) S[i * SLD + j] = Ml[i * m_row + j];
-  }
+  leaf::stage_lower(S, M + blockIdx.x * m_lane, m_row, tid);
   __syncthreads();
-  leaf::eliminate(S, dvec, lvec, tid);
-  leaf::unit_lower_inv(S, tid);
-  __syncthreads();
-  double* X = Linv + blockIdx.x * x_lane;
-  for (int e = tid; e < B * B; e += NT) {
-    const int i = e / B, c = e % B;
-    X[i * x_row + c] = i > c ? S[c * SLD + i] : (i == c ? 1.0 : 0.0);
-  }
+  leaf::eliminate(S, W, dvec, tid);
+  leaf::unit_lower_inv(S, W, tid);
+  leaf::store_inverse(S, Linv + blockIdx.x * x_lane, x_row, tid);
   for (int j = tid; j < B; j += NT) d[blockIdx.x * d_lane + j] = dvec[j];
 }
 
-constexpr size_t SMEM_BYTES = (size_t)(B * SLD + 2 * B) * sizeof(double);
+constexpr size_t SMEM_BYTES = leaf::smem_elems<double>() * sizeof(double);
 
 }  // namespace
 
 // M: lanes blocks of 128x128 f64, element (l, i, j) at M[l*m_lane + i*m_row
 // + j] (only j <= i is read); Linv: element (l, i, j) at Linv[l*x_lane +
 // i*x_row + j], written whole (exact zeros above the diagonal); d: element
-// (l, j) at d[l*d_lane + j].  Launches on `stream`; returns the CUDA error
-// code of the launch (0 on success).
+// (l, j) at d[l*d_lane + j].  Linv may be M itself.  Launches on `stream`;
+// returns the CUDA error code of the launch (0 on success).
 extern "C" int eicos_leaf_ldl(const double* M, long long m_lane,
                               long long m_row, double* Linv, long long x_lane,
                               long long x_row, double* d, long long d_lane,

@@ -135,9 +135,20 @@ def _direct_band(st: ProblemStructure) -> bool:
                 and (st.n_sc == 0 or st.socsplit is not None))
 
 
+def require_no_live(settings) -> None:
+    """Raise for ``Settings(verbose_live=True)``: the knob is refused, not
+    ignored."""
+    if settings.verbose_live:
+        raise NotImplementedError(
+            "Settings.verbose_live=True: the live iteration table (the "
+            "reference's rows streamed during the solve) is not ported; "
+            "Solver.solve(verbose=True) prints the table after the solve")
+
+
 def require_slice(st: ProblemStructure, settings) -> None:
-    """Raise unless (structure, settings) is ported: 128-blocks; under
-    "banded" f64 and a plan at block bandwidth 1..6."""
+    """Raise unless (structure, settings) is ported: no live table;
+    128-blocks; under "banded" f64 and a plan at block bandwidth 1..6."""
+    require_no_live(settings)
     if settings.block != B:
         raise NotImplementedError(f"LDL^T block size must be {B}")
     if settings.kkt_strategy != "banded":

@@ -1,20 +1,20 @@
 """Wrappers of the band LDL^T kernels: the port of
-``eicos_tpu.ops.pallas_band_ds`` at block bandwidth 1
-(``csrc/band_factor.cu``, ``csrc/band_solve.cu``) and 2..6
+``eicos_tpu.ops.pallas_band_ds`` at block bandwidths 1..6
 (``csrc/band_factor_bw.cu``, ``csrc/band_solve_bw.cu``).
 
 ``band_factor``, ``band_fwd``, ``band_bwd`` and ``band_solve`` dispatch on
 the layout: sub-diagonal blocks ``Ks`` (lanes, nb, 128, 128) are block
 bandwidth 1; (lanes, nb, bw, 128, 128) with ``Ks[:, k, j-1] = K[k, k-j]``
-is block bandwidth bw, where bw = 1 runs the bandwidth-1 kernels, 2..6 the
-wide ones and more raises (the reference's own bound).  The factor's ``L``
-has the layout of the ``Ks`` it came from.
+is block bandwidth bw, and more than 6 raises (the reference's own bound).
+On the card every bandwidth runs the wide kernels, the 4-d layout as its
+``[:, :, None]`` view; the factor's ``L`` has the layout of the ``Ks`` it
+came from.
 
 For a CUDA tensor each wrapper checks its inputs, allocates its outputs
 with ``torch.empty``, launches its kernel on the current stream and counts
 the launch in ``kernels.COUNTS``; a launch error raises.  For a CPU tensor
-it runs the plain twin of ``ops/band_ldl.py``.  Nothing falls back from
-the kernel to the twin.
+it runs the plain twin of ``ops/band_ldl.py`` (the bandwidth-1 twins for
+the 4-d layout).  Nothing falls back from the kernel to the twin.
 """
 
 from __future__ import annotations
@@ -35,25 +35,11 @@ def band_factor(Kd: torch.Tensor, Ks: torch.Tensor) -> BandFactors:
     (lanes, nb, 128, 128) and d (lanes, nb, 128).  ``Ks[:, 0]`` (``Ks[:, k,
     j-1]`` for k < j) is ignored."""
     if Ks.dim() == 5:
-        if Ks.shape[2] == 1:
-            fac = band_factor(Kd, Ks[:, :, 0])
-            return fac._replace(L=fac.L[:, :, None])
         return band_factor_bw(Kd, Ks)
     if kernels.on_cpu(Kd):
         return band_factor_plain(Kd, Ks)
-    lanes, nb = Kd.shape[0], Kd.shape[1]
-    kernels.check("Kd", Kd, (lanes, nb, B, B), Kd.device)
-    kernels.check("Ks", Ks, (lanes, nb, B, B), Kd.device)
-    L = torch.empty_like(Kd)
-    Dinv = torch.empty_like(Kd)
-    d = torch.empty((lanes, nb, B), dtype=Kd.dtype, device=Kd.device)
-    with torch.cuda.device(Kd.device):
-        kernels.launch(kernels.lib("band_factor").eicos_band_factor,
-                       Kd.data_ptr(), Ks.data_ptr(), L.data_ptr(),
-                       Dinv.data_ptr(), d.data_ptr(), lanes, nb,
-                       kernels.stream(Kd))
-    kernels.COUNTS["band_factor"] += 1
-    return BandFactors(L=L, Dinv=Dinv, d=d)
+    fac = band_factor_bw(Kd, Ks[:, :, None])
+    return fac._replace(L=fac.L[:, :, 0])
 
 
 def _check_bw(bw: int) -> None:
@@ -101,51 +87,24 @@ def _check_fac(fac: BandFactors, rhs: torch.Tensor):
     return lanes, nb, k
 
 
-def _narrow(fac: BandFactors):
-    """The 4-d view of a factor of block bandwidth 1, ``None`` for a wider
-    one."""
-    if fac.L.dim() == 4:
-        return fac
-    if fac.L.shape[2] == 1:
-        return fac._replace(L=fac.L[:, :, 0])
-    return None
-
-
 def band_fwd(fac: BandFactors, rhs: torch.Tensor) -> torch.Tensor:
     """Forward sweep and pivot scaling: rhs (lanes, k, Dp) -> w with
     y_k = Dinv_k (x_k - sum_j L[k,k-j] y_{k-j}), w = y / d."""
-    narrow = _narrow(fac)
-    if narrow is None:
+    if fac.L.dim() == 5:
         return band_fwd_bw(fac, rhs)
     if kernels.on_cpu(rhs):
-        return band_fwd_plain(narrow, rhs)
-    lanes, nb, k = _check_fac(narrow, rhs)
-    out = torch.empty_like(rhs)
-    with torch.cuda.device(rhs.device):
-        kernels.launch(kernels.lib("band_solve").eicos_band_fwd,
-                       narrow.L.data_ptr(), fac.Dinv.data_ptr(),
-                       fac.d.data_ptr(), rhs.data_ptr(), out.data_ptr(),
-                       lanes, nb, k, kernels.stream(rhs))
-    kernels.COUNTS["band_fwd"] += 1
-    return out
+        return band_fwd_plain(fac, rhs)
+    return band_fwd_bw(fac._replace(L=fac.L[:, :, None]), rhs)
 
 
 def band_bwd(fac: BandFactors, w: torch.Tensor) -> torch.Tensor:
     """Backward sweep: w (lanes, k, Dp) -> z with
     z_k = Dinv_k^T (w_k - sum_j L[k+j,k]^T z_{k+j})."""
-    narrow = _narrow(fac)
-    if narrow is None:
+    if fac.L.dim() == 5:
         return band_bwd_bw(fac, w)
     if kernels.on_cpu(w):
-        return band_bwd_plain(narrow, w)
-    lanes, nb, k = _check_fac(narrow, w)
-    out = torch.empty_like(w)
-    with torch.cuda.device(w.device):
-        kernels.launch(kernels.lib("band_solve").eicos_band_bwd,
-                       narrow.L.data_ptr(), fac.Dinv.data_ptr(), w.data_ptr(),
-                       out.data_ptr(), lanes, nb, k, kernels.stream(w))
-    kernels.COUNTS["band_bwd"] += 1
-    return out
+        return band_bwd_plain(fac, w)
+    return band_bwd_bw(fac._replace(L=fac.L[:, :, None]), w)
 
 
 def band_fwd_bw(fac: BandFactors, rhs: torch.Tensor) -> torch.Tensor:

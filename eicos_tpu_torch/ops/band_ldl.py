@@ -74,11 +74,12 @@ def _unblocked_ldl(M: torch.Tensor):
     M = M.clone()
     L = torch.zeros_like(M)
     d = torch.zeros(M.shape[:-1], dtype=M.dtype, device=M.device)
-    tiny = 1e-20 if M.dtype == torch.float32 else 1e-150
+    tiny = torch.tensor(1e-20 if M.dtype == torch.float32 else 1e-150,
+                        dtype=M.dtype, device=M.device)
     for j in range(Bn):
         dj = M[:, j, j]
-        dj = torch.where(dj.abs() < tiny,
-                         torch.where(dj < 0, -tiny, tiny).to(dj.dtype), dj)
+        dj = torch.where(dj.abs() < tiny, torch.where(dj < 0, -tiny, tiny),
+                         dj)
         l = M[:, j + 1:, j] / dj[:, None]
         # rows/cols <= j see l = 0 in the reference's full-matrix update,
         # which leaves them exactly unchanged

@@ -31,11 +31,6 @@ NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
 _P, _I = ctypes.c_void_p, ctypes.c_int
 _LL, _D = ctypes.c_longlong, ctypes.c_double
 LIBS = {
-    "band_factor": ("band_factor.cu",
-                    {"eicos_band_factor": [_P] * 5 + [_I, _I, _P]}),
-    "band_solve": ("band_solve.cu",
-                   {"eicos_band_fwd": [_P] * 5 + [_I, _I, _I, _P],
-                    "eicos_band_bwd": [_P] * 4 + [_I, _I, _I, _P]}),
     "band_factor_bw": ("band_factor_bw.cu",
                        {"eicos_band_factor_bw": [_P] * 5 + [_I, _I, _I, _P]}),
     "band_solve_bw": ("band_solve_bw.cu",
@@ -61,8 +56,7 @@ LIBS = {
                      "eicos_dense_bwd": [_P] * 4 + [_I, _I, _I, _P]}),
 }
 
-COUNTS = {"band_factor": 0, "band_fwd": 0, "band_bwd": 0,
-          "band_factor_bw": 0, "band_fwd_bw": 0, "band_bwd_bw": 0,
+COUNTS = {"band_factor_bw": 0, "band_fwd_bw": 0, "band_bwd_bw": 0,
           "leaf_ldl": 0, "dgemm": 0, "linv_fwd": 0, "linv_bwd": 0,
           "leaf_ldl_f32": 0, "dense_pack": 0, "dense_fwd": 0, "dense_bwd": 0}
 BUILD_LOG: dict = {}      # library name -> nvcc's output (ptxas -v report)

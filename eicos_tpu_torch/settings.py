@@ -69,7 +69,7 @@ class Settings:
     kkt_strategy: str = "full"   # "full" | "reduced" | "normal" | "banded"
     factor_dtype: str = "float64"  # "float64" | "float32"
     block: int = 128             # LDL^T block size
-    verbose_live: bool = False   # live iteration table (not ported yet)
+    verbose_live: bool = False   # live table: not ported, solves raise
     pallas_leaf: str = "auto"    # no-op under native f64 (module doc)
     band_gemm: str = "float64"   # no-op under native f64
     chunk_store: str = "bf16"    # no-op under native f64

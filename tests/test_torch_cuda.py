@@ -39,9 +39,10 @@ def rel(a, b):
 
 
 def test_band_kernels_match_plain(cuda):
-    """Kernel vs plain twin on the same card within 1e-10 relative (the
-    two differ in summation order and in how the leaf inverse is formed,
-    substitution against Newton-Schulz)."""
+    """The 4-d (block bandwidth 1) layout on the card runs the wide kernels
+    and matches the bandwidth-1 plain twins within 1e-10 relative (the two
+    differ in summation order and in how the leaf inverse is formed, by
+    blocks against Newton-Schulz)."""
     from eicos_tpu_torch.ops import band, kernels
     from eicos_tpu_torch.ops import band_ldl as plain
 
@@ -57,8 +58,9 @@ def test_band_kernels_match_plain(cuda):
         assert rel(band.band_fwd(fk, r), plain.band_fwd_plain(fk, r)) < 1e-10
         assert rel(band.band_bwd(fk, r), plain.band_bwd_plain(fk, r)) < 1e-10
     torch.cuda.synchronize()
-    assert kernels.COUNTS["band_factor"] == before["band_factor"] + 1
-    assert kernels.COUNTS["band_fwd"] == before["band_fwd"] + 3
+    assert kernels.COUNTS["band_factor_bw"] == before["band_factor_bw"] + 1
+    assert kernels.COUNTS["band_fwd_bw"] == before["band_fwd_bw"] + 3
+    assert kernels.COUNTS["band_bwd_bw"] == before["band_bwd_bw"] + 3
 
 
 def test_band_wrappers_check_inputs(cuda):
@@ -94,7 +96,7 @@ def test_solver_on_card_matches_cpu(cuda):
     kernels.reset_counts()
     gpu = pt.BatchedSolver(st, settings, shared=("G", "A", "h")).solve(batch)
     assert all(kernels.COUNTS[n] > 0
-               for n in ("band_factor", "band_fwd", "band_bwd"))
+               for n in ("band_factor_bw", "band_fwd_bw", "band_bwd_bw"))
     cpu = pt.BatchedSolver(st, settings, shared=("G", "A", "h"),
                            device="cpu").solve(batch)
     assert torch.equal(gpu.exit_code.cpu(), cpu.exit_code)
@@ -364,7 +366,7 @@ def test_wide_band_kernels_match_plain(cuda, bw, nb):
     assert kernels.COUNTS["band_factor_bw"] == before["band_factor_bw"] + 1
     assert kernels.COUNTS["band_fwd_bw"] == before["band_fwd_bw"] + 3
     assert kernels.COUNTS["band_bwd_bw"] == before["band_bwd_bw"] + 3
-    assert kernels.COUNTS["band_factor"] == before["band_factor"]
+    assert "band_factor" not in kernels.COUNTS    # retired: one band factor
 
 
 def random_band_factor(lanes, nb, bw, device, seed):
@@ -417,20 +419,32 @@ def test_wide_band_sweeps_match_plain(cuda, bw, nb):
 
 
 def test_wide_band_kernel_at_bw1_matches_band_factor(cuda):
-    """At block bandwidth 1 the wide factor and sweeps agree with the
-    bandwidth-1 kernels within 1e-13 relative (the same leaf device code;
-    the products sum in another order)."""
-    from eicos_tpu_torch.ops import band
+    """At block bandwidth 1 the 4-d layout of ``ops/band.py`` (the
+    ``band_factor`` the scatter path calls) is a view onto the wide
+    kernels: the same launches (``COUNTS``) and the same bits as the 5-d
+    layout, and both within 1e-10 of the bandwidth-1 plain twins."""
+    from eicos_tpu_torch.ops import band, kernels
+    from eicos_tpu_torch.ops import band_ldl as plain
 
     Kd, Ks = (torch.tensor(a, device=cuda) for a in wide_band_case(3, 5, 1, 3))
-    narrow = band.band_factor(Kd, Ks[:, :, 0].contiguous())
-    wide = band.band_factor_bw(Kd, Ks)
-    assert rel(wide.L[:, :, 0], narrow.L) < 1e-13
-    assert rel(wide.Dinv, narrow.Dinv) < 1e-13 and rel(wide.d, narrow.d) < 1e-13
     r = torch.tensor(np.random.default_rng(2).standard_normal((3, 2, 5 * B)),
                      device=cuda)
-    assert rel(band.band_bwd_bw(wide, band.band_fwd_bw(wide, r)),
-               band.band_solve(narrow, r)) < 1e-13
+    before = dict(kernels.COUNTS)
+    narrow = band.band_factor(Kd, Ks[:, :, 0].contiguous())
+    x4 = band.band_solve(narrow, r)
+    torch.cuda.synchronize()
+    for name in ("band_factor_bw", "band_fwd_bw", "band_bwd_bw"):
+        assert kernels.COUNTS[name] == before[name] + 1, name
+    assert narrow.L.shape == (3, 5, B, B)
+    wide = band.band_factor_bw(Kd, Ks)
+    assert torch.equal(wide.L[:, :, 0], narrow.L)
+    assert torch.equal(wide.Dinv, narrow.Dinv)
+    assert torch.equal(wide.d, narrow.d)
+    assert torch.equal(band.band_bwd_bw(wide, band.band_fwd_bw(wide, r)), x4)
+    fp = plain.band_factor_plain(Kd, Ks[:, :, 0].contiguous())
+    for a, b in zip(narrow, fp):
+        assert rel(a, b) < 1e-10
+    assert rel(x4, plain.band_solve_plain(fp, r)) < 1e-10
 
 
 def test_wide_band_wrappers_check_inputs(cuda):
@@ -472,7 +486,7 @@ def test_keep_soc_solver_on_card_matches_cpu(cuda, gsplit):
     kernels.reset_counts()
     gpu = pt.BatchedSolver(st, settings, shared=("G", "A", "h")).solve(batch)
     assert all(kernels.COUNTS[n] > 0
-               for n in ("band_factor", "band_fwd", "band_bwd"))
+               for n in ("band_factor_bw", "band_fwd_bw", "band_bwd_bw"))
     cpu = pt.BatchedSolver(st, settings, shared=("G", "A", "h"),
                            device="cpu").solve(batch)
     if gsplit:
@@ -695,3 +709,94 @@ def test_f32_factor_on_card_launches_f32_leaf(cuda):
     for f in ("dx", "dy", "dz"):
         assert rel(getattr(out["cuda"], f).cpu(), getattr(out["cpu"], f)) \
             < 1e-9, f
+
+
+def leaf_cases(lanes, dtype, seed):
+    """(lanes, 128, 128) symmetric blocks for the blocked leaf: quasidefinite
+    (negative pivots after row 70), every third lane with a zero row and
+    column (a pivot of 0, clamped: 1e-150 in f64, 1e-20 in f32), lanes
+    scaled by 1e100 / 1e-100 (f64) or 1e10 / 1e-10 (f32) in turn."""
+    M = quasidefinite(lanes, B, 70, seed)
+    M[::3, 37, :] = 0.0
+    M[::3, :, 37] = 0.0
+    big = 1e100 if dtype == torch.float64 else 1e10
+    M[1::4] *= big
+    M[3::4] /= big
+    return M
+
+
+def lane_rel(a, b):
+    """Largest over lanes of each lane's max-norm relative error."""
+    a, b = a.double().flatten(1), b.double().flatten(1)
+    return float(((a - b).abs().amax(1) / b.abs().amax(1)).max())
+
+
+@pytest.mark.parametrize("dtype", [torch.float64, torch.float32],
+                         ids=["f64", "f32"])
+@pytest.mark.parametrize("lanes", [1, 3, 128, 130])
+def test_blocked_leaf_matches_plain(cuda, lanes, dtype):
+    """The blocked leaf (K9/K10 in f64, K11 in f32) against its plain
+    version, lane by lane: d and Linv within 1e-12 relative in f64 and 2e-4
+    in f32 (summation order, and the inverse by blocks against
+    Newton-Schulz), with clamped pivots, negative pivots and scaled blocks;
+    read from and written to strided views and in place; a repeated launch
+    gives the same bits."""
+    from eicos_tpu_torch.ops import kernels, leaf
+
+    tol = 1e-12 if dtype == torch.float64 else 2e-4
+    name = "leaf_ldl" if dtype == torch.float64 else "leaf_ldl_f32"
+    Mb = torch.zeros(lanes, 2 * B, 2 * B, dtype=dtype, device=cuda)
+    Mb[:, B:, :B] = torch.tensor(leaf_cases(lanes, dtype, lanes), device=cuda)
+    blk = Mb[:, B:, :B]
+    before = kernels.COUNTS[name]
+    Linv = torch.zeros(lanes, 2 * B, 2 * B, dtype=dtype, device=cuda)
+    d = torch.zeros(lanes, 2 * B, dtype=dtype, device=cuda)
+    leaf.leaf_ldl(blk, out=(Linv[:, :B, B:], d[:, B:]))
+    Lp, dp = leaf.leaf_ldl_plain(blk)
+    torch.cuda.synchronize()
+    assert kernels.COUNTS[name] == before + 1
+    assert lane_rel(d[:, B:], dp) < tol
+    assert lane_rel(Linv[:, :B, B:], Lp) < tol
+    assert not Linv[:, B:].any() and not Linv[:, :B, :B].any()
+    assert torch.isfinite(Linv).all() and torch.isfinite(d).all()
+    # lane 0 has the zero row: its pivot is clamped
+    tiny = torch.tensor(1e-150 if dtype == torch.float64 else 1e-20,
+                        dtype=dtype)
+    assert d[0, B + 37].cpu() == tiny
+    again = leaf.leaf_ldl(blk)
+    assert torch.equal(again[0], Linv[:, :B, B:])
+    assert torch.equal(again[1], d[:, B:])
+    # in place: Linv over the block it came from
+    dd = torch.empty(lanes, B, dtype=dtype, device=cuda)
+    leaf.leaf_ldl(blk, out=(blk, dd))
+    assert torch.equal(blk, again[0]) and torch.equal(dd, again[1])
+
+
+@pytest.mark.parametrize("bw", [1, 2, 3, 4, 5, 6])
+def test_band_factor_bw_lanes_match_plain(cuda, bw):
+    """The DMMA band factor at 1, 3, 64 and 130 lanes against
+    ``band_factor_bw_plain`` within 1e-12 relative, factor and solve (the
+    wide sweeps on both factors); a repeated factor gives the same bits."""
+    from eicos_tpu_torch.ops import band, kernels
+    from eicos_tpu_torch.ops import band_ldl as plain
+
+    nb = bw + 2
+    for lanes in (1, 3, 64, 130):
+        Kd, Ks = (torch.tensor(a, device=cuda)
+                  for a in wide_band_case(lanes, nb, bw, 7 * bw + lanes))
+        before = kernels.COUNTS["band_factor_bw"]
+        fk = band.band_factor_bw(Kd, Ks)
+        fp = plain.band_factor_bw_plain(Kd, Ks)
+        torch.cuda.synchronize()
+        assert kernels.COUNTS["band_factor_bw"] == before + 1
+        for a, b in zip(fk, fp):
+            assert rel(a, b) < 1e-12, lanes
+        r = torch.tensor(np.random.default_rng(lanes).standard_normal(
+            (lanes, 2, nb * B)), device=cuda)
+        xk = band.band_solve(fk, r)
+        xp = plain.band_bwd_bw_plain(fp, plain.band_fwd_bw_plain(fp, r))
+        assert rel(xk, xp) < 1e-12, lanes
+        again = band.band_factor_bw(Kd, Ks)
+        assert all(torch.equal(a, b) for a, b in zip(again, fk))
+        del Kd, Ks, fk, fp, again
+        torch.cuda.empty_cache()

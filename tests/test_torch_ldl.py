@@ -211,3 +211,27 @@ def test_ldl_factor_matches_jax(D, factor384):
 def test_ldl_factor_rejects_unpadded():
     with pytest.raises(ValueError):
         ldl.ldl_factor(torch.zeros(1, 200, 200, dtype=torch.float64))
+
+
+@pytest.mark.parametrize("dtype", [np.float64, np.float32], ids=["f64", "f32"])
+def test_leaf_plain_clamps_pivots_like_reference(dtype):
+    """A block with a zero row and column has a zero pivot: the plain leaf
+    clamps it to 1e-150 in f64 (1e-20 in f32), as the reference's
+    ``_unblocked_ldl`` does, and gives its d and L to 1e-12 (f64; XLA
+    fuses the update in another order) or 1e-5 (f32), with no NaN."""
+    rng = np.random.default_rng(9)
+    M = rng.standard_normal((128, 128)) / np.sqrt(128)
+    M = 0.5 * (M + M.T)
+    M[np.arange(128), np.arange(128)] = np.where(
+        np.arange(128) < 70, 1.0, -1.0) * (1.0 + np.abs(M).sum(1))
+    M[37, :] = M[:, 37] = 0.0
+    M = M.astype(dtype)
+    L, d = leaf._unblocked_ldl(torch.tensor(M)[None])
+    jL, jd = jldl._unblocked_ldl(jnp.asarray(M))
+    tiny = 1e-150 if dtype == np.float64 else 1e-20
+    assert d[0, 37].item() == np.asarray(jd)[37] == dtype(tiny)
+    assert torch.isfinite(L).all() and torch.isfinite(d).all()
+    tol = 1e-12 if dtype == np.float64 else 1e-5
+    np.testing.assert_allclose(d[0].numpy(), np.asarray(jd), rtol=tol)
+    np.testing.assert_allclose(L[0].numpy(), np.asarray(jL), rtol=tol,
+                               atol=tol * 1e-3)
