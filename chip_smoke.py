@@ -34,11 +34,30 @@ port's paths through its entry points:
      0 of the LP (Dp = 7040), then 8 lanes (cut from 128 for memory and
      time) on the inverse path and on the substitution sweeps;
  11. "reduced" with ``factor_dtype="float32"`` on the 128 LP lanes (the
-     f32 leaf kernel, ``torch.matmul`` products).
+     f32 leaf kernel, ``torch.matmul`` products);
+ 12. the banded scan at a real size: 32 lanes of a 256-state, 128-input
+     MPC LP whose plan has block bandwidth 9 (Dp = 7680, nb = 60), above
+     the band kernels' 6, under "banded": batched ``torch.matmul`` block
+     products and the f64 leaf kernel launched once a block row (nb
+     launches a factor, no band kernel), lane 0 against the CPU plain
+     path, bit for bit on a repeat, then the same batch under
+     ``band_gemm="float32"`` (tiers held to the CPU's; the scan with f32
+     products held to the CPU plain path at 1e-4 on a random band of the
+     path's shape, as this LP's own blocks are rounding noise in f32);
+ 13. "banded" with ``factor_dtype="float32"`` on phase 6's 128 SOCP lanes
+     (keep_soc plan): the scan in f32 with the f32 leaf kernel and no f64
+     band or leaf kernel, the f32 scan of the path's own first two factors
+     held to the CPU plain path at 1e-4, tiers held to the CPU's,
+     objectives to phase 6's;
+ 14. the entry points on the card: ``Solver.solve_live``,
+     ``Settings(verbose_live=True)`` on a ``BatchedSolver``,
+     ``ecos_compat.solve_ecos``, ``python -m eicos_tpu_torch solve --live``
+     and ``demo`` in subprocesses, and ``utils.timing.timed`` against
+     CUDA events around a solve and around queued f64 products.
 
-Phases 6 and 7 must launch their band kernels, match the CPU plain path on
-lane 0, repeat bit for bit, and end every lane OPTIMAL; lanes that do not
-must end with the same code on the CPU plain path.
+Phases 6, 7 and 12 must launch their band (12: leaf) kernels, match the
+CPU plain path on lane 0, repeat bit for bit, and end every lane OPTIMAL;
+lanes that do not must end with the same code on the CPU plain path.
 
     python3 chip_smoke.py
 
@@ -49,11 +68,14 @@ outcome, a JSON line of per-kernel numbers, and as its last line
 before that line.
 """
 
+import contextlib
+import io
 import json
 import os
 import shutil
 import subprocess
 import sys
+import tempfile
 import time
 
 import numpy as np
@@ -77,8 +99,13 @@ SUBST_TOL = 1e-12                 # substitution sweeps vs plain, relative
 F32_LEAF_TOL = 2e-4               # f32 leaf vs plain and vs the f64 leaf
 FULL_LANES = 8                    # phase 10 (cut from 128: Dp = 7040)
 FULL_DP = 7040
-CPU_LANES = 4                     # phases 9, 11: lanes solved again on the CPU
+CPU_LANES = 4                     # phases 9, 11, 13: lanes again on the CPU
 INACC_TOL = 1e-4                  # objective of a reduced-accuracy exit
+SCAN = dict(horizon=12, nx=256, nu=128, seed=3)   # phase 12: bwb 9, Dp 7680
+SCAN_LANES, SCAN_BWB, SCAN_DP = 32, 9, 7680
+SCAN_CPU_LANES = 1                # phase 12 under band_gemm f32, on the CPU
+F32_TOL = 1e-6                    # an f32 factor's definitive objective
+F32_SCAN_TOL = 1e-4               # f32 scan (or f32 products): card vs CPU
 
 
 def fail(msg):
@@ -999,14 +1026,19 @@ def build_wide_batch(pt, corpus, make_band_plan):
     return perturbed_lanes(pt, st, base, WIDE_LANES, WIDE["nx"], 7)
 
 
-def profile_solve(torch, bs, batch):
+def profile_solve(torch, bs, batch, cuda_only=False):
     """Device time by kernel over one solve (torch.profiler) and the
-    device's idle share of the solve's wall time."""
+    device's idle share of the solve's wall time.  ``cuda_only`` records
+    the device activity alone: a solve of ~10^6 launches (the scan) takes
+    minutes of the profiler's host-side processing with the CPU's."""
     from torch.profiler import ProfilerActivity, profile
 
+    acts = [ProfilerActivity.CUDA]
+    if not cuda_only:
+        acts.insert(0, ProfilerActivity.CPU)
     torch.cuda.synchronize()
-    with profile(activities=[ProfilerActivity.CPU,
-                             ProfilerActivity.CUDA]) as prof:
+    t_prof = time.perf_counter()
+    with profile(activities=acts) as prof:
         t0 = time.perf_counter()
         bs.solve(batch)
         torch.cuda.synchronize()
@@ -1028,22 +1060,37 @@ def profile_solve(torch, bs, batch):
         print("profile: no device time in the trace (not measured)")
         return
     print(f"profile: one solve {wall * 1e3:.1f} ms wall, device busy "
-          f"{busy:.1f} ms (idle share {1 - busy / (wall * 1e3):.3f})")
+          f"{busy:.1f} ms (idle share {1 - busy / (wall * 1e3):.3f}); "
+          f"{sum(r[2] for r in rows)} kernel launches; the profile took "
+          f"{time.perf_counter() - t_prof:.1f} s")
     for ms, key, count in rows[:10]:
         print(f"  {ms:9.3f} ms  {count:6d}x  {key[:90]}")
 
 
 def drive(torch, kernels, kkt, bs, batch):
     """One solve with every launch count at 0 just before it: returns the
-    solution, the counts just after, the host syncs and the wall time."""
+    solution, the counts just after (with the number of factors under
+    "factors": ``kkt.factor`` is wrapped to count its calls for the
+    solve), the host syncs and the wall time."""
+    real = kkt.factor
+    factors = [0]
+
+    def counted(*args, **kw):
+        factors[0] += 1
+        return real(*args, **kw)
+
     torch.cuda.synchronize()
     kernels.reset_counts()
     syncs0 = kkt.host_syncs
-    t0 = time.perf_counter()
-    sol = bs.solve(batch)
-    torch.cuda.synchronize()
-    return (sol, dict(kernels.COUNTS), kkt.host_syncs - syncs0,
-            time.perf_counter() - t0)
+    kkt.factor = counted
+    try:
+        t0 = time.perf_counter()
+        sol = bs.solve(batch)
+        torch.cuda.synchronize()
+    finally:
+        kkt.factor = real
+    return (sol, dict(kernels.COUNTS, factors=factors[0]),
+            kkt.host_syncs - syncs0, time.perf_counter() - t0)
 
 
 def timed(torch, bs, batch, lanes, reps=3):
@@ -1181,12 +1228,12 @@ def objectives_close(sol, want, tol_by_tier, label):
 
 
 def run_path(torch, pt, kernels, kkt, label, st, probs, batch, shared,
-             settings, rescue, names):
+             settings, rescue, names, reps=3, cuda_only=False):
     """Drive one path of the port at full width: a first solve with the
-    launch counts read around it, three timed solves, the bit-repeat check,
-    the exit codes before and after the rescue, every lane OPTIMAL (or as
-    on the CPU), one profiled solve, lane 0 on the CPU plain path.
-    Returns the launch counts of the first solve."""
+    launch counts read around it, ``reps`` timed solves, the bit-repeat
+    check, the exit codes before and after the rescue, every lane OPTIMAL
+    (or as on the CPU), one profiled solve, lane 0 on the CPU plain path.
+    Returns the launch counts and the solution of the first solve."""
     lanes = len(probs)
     bs = pt.BatchedSolver(st, settings, shared=shared, rescue=rescue)
     torch.cuda.reset_peak_memory_stats()
@@ -1195,7 +1242,7 @@ def run_path(torch, pt, kernels, kkt, label, st, probs, batch, shared,
           f"launches {launches}; rescued lanes {list(bs.last_rescued)}")
     need_launched(launches, names, label)
     first = sol
-    sol, _ = timed(torch, bs, batch, lanes)
+    sol, _ = timed(torch, bs, batch, lanes, reps)
     same_bits(torch, first, sol, label)
     del first
     if rescue is not None:
@@ -1204,9 +1251,334 @@ def run_path(torch, pt, kernels, kkt, label, st, probs, batch, shared,
         print(f"{label}: last_rescued {list(bs.last_rescued)}")
     outcome(sol, label)
     all_optimal_or_as_cpu(pt, st, probs, shared, settings, rescue, sol, label)
-    profile_solve(torch, bs, batch)
+    profile_solve(torch, bs, batch, cuda_only)
     same_as_cpu(pt, st, probs[0], settings, sol, label)
-    return launches
+    return launches, sol
+
+
+def build_scan_batch(pt, corpus, make_band_plan):
+    """Phase 12's batch: a 256-state, 128-input MPC LP whose RCM plan has
+    block bandwidth 9, lanes made as bench.py makes them (lane rng 7)."""
+    st, base = corpus.make_mpc_like(**SCAN)
+    st = st.with_gsplit(base.G, base.A)
+    st = st.with_band_plan(make_band_plan(st, base.G, base.A))
+    return perturbed_lanes(pt, st, base, SCAN_LANES, SCAN["nx"], 7)
+
+
+def scan_leaf_record(torch, leaf, lanes, dtype, tol):
+    """The leaf kernel at the scan's shape, ``lanes`` Schur blocks a launch
+    (one a block row), against its plain version: error, time and bound."""
+    M = quasidefinite(torch, lanes, B, 80, seed=5).to(dtype)
+    Lk, dk = leaf.leaf_ldl(M)
+    Lp, dp = leaf.leaf_ldl_plain(M)
+    torch.cuda.synchronize()
+    err = max(rel_err(Lk, Lp), rel_err(dk, dp))
+    es = M.element_size()
+    b_ms, b_by = bound(lanes * (B * (B + 1) // 2 * es + B * B * es + B * es),
+                       lanes * (B ** 3 // 2 + B ** 3 // 3))
+    ms = cuda_ms(lambda: leaf.leaf_ldl(M))
+    pms = cuda_ms(lambda: leaf.leaf_ldl_plain(M), reps=5)
+    print(f"leaf at the scan's shape, {lanes} x {dtype}: {ms:.4f} ms (plain "
+          f"{pms:.3f} ms), bound {b_ms:.5f} ms by {b_by}; max rel err vs "
+          f"plain {err:.3e} (tolerance {tol})")
+    if not err <= tol:
+        fail(f"the leaf at the scan's shape ({dtype}) disagrees with its "
+             f"plain version")
+    return dict(max_abs_err=max(float((Lk - Lp).abs().max()),
+                                float((dk - dp).abs().max())),
+                ms=ms, plain_ms=pms, bound_ms=b_ms, bound_by=b_by,
+                library_ms=None)
+
+
+def scan_launches(launches, name, nb, label):
+    """The scan launches the leaf kernel ``name`` once a block row of every
+    factor, and no band kernel."""
+    want = nb * launches["factors"]
+    print(f"{label}: {name} launched {launches[name]} times, nb {nb} x "
+          f"{launches['factors']} factors = {want}")
+    if launches[name] != want:
+        fail(f"{label}: {name} launched {launches[name]} times, expected "
+             f"{want}")
+    if any(launches[n] for n in ("band_factor_bw", "band_fwd_bw",
+                                 "band_bwd_bw")):
+        fail(f"{label}: the scan launched a band kernel: {launches}")
+
+
+@contextlib.contextmanager
+def captured_blocks(kkt, count, lanes):
+    """Inside the block, ``kkt.band_factor`` records copies of its first
+    ``count`` calls' inputs, the path's own gathered blocks of the first
+    ``lanes`` lanes with the product type, into the yielded list."""
+    real = kkt.band_factor
+    got = []
+
+    def capture(Kd, Ks, gemm_dtype=None):
+        if len(got) < count:
+            got.append((Kd[:lanes].clone(), Ks[:lanes].clone(), gemm_dtype))
+        return real(Kd, Ks, gemm_dtype)
+
+    kkt.band_factor = capture
+    try:
+        yield got
+    finally:
+        kkt.band_factor = real
+
+
+def scan_as_cpu(torch, plain, Kd, Ks, gdt, label):
+    """The scan factor of (Kd, Ks) on the card (the leaf kernel of their
+    type) against the CPU plain path: the largest relative error of L,
+    Dinv and the solve of two random right-hand sides."""
+    fk = plain.band_ldl_factor(Kd, Ks, gemm_dtype=gdt)
+    fc = plain.band_ldl_factor(Kd.cpu(), Ks.cpu(), gemm_dtype=gdt)
+    g = torch.Generator().manual_seed(3)
+    r = torch.randn(Kd.shape[0], 2, Kd.shape[1] * B, generator=g,
+                    dtype=Kd.dtype)
+    xk = plain.band_ldl_solve(fk, r.to(Kd.device), gdt).cpu()
+    xc = plain.band_ldl_solve(fc, r, gdt)
+    errs = [rel_err(fk.L.cpu(), fc.L), rel_err(fk.Dinv.cpu(), fc.Dinv),
+            rel_err(xk, xc)]
+    print(f"{label}: {Kd.dtype} blocks, products in {gdt or Kd.dtype}, "
+          f"{Kd.shape[0]} lanes x nb {Kd.shape[1]} x bw {Ks.shape[2]}; card "
+          f"vs CPU plain path: L {errs[0]:.3e}, Dinv {errs[1]:.3e}, solve "
+          f"{errs[2]:.3e}")
+    return max(errs)
+
+
+def phase_scan(torch, pt, corpus, kernels, kkt, leaf, plain,
+               make_band_plan):
+    """Phase 12: the banded scan at block bandwidth 9.  Returns the leaf
+    record at its shape with this phase's launches."""
+    st, probs, batch, shared = build_scan_batch(pt, corpus, make_band_plan)
+    nb = st.band.dim // B
+    print(f"scan band: n={st.n} p={st.p} m={st.m}, Dp={st.band.dim}, nb={nb}, "
+          f"bwb={st.band.bwb}, {SCAN_LANES} lanes, no rescue")
+    if (st.band.bwb, st.band.dim) != (SCAN_BWB, SCAN_DP):
+        fail(f"scan band: plan bwb {st.band.bwb}, Dp {st.band.dim}; expected "
+             f"{SCAN_BWB}, {SCAN_DP}")
+    record = scan_leaf_record(torch, leaf, SCAN_LANES, torch.float64,
+                              KERNEL_TOL)
+    settings = pt.Settings(kkt_strategy="banded")
+    launches, sol = run_path(torch, pt, kernels, kkt, "scan band", st, probs,
+                             batch, shared, settings, None, ["leaf_ldl"],
+                             reps=1, cuda_only=True)
+    scan_launches(launches, "leaf_ldl", nb, "scan band")
+    record["launches"] = launches["leaf_ldl"]
+    del sol
+    torch.cuda.empty_cache()
+
+    # the f32 products on well-conditioned blocks at the path's shape:
+    # this LP's own blocks carry the 1/delta growth of its equality pivots,
+    # which f32 products cannot carry (printed below, not held)
+    Kd, Ks = random_wide_band(torch, CPU_LANES, nb, SCAN_BWB, seed=17)
+    err = scan_as_cpu(torch, plain, Kd, Ks, torch.float32,
+                      "scan, f32 products, random band")
+    off = rel_err(plain.band_ldl_factor(Kd, Ks, gemm_dtype=torch.float32).L,
+                  plain.band_ldl_factor(Kd, Ks).L)
+    print(f"scan, f32 products, random band: L against f64 products' on the "
+          f"card {off:.3e}")
+    if not (err <= F32_SCAN_TOL and off > KERNEL_TOL):
+        fail("scan band: the scan with f32 products disagrees with the CPU "
+             "or does not round its products to f32")
+    del Kd, Ks
+    g32 = pt.Settings(kkt_strategy="banded", band_gemm="float32")
+    gs = pt.BatchedSolver(st, g32, shared=shared)
+    with captured_blocks(kkt, 1, 1) as own:
+        gsol, launches, syncs, t_first = drive(torch, kernels, kkt, gs, batch)
+    scan_as_cpu(torch, plain, *own[0], "scan band, band_gemm f32, the "
+                "path's first factor (not held)")
+    del own
+    print(f"scan band, band_gemm f32: first solve {t_first:.3f} s; host "
+          f"syncs {syncs}; kernel launches {launches}")
+    scan_launches(launches, "leaf_ldl", nb, "scan band, band_gemm f32")
+    codes, _, _ = outcome(gsol, "scan band, band_gemm f32")
+    short = [int(i) for i in np.flatnonzero(codes != 0)][:SCAN_CPU_LANES]
+    tiers_as_cpu(pt, st, probs, shared, g32, gsol, short or [0],
+                 "scan band, band_gemm f32")
+    del gs, gsol, batch, probs
+    torch.cuda.empty_cache()
+    return record
+
+
+def phase_f32_banded(torch, pt, corpus, kernels, kkt, leaf, plain,
+                     make_band_plan, soc_pcost):
+    """Phase 13: "banded" with an f32 factor on phase 6's SOCP lanes.
+    Returns the f32 leaf record at its shape with this phase's
+    launches."""
+    st, probs, batch, shared = build_socp_batch(pt, corpus, LANES,
+                                                make_band_plan)
+    nb = st.band.dim // B
+    record = scan_leaf_record(torch, leaf, LANES, torch.float32, F32_LEAF_TOL)
+    f32 = pt.Settings(kkt_strategy="banded", factor_dtype="float32")
+    bs = pt.BatchedSolver(st, f32, shared=shared)
+    torch.cuda.reset_peak_memory_stats()
+    with captured_blocks(kkt, 2, CPU_LANES) as own:
+        sol, launches, syncs, t_first = drive(torch, kernels, kkt, bs, batch)
+    print(f"banded, f32 factor: keep_soc plan Dp={st.band.dim} nb={nb} "
+          f"bwb={st.band.bwb}, {LANES} lanes; first solve {t_first:.3f} s; "
+          f"host syncs {syncs}; kernel launches {launches}")
+    need_launched(launches, ["leaf_ldl_f32"], "banded, f32 factor")
+    if any(launches[n] for n in ("leaf_ldl", "dgemm")):
+        fail(f"banded, f32 factor: launched an f64 kernel: {launches}")
+    scan_launches(launches, "leaf_ldl_f32", nb, "banded, f32 factor")
+    record["launches"] = launches["leaf_ldl_f32"]
+    # the f32 scan on the path's own blocks (the init factor and the first
+    # iteration's), which f32 carries, whatever the lanes' outcome
+    for i, blocks in enumerate(own):
+        if not scan_as_cpu(torch, plain, *blocks, f"banded, f32 factor, "
+                           f"factor {i} of the path") <= F32_SCAN_TOL:
+            fail(f"banded, f32 factor: the f32 scan of the path's factor {i} "
+                 f"disagrees with the CPU")
+    del own
+    again, _ = timed(torch, bs, batch, LANES, reps=2)
+    same = torch.equal(sol.exit_code, again.exit_code) and torch.equal(
+        sol.x, again.x)
+    print(f"banded, f32 factor: a repeated solve gives the same bits: {same} "
+          f"(printed, not checked: the f32 products are cuBLAS's)")
+    outcome(sol, "banded, f32 factor")
+    # a lane that claims an answer under the f32 factor must have it
+    objectives_close(sol, soc_pcost, {2: F32_TOL, 1: INACC_TOL},
+                     "banded, f32 factor, against phase 6")
+    profile_solve(torch, bs, batch, cuda_only=True)
+    tiers_as_cpu(pt, st, probs, shared, f32, sol, list(range(CPU_LANES)),
+                 "banded, f32 factor")
+    del bs, sol, again, batch
+    torch.cuda.empty_cache()
+    return record
+
+
+def small_socp():
+    """A small feasible SOCP: a box, two equalities and one cone
+    ||(x0, x1)|| <= 1.5 (G, A, c, h, b, q)."""
+    rng = np.random.default_rng(5)
+    n, p = 6, 2
+    G = np.vstack([np.eye(n), -np.eye(n), np.zeros((3, n))])
+    G[-2, 0] = G[-1, 1] = -1.0
+    h = np.concatenate([np.ones(2 * n), [1.5, 0.0, 0.0]])
+    A = rng.standard_normal((p, n))
+    b = A @ (0.3 * rng.uniform(-1, 1, n))
+    return G, A, rng.standard_normal(n), h, b, (3,)
+
+
+def table_rows(text):
+    """The iteration rows of a printed table, without the IR column (it
+    turns on the last bits)."""
+    return [r[:-12] for r in text.splitlines() if r[:3].strip().isdigit()]
+
+
+def phase_entry(torch, pt, probs, shared, st):
+    """Phase 14: the entry points on the card, on phase 2's lane 0."""
+    from eicos_tpu_torch import ecos_compat
+    from eicos_tpu_torch.utils import timing
+
+    banded = pt.Settings(kkt_strategy="banded")
+    p0 = probs[0]
+    one = pt.Solver(p0.G, p0.A, p0.c, p0.h, p0.b, settings=banded)
+    buf = io.StringIO()
+    code = one.solve_live(seg=3, file=buf)
+    live = one.last_solution
+    rows = table_rows(buf.getvalue())
+    again = one.solve()
+    sol = one.last_solution
+    same = (code == again and all(torch.equal(getattr(live, f),
+                                              getattr(sol, f))
+                                  for f in ("x", "y", "z", "s")))
+    n_it = int(sol.info.iter)
+    print(f"Solver.solve_live(seg=3): code {int(code)}, {len(rows)} rows for "
+          f"{n_it} iterations; the same bits as solve(): {same}")
+    if len(rows) != n_it + 1 or not same or int(code) != 0:
+        fail("Solver.solve_live disagrees with Solver.solve")
+
+    lanes = pt.BatchedSolver.stack(probs[:4], shared=shared)
+    out = io.StringIO()
+    with contextlib.redirect_stdout(out):
+        vsol = pt.BatchedSolver(st, pt.Settings(kkt_strategy="banded",
+                                                verbose_live=True),
+                                shared=shared).solve(lanes)
+    vrows = table_rows(out.getvalue())
+    print(f"verbose_live, 4 lanes: {len(vrows)} rows streamed for lane 0's "
+          f"{int(vsol.info.iter[0])} iterations; rows as solve_live's: "
+          f"{vrows == rows}")
+    if vrows != rows or not out.getvalue().startswith("It "):
+        fail("verbose_live did not stream lane 0's rows")
+
+    G, A, c, h, b, q = small_socp()
+    import scipy.sparse as sp
+
+    r = ecos_compat.solve_ecos(c, sp.csc_matrix(G), h,
+                               {"l": G.shape[0] - 3, "q": list(q)},
+                               sp.csc_matrix(A), b)
+    s = pt.Solver(G, A, c, h, b, soc_dims=q)
+    scode = s.solve()
+    dx = float(np.abs(r["x"] - s.solution()).max())
+    print(f"solve_ecos: exitFlag {r['exitFlag']}, Solver code {int(scode)}; "
+          f"max |x - x_Solver| {dx:.3e}")
+    if r["exitFlag"] != int(scode) or not dx <= LANE_TOL:
+        fail("ecos_compat.solve_ecos disagrees with Solver on the card")
+
+    # the CLI in subprocesses, on lane 0 saved inside the checkout
+    here = os.path.dirname(os.path.abspath(__file__))
+    with tempfile.TemporaryDirectory(dir=here) as tmp:
+        npz = os.path.join(tmp, "lane0.npz")
+        pt.save_problem(npz, st, p0)
+        for args in (["solve", npz, "--live"],
+                     ["demo", "--horizon", "40", "--batch", "8"]):
+            t0 = time.perf_counter()
+            proc = subprocess.run([sys.executable, "-m", "eicos_tpu_torch",
+                                   *args], cwd=here, capture_output=True,
+                                  text=True, timeout=300)
+            tail = proc.stdout.strip().splitlines()[-3:]
+            shown = " ".join(os.path.basename(a) for a in args)
+            print(f"python -m eicos_tpu_torch {shown}: exit "
+                  f"{proc.returncode} in {time.perf_counter() - t0:.1f} s; "
+                  f"{tail}")
+            if proc.returncode != 0:
+                fail(f"python -m eicos_tpu_torch {args[0]} exited "
+                     f"{proc.returncode}: {proc.stderr[-2000:]}")
+
+    bs = pt.BatchedSolver(st, banded, shared=shared)
+    e0, e1 = (torch.cuda.Event(enable_timing=True) for _ in range(2))
+
+    def solve_between_events():
+        e0.record()
+        out = bs.solve(lanes)
+        e1.record()
+        return out
+
+    bs.solve(lanes)
+    _, ms = timing.timed(solve_between_events)
+    ev = e0.elapsed_time(e1)
+    print(f"utils.timing.timed: {ms:.3f} ms; CUDA events around the same "
+          f"solve {ev:.3f} ms")
+    if not ms >= ev:
+        fail("utils.timing.timed returned less than the solve's device time")
+
+    # a call that returns with its work still queued (the solve above reads
+    # a flag back every iteration): four f64 products of 8192 x 8192
+    a = torch.randn(8192, 8192, dtype=torch.float64, device="cuda")
+    a /= 8192 ** 0.5
+
+    def queued():
+        e0.record()
+        x = a
+        for _ in range(4):
+            x = x @ a
+        e1.record()
+        return x
+
+    queued()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    queued()
+    launch_ms = 1e3 * (time.perf_counter() - t0)
+    torch.cuda.synchronize()
+    _, ms = timing.timed(queued)
+    ev = e0.elapsed_time(e1)
+    print(f"utils.timing.timed on four queued f64 products: {ms:.3f} ms; "
+          f"CUDA events {ev:.3f} ms; host time of the launches alone "
+          f"{launch_ms:.3f} ms")
+    if not (ms >= ev and ms >= 10 * launch_ms):
+        fail("utils.timing.timed did not wait for the queued products")
+    del a
 
 
 def main():
@@ -1378,9 +1750,10 @@ def main():
           f"bwb={kst.band.bwb}, {LANES} lanes, rescue 'reduced'")
     if kst.band.bwb != 1 or not kst.band.keep_soc:
         fail(f"SOCP lane: unexpected plan (bwb {kst.band.bwb})")
-    run_path(torch, pt, kernels, kkt, "SOCP lane", kst, kprobs, kbatch,
-             kshared, settings, rescue, band_names)
-    del kbatch, kprobs
+    _, ksol = run_path(torch, pt, kernels, kkt, "SOCP lane", kst, kprobs,
+                       kbatch, kshared, settings, rescue, band_names)
+    soc_band_pcost = ksol.info.pcost.cpu().numpy()
+    del kbatch, kprobs, ksol
     torch.cuda.empty_cache()
     print(f"phase 6: {time.perf_counter() - t_phase:.1f} s")
 
@@ -1393,8 +1766,8 @@ def main():
     if (wst.band.bwb, wst.band.dim) != (WIDE_BWB, WIDE_DP):
         fail(f"wide band: plan bwb {wst.band.bwb}, Dp {wst.band.dim}; "
              f"expected {WIDE_BWB}, {WIDE_DP}")
-    launches = run_path(torch, pt, kernels, kkt, "wide band", wst, wprobs,
-                        wbatch, wshared, settings, None, wide_names)
+    launches, _ = run_path(torch, pt, kernels, kkt, "wide band", wst, wprobs,
+                           wbatch, wshared, settings, None, wide_names)
     for r in wide_records:
         r["launches"] = launches[r["name"]]
     print(f"phase 7: {time.perf_counter() - t_phase:.1f} s")
@@ -1552,18 +1925,41 @@ def main():
     tiers_as_cpu(pt, st, probs, shared, f32, hsol, list(range(CPU_LANES)),
                  "reduced, f32 factor")
     del hs, hsol, again
+    torch.cuda.empty_cache()
     print(f"phase 11: {time.perf_counter() - t_phase:.1f} s")
+
+    # ---- phase 12: the banded scan (block bandwidth 9) at a real size
+    t_phase = time.perf_counter()
+    scan_records = {"leaf_ldl": phase_scan(torch, pt, corpus, kernels, kkt,
+                                           leaf, plain, make_band_plan)}
+    print(f"phase 12: {time.perf_counter() - t_phase:.1f} s")
+
+    # ---- phase 13: "banded" with an f32 factor (the scan in f32)
+    t_phase = time.perf_counter()
+    scan_records["leaf_ldl_f32"] = phase_f32_banded(
+        torch, pt, corpus, kernels, kkt, leaf, plain, make_band_plan,
+        soc_band_pcost)
+    print(f"phase 13: {time.perf_counter() - t_phase:.1f} s")
+
+    # ---- phase 14: the entry points on the card
+    t_phase = time.perf_counter()
+    phase_entry(torch, pt, probs, shared, st)
+    print(f"phase 14: {time.perf_counter() - t_phase:.1f} s")
 
     order = ("name", "route", "source", "replaces", "launches",
              "max_abs_err", "ms", "plain_ms", "bound_ms", "bound_by",
              "library_ms")
     print(f"total {time.perf_counter() - t_start:.1f} s")
     # one entry a kernel: the band kernels at the main path's bandwidth 1,
-    # with phase 7's bandwidth-3 readings beside them under "bw3"
+    # with phase 7's bandwidth-3 readings beside them under "bw3", and the
+    # leaves with phases 12's and 13's readings under "scan"
     wide = {r["name"]: {k: r[k] for k in order[4:]} for r in wide_records}
+    scan = {name: {k: r[k] for k in order[4:]}
+            for name, r in scan_records.items()}
     print(json.dumps({"kernels": [
-        {k: r[k] for k in order} | ({"bw3": wide[r["name"]]}
-                                    if r["name"] in wide else {})
+        {k: r[k] for k in order}
+        | ({"bw3": wide[r["name"]]} if r["name"] in wide else {})
+        | ({"scan": scan[r["name"]]} if r["name"] in scan else {})
         for r in band_records + dense_records + subst_records]}))
     print(smi)
     print(json.dumps({"ok": True, "device": {

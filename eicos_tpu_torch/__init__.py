@@ -9,15 +9,19 @@ Solves
 with the Mehrotra predictor-corrector interior-point method on the
 homogeneous self-dual embedding, lane-batched, in IEEE float64.  All four
 KKT strategies of the reference run on the card: "banded" (the band LDL^T
-factor and sweeps, block bandwidths 1..6), "reduced", "normal" and "full"
+factor and sweeps at block bandwidths 1..6, the scan of batched products
+and the leaf kernel above 6 and in f32), "reduced", "normal" and "full"
 (the dense recursion's blocked leaf LDL^T, DMMA GEMM, and the inverse or
-substitution solves), the rescue pass, and ``factor_dtype="float32"`` on
-the dense strategies.  Every TPU kernel of the reference has a hand-written
-CUDA kernel here (``csrc/``, built with nvcc at first use), and every
-kernel has a plain torch version that runs for CPU tensors.
-``Solver.solve(verbose=True)`` prints the reference's iteration table
-after the solve; ``save_problem``/``load_problem`` read and write the
-reference's npz files.
+substitution solves), the rescue pass, and ``factor_dtype="float32"``.
+Every TPU kernel of the reference has a hand-written CUDA kernel here
+(``csrc/``, built with nvcc at first use), and every kernel has a plain
+torch version that runs for CPU tensors.  The iteration table prints
+during a solve (``solver.solve_live``, ``Solver.solve_live``,
+``Settings(verbose_live=True)``) or after it
+(``Solver.solve(verbose=True)``); ``save_problem``/``load_problem`` read
+and write the reference's npz files, ``corpus`` loads its test headers,
+``ecos_compat`` is its ECOS shim and ``python -m eicos_tpu_torch`` its
+command line.
 
 Entry points run on CUDA unless the caller passes ``device="cpu"``.  The
 package imports torch, numpy and scipy, and nothing of JAX or

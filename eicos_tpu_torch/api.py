@@ -15,11 +15,10 @@ import numpy as np
 import torch
 
 from .exitcodes import ExitCode
-from .kkt import require_no_live
 from .problem import ProblemData, make_problem
 from .settings import Settings
-from .solver import (Solution, resolve_device, solve_batch, squeeze_lane,
-                     to_device)
+from .solver import (LiveTable, Solution, resolve_device, solve_batch,
+                     squeeze_lane, to_device)
 from .structure import ProblemStructure
 
 _FIELDS = ("G", "A", "c", "h", "b")
@@ -28,10 +27,7 @@ _FIELDS = ("G", "A", "c", "h", "b")
 def _rescue_settings(rescue: Optional[Settings]) -> Optional[Settings]:
     """Normalize a rescue configuration as ``eicos_tpu.api`` does: a
     rescue left at ``dense_solve="auto"`` is pinned to the inverse path
-    (the exact dense elimination); an explicit choice is kept.  A rescue
-    with ``verbose_live`` raises here, before it could go unused."""
-    if rescue is not None:
-        require_no_live(rescue)
+    (the exact dense elimination); an explicit choice is kept."""
     if rescue is None or rescue.dense_solve != "auto":
         return rescue
     return dataclasses.replace(rescue, dense_solve="inverse")
@@ -152,6 +148,22 @@ class Solver:
             host = host_copy(sol)
             print_iteration_table(host)
             print_summary(self.structure, host)
+        return ExitCode(int(sol.exit_code))
+
+    def solve_live(self, seg: int = 1, file=None) -> ExitCode:
+        """``solve`` with the reference's iteration table printed during
+        the solve, in groups of ``seg`` iterations (``solver.solve_live``),
+        then the summary; no rescue, as in ``eicos_tpu``.  The solution has
+        the same bits as ``solve()``'s."""
+        from .utils.printing import host_copy, print_summary
+
+        if self._dev is None:
+            self._dev = to_device(self._data, self.device)
+        sol = squeeze_lane(solve_batch(self.structure, self._dev,
+                                       self.settings,
+                                       live=LiveTable(seg, file)))
+        self._solution = sol
+        print_summary(self.structure, host_copy(sol), file=file)
         return ExitCode(int(sol.exit_code))
 
     def solution(self) -> np.ndarray:

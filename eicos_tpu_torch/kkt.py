@@ -1,6 +1,7 @@
 """KKT assembly, factor and solve with iterative refinement: the four
-strategies of ``eicos_tpu.kkt``: "banded" (LP and second-order cones,
-block bandwidth 1..6) and the dense "reduced", "normal" and "full".
+strategies of ``eicos_tpu.kkt``: "banded" (LP and second-order cones, any
+block bandwidth, f64 or f32) and the dense "reduced", "normal" and
+"full".
 
 "banded", "reduced" and "normal" factor a quasidefinite system over
 [z_soc | x | y] in which the rows of G whose cone block has a closed-form
@@ -15,11 +16,18 @@ rows, H = G_e' (W_e^2 + dI)^{-1} G_e + dI:
              [  0              A    -dI ]
 
 banded   K is RCM-permuted by the structure's ``BandPlan`` into 128-blocks
-         with block bandwidth bwb, factored and solved in ``ops/band.py``.
-         Three ways to its band blocks, as in ``eicos_tpu.kkt.factor``:
+         with block bandwidth bwb, factored and solved in ``ops/band.py``:
+         by the band kernels at bwb 1..6 in f64, and by the scan of
+         ``ops/band_ldl.py`` (batched ``torch.matmul`` products and the
+         leaf kernel) where the reference runs its XLA scan, at bwb above
+         6 or under ``factor_dtype="float32"``; ``Settings.band_gemm``
+         sets the scan's product type and nothing else, as in the
+         reference.  Three ways to the band blocks, as in
+         ``eicos_tpu.kkt.factor``:
 
-         direct scatter (bwb = 1, every eliminated LP row a singleton or
-         scatter row of the gsplit, cones on narrow ``SOCSplit`` supports):
+         direct scatter (f64, bwb = 1, every eliminated LP row a singleton
+         or scatter row of the gsplit, cones on narrow ``SOCSplit``
+         supports):
          H is never formed; its contributions (one per singleton row on
          the diagonal, a w x w outer product per scatter row, dI, and per
          cone either the eliminating closed form or, on a ``keep_soc``
@@ -32,7 +40,7 @@ banded   K is RCM-permuted by the structure's ``BandPlan`` into 128-blocks
          S = diag(W_s^-1, I, I): kept block -(I + d W^-2), coupling
          W^-1 G_s, and ``solve_exact`` scales the kept rows in and out.
 
-         gathered from H (any bwb 1..6, no kept cones): the dense per-lane
+         gathered from H (any bwb, no kept cones): the dense per-lane
          H (n, n) is assembled as for "reduced" and the blocks Kd (L, nb,
          B, B), Ksubs (L, nb, bwb, B, B) are gathered from H.ravel() and
          the shared [A.ravel() | (-d, 0, 1)] by static maps.
@@ -61,10 +69,11 @@ tensor the inverse, as the JAX package does there; "full" stays on the
 inverse unless "subst" is asked for.  "subst" on a CPU tensor runs the
 plain versions of the pack and the sweeps.
 
-``factor_dtype="float32"`` (dense strategies only) factors and solves in
-f32 on the inverse path: G, the scalings, H and K are cast as the
-reference casts them, the leaf is the f32 leaf kernel, the products are
-``torch.matmul``, and the directions are cast back for the f64 refinement.
+``factor_dtype="float32"`` factors and solves in f32: G, the scalings, H
+and K (or the band blocks) are cast as the reference casts them, the leaf
+is the f32 leaf kernel, the products are ``torch.matmul``, the dense
+strategies take the inverse path, "banded" the scan, and the directions
+are cast back for the f64 refinement.
 
 The dense H is written per factor in the reference's order of summation:
 the gsplit's dense rows (or every eliminated row without a gsplit) by one
@@ -80,8 +89,7 @@ them on the CPU), in the reference's residual-first order, with per-lane
 and per-column stopping.
 
 What is not ported raises ``NotImplementedError`` (a block size other
-than 128, block bandwidth above 6, f32 under "banded"); nothing falls back
-silently.
+than 128); nothing falls back silently.
 """
 
 from __future__ import annotations
@@ -93,7 +101,7 @@ import numpy as np
 import torch
 
 from . import cones
-from .ops.band import BW_MAX, band_factor, band_solve
+from .ops.band import band_factor, band_solve
 from .ops.band_ldl import B, KP
 from .ops.ldl import ldl_factor, ldl_factor_subst, ldl_solve, pad_to_block
 from .segsum import SegmentSum, segment_map, segment_sum
@@ -123,52 +131,32 @@ def _keep_soc(st: ProblemStructure, settings) -> bool:
                 and getattr(st.band, "keep_soc", False))
 
 
-def _direct_band(st: ProblemStructure) -> bool:
+def _direct_band(st: ProblemStructure, settings) -> bool:
     """True where the H contributions scatter straight into the band
-    blocks (``eicos_tpu.kkt.factor``'s ``direct_band``): block bandwidth
-    1, every eliminated LP row a singleton or scatter row of the gsplit,
-    and narrow per-cone column supports (``SOCSplit``) where there are
-    cones."""
+    blocks (``eicos_tpu.kkt.factor``'s ``direct_band``): an f64 factor at
+    block bandwidth 1, every eliminated LP row a singleton or scatter row
+    of the gsplit, and narrow per-cone column supports (``SOCSplit``)
+    where there are cones."""
     split = st.gsplit
-    return bool(st.band.bwb == 1 and split is not None
+    return bool(st.band.bwb == 1 and settings.factor_dtype == "float64"
+                and split is not None
                 and not split.dense_rows and (split.n_sing or split.n_spr)
                 and (st.n_sc == 0 or st.socsplit is not None))
 
 
-def require_no_live(settings) -> None:
-    """Raise for ``Settings(verbose_live=True)``: the knob is refused, not
-    ignored."""
-    if settings.verbose_live:
-        raise NotImplementedError(
-            "Settings.verbose_live=True: the live iteration table (the "
-            "reference's rows streamed during the solve) is not ported; "
-            "Solver.solve(verbose=True) prints the table after the solve")
-
-
 def require_slice(st: ProblemStructure, settings) -> None:
-    """Raise unless (structure, settings) is ported: no live table;
-    128-blocks; under "banded" f64 and a plan at block bandwidth 1..6."""
-    require_no_live(settings)
+    """Raise unless (structure, settings) is ported: 128-blocks, and under
+    "banded" a plan of 128-blocks that covers the factored system."""
     if settings.block != B:
         raise NotImplementedError(f"LDL^T block size must be {B}")
     if settings.kkt_strategy != "banded":
         return
-    if settings.factor_dtype != "float64":
-        raise NotImplementedError(
-            "factor_dtype='float32' under kkt_strategy='banded': the "
-            "reference factors it with its XLA-scan band_ldl_factor, which "
-            "is not ported (the dense strategies take float32)")
     plan = st.band
     if plan is None:
         raise ValueError(
             "kkt_strategy='banded' needs structure.with_band_plan(...)")
     if plan.block != B:
         raise NotImplementedError(f"band block size must be {B}")
-    if not 1 <= plan.bwb <= BW_MAX:
-        raise NotImplementedError(
-            f"block bandwidth {plan.bwb}: the band kernels take 1..{BW_MAX} "
-            "(the reference's own bound; its wider plans run an XLA scan "
-            "that is not ported)")
     ms = st.m - st.l if _keep_soc(st, settings) else 0
     if plan.dim != pad_to_block(ms + st.n + st.p, B):
         raise ValueError(f"band plan covers {plan.dim} rows, expected "
@@ -352,8 +340,9 @@ class BandMaps(NamedTuple):
 
 
 @functools.lru_cache(maxsize=16)
-def band_maps(st: ProblemStructure, device: str) -> BandMaps:
-    """The static maps of ``st``'s banded plan, on ``device``."""
+def band_maps(st: ProblemStructure, device: str, direct: bool) -> BandMaps:
+    """The static maps of ``st``'s banded plan, on ``device``: the direct
+    scatter's where ``direct`` (``_direct_band``), else the gathers."""
     n, p, plan = st.n, st.p, st.band
     perm = np.asarray(plan.perm, np.int64)
     Dp = len(perm)
@@ -363,7 +352,7 @@ def band_maps(st: ProblemStructure, device: str) -> BandMaps:
     keep = bool(plan.keep_soc and st.n_sc)
     ms = st.cone.ms if keep else 0
     common = dict(Dp=Dp, perm=_t(perm, device), iperm=_t(iperm, device))
-    if keep and not _direct_band(st):
+    if keep and not direct:
         # blocks of the permuted dense K over [z_soc | x | y]; the base
         # only zeroes the blocks left of block column 0
         rows = perm.reshape(nb, B)
@@ -381,7 +370,7 @@ def band_maps(st: ProblemStructure, device: str) -> BandMaps:
         n, p, Dp, perm, plan.bwb, ms)
     maps = dict(dmask=_t(dmask, device, torch.bool), dio=_t(dio, device),
                 smask=_t(smask, device, torch.bool), sio=_t(sio, device))
-    if _direct_band(st):
+    if direct:
         idx = _band_scatter_idx(n, Dp, perm, st.gsplit, st.socsplit,
                                 st.q if keep else ())
         return BandMaps(scatter=segment_map(idx, device, keep=idx != nb * B * B),
@@ -550,14 +539,15 @@ def make_context(st: ProblemStructure, G, A, settings) -> KKTContext:
         dm = dense_maps(st, dev, keep=keep)
         return ctx._replace(
             dense=dm, K0=_dense_base(st, dm, G, A, delta).to(fdtype))
-    maps = band_maps(st, dev)
+    direct = _direct_band(st, settings)
+    maps = band_maps(st, dev, direct)
     ctx = ctx._replace(band=maps)
-    direct = maps.scatter is not None
     if keep and not direct:
         dm = dense_maps(st, dev)
         zero = G.new_zeros(())
-        return ctx._replace(dense=dm, K0=_dense_base(st, dm, G, A, delta),
-                            Kd0=zero, Ks0=zero)
+        return ctx._replace(
+            dense=dm, K0=_dense_base(st, dm, G, A, delta).to(fdtype),
+            Kd0=zero, Ks0=zero)
     if not direct:
         ctx = ctx._replace(dense=dense_maps(st, dev, h_only=True))
     elif st.n_sc:
@@ -570,9 +560,9 @@ def make_context(st: ProblemStructure, G, A, settings) -> KKTContext:
             ctx = ctx._replace(soc_gram=gsub.transpose(-1, -2) @ gsub)
     consts = torch.tensor([-delta, 0.0, 1.0], dtype=G.dtype, device=G.device)
     other = torch.cat([A.reshape(*lead, -1), consts.expand(*lead, 3)], -1)
-    return ctx._replace(Kd0=torch.where(maps.dmask, 0.0, other[..., maps.dio]),
-                        Ks0=torch.where(maps.smask, 0.0,
-                                        other[..., maps.sio]))
+    return ctx._replace(
+        Kd0=torch.where(maps.dmask, 0.0, other[..., maps.dio]).to(fdtype),
+        Ks0=torch.where(maps.smask, 0.0, other[..., maps.sio]).to(fdtype))
 
 
 # ------------------------------------------------------ per-lane values
@@ -899,6 +889,8 @@ def factor(st: ProblemStructure, ctx: KKTContext,
     else:
         maps = ctx.band
         Dp = maps.Dp
+        # the scan's product type (``ops/band.py`` reads it only there)
+        gdt = torch.float32 if settings.band_gemm == "float32" else None
         if maps.scatter is not None:
             scaled_kept = ctx.keep_soc and scal is not None
             fac = band_factor(*band_blocks(st, ctx, winv_lp, delta, scal))
@@ -909,11 +901,13 @@ def factor(st: ProblemStructure, ctx: KKTContext,
             else:
                 src = G.new_zeros(lanes, n, n)
                 _assemble_h(st, ctx, ctx.dense, src, scal, winv_lp, delta)
-            fac = band_factor(*_gathered_blocks(ctx, src.view(lanes, -1)))
+            fac = band_factor(*_gathered_blocks(ctx, src.view(lanes, -1)),
+                              gemm_dtype=gdt)
             del src
 
         def padded_solve(rr):
-            return band_solve(fac, rr[..., maps.perm])[..., maps.iperm]
+            return band_solve(fac, rr[..., maps.perm],
+                              gemm_dtype=gdt)[..., maps.iperm]
 
     Ge = G[..., :me, :]
 

@@ -1,16 +1,28 @@
-"""Block-banded LDL^T factor and solves in plain torch f64: block
-bandwidth 1 (``band_factor_plain`` ...) and any block bandwidth
-(``band_factor_bw_plain`` ...).
+"""Block-banded LDL^T factor and solves as loops of torch products:
+block bandwidth 1 (``band_factor_plain`` ...) and any block bandwidth
+(the scan, ``band_ldl_factor`` / ``band_ldl_solve``, and its f64 twins
+``band_factor_bw_plain`` ...).
 
-This module is the plain twin of the CUDA kernels in ``ops/band.py``: it
-computes the same function, and runs wherever a tensor lies on the CPU (the
-tests, and the solver on ``device="cpu"``).  It follows
-``eicos_tpu.ops.band_ldl.band_ldl_factor`` / ``band_ldl_solve``, with the
-leaf of ``eicos_tpu.ops.ldl`` (``_unblocked_ldl``: unpivoted rank-1
-elimination, pivots clamped at +-1e-150; ``_unit_lower_inv``:
-Newton-Schulz doubling), written over an explicit leading lane axis; the
-reference's ``lax.scan`` with ring carries is a Python loop over block
-rows here.
+The scan is the port of ``eicos_tpu.ops.band_ldl.band_ldl_factor`` /
+``band_ldl_solve``, the path the reference takes where its band kernels do
+not (block bandwidth above 6, an f32 factor): the reference's ``lax.scan``
+with ring carries is a Python loop over block rows here, written over an
+explicit leading lane axis, the products ``torch.matmul`` (XLA dots
+outside any kernel in the reference too), in ``gemm_dtype`` when it is
+given, and each diagonal leaf through ``ops/leaf.leaf_ldl``: the leaf
+kernel on a CUDA tensor, the plain leaf on a CPU one.  The up to bw
+corrections of one block are one product batched over the lanes and the
+blocks, then summed, where the reference subtracts them one by one: a
+block row costs O(bw) launches, not O(bw^2), and a solve's launches, not
+its arithmetic, bound the scan on the card.
+
+The ``*_plain`` functions are the plain twins of the CUDA kernels in
+``ops/band.py``: the same function, in f64, with the plain leaf of
+``eicos_tpu.ops.ldl`` (``_unblocked_ldl``: unpivoted rank-1 elimination,
+pivots clamped at +-1e-150; ``_unit_lower_inv``: Newton-Schulz doubling)
+on every device.  They run wherever a tensor lies on the CPU (the tests,
+and the solver on ``device="cpu"``), and ``chip_smoke.py`` holds the
+kernels against them on the card.
 
 Factor of one lane, block rows k = 0..nb-1 (Ks[0] is never read):
 
@@ -162,65 +174,134 @@ def band_solve_plain(fac: BandFactors, rhs: torch.Tensor) -> torch.Tensor:
     return band_bwd_plain(fac, band_fwd_plain(fac, rhs))
 
 
-def band_factor_bw_plain(Kd: torch.Tensor, Ksubs: torch.Tensor) -> BandFactors:
-    """Plain twin of the ``band_factor_bw`` kernel: f64 diagonal blocks
-    (lanes, nb, B, B) and sub-diagonal blocks (lanes, nb, bw, B, B) with
-    ``Ksubs[:, k, j-1] = K[k, k-j]`` -> ``BandFactors`` with L of the same
-    5-d layout.  ``Ksubs[:, k, j-1]`` for k < j is never read, and
-    ``L[:, k, j-1]`` is zero there."""
-    nb, bw = Ksubs.shape[1], Ksubs.shape[2]
-    rows, Dinvs, ds = [], [], []
+def _product(dtype, gemm_dtype):
+    """The scan's block product: ``a @ b`` in ``gemm_dtype`` (None: in
+    ``dtype``), cast back to ``dtype``."""
+    gdt = dtype if gemm_dtype is None else gemm_dtype
+    return lambda a, b: (a.to(gdt) @ b.to(gdt)).to(dtype)
+
+
+def _corr(mm, A, X):
+    """sum_i A[:, i] X[:, i] over the second axis: one product batched over
+    the lanes and i, then the sum; a single pair is the product alone (the
+    same bits, two launches fewer)."""
+    if A.shape[1] == 1:
+        return mm(A[:, 0], X[:, 0])
+    return mm(A, X).sum(1)
+
+
+def band_ldl_factor(Kd: torch.Tensor, Ksubs: torch.Tensor, gemm_dtype=None,
+                    leaf=None) -> BandFactors:
+    """The scan factor (``eicos_tpu.ops.band_ldl.band_ldl_factor``) at any
+    block bandwidth: diagonal blocks (lanes, nb, B, B) and sub-diagonal
+    blocks (lanes, nb, bw, B, B) with ``Ksubs[:, k, j-1] = K[k, k-j]``, f64
+    or f32 -> ``BandFactors`` with L of the same 5-d layout, in the type of
+    ``Kd``.  Block rows in the reference's order: the left blocks (the
+    leftmost first), the diagonal Schur update, then the leaf.  The
+    corrections of one block, sum_q (L[k,k-q] d_{k-q}) L[k-j,k-q]^T, are
+    one ``torch.matmul`` batched over the lanes and q and then summed over
+    q (the reference subtracts them one by one: the same sum in another
+    order), in ``gemm_dtype`` when it is given,
+    ``(a.to(gdt) @ b.to(gdt)).to(dtype)``.  ``leaf`` factors the (lanes, B,
+    B) Schur blocks into (Linv, d): by default ``ops/leaf.leaf_ldl``, which
+    launches the leaf kernel of the blocks' type on a CUDA tensor and runs
+    the plain leaf on a CPU one.  ``Ksubs[:, k, j-1]`` for k < j is never
+    read, and ``L[:, k, j-1]`` is zero there."""
+    if leaf is None:
+        from .leaf import leaf_ldl as leaf
+    mm = _product(Kd.dtype, gemm_dtype)
+    lanes, nb, bw = Ksubs.shape[:3]
+    L = Kd.new_zeros(lanes, nb, bw, B, B)
+    Dinv = torch.empty_like(Kd)
+    d = Kd.new_empty(lanes, nb, B)
+    # rd[:, q-1] = L[k,k-q] d_{k-q} of the current row; zero for q > k
+    rd = Kd.new_zeros(lanes, bw, B, B)
     for k in range(nb):
-        row = [None] * bw
-        for j in range(bw, 0, -1):
-            if k < j:
-                row[j - 1] = torch.zeros_like(Kd[:, 0])
-                continue
+        kq = min(bw, k)
+        for j in range(kq, 0, -1):
             S = Ksubs[:, k, j - 1]
-            for q in range(j + 1, min(bw, k) + 1):
-                S = S - (row[q - 1] * ds[k - q][:, None, :]
-                         ) @ rows[k - j][q - j - 1].transpose(-1, -2)
-            row[j - 1] = (S @ Dinvs[k - j].transpose(-1, -2)
-                          ) / ds[k - j][:, None, :]
+            if j < kq:          # q = j+1..kq
+                S = S - _corr(mm, rd[:, j:kq],
+                              L[:, k - j, :kq - j].transpose(-1, -2))
+            dj = d[:, k - j][:, None, :]
+            torch.div(mm(S, Dinv[:, k - j].transpose(-1, -2)), dj,
+                      out=L[:, k, j - 1])
+            torch.mul(L[:, k, j - 1], dj, out=rd[:, j - 1])
         M = Kd[:, k]
-        for q in range(1, min(bw, k) + 1):
-            M = M - (row[q - 1] * ds[k - q][:, None, :]
-                     ) @ row[q - 1].transpose(-1, -2)
-        Lkk, dk = _unblocked_ldl(M)
-        rows.append(row)
-        Dinvs.append(_unit_lower_inv(Lkk))
-        ds.append(dk)
-    return BandFactors(L=torch.stack([torch.stack(r, 1) for r in rows], 1),
-                       Dinv=torch.stack(Dinvs, 1), d=torch.stack(ds, 1))
+        if kq:
+            M = M - _corr(mm, rd[:, :kq], L[:, k, :kq].transpose(-1, -2))
+        Dinv[:, k], d[:, k] = leaf(M)
+    return BandFactors(L=L, Dinv=Dinv, d=d)
 
 
-def band_fwd_bw_plain(fac: BandFactors, rhs: torch.Tensor) -> torch.Tensor:
-    """Plain twin of ``band_fwd_bw``: rhs (lanes, k, Dp) -> w (lanes, k, Dp)
-    with y_k = Dinv_k (x_k - sum_j L[k,k-j] y_{k-j}) and w = y / d."""
+def band_ldl_fwd(fac: BandFactors, rhs: torch.Tensor,
+                 gemm_dtype=None) -> torch.Tensor:
+    """The scan's forward sweep and pivot scaling at any block bandwidth
+    (``eicos_tpu.ops.band_ldl.band_ldl_solve``, first half): rhs (lanes,
+    k, Dp) -> w with y_k = Dinv_k (x_k - sum_j L[k,k-j] y_{k-j}), w = y / d;
+    the sum over j one product batched over the lanes and j, in
+    ``gemm_dtype`` when it is given."""
+    mm = _product(rhs.dtype, gemm_dtype)
+    lanes, k = rhs.shape[:2]
     nb, bw = fac.L.shape[1], fac.L.shape[2]
     out = torch.empty_like(rhs)
-    ys = []
+    Y = rhs.new_empty(lanes, nb, B, k)
     for b in range(nb):
         acc = rhs[:, :, b * B:(b + 1) * B].transpose(-1, -2)
-        for j in range(1, min(bw, b) + 1):
-            acc = acc - fac.L[:, b, j - 1] @ ys[b - j]
-        ys.append(fac.Dinv[:, b] @ acc)
-        out[:, :, b * B:(b + 1) * B] = (ys[b] / fac.d[:, b, :, None]
+        kq = min(bw, b)
+        if kq:                  # y_{b-j}, j = 1..kq
+            ys = Y[:, b - kq:b]
+            acc = acc - _corr(mm, fac.L[:, b, :kq],
+                              ys.flip(1) if kq > 1 else ys)
+        Y[:, b] = mm(fac.Dinv[:, b], acc)
+        out[:, :, b * B:(b + 1) * B] = (Y[:, b] / fac.d[:, b, :, None]
                                         ).transpose(-1, -2)
     return out
 
 
-def band_bwd_bw_plain(fac: BandFactors, w: torch.Tensor) -> torch.Tensor:
-    """Plain twin of ``band_bwd_bw``: w (lanes, k, Dp) -> z (lanes, k, Dp)
-    with z_k = Dinv_k^T (w_k - sum_j L[k+j,k]^T z_{k+j}), bottom block
-    first."""
+def band_ldl_bwd(fac: BandFactors, w: torch.Tensor,
+                 gemm_dtype=None) -> torch.Tensor:
+    """The scan's backward sweep: w (lanes, k, Dp) -> z with
+    z_k = Dinv_k^T (w_k - sum_j L[k+j,k]^T z_{k+j}), bottom block first;
+    the sum over j one product batched over the lanes and j, in
+    ``gemm_dtype`` when it is given."""
+    mm = _product(w.dtype, gemm_dtype)
+    lanes, k = w.shape[:2]
     nb, bw = fac.L.shape[1], fac.L.shape[2]
     out = torch.empty_like(w)
-    zs = [None] * nb
+    Z = w.new_empty(lanes, nb, B, k)
     for b in range(nb - 1, -1, -1):
         acc = w[:, :, b * B:(b + 1) * B].transpose(-1, -2)
-        for j in range(1, min(bw, nb - 1 - b) + 1):
-            acc = acc - fac.L[:, b + j, j - 1].transpose(-1, -2) @ zs[b + j]
-        zs[b] = fac.Dinv[:, b].transpose(-1, -2) @ acc
-        out[:, :, b * B:(b + 1) * B] = zs[b].transpose(-1, -2)
+        kq = min(bw, nb - 1 - b)
+        if kq:                  # L[b+j, b] = L[:, b+j, j-1], j = 1..kq
+            Lc = fac.L[:, b + 1:b + 1 + kq].diagonal(dim1=1, dim2=2)
+            acc = acc - _corr(mm, Lc.permute(0, 3, 2, 1),
+                              Z[:, b + 1:b + 1 + kq])
+        Z[:, b] = mm(fac.Dinv[:, b].transpose(-1, -2), acc)
+        out[:, :, b * B:(b + 1) * B] = Z[:, b].transpose(-1, -2)
     return out
+
+
+def band_ldl_solve(fac: BandFactors, rhs: torch.Tensor,
+                   gemm_dtype=None) -> torch.Tensor:
+    """K x = rhs through the scan's sweeps, rhs (lanes, k, Dp)."""
+    return band_ldl_bwd(fac, band_ldl_fwd(fac, rhs, gemm_dtype), gemm_dtype)
+
+
+def leaf_ldl_plain(Ms: torch.Tensor):
+    """Plain version of ``ops/leaf.leaf_ldl``: (L, 128, 128) -> (Linv, d)
+    by ``_unblocked_ldl`` and ``_unit_lower_inv``."""
+    L, d = _unblocked_ldl(Ms)
+    return _unit_lower_inv(L), d
+
+
+def band_factor_bw_plain(Kd: torch.Tensor, Ksubs: torch.Tensor) -> BandFactors:
+    """Plain twin of the ``band_factor_bw`` kernel: the scan factor in f64
+    with the plain leaf on every device."""
+    return band_ldl_factor(Kd, Ksubs, leaf=leaf_ldl_plain)
+
+
+# the plain twins of the ``band_fwd_bw`` / ``band_bwd_bw`` kernels: the
+# scan's sweeps in f64
+band_fwd_bw_plain = band_ldl_fwd
+band_bwd_bw_plain = band_ldl_bwd

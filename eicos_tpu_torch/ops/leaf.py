@@ -26,13 +26,7 @@ from typing import Optional
 import torch
 
 from . import kernels
-from .band_ldl import B, _unblocked_ldl, _unit_lower_inv
-
-
-def leaf_ldl_plain(Ms: torch.Tensor):
-    """Plain version of ``leaf_ldl``: (L, 128, 128) -> (Linv, d)."""
-    L, d = _unblocked_ldl(Ms)
-    return _unit_lower_inv(L), d
+from .band_ldl import B, _unblocked_ldl, leaf_ldl_plain  # noqa: F401
 
 
 def leaf_ldl(Ms: torch.Tensor, out: Optional[tuple] = None):

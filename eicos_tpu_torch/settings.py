@@ -8,17 +8,23 @@ Knobs that do nothing under native float64 on the GPU (they select TPU
 double-single machinery the port does not have, and are accepted so that a
 configuration written for ``eicos_tpu`` runs unchanged):
 
-  * ``pallas_leaf`` — the TPU leaf kernels; the port's band factor and
-    dense leaf kernels always run their own f64 leaf;
-  * ``band_gemm`` — float32 block products on the TPU's MXU; the port's
-    block products are f64;
+  * ``pallas_leaf`` — the TPU leaf kernels; the port's band factor, scan
+    and dense leaves always run its own leaf kernels on the card;
   * ``chunk_store`` — bf16/int8 chunk storage of the prechunked factor;
     the port stores the factor in f64.
+
+``band_gemm="float32"`` runs the block products of the banded scan
+(``ops/band_ldl.band_ldl_factor`` / ``band_ldl_solve``: block bandwidth
+above 6, or an f32 factor) in float32, as the reference does on its scan
+path and nowhere else; the band kernels at block bandwidths 1..6 compute
+in f64 whatever it says.  The products are ``torch.matmul`` with TF32 off
+(``torch.backends.cuda.matmul.allow_tf32`` False, torch's default, which
+``chip_smoke.py`` checks), the reference's "highest" precision.
 
 ``kkt_strategy``: all four run.  "full" (the default) factors the dense K
 over [z | x | y]; "reduced" eliminates the LP rows and keeps the SOC rows;
 "normal" eliminates every cone row; "banded" factors the RCM-permuted band
-(block bandwidth 1..6; wider plans raise ``NotImplementedError``).
+(the band kernels at block bandwidths 1..6, the scan above).
 
 ``dense_solve`` picks the solve of the dense strategies: "inverse" is the
 explicit-inverse path (``ops/ldl.ldl_factor``, two passes over L^{-1}),
@@ -31,12 +37,14 @@ the JAX package does there).  "subst" on the CPU runs the plain versions
 of the pack and the sweeps.  The rescue pass pins "auto" to "inverse"
 (``api._rescue_settings``).
 
-``factor_dtype="float32"`` factors and solves the dense strategies in f32
-(the f32 leaf kernel, ``torch.matmul`` products, always the inverse path)
-under the f64 refinement.  ``deltastat`` is below f32's epsilon, so such a
-solve may end short of OPTIMAL where f64 does not, as in the JAX package.
-Under "banded" it raises ``NotImplementedError`` (the reference's XLA-scan
-band factor is not ported).  ``block`` must be 128.
+``factor_dtype="float32"`` factors and solves in f32 (the f32 leaf kernel,
+``torch.matmul`` products; the dense strategies on the inverse path,
+"banded" on the scan) under the f64 refinement.  ``deltastat`` is below
+f32's epsilon, so such a solve may end short of OPTIMAL where f64 does
+not, as in the JAX package.  ``block`` must be 128.
+
+``verbose_live=True`` prints the reference's iteration table during the
+solve, lane 0's row as each iteration ends (``solver.LiveTable``).
 """
 
 import dataclasses
@@ -69,9 +77,9 @@ class Settings:
     kkt_strategy: str = "full"   # "full" | "reduced" | "normal" | "banded"
     factor_dtype: str = "float64"  # "float64" | "float32"
     block: int = 128             # LDL^T block size
-    verbose_live: bool = False   # live table: not ported, solves raise
+    verbose_live: bool = False   # stream lane 0's table rows (module doc)
     pallas_leaf: str = "auto"    # no-op under native f64 (module doc)
-    band_gemm: str = "float64"   # no-op under native f64
+    band_gemm: str = "float64"   # the banded scan's products (module doc)
     chunk_store: str = "bf16"    # no-op under native f64
     dense_solve: str = "auto"    # dense strategies' solve path (module doc)
 

@@ -9,7 +9,9 @@ with a leading lane axis.  Every lane runs the same arithmetic; a lane that
 has exited keeps its state unchanged from then on, as a lane of the JAX
 package's vmapped loop does.  The loop reads one flag back from the device
 per iteration ("all lanes done"); the refinement loops in ``kkt`` read one
-per trip.  ``kkt.host_syncs`` counts them.
+per trip.  ``kkt.host_syncs`` counts them.  A live table (``LiveTable``:
+``solve_live``, ``Settings(verbose_live=True)``) adds one host copy of lane
+0's history per group of rows it prints.
 
 Semantics kept exactly from the reference (they decide exit codes):
 updateScalings' out-of-cone flag is ignored (NaNs flow into the NaN exit);
@@ -20,7 +22,8 @@ pinfres compares as C++ ``optional`` does (nullopt < x is true).
 
 from __future__ import annotations
 
-from typing import NamedTuple
+import sys
+from typing import NamedTuple, Optional
 
 import torch
 
@@ -30,6 +33,7 @@ from .exitcodes import ExitCode
 from .problem import ProblemData
 from .settings import Settings
 from .structure import ProblemStructure
+from .utils.printing import _HEADER, format_iteration_row
 
 _OPT = int(ExitCode.OPTIMAL)
 _PINF = int(ExitCode.PRIMAL_INFEASIBLE)
@@ -242,13 +246,61 @@ def _checks(settings):
     return full, red
 
 
+class LiveTable:
+    """The reference's iteration table printed during a solve, from the
+    host loop: lane 0's rows, each once, in groups of ``seg`` loop
+    trips, from one host copy of that lane's history a group, as
+    ``eicos_tpu.solver.solve_live`` prints the rows that became final
+    between its segments.  ``file=None`` prints to ``sys.stdout``.  It
+    only reads the state: a solve with a table returns the same bits as
+    one without."""
+
+    def __init__(self, seg: int = 1, file=None):
+        if seg < 1:
+            raise ValueError(f"seg must be >= 1, got {seg}")
+        self.seg, self.file = seg, file
+        self.printed = 0        # rows printed so far
+        self.trips = 0
+        self.finished = False   # the lane's last row is out
+        self._print(_HEADER)
+
+    def _print(self, line: str) -> None:
+        print(line, file=self.file if self.file is not None else sys.stdout,
+              flush=True)
+
+    def trip(self, state: "LoopState", last: bool = False) -> None:
+        """After a loop trip: print the rows that became final, every
+        ``seg`` trips and on the ``last`` one."""
+        self.trips += 1
+        if self.finished or (self.trips % self.seg and not last):
+            return
+        host = torch.cat([torch.stack([f[0].double() for f in state.hist]
+                                      ).reshape(-1),
+                          torch.stack([state.iter[0].double(),
+                                       state.done[0].double()])]).cpu()
+        itv, done = int(host[-2]), bool(host[-1])
+        rows = host[:-2].reshape(len(state.hist), -1).tolist()
+        end = itv if done else itv - 1
+        for i in range(self.printed, end + 1):
+            self._print(format_iteration_row(
+                i, *[r[i] for r in rows[:9]], *[int(r[i]) for r in rows[9:]]))
+        self.printed = max(self.printed, end + 1)
+        self.finished = done
+
+
 def solve_batch(structure: ProblemStructure, data: ProblemData,
-                settings: Settings = Settings()) -> Solution:
+                settings: Settings = Settings(),
+                live: Optional[LiveTable] = None) -> Solution:
     """Solve a batch of problems sharing ``structure``.  ``data`` holds
     float64 tensors on one device: c (L, n), h (L, m), b (L, p); G and A
-    shared, (m, n) and (p, n), or per lane, (L, m, n) and (L, p, n)."""
+    shared, (m, n) and (p, n), or per lane, (L, m, n) and (L, p, n).
+    ``live`` prints the iteration table during the solve; without it,
+    ``Settings(verbose_live=True)`` prints lane 0's rows as each
+    iteration ends (a ``LiveTable`` of one trip a group)."""
     st = structure
     kkt.require_slice(st, settings)
+    if live is None and settings.verbose_live:
+        live = LiveTable()
     n, p, m = st.n, st.p, st.m
     cone = st.cone
     lanes = data.c.shape[0]
@@ -432,7 +484,11 @@ def solve_batch(structure: ProblemStructure, data: ProblemData,
                                done=~false, hist=hist)
         # exited lanes keep their state, as under vmap
         state = _where(stt.done, stt, _where(exit_now, exit_state, cont))
+        if live is not None:
+            live.trip(state)
 
+    if live is not None:
+        live.trip(state, last=True)
     return _finish_solution(st, settings, eq, state, (G, A, c, h, b), res0s)
 
 
@@ -524,3 +580,16 @@ def solve(structure: ProblemStructure, data: ProblemData,
     dev = resolve_device(device)
     return squeeze_lane(solve_batch(structure, to_device(data, dev),
                                     settings))
+
+
+def solve_live(structure: ProblemStructure, data: ProblemData,
+               settings: Settings = Settings(), seg: int = 1, file=None,
+               device=None) -> Solution:
+    """``solve`` with the reference's iteration table printed during the
+    solve (``eicos_tpu.solver.solve_live``): the header first, then the
+    rows in groups of ``seg`` iterations, one host copy of the history a
+    group.  Returns the same bits as ``solve``; ``device=None`` means
+    CUDA."""
+    dev = resolve_device(device)
+    return squeeze_lane(solve_batch(structure, to_device(data, dev),
+                                    settings, live=LiveTable(seg, file)))

@@ -1,9 +1,9 @@
 """Human-readable solver output: the port of ``eicos_tpu.utils.printing``
 (the reference's verbose table and printSummary).  Printing is host-side,
 from a returned ``Solution``: ``host_copy`` moves it off the device once,
-after the solve, and the loop never syncs to print.  The live table of
-``Settings(verbose_live=True)`` is not ported (``kkt.require_slice``
-raises for it)."""
+after the solve, and the loop never syncs to print.  The live table
+(``Settings(verbose_live=True)``, ``solve_live``) prints the same rows
+during the solve, from the host loop (``solver.LiveTable``)."""
 
 from __future__ import annotations
 

@@ -2,7 +2,7 @@
 ``Solver.from_csc`` (the reference's argument order), ``solve(verbose=True)``
 (the iteration table and summary), ``save_problem``/``load_problem`` (the
 npz round trip, cross-loaded between the packages) and
-``Settings(verbose_live=True)``, which the port refuses on every entry
+``Settings(verbose_live=True)``, which streams the table on every entry
 point.  Inputs come from a numpy seed."""
 
 import numpy as np
@@ -149,20 +149,42 @@ def test_save_load_roundtrip_and_cross_load(soc, tmp_path):
     _assert_same(st, data, *pt.load_problem(str(tmp_path / "ref.npz")))
 
 
-def test_verbose_live_raises_on_every_entry_point():
-    """The live table is not ported: the knob is refused, not ignored."""
+def test_verbose_live_raises_on_every_entry_point(capsys):
+    """``Settings(verbose_live=True)``, refused until the live table was
+    ported, now streams the reference's table on every entry point:
+    ``solve``, ``Solver.solve`` and ``BatchedSolver.solve`` print the
+    header and lane 0's rows as the iterations end, the same rows as
+    ``solve_live``, and return the same bits as a solve without the
+    table; a rescue may carry the knob."""
+    import io
+
+    import torch
+
+    from eicos_tpu_torch import solver
+
     G, A, c, h, b, q = _problem(soc=False)
     live = pt.Settings(verbose_live=True)
-    with pytest.raises(NotImplementedError, match="verbose_live"):
-        pt.Solver(G, A, c, h, b, settings=live, device="cpu").solve()
     st = pt.ProblemStructure.create(G.shape[1], A.shape[0], G.shape[0],
                                     G.shape[0], ())
     data = problem.make_problem(st, G, A, c, h, b)
-    with pytest.raises(NotImplementedError, match="verbose_live"):
-        pt.solve(st, data, live, device="cpu")
+    quiet = pt.solve(st, data, pt.Settings(), device="cpu")
+    buf = io.StringIO()
+    solver.solve_live(st, data, pt.Settings(), file=buf, device="cpu")
+    want = buf.getvalue()
+    rows = want.splitlines()
+    assert rows[0].startswith("It ") and len(rows) == int(quiet.info.iter) + 2
+    capsys.readouterr()
+    sol = pt.solve(st, data, live, device="cpu")
+    assert capsys.readouterr().out == want
+    assert torch.equal(sol.x, quiet.x) and torch.equal(sol.z, quiet.z)
+    s = pt.Solver(G, A, c, h, b, settings=live, device="cpu")
+    assert s.solve() == pt.ExitCode.OPTIMAL
+    assert capsys.readouterr().out == want
     batch = pt.BatchedSolver.stack([data, data], shared=("G", "A", "h"))
-    with pytest.raises(NotImplementedError, match="verbose_live"):
-        pt.BatchedSolver(st, live, shared=("G", "A", "h"),
-                         device="cpu").solve(batch)
-    with pytest.raises(NotImplementedError, match="verbose_live"):
-        pt.Solver(G, A, c, h, b, rescue=live, device="cpu")
+    sols = pt.BatchedSolver(st, live, shared=("G", "A", "h"),
+                            device="cpu").solve(batch)
+    got = capsys.readouterr().out.splitlines()
+    # the IR column turns on the last bits (ROADMAP Queue 3)
+    assert [r[:-12] for r in got] == [r[:-12] for r in rows]
+    assert torch.equal(sols.exit_code, torch.zeros(2, dtype=torch.int32))
+    pt.Solver(G, A, c, h, b, rescue=live, device="cpu")

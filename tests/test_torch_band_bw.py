@@ -203,13 +203,22 @@ def test_bw1_layouts_agree():
 
 
 def test_band_wider_than_six_raises():
+    """The kernel wrappers take block bandwidths 1..6 and raise at 7;
+    ``band_factor`` sends a band of 7 to the scan (``band_ldl_factor``)
+    instead."""
     Kd, Ks = (torch.tensor(a) for a in wide_band(1, 8, 7, seed=0))
     with pytest.raises(ValueError):
-        band.band_factor(Kd, Ks)
+        band.band_factor_bw(Kd, Ks)
     fac = band.band_factor(Kd, Ks[:, :, :2].contiguous())
+    rhs = torch.zeros(1, 1, 8 * B, dtype=torch.float64)
     with pytest.raises(ValueError):
-        band.band_solve(fac._replace(L=Ks), torch.zeros(1, 1, 8 * B,
-                                                        dtype=torch.float64))
+        band.band_fwd_bw(fac._replace(L=Ks), rhs)
+    with pytest.raises(ValueError):
+        band.band_bwd_bw(fac._replace(L=Ks), rhs)
+    wide = band.band_factor(Kd, Ks)
+    assert wide.L.shape == Ks.shape
+    assert all(torch.equal(a, b)
+               for a, b in zip(wide, band.band_ldl_factor(Kd, Ks)))
 
 
 # ---------------------------------------------- KKT assembly, factor, solve
@@ -332,8 +341,27 @@ def test_gathered_band_solves_match(kind, count):
 
 
 def test_plan_wider_than_six_raises():
-    """A plan beyond the kernels' bandwidth raises, as does the wrapper."""
-    _, _, st, pd = wide_lp()
+    """A plan beyond the kernels' bandwidth, the wide LP's bwb-2 plan
+    declared at 7, solves through the scan as the JAX package's scan
+    solves it: the same exit code (OPTIMAL) and iteration count, the
+    objective within 1e-8 relative, and the same bits as the port's own
+    bwb-2 solve (the five extra sub-diagonals are zero and contribute
+    exact zeros); no kernel launch is counted.  The band kernel's wrapper
+    itself still raises at bandwidth 7."""
+    jst, d, st, pd = wide_lp()
     st7 = dataclasses.replace(st, band=dataclasses.replace(st.band, bwb=7))
-    with pytest.raises(NotImplementedError):
-        pt.solve(st7, pd, pt.Settings(**BANDED), device="cpu")
+    jst7 = jst.with_band_plan(dataclasses.replace(jst.band, bwb=7))
+    before = dict(kernels.COUNTS)
+    sol = pt.solve(st7, pd, pt.Settings(**BANDED), device="cpu")
+    assert kernels.COUNTS == before
+    ref = jt.solve(jst7, d, jt.Settings(**BANDED))
+    assert int(sol.exit_code) == int(ref.exit_code) == 0
+    assert int(sol.info.iter) == int(ref.info.iter)
+    want = float(ref.info.pcost)
+    assert abs(float(sol.info.pcost) - want) <= 1e-8 * abs(want)
+    narrow = pt.solve(st, pd, pt.Settings(**BANDED), device="cpu")
+    assert torch.equal(sol.x, narrow.x) and torch.equal(sol.z, narrow.z)
+    nb = st.band.dim // B
+    with pytest.raises(ValueError):
+        band.band_factor_bw(torch.zeros(1, nb, B, B, dtype=torch.float64),
+                            torch.zeros(1, nb, 7, B, B, dtype=torch.float64))

@@ -452,7 +452,7 @@ def test_wide_band_wrappers_check_inputs(cuda):
 
     Kd, Ks = (torch.tensor(a, device=cuda) for a in wide_band_case(1, 8, 7, 0))
     with pytest.raises(ValueError):
-        band.band_factor(Kd, Ks)
+        band.band_factor_bw(Kd, Ks)
     with pytest.raises(ValueError):
         band.band_factor(Kd, Ks[:, :, :2])      # not contiguous
 
@@ -800,3 +800,73 @@ def test_band_factor_bw_lanes_match_plain(cuda, bw):
         assert all(torch.equal(a, b) for a, b in zip(again, fk))
         del Kd, Ks, fk, fp, again
         torch.cuda.empty_cache()
+
+
+# ------------------------------------------------ the banded scan (bw > 6)
+
+@pytest.mark.parametrize("bw,nb,dtype", [(7, 10, torch.float64),
+                                         (9, 12, torch.float64),
+                                         (9, 12, torch.float32)],
+                         ids=["bw7", "bw9", "bw9-f32"])
+def test_scan_on_card_matches_cpu(cuda, bw, nb, dtype):
+    """The scan factor and solves on CUDA tensors (batched ``torch.matmul``
+    products and the leaf kernel of the blocks' type, launched once a block
+    row) against the CPU plain path on the same blocks: within 1e-12
+    relative in f64 (the kernel's leaf against Newton-Schulz, cuBLAS's sums
+    against the CPU's), 2e-4 in f32 (the f32 leaf's tolerance); no band
+    kernel is launched."""
+    from eicos_tpu_torch.ops import band, kernels
+    from eicos_tpu_torch.ops.band_ldl import band_ldl_factor, band_ldl_solve
+
+    Kd, Ks = (torch.tensor(a, dtype=dtype) for a in wide_band_case(3, nb, bw,
+                                                                   bw))
+    rhs = torch.tensor(np.random.default_rng(1).standard_normal(
+        (3, 2, nb * B)), dtype=dtype)
+    kernels.reset_counts()
+    fk = band.band_factor(Kd.to(cuda), Ks.to(cuda))
+    xk = band.band_solve(fk, rhs.to(cuda))
+    torch.cuda.synchronize()
+    leaf = "leaf_ldl_f32" if dtype == torch.float32 else "leaf_ldl"
+    assert kernels.COUNTS[leaf] == nb
+    assert not any(kernels.COUNTS[n] for n in
+                   ("band_factor_bw", "band_fwd_bw", "band_bwd_bw"))
+    fp = band_ldl_factor(Kd, Ks)
+    tol = 1e-12 if dtype == torch.float64 else 2e-4
+    for a, b in zip(fk, fp):
+        assert rel(a.cpu(), b) < tol
+    assert rel(xk.cpu(), band_ldl_solve(fp, rhs)) < tol
+
+
+def test_scan_solver_on_card_matches_cpu(cuda):
+    """Four lanes of ``make_mpc_like(horizon=3, nx=256, nu=128)`` (block
+    bandwidth 7, Dp 1920) under "banded": the scan on the card ends each
+    lane with the CPU plain path's exit code and iteration count, the
+    objective within 1e-8 relative, and launches the leaf kernel once a
+    block row of every factor and no band kernel."""
+    import eicos_tpu_torch as pt
+    from eicos_tpu_torch import corpus
+    from eicos_tpu_torch.ops import kernels
+    from eicos_tpu_torch.plan import make_band_plan
+
+    st, base = corpus.make_mpc_like(horizon=3, nx=256, nu=128, seed=3)
+    st = st.with_gsplit(base.G, base.A)
+    st = st.with_band_plan(make_band_plan(st, base.G, base.A))
+    assert (st.band.bwb, st.band.dim) == (7, 1920)
+    rng = np.random.default_rng(7)
+    probs = [pt.ProblemData(G=base.G, A=base.A,
+                            c=base.c + 0.02 * rng.standard_normal(st.n),
+                            h=base.h, b=base.b) for _ in range(4)]
+    batch = pt.BatchedSolver.stack(probs, shared=("G", "A", "h"))
+    settings = pt.Settings(kkt_strategy="banded")
+    kernels.reset_counts()
+    gpu = pt.BatchedSolver(st, settings, shared=("G", "A", "h")).solve(batch)
+    launches = dict(kernels.COUNTS)
+    assert launches["leaf_ldl"] > 0 and launches["leaf_ldl"] % 15 == 0
+    assert not any(launches[n] for n in
+                   ("band_factor_bw", "band_fwd_bw", "band_bwd_bw"))
+    cpu = pt.BatchedSolver(st, settings, shared=("G", "A", "h"),
+                           device="cpu").solve(batch)
+    assert torch.equal(gpu.exit_code.cpu(), cpu.exit_code)
+    assert torch.equal(gpu.info.iter.cpu(), cpu.info.iter)
+    np.testing.assert_allclose(gpu.info.pcost.cpu().numpy(),
+                               cpu.info.pcost.numpy(), rtol=1e-8)

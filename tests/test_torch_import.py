@@ -1,7 +1,7 @@
 """The port stands alone: importing it loads neither JAX nor eicos_tpu, its
 sources import neither, and its entry points run on CUDA unless asked for
 the CPU.  The configurations it covers solve as the JAX package solves
-them; the few it does not cover raise."""
+them; the one it does not cover (a block size other than 128) raises."""
 
 import pathlib
 import re
@@ -93,23 +93,54 @@ def test_rescue_is_next_slice(lp):
 
 @pytest.mark.parametrize("case", ["float32", "bwb7", "block64"])
 def test_unported_configurations_raise(lp, case):
-    """Each structure or setting the port does not cover raises
-    NotImplementedError; nothing falls back: f32 under "banded" (the
-    dense strategies take it), block bandwidth above 6, a block size
-    other than 128."""
+    """A block size other than 128 raises NotImplementedError; nothing
+    falls back.  The two configurations that raised until the banded scan
+    was ported solve as the JAX package solves them: a plan at block
+    bandwidth above 6 (the LP's plan declared at 7) with the same exit
+    code (OPTIMAL) and iteration count and the objective within 1e-8
+    relative; an f32 factor under "banded", on a small SOCP under a
+    keep_soc plan (an LP's RCM order puts -delta pivots early, which an
+    f32 factor does not survive: ROADMAP Queue 3), with the same exit
+    code and iteration count and the objective within 1e-6."""
     import dataclasses
 
+    import eicos_tpu as jt
+    from eicos_tpu import corpus as jcorpus
+    from eicos_tpu.plan import make_band_plan as jplan
+
+    from eicos_tpu_torch import problem
+    from eicos_tpu_torch.api import _code_rank
+
     st, d = lp
-    settings = pt.Settings(kkt_strategy="banded")
-    if case == "float32":
-        settings = pt.Settings(kkt_strategy="banded", factor_dtype="float32")
-    elif case == "bwb7":
-        st = dataclasses.replace(st, band=dataclasses.replace(st.band,
-                                                              bwb=7))
-    elif case == "block64":
-        settings = pt.Settings(kkt_strategy="reduced", block=64)
-    with pytest.raises(NotImplementedError):
-        pt.solve(st, d, settings, device="cpu")
+    if case == "block64":
+        with pytest.raises(NotImplementedError):
+            pt.solve(st, d, pt.Settings(kkt_strategy="reduced", block=64),
+                     device="cpu")
+        return
+    f32 = case == "float32"
+    make = jcorpus.make_mpc_soc if f32 else jcorpus.make_mpc_like
+    jst, jd = make(horizon=4, nx=2, nu=2, seed=2 if f32 else 1)
+    jst = jst.with_gsplit(jd.G, jd.A)
+    plan = jplan(jst, jd.G, jd.A, keep_soc=f32)
+    cfg = dict(kkt_strategy="banded")
+    if f32:
+        cfg["factor_dtype"] = "float32"
+    else:
+        plan = dataclasses.replace(plan, bwb=7)
+    jst = jst.with_band_plan(plan)
+    st, pd = problem.from_reference(problem.structure_fields(jst), jd.G,
+                                    jd.A, jd.c, jd.h, jd.b)
+    assert st.band.bwb == plan.bwb
+    ref = jt.solve(jst, jd, jt.Settings(**cfg))
+    sol = pt.solve(st, pd, pt.Settings(**cfg), device="cpu")
+    assert int(sol.exit_code) == int(ref.exit_code)
+    assert int(sol.info.iter) == int(ref.info.iter)
+    assert _code_rank(int(ref.exit_code)) > 0
+    if not f32:
+        assert int(sol.exit_code) == 0
+    want = float(ref.info.pcost)
+    assert abs(float(sol.info.pcost) - want) <= (1e-6 if f32 else 1e-8
+                                                  ) * abs(want)
 
 
 @pytest.mark.parametrize("case", ["full", "normal", "subst", "float32"])
