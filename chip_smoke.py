@@ -7,7 +7,11 @@ port's paths through its entry points:
      3 and 6; the blocked dense leaf LDL^T in f64 and f32, dgemm in nine forms, among
      them the recursion's products with their structure flags, its
      machine code checked for DMMA, the two inverse-solve passes, the
-     substitution pack and its two sweeps);
+     substitution pack and its two sweeps; the gather kernel of the
+     residual products on phase 2's six operands and phase 12's two at
+     128 lanes, beside the dense product and ``torch.sparse``; dgemm as
+     K12 on the wide operands of phases 7 and 12, sA, sAT, sGA, sAGT, at
+     their lanes and at 128);
   2. the main path as bench.py configures it: the 128-lane MPC01-scale
      banded LP batch through ``BatchedSolver`` with a "reduced" rescue
      (128/128 OPTIMAL, no lane rescued), lane 0 again on the CPU;
@@ -53,11 +57,19 @@ port's paths through its entry points:
      ``Settings(verbose_live=True)`` on a ``BatchedSolver``,
      ``ecos_compat.solve_ecos``, ``python -m eicos_tpu_torch solve --live``
      and ``demo`` in subprocesses, and ``utils.timing.timed`` against
-     CUDA events around a solve and around queued f64 products.
+     CUDA events around a solve and around queued f64 products;
+ 15. ``Settings(block=64)`` on 4 of phase 2's lanes under "reduced" and
+     "banded" (the plain leaf by design), lane 0 against the CPU;
+ 16. ``BatchedSolver(mesh=make_mesh())`` on phase 2's batch over the
+     visible cards, the same bits as the unsharded solve.
 
 Phases 6, 7 and 12 must launch their band (12: leaf) kernels, match the
 CPU plain path on lane 0, repeat bit for bit, and end every lane OPTIMAL;
 lanes that do not must end with the same code on the CPU plain path.
+Phases 2, 6, 7 and 12 must launch the gather kernel (their residual,
+elimination and computeResiduals products), 7 and 12 also dgemm (their
+wide operands), and print their sweep pairs, host syncs and product
+time before the gates.
 
     python3 chip_smoke.py
 
@@ -106,6 +118,11 @@ SCAN_LANES, SCAN_BWB, SCAN_DP = 32, 9, 7680
 SCAN_CPU_LANES = 1                # phase 12 under band_gemm f32, on the CPU
 F32_TOL = 1e-6                    # an f32 factor's definitive objective
 F32_SCAN_TOL = 1e-4               # f32 scan (or f32 products): card vs CPU
+SPMV_TOL = 1e-14                  # gather kernel vs plain, max relative
+SPMV_RECORD = ("sGA", 2)          # the record's headline: refinement's
+#                                   fused [z | y] @ [G; A], two columns
+WIDE_RECORD = ("phase 7", "sGA", WIDE_LANES, 2)   # K12's: phase 7's stack
+BLOCK64_LANES = 4                 # phase 15: Settings(block=64)
 
 
 def fail(msg):
@@ -574,6 +591,147 @@ def dgemm_sass(kernels):
           f"e.g. {ops[0] if ops else None!r}")
     if not ops:
         fail("dgemm's machine code holds no DMMA instruction")
+
+
+def spmv_cases(torch, corpus, kkt):
+    """The operands the gather kernel gets on the paths: phase 2's six
+    (sG, sGT, sA, sAT and the stacks sGA, sAGT) and phase 12's sG, sGT,
+    with the dense matrix each replaces, from the raw G and A."""
+    out = []
+    for label, kw, keys in (
+            ("phase 2", dict(horizon=HORIZON, nx=NX, nu=NU, seed=3),
+             ("sG", "sGT", "sA", "sAT", "sGA", "sAGT")),
+            ("phase 12", SCAN, ("sG", "sGT"))):
+        st, base = corpus.make_mpc_like(**kw)
+        st = st.with_gsplit(base.G, base.A)
+        G = torch.tensor(base.G, device="cuda")
+        A = torch.tensor(base.A, device="cuda")
+        dense = dict(sG=G, sGT=G.T, sA=A, sAT=A.T,
+                     sGA=torch.cat([G, A]), sAGT=torch.cat([A.T, G.T], 1))
+        ops = kkt.make_sliced(st, G, A, st.m)
+        for key in keys:
+            out.append((label, key, ops[key], dense[key].contiguous()))
+        del G, A, ops, dense
+    return out
+
+
+def check_spmv_kernel(torch, corpus, kkt, spmv):
+    """The gather kernel (``csrc/spmv.cu``, one launch a product) on the
+    paths' operands at 128 lanes and k = 1, 2 against its plain version
+    (the JAX package's width-grouped gather), beside the dense
+    ``torch.matmul`` it replaces and ``torch.sparse`` CSR @ on the same
+    operand.  Returns its record (the headline: ``SPMV_RECORD``)."""
+    record = None
+    worst = 0.0
+    gen = torch.Generator(device="cuda").manual_seed(11)
+    for label, key, op, M in spmv_cases(torch, corpus, kkt):
+        if not isinstance(op, spmv.SparseOperand):
+            fail(f"spmv: {label} {key} is not a gather operand")
+        csr = M.T.to_sparse_csr()
+        nnz = op.rows.numel()
+        for k in (1, 2):
+            a = torch.randn(LANES, k, op.km, generator=gen, device="cuda",
+                            dtype=torch.float64)
+            want = op.rmatmul_plain(a)
+            got = op.rmatmul(a)
+            torch.cuda.synchronize()
+            err = rel_err(got, want)
+            worst = max(worst, err)
+            rows = LANES * k
+            at = a.reshape(rows, op.km).T.contiguous()
+            times = dict(
+                ms=cuda_ms(lambda: op.rmatmul(a)),
+                plain_ms=cuda_ms(lambda: op.rmatmul_plain(a)),
+                dense_ms=cuda_ms(lambda: torch.matmul(a, M)),
+                library_ms=cuda_ms(lambda: torch.sparse.mm(csr, at)))
+            b_ms, b_by = bound(rows * (op.km + op.nm) * 8
+                               + nnz * 12 + (op.nm + 1) * 4, 2 * nnz * rows)
+            print(f"spmv {label} {key}: ({LANES}, {k}, {op.km}) @ ({op.km}, "
+                  f"{op.nm}), {nnz} nonzeros, W {op.W}: "
+                  + ", ".join(f"{n} {v:.4f}" for n, v in times.items())
+                  + f"; bound {b_ms:.5f} ms by {b_by}; rel err {err:.2e}")
+            if (key, k) == SPMV_RECORD and label == "phase 2":
+                record = dict(
+                    name="spmv", route="cuda",
+                    source="eicos_tpu_torch/csrc/spmv.cu",
+                    replaces="eicos_tpu/ops/spmv.py:112 (SparseOperand."
+                             "rmatmul, an XLA gather: no Pallas kernel)",
+                    launches=0, max_abs_err=float((got - want).abs().max()),
+                    ms=times["ms"], plain_ms=times["plain_ms"],
+                    bound_ms=b_ms, bound_by=b_by,
+                    library_ms=times["library_ms"],
+                    dense_ms=times["dense_ms"])
+            del a, at, want, got
+        del csr
+    print(f"spmv: max rel err vs plain over every case {worst:.3e} "
+          f"(tolerance {SPMV_TOL})")
+    if not worst <= SPMV_TOL:
+        fail("spmv: the gather kernel disagrees with its plain version")
+    torch.cuda.empty_cache()
+    return record
+
+
+def check_wide_operands(torch, corpus, kkt, gemm, kernels):
+    """K12 as the solves of phases 7 and 12 use it: ``kkt.WideOperand``
+    (dgemm with a shared right operand, the lanes folded into its rows) on
+    the operands ``kkt.make_sliced`` builds there, sA, sAT (a strided
+    transpose), sGA and sAGT, at the path's lanes and at 128, k = 1, 2,
+    against ``gemm.matmul_plain``, with times and bounds.  Returns the
+    record of ``WIDE_RECORD`` (launches filled in later)."""
+    record = None
+    worst = 0.0
+    gen = torch.Generator(device="cuda").manual_seed(12)
+    for label, kw, lanes in (("phase 7", WIDE, WIDE_LANES),
+                             ("phase 12", SCAN, SCAN_LANES)):
+        st, base = corpus.make_mpc_like(**kw)
+        st = st.with_gsplit(base.G, base.A)
+        G = torch.tensor(base.G, device="cuda")
+        A = torch.tensor(base.A, device="cuda")
+        ops = kkt.make_sliced(st, G, A, st.m)
+        for key in ("sA", "sAT", "sGA", "sAGT"):
+            op = ops[key]
+            if not isinstance(op, kkt.WideOperand):
+                fail(f"K12: {label} {key} is not a wide operand")
+            km, nm = op.bmat.shape
+            for ln, k in ((lanes, 1), (lanes, 2), (LANES, 1), (LANES, 2)):
+                a = torch.randn(ln, k, km, generator=gen, device="cuda",
+                                dtype=torch.float64)
+                before = kernels.COUNTS["dgemm"]
+                got = op.rmatmul(a)
+                if kernels.COUNTS["dgemm"] != before + 1:
+                    fail(f"K12: {label} {key} did not launch dgemm once")
+                want = gemm.matmul_plain(a, op.bmat)
+                torch.cuda.synchronize()
+                err = rel_err(got, want)
+                worst = max(worst, err)
+                rows = ln * k
+                times = dict(
+                    ms=cuda_ms(lambda: op.rmatmul(a)),
+                    plain_ms=cuda_ms(lambda: gemm.matmul_plain(a, op.bmat)),
+                    library_ms=cuda_ms(lambda: torch.matmul(a, op.bmat)))
+                b_ms, b_by = bound(8 * (rows * km + km * nm + rows * nm),
+                                   2 * rows * km * nm)
+                print(f"K12 {label} {key}: ({ln}, {k}, {km}) @ ({km}, {nm}), "
+                      f"strides {op.bmat.stride()}: "
+                      + ", ".join(f"{n} {v:.4f}" for n, v in times.items())
+                      + f"; bound {b_ms:.4f} ms by {b_by} "
+                      f"({100 * b_ms / times['ms']:.1f} %); rel err "
+                      f"{err:.2e}")
+                if (label, key, ln, k) == WIDE_RECORD:
+                    record = dict(
+                        launches=0,
+                        max_abs_err=float((got - want).abs().max()),
+                        ms=times["ms"], plain_ms=times["plain_ms"],
+                        bound_ms=b_ms, bound_by=b_by,
+                        library_ms=times["library_ms"])
+                del a, got, want
+        del G, A, ops
+    print(f"K12: max rel err vs plain over every wide operand {worst:.3e} "
+          f"(tolerance {KERNEL_TOL})")
+    if not worst <= KERNEL_TOL:
+        fail("K12: dgemm on a wide operand disagrees with its plain version")
+    torch.cuda.empty_cache()
+    return record
 
 
 def check_dense_kernels(torch, band, leaf, gemm, ldl):
@@ -1065,6 +1223,10 @@ def profile_solve(torch, bs, batch, cuda_only=False):
           f"{time.perf_counter() - t_prof:.1f} s")
     for ms, key, count in rows[:10]:
         print(f"  {ms:9.3f} ms  {count:6d}x  {key[:90]}")
+    for name in ("spmv", "dgemm"):
+        mine = [r for r in rows if name in r[1]]
+        print(f"  {name} kernels: {sum(r[0] for r in mine):.3f} ms in "
+              f"{sum(r[2] for r in mine)} launches")
 
 
 def drive(torch, kernels, kkt, bs, batch):
@@ -1127,6 +1289,16 @@ def outcome(sol, label):
     print(f"{label}: exit codes {hist}; iterations min/median/max "
           f"{iters.min()}/{np.median(iters):g}/{iters.max()}")
     return codes, iters, hist
+
+
+def print_solve_counts(launches, syncs, label):
+    """A solve's sweep pairs (forward and backward band sweeps), host
+    syncs, factors and big-product launches, on one line."""
+    print(f"{label}: a solve: {launches['band_fwd_bw']} sweep pairs, "
+          f"{syncs} host syncs, {launches['factors']} factors, "
+          f"{launches['spmv']} spmv and {launches['dgemm']} dgemm launches, "
+          f"{sum(v for k, v in launches.items() if k != 'factors')} kernel "
+          f"launches in all")
 
 
 def need_launched(launches, names, label):
@@ -1230,9 +1402,10 @@ def objectives_close(sol, want, tol_by_tier, label):
 def run_path(torch, pt, kernels, kkt, label, st, probs, batch, shared,
              settings, rescue, names, reps=3, cuda_only=False):
     """Drive one path of the port at full width: a first solve with the
-    launch counts read around it, ``reps`` timed solves, the bit-repeat
-    check, the exit codes before and after the rescue, every lane OPTIMAL
-    (or as on the CPU), one profiled solve, lane 0 on the CPU plain path.
+    launch counts read around it, ``reps`` timed solves and one profiled
+    solve (all printed before the gates), the bit-repeat check, the exit
+    codes before and after the rescue, every lane OPTIMAL (or as on the
+    CPU), lane 0 on the CPU plain path.
     Returns the launch counts and the solution of the first solve."""
     lanes = len(probs)
     bs = pt.BatchedSolver(st, settings, shared=shared, rescue=rescue)
@@ -1240,9 +1413,11 @@ def run_path(torch, pt, kernels, kkt, label, st, probs, batch, shared,
     sol, launches, syncs, t_first = drive(torch, kernels, kkt, bs, batch)
     print(f"{label}: first solve {t_first:.3f} s; host syncs {syncs}; kernel "
           f"launches {launches}; rescued lanes {list(bs.last_rescued)}")
+    print_solve_counts(launches, syncs, label)
     need_launched(launches, names, label)
     first = sol
     sol, _ = timed(torch, bs, batch, lanes, reps)
+    profile_solve(torch, bs, batch, cuda_only)
     same_bits(torch, first, sol, label)
     del first
     if rescue is not None:
@@ -1251,7 +1426,6 @@ def run_path(torch, pt, kernels, kkt, label, st, probs, batch, shared,
         print(f"{label}: last_rescued {list(bs.last_rescued)}")
     outcome(sol, label)
     all_optimal_or_as_cpu(pt, st, probs, shared, settings, rescue, sol, label)
-    profile_solve(torch, bs, batch, cuda_only)
     same_as_cpu(pt, st, probs[0], settings, sol, label)
     return launches, sol
 
@@ -1359,8 +1533,9 @@ def phase_scan(torch, pt, corpus, kernels, kkt, leaf, plain,
                               KERNEL_TOL)
     settings = pt.Settings(kkt_strategy="banded")
     launches, sol = run_path(torch, pt, kernels, kkt, "scan band", st, probs,
-                             batch, shared, settings, None, ["leaf_ldl"],
-                             reps=1, cuda_only=True)
+                             batch, shared, settings, None,
+                             ["leaf_ldl", "spmv", "dgemm"], reps=1,
+                             cuda_only=True)
     scan_launches(launches, "leaf_ldl", nb, "scan band")
     record["launches"] = launches["leaf_ldl"]
     del sol
@@ -1581,6 +1756,65 @@ def phase_entry(torch, pt, probs, shared, st):
     del a
 
 
+def phase_block64(torch, pt, kernels, kkt, make_band_plan, st, probs,
+                  shared):
+    """Phase 15: ``Settings(block=64)`` on a few of phase 2's lanes, under
+    "reduced" (phase 4's strategy) and "banded" with a plan of 64-blocks.
+    Off 128 the leaf is the plain one on every device, as in the JAX
+    package, so no leaf kernel launches (printed); "reduced" runs dgemm
+    and the inverse solves on a factor padded to 128, "banded" the scan.
+    Every lane OPTIMAL, lane 0 against the CPU plain path."""
+    base = probs[0]
+    st64 = st.with_band_plan(make_band_plan(st, base.G, base.A, block=64))
+    batch = pt.BatchedSolver.stack(probs[:BLOCK64_LANES], shared=shared)
+    for label, cfg, pst, must in (
+            ("reduced, block 64",
+             pt.Settings(kkt_strategy="reduced", block=64), st,
+             ["spmv", "dgemm", "linv_fwd", "linv_bwd"]),
+            ("banded, block 64", pt.Settings(kkt_strategy="banded",
+                                             block=64), st64, ["spmv"])):
+        if cfg.kkt_strategy == "banded":
+            print(f"{label}: plan Dp={pst.band.dim} nb={pst.band.dim // 64} "
+                  f"bwb={pst.band.bwb}")
+        bs = pt.BatchedSolver(pst, cfg, shared=shared)
+        sol, launches, syncs, t_first = drive(torch, kernels, kkt, bs, batch)
+        print(f"{label}: {BLOCK64_LANES} lanes; first solve {t_first:.3f} s; "
+              f"host syncs {syncs}; kernel launches {launches}; the leaf is "
+              f"plain by design: {launches['leaf_ldl']} leaf_ldl launches")
+        need_launched(launches, must, label)
+        if launches["leaf_ldl"] or launches["band_factor_bw"]:
+            fail(f"{label}: a leaf or band kernel ran off 128: {launches}")
+        _, _, hist = outcome(sol, label)
+        if hist != {0: BLOCK64_LANES}:
+            fail(f"{label}: not every lane OPTIMAL: {hist}")
+        same_as_cpu(pt, pst, probs[0], cfg, sol, label)
+        del bs, sol
+    torch.cuda.empty_cache()
+
+
+def phase_mesh(torch, pt, kernels, kkt, make_mesh, st, batch, shared,
+               settings, rescue):
+    """Phase 16: ``BatchedSolver(mesh=make_mesh())`` on phase 2's batch
+    and settings: the lanes split over the visible cards (one here, which
+    then solves the whole batch from its thread), the same bits as the
+    unsharded solve."""
+    mesh = make_mesh()
+    print(f"mesh: {len(mesh)} device(s) of {torch.cuda.device_count()} "
+          f"visible: {[str(d) for d in mesh]}")
+    ms_ = pt.BatchedSolver(st, settings, shared=shared, rescue=rescue,
+                           mesh=mesh)
+    msol, launches, syncs, t_first = drive(torch, kernels, kkt, ms_, batch)
+    print(f"mesh: {LANES} lanes; solve {t_first:.3f} s; host syncs {syncs}; "
+          f"rescued lanes {list(ms_.last_rescued)}")
+    need_launched(launches, ["band_factor_bw", "spmv"], "mesh")
+    ref = pt.BatchedSolver(st, settings, shared=shared, rescue=rescue).solve(
+        batch)
+    same_bits(torch, ref, msol, "mesh against the unsharded solve")
+    outcome(msol, "mesh")
+    del ms_, msol, ref
+    torch.cuda.empty_cache()
+
+
 def main():
     t_start = time.perf_counter()
     import torch
@@ -1592,6 +1826,8 @@ def main():
     from eicos_tpu_torch import corpus, kkt
     from eicos_tpu_torch.ops import band, dense, gemm, kernels, ldl, leaf
     from eicos_tpu_torch.ops import band_ldl as plain
+    from eicos_tpu_torch.ops import spmv
+    from eicos_tpu_torch.parallel import make_mesh
     from eicos_tpu_torch.plan import make_band_plan
 
     smi = subprocess.run(
@@ -1620,6 +1856,8 @@ def main():
     wide_records = check_wide_kernels(torch, band, plain, kernels)
     dense_records = check_dense_kernels(torch, band, leaf, gemm, ldl)
     subst_records = check_subst_kernels(torch, leaf, ldl, dense, kernels)
+    spmv_record = check_spmv_kernel(torch, corpus, kkt, spmv)
+    k12_record = check_wide_operands(torch, corpus, kkt, gemm, kernels)
     print(f"kernel checks: {time.perf_counter() - t0:.1f} s")
     band_names = [r["name"] for r in band_records]
     wide_names = [r["name"] for r in wide_records]
@@ -1640,11 +1878,14 @@ def main():
     sol, launches, syncs, t_first = drive(torch, kernels, kkt, bs, batch)
     print(f"first solve {t_first:.3f} s; host syncs {syncs}; kernel "
           f"launches {launches}; rescued lanes {list(bs.last_rescued)}")
-    need_launched(launches, band_names, "main path")
+    print_solve_counts(launches, syncs, "main path")
+    need_launched(launches, band_names + ["spmv"], "main path")
     for r in band_records:
         r["launches"] = launches[r["name"]]
+    spmv_record["launches"] = launches["spmv"]
     first = sol
     sol, _ = timed(torch, bs, batch, LANES)
+    profile_solve(torch, bs, batch)
     same_bits(torch, first, sol, "main path")
     codes, iters, hist = outcome(sol, "main path")
     if hist != {0: LANES}:
@@ -1666,7 +1907,6 @@ def main():
     flagged = sum("synchroniz" in str(w.message) for w in caught)
     print(f"synchronizing calls flagged by torch in one solve: {flagged} "
           f"(loop count {counted})")
-    profile_solve(torch, bs, batch)
     same_as_cpu(pt, st, probs[0], settings, sol, "main path")
     print(f"phase 2: {time.perf_counter() - t_phase:.1f} s")
 
@@ -1751,7 +1991,8 @@ def main():
     if kst.band.bwb != 1 or not kst.band.keep_soc:
         fail(f"SOCP lane: unexpected plan (bwb {kst.band.bwb})")
     _, ksol = run_path(torch, pt, kernels, kkt, "SOCP lane", kst, kprobs,
-                       kbatch, kshared, settings, rescue, band_names)
+                       kbatch, kshared, settings, rescue,
+                       band_names + ["spmv"])
     soc_band_pcost = ksol.info.pcost.cpu().numpy()
     del kbatch, kprobs, ksol
     torch.cuda.empty_cache()
@@ -1767,9 +2008,11 @@ def main():
         fail(f"wide band: plan bwb {wst.band.bwb}, Dp {wst.band.dim}; "
              f"expected {WIDE_BWB}, {WIDE_DP}")
     launches, _ = run_path(torch, pt, kernels, kkt, "wide band", wst, wprobs,
-                           wbatch, wshared, settings, None, wide_names)
+                           wbatch, wshared, settings, None,
+                           wide_names + ["spmv", "dgemm"])
     for r in wide_records:
         r["launches"] = launches[r["name"]]
+    k12_record["launches"] = launches["dgemm"]
     print(f"phase 7: {time.perf_counter() - t_phase:.1f} s")
 
     # ---- phase 8: "reduced" at dense_solve="auto": substitution on the card
@@ -1946,13 +2189,25 @@ def main():
     phase_entry(torch, pt, probs, shared, st)
     print(f"phase 14: {time.perf_counter() - t_phase:.1f} s")
 
+    # ---- phase 15: Settings(block=64)
+    t_phase = time.perf_counter()
+    phase_block64(torch, pt, kernels, kkt, make_band_plan, st, probs, shared)
+    print(f"phase 15: {time.perf_counter() - t_phase:.1f} s")
+
+    # ---- phase 16: BatchedSolver(mesh=make_mesh())
+    t_phase = time.perf_counter()
+    phase_mesh(torch, pt, kernels, kkt, make_mesh, st, batch, shared,
+               settings, rescue)
+    print(f"phase 16: {time.perf_counter() - t_phase:.1f} s")
+
     order = ("name", "route", "source", "replaces", "launches",
              "max_abs_err", "ms", "plain_ms", "bound_ms", "bound_by",
              "library_ms")
     print(f"total {time.perf_counter() - t_start:.1f} s")
     # one entry a kernel: the band kernels at the main path's bandwidth 1,
-    # with phase 7's bandwidth-3 readings beside them under "bw3", and the
-    # leaves with phases 12's and 13's readings under "scan"
+    # with phase 7's bandwidth-3 readings beside them under "bw3", the
+    # leaves with phases 12's and 13's readings under "scan", and dgemm
+    # with its wide-operand form on phase 7's solve under "k12"
     wide = {r["name"]: {k: r[k] for k in order[4:]} for r in wide_records}
     scan = {name: {k: r[k] for k in order[4:]}
             for name, r in scan_records.items()}
@@ -1960,7 +2215,9 @@ def main():
         {k: r[k] for k in order}
         | ({"bw3": wide[r["name"]]} if r["name"] in wide else {})
         | ({"scan": scan[r["name"]]} if r["name"] in scan else {})
-        for r in band_records + dense_records + subst_records]}))
+        | ({"k12": k12_record} if r["name"] == "dgemm" else {})
+        for r in band_records + dense_records + subst_records
+        + [spmv_record]]}))
     print(smi)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

@@ -12,10 +12,14 @@ KKT strategies of the reference run on the card: "banded" (the band LDL^T
 factor and sweeps at block bandwidths 1..6, the scan of batched products
 and the leaf kernel above 6 and in f32), "reduced", "normal" and "full"
 (the dense recursion's blocked leaf LDL^T, DMMA GEMM, and the inverse or
-substitution solves), the rescue pass, and ``factor_dtype="float32"``.
-Every TPU kernel of the reference has a hand-written CUDA kernel here
-(``csrc/``, built with nvcc at first use), and every kernel has a plain
-torch version that runs for CPU tensors.  The iteration table prints
+substitution solves), the rescue pass, ``factor_dtype="float32"`` and
+any ``Settings.block``.  The residual and elimination products run as the
+reference's TPU path runs them: a gather kernel on the narrow patterns
+(``ops/spmv.py``), the GEMM kernel on the wide ones, and a rotated
+refinement loop.  ``BatchedSolver(mesh=)`` splits the lanes over several
+cards (``parallel/sharding.py``).  Every TPU kernel of the reference has a
+hand-written CUDA kernel here (``csrc/``, built with nvcc at first use),
+and every kernel has a plain torch version that runs for CPU tensors.  The iteration table prints
 during a solve (``solver.solve_live``, ``Solver.solve_live``,
 ``Settings(verbose_live=True)``) or after it
 (``Solver.solve(verbose=True)``); ``save_problem``/``load_problem`` read

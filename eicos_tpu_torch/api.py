@@ -17,6 +17,7 @@ import torch
 from .exitcodes import ExitCode
 from .problem import ProblemData, make_problem
 from .settings import Settings
+from .parallel.sharding import shard_batch, solve_shards
 from .solver import (LiveTable, Solution, resolve_device, solve_batch,
                      squeeze_lane, to_device)
 from .structure import ProblemStructure
@@ -193,12 +194,21 @@ class BatchedSolver:
     ``rescue``: optional fallback ``Settings``.  The lanes whose exit is
     not definitive (``_code_rank`` below 2) are gathered into one batch and
     solved again under the fallback; a lane takes the fallback's result
-    where its tier is better, and ``last_rescued`` lists those lanes."""
+    where its tier is better, and ``last_rescued`` lists those lanes.
+
+    ``mesh``: optional sequence of devices (``parallel.make_mesh``): the
+    lanes split evenly over it, the shared fields are copied to each
+    device, the shards are solved at once and the solution is gathered on
+    ``mesh[0]`` (``parallel/sharding.py``).  The rescue sub-batch is not
+    sharded: it is small by construction, and a sub-mesh-size batch cannot
+    split evenly.  ``device`` is then ``mesh[0]``."""
 
     def __init__(self, structure: ProblemStructure,
                  settings: Settings = Settings(), shared: tuple = (),
-                 rescue: Optional[Settings] = None, device=None):
-        self.device = resolve_device(device)
+                 rescue: Optional[Settings] = None, device=None, mesh=None):
+        self.mesh = None if mesh is None else tuple(mesh)
+        self.device = (self.mesh[0] if self.mesh
+                       else resolve_device(device))
         self.structure = structure
         self.settings = settings
         self.shared = tuple(shared)
@@ -217,24 +227,43 @@ class BatchedSolver:
             raise ValueError(f"unknown fields {sorted(bad)}")
         self._last_in = ProblemData(**{
             f: fields.get(f, getattr(self._last_in, f)) for f in _FIELDS})
-        self._last_dev = to_device(self._last_in, self.device, self.shared)
+        self._last_dev = self._place(self._last_in)
+
+    def _place(self, batch: ProblemData):
+        """The device copy of ``batch``: one batch, or its shards over the
+        mesh."""
+        if self.mesh is None:
+            return to_device(batch, self.device, self.shared)
+        return shard_batch(batch, self.mesh, self.shared)
 
     def solve(self, batch: Optional[ProblemData] = None) -> Solution:
         """Solve ``batch`` (or the last one, after ``update_data``); the
         device copy of a batch is kept across repeated solves of it."""
         if batch is not None and batch is not self._last_in:
             self._last_in = batch
-            self._last_dev = to_device(batch, self.device, self.shared)
+            self._last_dev = self._place(batch)
         if self._last_dev is None:
             raise ValueError("no batch to solve")
-        sols = solve_batch(self.structure, self._last_dev, self.settings)
+        if self.mesh is None:
+            sols = solve_batch(self.structure, self._last_dev, self.settings)
+        else:
+            sols = solve_shards(self.structure, self._last_dev, self.mesh,
+                                self.settings)
         if self.rescue is not None:
             sols = self._apply_rescue(sols)
         return sols
 
-    def _gather_lanes(self, dev: ProblemData, idx) -> ProblemData:
-        """The sub-batch of lanes ``idx``; shared G and A stay shared
-        (c, h and b always carry a lane axis on the device)."""
+    def _gather_lanes(self, idx) -> ProblemData:
+        """The sub-batch of lanes ``idx`` on ``self.device``; shared G and
+        A stay shared (c, h and b always carry a lane axis on the device).
+        Under a mesh it is taken from the host batch."""
+        if self.mesh is not None:
+            host = np.asarray(idx.cpu())
+            return to_device(ProblemData(**{
+                f: (getattr(self._last_in, f) if f in self.shared
+                    else np.asarray(getattr(self._last_in, f))[host])
+                for f in _FIELDS}), self.device, self.shared)
+        dev = self._last_dev
         return ProblemData(**{
             f: (getattr(dev, f) if f in self.shared and f in ("G", "A")
                 else getattr(dev, f)[idx]) for f in _FIELDS})
@@ -251,8 +280,7 @@ class BatchedSolver:
         if lanes.size == 0:
             return sols
         idx = torch.as_tensor(lanes, device=sols.exit_code.device)
-        rsols = solve_batch(self.structure,
-                            self._gather_lanes(self._last_dev, idx),
+        rsols = solve_batch(self.structure, self._gather_lanes(idx),
                             self.rescue)
         rcodes = rsols.exit_code.cpu().numpy()
         take = np.array([j for j in range(lanes.size)

@@ -15,19 +15,20 @@ rows, H = G_e' (W_e^2 + dI)^{-1} G_e + dI:
          K = [  G_s'           H     A' ]
              [  0              A    -dI ]
 
-banded   K is RCM-permuted by the structure's ``BandPlan`` into 128-blocks
-         with block bandwidth bwb, factored and solved in ``ops/band.py``:
-         by the band kernels at bwb 1..6 in f64, and by the scan of
-         ``ops/band_ldl.py`` (batched ``torch.matmul`` products and the
-         leaf kernel) where the reference runs its XLA scan, at bwb above
-         6 or under ``factor_dtype="float32"``; ``Settings.band_gemm``
+banded   K is RCM-permuted by the structure's ``BandPlan`` into blocks of
+         ``Settings.block`` with block bandwidth bwb, factored and solved
+         in ``ops/band.py``: by the band kernels at 128-blocks, bwb 1..6,
+         in f64, and by the scan of ``ops/band_ldl.py`` (batched
+         ``torch.matmul`` products and the leaf kernel, the plain leaf off
+         128) where the reference runs its XLA scan, at bwb above 6, off
+         128 or under ``factor_dtype="float32"``; ``Settings.band_gemm``
          sets the scan's product type and nothing else, as in the
          reference.  Three ways to the band blocks, as in
          ``eicos_tpu.kkt.factor``:
 
-         direct scatter (f64, bwb = 1, every eliminated LP row a singleton
-         or scatter row of the gsplit, cones on narrow ``SOCSplit``
-         supports):
+         direct scatter (f64, 128-blocks, bwb = 1, every eliminated LP
+         row a singleton or scatter row of the gsplit, cones on narrow
+         ``SOCSplit`` supports):
          H is never formed; its contributions (one per singleton row on
          the diagonal, a w x w outer product per scatter row, dI, and per
          cone either the eliminating closed form or, on a ``keep_soc``
@@ -83,18 +84,26 @@ scatter rows, the singleton rows and dI.
 Every sum over a static index map runs in a fixed order (``segsum``), so
 a solve on the card gives the same bits on every run.
 
-Iterative refinement runs against the exact regularized operator with the
-dense equilibrated G and A (``torch.matmul``, as the JAX package computes
-them on the CPU), in the reference's residual-first order, with per-lane
-and per-column stopping.
+The dense strategies run at any ``Settings.block`` as the JAX package
+does: off 128 the recursion's leaves are the plain leaf on every device
+(the reference reaches no Pallas leaf there) and the solves take the
+inverse path.
 
-What is not ported raises ``NotImplementedError`` (a block size other
-than 128); nothing falls back silently.
+Iterative refinement runs against the exact regularized operator with
+per-lane and per-column stopping.  Its big products, and those of the
+LP-row elimination and of computeResiduals, take the operands of
+``make_sliced`` on a CUDA tensor, as the JAX package's TPU path does: the
+gather kernel (``ops/spmv.py``) where the pattern is narrow, dgemm where it
+is not, and the refinement loop rotated.  On a CPU tensor they are the
+dense equilibrated G and A (``torch.matmul``, as the JAX package computes
+them on its CPU) in the reference's residual-first order.  Nothing falls
+back silently.
 """
 
 from __future__ import annotations
 
 import functools
+import threading
 from typing import NamedTuple, Optional
 
 import numpy as np
@@ -103,19 +112,24 @@ import torch
 from . import cones
 from .ops.band import band_factor, band_solve
 from .ops.band_ldl import B, KP
+from .ops.gemm import matmul
 from .ops.ldl import ldl_factor, ldl_factor_subst, ldl_solve, pad_to_block
+from .ops.spmv import SparseOperand, SparsePattern, csc_table
 from .segsum import SegmentSum, segment_map, segment_sum
 from .structure import ProblemStructure
 
-# host synchronisations of the solve loops (one per ``all_true`` call)
+# host synchronisations of the solve loops (one per ``all_true`` call; a
+# sharded solve counts from one thread per device, under the lock)
 host_syncs = 0
+_SYNC_LOCK = threading.Lock()
 
 
 def all_true(t: torch.Tensor) -> bool:
     """``bool(t.all())``: the one host synchronisation a solve loop makes
     per trip, counted in ``host_syncs``."""
     global host_syncs
-    host_syncs += 1
+    with _SYNC_LOCK:
+        host_syncs += 1
     return bool(t.all())
 
 
@@ -136,37 +150,39 @@ def _direct_band(st: ProblemStructure, settings) -> bool:
     blocks (``eicos_tpu.kkt.factor``'s ``direct_band``): an f64 factor at
     block bandwidth 1, every eliminated LP row a singleton or scatter row
     of the gsplit, and narrow per-cone column supports (``SOCSplit``)
-    where there are cones."""
+    where there are cones; blocks of 128, as the band kernels there
+    take."""
     split = st.gsplit
-    return bool(st.band.bwb == 1 and settings.factor_dtype == "float64"
+    return bool(st.band.bwb == 1 and st.band.block == B
+                and settings.factor_dtype == "float64"
                 and split is not None
                 and not split.dense_rows and (split.n_sing or split.n_spr)
                 and (st.n_sc == 0 or st.socsplit is not None))
 
 
 def require_slice(st: ProblemStructure, settings) -> None:
-    """Raise unless (structure, settings) is ported: 128-blocks, and under
-    "banded" a plan of 128-blocks that covers the factored system."""
-    if settings.block != B:
-        raise NotImplementedError(f"LDL^T block size must be {B}")
+    """Raise unless (structure, settings) can be solved: under "banded" a
+    plan of ``settings.block``-blocks that covers the factored system."""
     if settings.kkt_strategy != "banded":
         return
     plan = st.band
     if plan is None:
         raise ValueError(
             "kkt_strategy='banded' needs structure.with_band_plan(...)")
-    if plan.block != B:
-        raise NotImplementedError(f"band block size must be {B}")
+    if plan.block != settings.block:
+        raise ValueError(f"band plan of {plan.block}-blocks under "
+                         f"Settings(block={settings.block})")
     ms = st.m - st.l if _keep_soc(st, settings) else 0
-    if plan.dim != pad_to_block(ms + st.n + st.p, B):
+    want = pad_to_block(ms + st.n + st.p, plan.block)
+    if plan.dim != want:
         raise ValueError(f"band plan covers {plan.dim} rows, expected "
-                         f"{pad_to_block(ms + st.n + st.p, B)}")
+                         f"{want}")
 
 
 # ------------------------------------------------------ static index maps
 
 def _band_gather_split(n: int, p: int, Dp: int, perm: np.ndarray,
-                       bwb: int = 1, ms: int = 0):
+                       bwb: int = 1, ms: int = 0, block: int = B):
     """Static maps of the gathered band blocks
     (``eicos_tpu.kkt._band_gather_idx`` and ``_band_gather_split``): for
     each position of the (nb, B, B) diagonal blocks and of the (nb, bwb, B,
@@ -178,7 +194,7 @@ def _band_gather_split(n: int, p: int, Dp: int, perm: np.ndarray,
     ms == 0: K = [[H, A'], [A, -delta I]] over [x | y].  ms > 0 (kept
     cones): K over [z_soc | x | y]; the per-lane NT-scaled blocks at the
     z_soc coordinates map to the shared zero, and the direct scatter adds
-    them.  Padding rows get identity pivots."""
+    them.  Padding rows get identity pivots.  B is ``block``."""
     D = ms + n + p
     base_A = n * n
     c_negd = base_A + p * n
@@ -200,15 +216,15 @@ def _band_gather_split(n: int, p: int, Dp: int, perm: np.ndarray,
         out = np.where(diag & is_y_i, c_negd, out)
         return np.where(diag & (ii >= D), c_one, out)
 
-    nb = Dp // B
-    idx_diag = np.empty((nb, B, B), np.int64)
-    idx_subs = np.full((nb, bwb, B, B), c_zero, np.int64)
+    nb = Dp // block
+    idx_diag = np.empty((nb, block, block), np.int64)
+    idx_subs = np.full((nb, bwb, block, block), c_zero, np.int64)
     for k in range(nb):
-        rows = perm[k * B:(k + 1) * B]
+        rows = perm[k * block:(k + 1) * block]
         idx_diag[k] = src_block(rows, rows)
         for j in range(1, min(bwb, k) + 1):
-            idx_subs[k, j - 1] = src_block(rows,
-                                           perm[(k - j) * B:(k - j + 1) * B])
+            idx_subs[k, j - 1] = src_block(
+                rows, perm[(k - j) * block:(k - j + 1) * block])
 
     def split(idx):
         from_h = idx < base_A
@@ -346,7 +362,8 @@ def band_maps(st: ProblemStructure, device: str, direct: bool) -> BandMaps:
     n, p, plan = st.n, st.p, st.band
     perm = np.asarray(plan.perm, np.int64)
     Dp = len(perm)
-    nb = Dp // B
+    blk = plan.block
+    nb = Dp // blk
     iperm = np.empty_like(perm)
     iperm[perm] = np.arange(Dp)
     keep = bool(plan.keep_soc and st.n_sc)
@@ -355,7 +372,7 @@ def band_maps(st: ProblemStructure, device: str, direct: bool) -> BandMaps:
     if keep and not direct:
         # blocks of the permuted dense K over [z_soc | x | y]; the base
         # only zeroes the blocks left of block column 0
-        rows = perm.reshape(nb, B)
+        rows = perm.reshape(nb, blk)
         dih = rows[:, :, None] * Dp + rows[:, None, :]
         left = np.maximum(np.arange(nb)[:, None]
                           - np.arange(1, plan.bwb + 1)[None, :], 0)
@@ -367,7 +384,7 @@ def band_maps(st: ProblemStructure, device: str, direct: bool) -> BandMaps:
                         smask=_t(smask, device, torch.bool),
                         dih=_t(dih, device), sih=_t(sih, device), **common)
     (dmask, dih, dio), (smask, sih, sio) = _band_gather_split(
-        n, p, Dp, perm, plan.bwb, ms)
+        n, p, Dp, perm, plan.bwb, ms, blk)
     maps = dict(dmask=_t(dmask, device, torch.bool), dio=_t(dio, device),
                 smask=_t(smask, device, torch.bool), sio=_t(sio, device))
     if direct:
@@ -398,13 +415,14 @@ class DenseMaps(NamedTuple):
 
 @functools.lru_cache(maxsize=16)
 def dense_maps(st: ProblemStructure, device: str, h_only: bool = False,
-               keep: bool = True) -> DenseMaps:
-    """The maps of the dense K that keeps every SOC row, with ``keep``
-    false of the K over [x | y] with every row eliminated ("normal"), or
-    with ``h_only`` of a bare (n, n) H with every row eliminated."""
+               keep: bool = True, block: int = B) -> DenseMaps:
+    """The maps of the dense K that keeps every SOC row, padded to
+    ``block``, with ``keep`` false of the K over [x | y] with every row
+    eliminated ("normal"), or with ``h_only`` of a bare (n, n) H with
+    every row eliminated."""
     n, p = st.n, st.p
     ms = 0 if h_only or not keep else st.m - st.l
-    Dp = n if h_only else pad_to_block(ms + n + p, B)
+    Dp = n if h_only else pad_to_block(ms + n + p, block)
     split = st.gsplit
     hs = hd = None
     if split is not None and split.n_spr:
@@ -468,6 +486,115 @@ class KKTContext(NamedTuple):
     soc: Optional[SocMaps] = None
     soc_gsub: Optional[torch.Tensor] = None  # ([L,] n_sc, dmax, w) G_soc
     soc_gram: Optional[torch.Tensor] = None  # ([L,] n_sc, w, w) Gq'Gq
+    # the big products' operands (``make_sliced``; None on a CPU tensor)
+    sG: object = None     # x @ G
+    sGT: object = None    # x @ G'
+    sA: object = None     # x @ A
+    sAT: object = None    # x @ A'
+    sGe: object = None    # x @ G[:me]  (the eliminated rows)
+    sGeT: object = None   # x @ G[:me]'
+    sGA: object = None    # [z | y] @ [G; A]
+    sAGT: object = None   # x @ [A' | G']
+
+
+class WideOperand:
+    """``x @ M`` for an operand too wide for the gather: ``gemm.matmul``,
+    on a CUDA tensor the dgemm kernel, which folds the lanes of a shared
+    ``bmat`` into its rows and reads it once (the JAX package's
+    ``BigOperand``, K12 ``_gemv_call``)."""
+
+    def __init__(self, bmat: torch.Tensor):
+        self.bmat = bmat
+
+    def rmatmul(self, a: torch.Tensor) -> torch.Tensor:
+        """x @ M for a (L, k, km) or (L, km)."""
+        if a.dim() == 2:
+            return matmul(a[:, None], self.bmat)[:, 0]
+        return matmul(a, self.bmat)
+
+
+def _sliced_live(G: torch.Tensor) -> bool:
+    """Where the big products take operands (``make_sliced``): the JAX
+    package builds them where its kernels are live and G is f64
+    (``eicos_tpu.kkt._make_sliced``), here on a CUDA tensor of f64.  A CPU
+    tensor keeps the dense products and the residual-first refinement
+    loop, as the JAX package does on its CPU."""
+    return G.device.type == "cuda" and G.dtype == torch.float64
+
+
+@functools.lru_cache(maxsize=16)
+def _sliced_patterns(st: ProblemStructure, me: int, device: str) -> dict:
+    """The ``SparsePattern`` on ``device`` of every narrow operand of
+    ``make_sliced`` (None for a wide one), from the ``csc_table`` of the
+    structure's ``MatvecPattern``: built once, so a solve only gathers
+    the coefficients."""
+    mv = st.matvec
+    m, n, p = st.m, st.n, st.p
+    gr = np.asarray(mv.g_rows, np.int64)
+    gc = np.asarray(mv.g_cols, np.int64)
+    ar = np.asarray(mv.a_rows, np.int64)
+    ac = np.asarray(mv.a_cols, np.int64)
+    with_a = mv.has_a
+
+    # key: (table or None, contraction length km)
+    tabs = dict(sG=(csc_table(gr, gc, m, n), m),
+                sGT=(csc_table(gc, gr, n, m), n))
+    if p:
+        tabs.update(
+            sA=(csc_table(ar, ac, p, n) if with_a else None, p),
+            sAT=(csc_table(ac, ar, n, p) if with_a else None, n),
+            sGA=(csc_table(np.concatenate([gr, m + ar]),
+                           np.concatenate([gc, ac]), m + p, n)
+                 if with_a else None, m + p),
+            sAGT=(csc_table(np.concatenate([ac, gc]),
+                            np.concatenate([ar, p + gr]), n, p + m)
+                  if with_a else None, n))
+    if 0 < me < m:
+        sel = gr < me
+        tabs.update(sGe=(csc_table(gr[sel], gc[sel], me, n), me),
+                    sGeT=(csc_table(gc[sel], gr[sel], n, me), n))
+    return {key: None if tab is None else SparsePattern(*tab, km, device)
+            for key, (tab, km) in tabs.items()}
+
+
+def make_sliced(st: ProblemStructure, G: torch.Tensor, A: torch.Tensor,
+                me: int) -> dict:
+    """The operands of the big products, per key of ``KKTContext`` (``sG``
+    ... ``sAGT``), as ``eicos_tpu.kkt._make_sliced`` prepares them for its
+    TPU path: a ``SparseOperand`` (the spmv kernel) where the structure
+    carries the nonzero pattern and the operand's widest column holds at
+    most ``spmv.WIDTH_MAX`` nonzeros (the A operands only with A's pattern
+    recorded), else a ``WideOperand`` (dgemm).  ``{}`` unless
+    ``_sliced_live(G)``.  G and A are the equilibrated matrices, shared
+    or with a lane axis."""
+    if not _sliced_live(G):
+        return {}
+    m, p = st.m, st.p
+    pats = (_sliced_patterns(st, me, str(G.device))
+            if st.matvec is not None else {})
+
+    def operand(key, bmat):
+        pat = pats.get(key)
+        return SparseOperand(bmat, pattern=pat) if pat is not None else (
+            WideOperand(bmat))
+
+    Gt = G.transpose(-1, -2)
+    out = dict(sG=operand("sG", G), sGT=operand("sGT", Gt))
+    if p:
+        At = A.transpose(-1, -2)
+        out.update(
+            sA=operand("sA", A), sAT=operand("sAT", At),
+            sGA=operand("sGA", torch.cat([G, A], -2)),
+            sAGT=operand("sAGT", torch.cat([At, Gt], -1)))
+    else:
+        out.update(sGA=out["sG"], sAGT=out["sGT"])
+    if me == m:
+        out.update(sGe=out["sG"], sGeT=out["sGT"])
+    elif me:
+        Ge = G[..., :me, :]
+        out.update(sGe=operand("sGe", Ge),
+                   sGeT=operand("sGeT", Ge.transpose(-1, -2)))
+    return out
 
 
 def _dense_base(st, dm: DenseMaps, G, A, delta):
@@ -490,13 +617,13 @@ def _dense_base(st, dm: DenseMaps, G, A, delta):
     return K0
 
 
-def _full_base(st, G, A, delta):
+def _full_base(st, G, A, delta, block: int):
     """The lane-invariant part of the "full" K over [z | x | y]
     (``eicos_tpu.kkt.make_context``): G, A, +dI on x, -dI on y, 1 on
     padding; the z diagonal block is written per factor."""
     n, p, m = st.n, st.p, st.m
     D = m + n + p
-    Dp = pad_to_block(D, B)
+    Dp = pad_to_block(D, block)
     lead = A.shape[:-2]
     diag0 = G.new_zeros(Dp)
     diag0[m:m + n] = delta
@@ -518,7 +645,9 @@ def make_context(st: ProblemStructure, G, A, settings) -> KKTContext:
     delta = settings.deltastat
     if settings.kkt_strategy == "full":
         return KKTContext(G=G, A=A, Gf=G, split=None, spr_outer=None,
-                          sing_sq=None, K0=_full_base(st, G, A, delta))
+                          sing_sq=None,
+                          K0=_full_base(st, G, A, delta, settings.block),
+                          **make_sliced(st, G, A, 0))
     fdtype = (torch.float32 if settings.factor_dtype == "float32"
               else G.dtype)
     Gf = G.to(fdtype)
@@ -533,17 +662,18 @@ def make_context(st: ProblemStructure, G, A, settings) -> KKTContext:
         sing_sq = coef * coef
     keep = _keep_soc(st, settings)
     ctx = KKTContext(G=G, A=A, Gf=Gf, split=split, spr_outer=spr_outer,
-                     sing_sq=sing_sq, keep_soc=keep)
+                     sing_sq=sing_sq, keep_soc=keep,
+                     **make_sliced(st, G, A, st.l if keep else st.m))
     lead = A.shape[:-2]
     if settings.kkt_strategy in ("reduced", "normal"):
-        dm = dense_maps(st, dev, keep=keep)
+        dm = dense_maps(st, dev, keep=keep, block=settings.block)
         return ctx._replace(
             dense=dm, K0=_dense_base(st, dm, G, A, delta).to(fdtype))
     direct = _direct_band(st, settings)
     maps = band_maps(st, dev, direct)
     ctx = ctx._replace(band=maps)
     if keep and not direct:
-        dm = dense_maps(st, dev)
+        dm = dense_maps(st, dev, block=settings.block)
         zero = G.new_zeros(())
         return ctx._replace(
             dense=dm, K0=_dense_base(st, dm, G, A, delta).to(fdtype),
@@ -782,10 +912,12 @@ def dense_matrix(st, ctx: KKTContext, scal: Optional[cones.Scaling],
 def _use_subst(K: torch.Tensor, settings) -> bool:
     """True where the dense factor of ``K`` takes the substitution form
     (``eicos_tpu.kkt._use_subst``, with the tensor's device in the place
-    of the TPU gate): f64 only; never under ``dense_solve="inverse"``;
+    of the TPU gate): f64 and 128-blocks only; never under
+    ``dense_solve="inverse"``;
     always under "subst"; under "auto" on a CUDA tensor, except for the
     "full" strategy, which the reference keeps on the inverse path."""
-    if settings.dense_solve == "inverse" or K.dtype != torch.float64:
+    if (settings.dense_solve == "inverse" or K.dtype != torch.float64
+            or settings.block != B):
         return False
     if settings.dense_solve == "subst":
         return True
@@ -797,14 +929,14 @@ def _factor_dense(K: torch.Tensor, settings):
     form or explicit inverse (``_use_subst``)."""
     if _use_subst(K, settings):
         return ldl_factor_subst(K)
-    return ldl_factor(K)
+    return ldl_factor(K, block=settings.block)
 
 
 def _factor_in_dtype(K: torch.Tensor, settings):
     """Factor ``K`` (f64, or already cast) in ``settings.factor_dtype``:
     an f32 factor stays f32 and takes the inverse path."""
     if settings.factor_dtype == "float32":
-        return ldl_factor(K.to(torch.float32))
+        return ldl_factor(K.to(torch.float32), block=settings.block)
     return _factor_dense(K, settings)
 
 
@@ -910,6 +1042,8 @@ def factor(st: ProblemStructure, ctx: KKTContext,
                               gemm_dtype=gdt)[..., maps.iperm]
 
     Ge = G[..., :me, :]
+    # the eliminated rows' operands, at f64 (``eicos_tpu.kkt``'s ``oz``)
+    oz = ctx.sGe is not None and fdtype == torch.float64
 
     def welim(v):
         # (W^2 + dI)^{-1} on the eliminated rows of v (L, k, me)
@@ -928,7 +1062,12 @@ def factor(st: ProblemStructure, ctx: KKTContext,
         bz_e, bz_s = bz[..., :me], bz[..., me:]
         if scaled_kept:
             bz_s = cones.scale_winv_soc(st.cone, scal, bz_s)
-        r1 = bx + welim(bz_e) @ Ge if me else bx
+        if not me:
+            r1 = bx
+        elif oz:
+            r1 = bx + ctx.sGe.rmatmul(welim(bz_e))
+        else:
+            r1 = bx + welim(bz_e) @ Ge
         rr = torch.cat([bz_s, r1, by,
                         rhs.new_zeros(*rhs.shape[:-1], Dp - D)], -1)
         x = padded_solve(rr)
@@ -936,7 +1075,12 @@ def factor(st: ProblemStructure, ctx: KKTContext,
         if scaled_kept:
             dzs = cones.scale_winv_soc(st.cone, scal, dzs)
         dx, dy = x[..., ms:ms + n], x[..., ms + n:D]
-        dz_e = welim(dx @ Ge.transpose(-1, -2) - bz_e) if me else bz_e
+        if not me:
+            dz_e = bz_e
+        elif oz:
+            dz_e = welim(ctx.sGeT.rmatmul(dx) - bz_e)
+        else:
+            dz_e = welim(dx @ Ge.transpose(-1, -2) - bz_e)
         dz = torch.cat([dz_e, dzs], -1)
         return dx.to(out_dtype), dy.to(out_dtype), dz.to(out_dtype)
 
@@ -959,7 +1103,17 @@ def solve_refined(st: ProblemStructure, ctx: KKTContext, solve_exact,
 
     ``rhs`` is (L, k, n+p+m).  Each column of each lane stops on its own,
     as the JAX package's vmapped loop does; ``active`` (L,) marks the lanes
-    whose result is used (the others start stopped)."""
+    whose result is used (the others start stopped).
+
+    With the context's operands (``make_sliced``, a CUDA tensor) the big
+    products go through them, two fused products over the stacks [G; A]
+    and [A' | G'] where both exist, and the loop is the JAX package's TPU
+    form, rotated: the first residual before the loop, then solve, apply,
+    residual and decide, so the trip on which every column stops does no
+    corrective solve.  Without them (a CPU tensor) the products are dense
+    and the loop is residual-first, the reference's order, as on the JAX
+    package's CPU.  The two orders give the same corrections, undo targets
+    and counts; their last bits differ."""
     n, p, m = st.n, st.p, st.m
     delta = settings.deltastat
     G, A = ctx.G, ctx.A
@@ -970,15 +1124,25 @@ def solve_refined(st: ProblemStructure, ctx: KKTContext, solve_exact,
     def residual(dx, dy, dz):
         # ex = bx - G'dz - d dx - A'dy;  ey = by - A dx + d dy;
         # ez = bz - G dx + W^2 dz + d dz
-        ex = bx - (dz @ G if m else 0.0) - delta * dx
-        if p:
-            ex = ex - dy @ A
-        ey = (by - dx @ At + delta * dy) if p else by
-        if m:
-            Wdz = dz if scal is None else cones.scale2(st.cone, scal, dz)
-            ez = bz - dx @ Gt + Wdz + delta * dz
+        Wdz = (dz if scal is None or not m
+               else cones.scale2(st.cone, scal, dz))
+        if m and p and ctx.sGA is not None:
+            ex = bx - ctx.sGA.rmatmul(torch.cat([dz, dy], -1)) - delta * dx
+            axgx = ctx.sAGT.rmatmul(dx)
+            ey = by - axgx[..., :p] + delta * dy
+            ez = bz - axgx[..., p:] + Wdz + delta * dz
+        elif ctx.sG is not None:
+            ex = bx - (ctx.sG.rmatmul(dz) if m else 0.0) - delta * dx
+            if p:
+                ex = ex - ctx.sA.rmatmul(dy)
+            ey = (by - ctx.sAT.rmatmul(dx) + delta * dy) if p else by
+            ez = (bz - ctx.sGT.rmatmul(dx) + Wdz + delta * dz) if m else bz
         else:
-            ez = bz
+            ex = bx - (dz @ G if m else 0.0) - delta * dx
+            if p:
+                ex = ex - dy @ A
+            ey = (by - dx @ At + delta * dy) if p else by
+            ez = (bz - dx @ Gt + Wdz + delta * dz) if m else bz
         nerr = ex.abs().amax(-1) if n else rhs.new_zeros(lanes, K)
         if m:
             nerr = torch.maximum(nerr, ez.abs().amax(-1))
@@ -990,15 +1154,41 @@ def solve_refined(st: ProblemStructure, ctx: KKTContext, solve_exact,
     thresh = (1.0 + rhs.abs().amax(-1)) * settings.linsysacc
     nitref = settings.nitref
     irerrfact = settings.irerrfact
-
-    cx, cy, cz = (torch.zeros_like(dx), torch.zeros_like(dy),
-                  torch.zeros_like(dz))
-    nerr_prev = rhs.new_full((lanes, K), torch.inf)
     kk = torch.zeros((lanes, 1), dtype=torch.int32, device=rhs.device)
     kout = torch.zeros((lanes, K), dtype=torch.int32, device=rhs.device)
     done = torch.zeros((lanes, K), dtype=torch.bool, device=rhs.device)
     if active is not None:
         done = done | ~active[:, None]
+
+    if ctx.sGA is not None:
+        ex, ey, ez, nerr_prev = residual(dx, dy, dz)
+        done = done | (nerr_prev < thresh) | (nitref == 0)
+        while not all_true(done):
+            act = ~done
+            am = act[..., None]
+            rx, ry, rz = solve_exact(torch.cat([ex, ey, ez], -1))
+            dx1 = torch.where(am, dx + rx, dx)
+            dy1 = torch.where(am, dy + ry, dy)
+            dz1 = torch.where(am, dz + rz, dz)
+            ex, ey, ez, nerr = residual(dx1, dy1, dz1)
+            t = kk + 1
+            undo = act & (nerr > nerr_prev)
+            stop = act & (undo | (t == nitref) | (nerr < thresh)
+                          | (nerr_prev < irerrfact * nerr))
+            um = undo[..., None]
+            dx = torch.where(um, dx, dx1)
+            dy = torch.where(um, dy, dy1)
+            dz = torch.where(um, dz, dz1)
+            nerr_prev = torch.where(act, nerr, nerr_prev)
+            kout = torch.where(act, torch.where(undo, t - 1, t), kout)
+            # a lane's loop counter only runs while one of its columns does
+            kk = kk + act.any(-1, keepdim=True).to(kk.dtype)
+            done = done | stop
+        return KKTSolveResult(dx=dx, dy=dy, dz=dz, nitref=kout)
+
+    cx, cy, cz = (torch.zeros_like(dx), torch.zeros_like(dy),
+                  torch.zeros_like(dz))
+    nerr_prev = rhs.new_full((lanes, K), torch.inf)
     while not all_true(done):
         ex, ey, ez, nerr = residual(dx, dy, dz)
         act = ~done

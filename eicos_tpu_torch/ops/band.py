@@ -41,9 +41,11 @@ BW_MAX = 6    # widest block band of the wide kernels
 
 def scan(Ks: torch.Tensor, dtype: torch.dtype) -> bool:
     """True where the scan runs instead of the kernels: 5-d sub-diagonal
-    blocks (or a factor's ``L``) ``Ks`` wider than ``BW_MAX``, or in
-    another type than f64."""
-    return Ks.dim() == 5 and (dtype != torch.float64 or Ks.shape[2] > BW_MAX)
+    blocks (or a factor's ``L``) ``Ks`` wider than ``BW_MAX``, in another
+    type than f64, or of another block size than 128 (the JAX package's
+    band kernels take 128-blocks only)."""
+    return Ks.dim() == 5 and (dtype != torch.float64 or Ks.shape[2] > BW_MAX
+                              or Ks.shape[-1] != B)
 
 
 def _wide(fac: BandFactors) -> BandFactors:
@@ -96,7 +98,7 @@ def band_factor_bw(Kd: torch.Tensor, Ksubs: torch.Tensor) -> BandFactors:
                        Kd.data_ptr(), Ksubs.data_ptr(), L.data_ptr(),
                        Dinv.data_ptr(), d.data_ptr(), lanes, nb, bw,
                        kernels.stream(Kd))
-    kernels.COUNTS["band_factor_bw"] += 1
+    kernels.count("band_factor_bw")
     return BandFactors(L=L, Dinv=Dinv, d=d)
 
 
@@ -153,7 +155,7 @@ def band_fwd_bw(fac: BandFactors, rhs: torch.Tensor) -> torch.Tensor:
                        fac.L.data_ptr(), fac.Dinv.data_ptr(), fac.d.data_ptr(),
                        rhs.data_ptr(), out.data_ptr(), lanes, nb, bw, k,
                        kernels.stream(rhs))
-    kernels.COUNTS["band_fwd_bw"] += 1
+    kernels.count("band_fwd_bw")
     return out
 
 
@@ -169,7 +171,7 @@ def band_bwd_bw(fac: BandFactors, w: torch.Tensor) -> torch.Tensor:
         kernels.launch(kernels.lib("band_solve_bw").eicos_band_bwd_bw,
                        fac.L.data_ptr(), fac.Dinv.data_ptr(), w.data_ptr(),
                        out.data_ptr(), lanes, nb, bw, k, kernels.stream(w))
-    kernels.COUNTS["band_bwd_bw"] += 1
+    kernels.count("band_bwd_bw")
     return out
 
 

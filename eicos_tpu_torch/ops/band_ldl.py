@@ -205,17 +205,22 @@ def band_ldl_factor(Kd: torch.Tensor, Ksubs: torch.Tensor, gemm_dtype=None,
     ``(a.to(gdt) @ b.to(gdt)).to(dtype)``.  ``leaf`` factors the (lanes, B,
     B) Schur blocks into (Linv, d): by default ``ops/leaf.leaf_ldl``, which
     launches the leaf kernel of the blocks' type on a CUDA tensor and runs
-    the plain leaf on a CPU one.  ``Ksubs[:, k, j-1]`` for k < j is never
-    read, and ``L[:, k, j-1]`` is zero there."""
-    if leaf is None:
+    the plain leaf on a CPU one, and at a block size other than 128 the
+    plain leaf on every device (the JAX package's ``_band_leaf`` takes its
+    kernel only at 128).  ``Ksubs[:, k, j-1]`` for k < j is never read, and
+    ``L[:, k, j-1]`` is zero there."""
+    blk = Kd.shape[-1]
+    if leaf is None and blk != B:
+        leaf = leaf_ldl_plain
+    elif leaf is None:
         from .leaf import leaf_ldl as leaf
     mm = _product(Kd.dtype, gemm_dtype)
     lanes, nb, bw = Ksubs.shape[:3]
-    L = Kd.new_zeros(lanes, nb, bw, B, B)
+    L = Kd.new_zeros(lanes, nb, bw, blk, blk)
     Dinv = torch.empty_like(Kd)
-    d = Kd.new_empty(lanes, nb, B)
+    d = Kd.new_empty(lanes, nb, blk)
     # rd[:, q-1] = L[k,k-q] d_{k-q} of the current row; zero for q > k
-    rd = Kd.new_zeros(lanes, bw, B, B)
+    rd = Kd.new_zeros(lanes, bw, blk, blk)
     for k in range(nb):
         kq = min(bw, k)
         for j in range(kq, 0, -1):
@@ -243,7 +248,7 @@ def band_ldl_fwd(fac: BandFactors, rhs: torch.Tensor,
     ``gemm_dtype`` when it is given."""
     mm = _product(rhs.dtype, gemm_dtype)
     lanes, k = rhs.shape[:2]
-    nb, bw = fac.L.shape[1], fac.L.shape[2]
+    nb, bw, B = fac.L.shape[1], fac.L.shape[2], fac.d.shape[-1]
     out = torch.empty_like(rhs)
     Y = rhs.new_empty(lanes, nb, B, k)
     for b in range(nb):
@@ -267,7 +272,7 @@ def band_ldl_bwd(fac: BandFactors, w: torch.Tensor,
     ``gemm_dtype`` when it is given."""
     mm = _product(w.dtype, gemm_dtype)
     lanes, k = w.shape[:2]
-    nb, bw = fac.L.shape[1], fac.L.shape[2]
+    nb, bw, B = fac.L.shape[1], fac.L.shape[2], fac.d.shape[-1]
     out = torch.empty_like(w)
     Z = w.new_empty(lanes, nb, B, k)
     for b in range(nb - 1, -1, -1):
@@ -289,8 +294,8 @@ def band_ldl_solve(fac: BandFactors, rhs: torch.Tensor,
 
 
 def leaf_ldl_plain(Ms: torch.Tensor):
-    """Plain version of ``ops/leaf.leaf_ldl``: (L, 128, 128) -> (Linv, d)
-    by ``_unblocked_ldl`` and ``_unit_lower_inv``."""
+    """Plain version of ``ops/leaf.leaf_ldl``: (L, B, B) -> (Linv, d) by
+    ``_unblocked_ldl`` and ``_unit_lower_inv``, at any block size B."""
     L, d = _unblocked_ldl(Ms)
     return _unit_lower_inv(L), d
 

@@ -100,7 +100,7 @@ def pack_dense(Loff: torch.Tensor, Xinv: torch.Tensor,
             kernels.launch(kernels.lib("dense_pack").eicos_dense_pack,
                            Loff.data_ptr(), Lp.data_ptr(), lanes, Dp,
                            kernels.stream(Loff))
-        kernels.COUNTS["dense_pack"] += 1
+        kernels.count("dense_pack")
     return DenseFac(Lp=Lp, Xinv=Xinv, d=d)
 
 
@@ -167,7 +167,7 @@ def dense_fwd(fac: DenseFac, rhs: torch.Tensor) -> torch.Tensor:
                        fac.Lp.data_ptr(), fac.Xinv.data_ptr(),
                        fac.d.data_ptr(), rhs.data_ptr(), out.data_ptr(),
                        lanes, Dp, k, kernels.stream(rhs))
-    kernels.COUNTS["dense_fwd"] += 1
+    kernels.count("dense_fwd")
     return out
 
 
@@ -181,7 +181,7 @@ def dense_bwd(fac: DenseFac, w: torch.Tensor) -> torch.Tensor:
         kernels.launch(kernels.lib("dense_solve").eicos_dense_bwd,
                        fac.Lp.data_ptr(), fac.Xinv.data_ptr(), w.data_ptr(),
                        out.data_ptr(), lanes, Dp, k, kernels.stream(w))
-    kernels.COUNTS["dense_bwd"] += 1
+    kernels.count("dense_bwd")
     return out
 
 

@@ -7,10 +7,12 @@ hash of its source and flags, so an edited source rebuilds.  The libraries
 are bound with ``ctypes``: pointers and the stream pass as ``c_void_p``.
 
 ``COUNTS`` holds one plain integer per kernel: its wrapper (``band.py``,
-``leaf.py``, ``gemm.py``, ``dense.py``) adds one where it launches the
-kernel, and nowhere else, so a run can show that the main path went through the
-kernels.  The wrappers share the dispatch rule below: a CPU tensor takes
-the plain version, a CUDA tensor launches the kernel or raises.
+``leaf.py``, ``gemm.py``, ``dense.py``, ``spmv.py``) adds one through
+``count`` where it launches the kernel, and nowhere else, so a run can show
+that the main path went through the kernels.  ``count`` and ``lib`` hold a
+lock: a sharded solve launches from one host thread per device.  The
+wrappers share the dispatch rule below: a CPU tensor takes the plain
+version, a CUDA tensor launches the kernel or raises.
 """
 
 from __future__ import annotations
@@ -20,6 +22,7 @@ import hashlib
 import os
 import shutil
 import subprocess
+import threading
 
 _PKG_DIR = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 CSRC = os.path.join(_PKG_DIR, "csrc")
@@ -54,19 +57,30 @@ LIBS = {
     "dense_solve": ("dense_solve.cu",
                     {"eicos_dense_fwd": [_P] * 5 + [_I, _I, _I, _P],
                      "eicos_dense_bwd": [_P] * 4 + [_I, _I, _I, _P]}),
+    "spmv": ("spmv.cu",
+             {"eicos_spmv": [_P] * 4 + [_LL, _P] + [_I] * 4 + [_P]}),
 }
 
 COUNTS = {"band_factor_bw": 0, "band_fwd_bw": 0, "band_bwd_bw": 0,
           "leaf_ldl": 0, "dgemm": 0, "linv_fwd": 0, "linv_bwd": 0,
-          "leaf_ldl_f32": 0, "dense_pack": 0, "dense_fwd": 0, "dense_bwd": 0}
+          "leaf_ldl_f32": 0, "dense_pack": 0, "dense_fwd": 0, "dense_bwd": 0,
+          "spmv": 0}
 BUILD_LOG: dict = {}      # library name -> nvcc's output (ptxas -v report)
 
 _loaded: dict = {}
+_LOCK = threading.RLock()
 
 
 def reset_counts() -> None:
-    for name in COUNTS:
-        COUNTS[name] = 0
+    with _LOCK:
+        for name in COUNTS:
+            COUNTS[name] = 0
+
+
+def count(name: str) -> None:
+    """One launch of kernel ``name``."""
+    with _LOCK:
+        COUNTS[name] += 1
 
 
 def _nvcc() -> str:
@@ -125,14 +139,16 @@ def lib(name: str):
     """The loaded ctypes library ``name``, built first if needed."""
     if name in _loaded:
         return _loaded[name]
-    build()
-    cdll = ctypes.CDLL(lib_path(name))
-    for sym, argtypes in LIBS[name][1].items():
-        fn = getattr(cdll, sym)
-        fn.argtypes = argtypes
-        fn.restype = ctypes.c_int
-    _loaded[name] = cdll
-    return cdll
+    with _LOCK:
+        if name not in _loaded:
+            build()
+            cdll = ctypes.CDLL(lib_path(name))
+            for sym, argtypes in LIBS[name][1].items():
+                fn = getattr(cdll, sym)
+                fn.argtypes = argtypes
+                fn.restype = ctypes.c_int
+            _loaded[name] = cdll
+    return _loaded[name]
 
 
 # ------------------------------------------------ shared by the wrappers

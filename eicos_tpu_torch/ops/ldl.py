@@ -58,7 +58,7 @@ from typing import NamedTuple
 
 import torch
 
-from .band_ldl import B, pad_to_block  # noqa: F401  (re-exported)
+from .band_ldl import B, leaf_ldl_plain, pad_to_block  # noqa: F401
 from .dense import DenseFac, dense_solve, pack_dense
 from .gemm import (linv_bwd, linv_bwd_plain, linv_fwd, linv_fwd_plain,
                    matmul)
@@ -78,17 +78,32 @@ class LDLSubstFactors(NamedTuple):
     d: torch.Tensor      # (L, Dp) pivots
 
 
-def _ldl_rec(K: torch.Tensor, Linv: torch.Tensor, d: torch.Tensor) -> None:
-    """Factor the (L, D, D) view K, D a multiple of 128, into the views
-    Linv (L, D, D) and d (L, D); K's trailing blocks are overwritten."""
-    D = K.shape[-1]
-    if D <= B:
-        leaf_ldl(K, out=(Linv, d))
+def _leaf(K: torch.Tensor, out: tuple, block: int) -> None:
+    """A leaf of the recursion into ``out`` = (Linv, d): the leaf kernel
+    at 128 (``leaf.leaf_ldl``), the plain leaf on every device at any other
+    block, where the JAX package reaches no Pallas leaf either
+    (``eicos_tpu.ops.ldl._leaf``)."""
+    if block == B:
+        leaf_ldl(K, out=out)
         return
-    h = (D // B // 2) * B
+    Linv, d = leaf_ldl_plain(K)
+    out[0].copy_(Linv)
+    out[1].copy_(d)
+
+
+def _ldl_rec(K: torch.Tensor, Linv: torch.Tensor, d: torch.Tensor,
+             block: int = B) -> None:
+    """Factor the (L, D, D) view K, D a multiple of ``block``, into the
+    views Linv (L, D, D) and d (L, D); K's trailing blocks are
+    overwritten."""
+    D = K.shape[-1]
+    if D <= block:
+        _leaf(K, (Linv, d), block)
+        return
+    h = (D // block // 2) * block
     L11inv = Linv[:, :h, :h]
     d1 = d[:, :h]
-    _ldl_rec(K[:, :h, :h], L11inv, d1)
+    _ldl_rec(K[:, :h, :h], L11inv, d1, block)
     # K21 = L21 D1 L11^T  =>  L21 = K21 L11^{-T} D1^{-1}
     L21 = matmul(K[:, h:, :h], L11inv.transpose(-1, -2), b_tri="upper")
     L21 /= d1[:, None, :]
@@ -96,7 +111,7 @@ def _ldl_rec(K: torch.Tensor, Linv: torch.Tensor, d: torch.Tensor) -> None:
     matmul(L21 * d1[:, None, :], L21.transpose(-1, -2), c=K22, alpha=-1.0,
            beta=1.0, c_lower=True)
     L22inv = Linv[:, h:, h:]
-    _ldl_rec(K22, L22inv, d[:, h:])
+    _ldl_rec(K22, L22inv, d[:, h:], block)
     # [L11 0; L21 L22]^{-1} = [L11inv 0; -L22inv L21 L11inv, L22inv]
     matmul(L22inv, matmul(L21, L11inv, b_tri="lower"), c=Linv[:, h:, :h],
            alpha=-1.0, a_tri="lower")
@@ -138,11 +153,11 @@ def _ldl_rec_subst(K: torch.Tensor, Linv, Xinv: torch.Tensor,
            alpha=-1.0, a_tri="lower")
 
 
-def _check_padded(K: torch.Tensor):
+def _check_padded(K: torch.Tensor, block: int = B):
     lanes, Dp = K.shape[0], K.shape[-1]
-    if Dp % B or K.shape[-2] != Dp:
-        raise ValueError(f"K must be (L, Dp, Dp) with Dp a multiple of {B}, "
-                         f"got {tuple(K.shape)}")
+    if Dp % block or K.shape[-2] != Dp:
+        raise ValueError(f"K must be (L, Dp, Dp) with Dp a multiple of "
+                         f"{block}, got {tuple(K.shape)}")
     return lanes, Dp
 
 
@@ -160,17 +175,24 @@ def ldl_factor_subst(K: torch.Tensor) -> LDLSubstFactors:
     return LDLSubstFactors(pre=pack_dense(K, Xinv, d), d=d)
 
 
-def ldl_factor(K: torch.Tensor) -> LDLFactors:
+def ldl_factor(K: torch.Tensor, block: int = B) -> LDLFactors:
     """Factor the padded symmetric (L, Dp, Dp) K, f64 or f32, Dp a
-    multiple of 128 (the reference's ``block``), into ``LDLFactors``.  K
-    is consumed: its blocks below the leading one hold Schur complements
-    afterwards, of which only the lower triangles are current (the strict
-    upper triangle of K is left stale)."""
-    lanes, Dp = _check_padded(K)
+    multiple of ``block`` (the reference's ``Settings.block``), into
+    ``LDLFactors``.  K is consumed: its blocks below the leading one hold
+    Schur complements afterwards, of which only the lower triangles are
+    current (the strict upper triangle of K is left stale).
+
+    The inverse solves take multiples of 128, as the JAX package's
+    prechunked operands pad to them: where Dp is not one, the factor is
+    held padded to the next, Linv with zero rows and columns and d with
+    ones there, and ``ldl_solve`` pads the right-hand sides with zeros,
+    which adds exact zeros to every sum."""
+    lanes, Dp = _check_padded(K, block)
+    P = pad_to_block(Dp, B)
     # strictly upper blocks are never written and stay exact zeros
-    Linv = torch.zeros_like(K)
-    d = K.new_empty(lanes, Dp)
-    _ldl_rec(K, Linv, d)
+    Linv = K.new_zeros(lanes, P, P)
+    d = K.new_ones(lanes, P)
+    _ldl_rec(K, Linv[:, :Dp, :Dp], d[:, :Dp], block)
     return LDLFactors(Linv=Linv, d=d)
 
 
@@ -181,6 +203,11 @@ def ldl_solve(fac, rhs: torch.Tensor) -> torch.Tensor:
     which at f32 are two ``torch.matmul``."""
     if isinstance(fac, LDLSubstFactors):
         return dense_solve(fac.pre, rhs)
+    Dp, P = rhs.shape[-1], fac.Linv.shape[-1]
+    if P != Dp:
+        rhs = torch.cat([rhs, rhs.new_zeros(*rhs.shape[:-1], P - Dp)], -1)
     if fac.Linv.dtype == torch.float32:
-        return linv_bwd_plain(fac.Linv, linv_fwd_plain(fac.Linv, fac.d, rhs))
-    return linv_bwd(fac.Linv, linv_fwd(fac.Linv, fac.d, rhs))
+        x = linv_bwd_plain(fac.Linv, linv_fwd_plain(fac.Linv, fac.d, rhs))
+    else:
+        x = linv_bwd(fac.Linv, linv_fwd(fac.Linv, fac.d, rhs))
+    return x[..., :Dp] if P != Dp else x

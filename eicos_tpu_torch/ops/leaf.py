@@ -66,5 +66,5 @@ def leaf_ldl(Ms: torch.Tensor, out: Optional[tuple] = None):
         kernels.launch(fn, Ms.data_ptr(), Ms.stride(0), Ms.stride(1),
                        Linv.data_ptr(), Linv.stride(0), Linv.stride(1),
                        d.data_ptr(), d.stride(0), lanes, kernels.stream(Ms))
-    kernels.COUNTS[name] += 1
+    kernels.count(name)
     return out

@@ -41,7 +41,10 @@ of the pack and the sweeps.  The rescue pass pins "auto" to "inverse"
 ``torch.matmul`` products; the dense strategies on the inverse path,
 "banded" on the scan) under the f64 refinement.  ``deltastat`` is below
 f32's epsilon, so such a solve may end short of OPTIMAL where f64 does
-not, as in the JAX package.  ``block`` must be 128.
+not, as in the JAX package.  ``block`` is the LDL^T block size of every
+strategy (under "banded" the plan's); off 128 the leaves are the plain
+leaf on every device, "banded" runs the scan and the dense strategies the
+inverse path, as in the JAX package, which reaches no Pallas leaf there.
 
 ``verbose_live=True`` prints the reference's iteration table during the
 solve, lane 0's row as each iteration ends (``solver.LiveTable``).

@@ -178,18 +178,33 @@ def _is_better(i: Iterate, o: Iterate):
     return torch.where(infeas_case, sub, regular)
 
 
-def _statistics(st, settings, w: Iterate, G, A, c, h, b, res0s):
+def _statistics(st, settings, w: Iterate, ctx, c, h, b, res0s):
     """computeResiduals + updateStatistics at iterate ``w``: returns the
-    residuals (rx, ry, rz), rt and ``w`` with its statistics filled in."""
+    residuals (rx, ry, rz), rt and ``w`` with its statistics filled in.
+    The products take the context's operands where it has them (two fused
+    products over [G; A] and [A' | G'] where A has rows, as the JAX
+    package's TPU path does), else the dense equilibrated G and A."""
     n, p, m = st.n, st.p, st.m
+    G, A = ctx.G, ctx.A
     lanes = w.x.shape[0]
     resx0, resy0, resz0 = res0s
     zero = w.x.new_zeros(lanes)
-    rx_h = -_vm(w.z, G)
-    if p:
-        rx_h = rx_h - _vm(w.y, A)
-    ry_h = _vm(w.x, A.transpose(-1, -2)) if p else w.x.new_zeros(lanes, 0)
-    rz_h = w.s + _vm(w.x, G.transpose(-1, -2))
+    if p and ctx.sGA is not None:
+        rx_h = -ctx.sGA.rmatmul(torch.cat([w.z, w.y], -1))
+        axgx = ctx.sAGT.rmatmul(w.x)
+        ry_h = axgx[:, :p]
+        rz_h = w.s + axgx[:, p:]
+    elif ctx.sG is not None:
+        rx_h = -ctx.sG.rmatmul(w.z)
+        ry_h = w.x.new_zeros(lanes, 0)
+        rz_h = w.s + ctx.sGT.rmatmul(w.x)
+    else:
+        rx_h = -_vm(w.z, G)
+        if p:
+            rx_h = rx_h - _vm(w.y, A)
+        ry_h = (_vm(w.x, A.transpose(-1, -2)) if p
+                else w.x.new_zeros(lanes, 0))
+        rz_h = w.s + _vm(w.x, G.transpose(-1, -2))
     hresx = _norm(rx_h)
     rx = rx_h - w.tau[:, None] * c
     hresy = _norm(ry_h)
@@ -361,7 +376,7 @@ def solve_batch(structure: ProblemStructure, data: ProblemData,
         stt = state
         i = stt.iter
         (rx, ry, rz), rt, w = _statistics(st, settings, stt.it._replace(
-            iter=i), G, A, c, h, b, res0s)
+            iter=i), ctx, c, h, b, res0s)
         sel = sel_rows[None, :] == i[:, None]
 
         def rec(row, val):
@@ -489,22 +504,22 @@ def solve_batch(structure: ProblemStructure, data: ProblemData,
 
     if live is not None:
         live.trip(state, last=True)
-    return _finish_solution(st, settings, eq, state, (G, A, c, h, b), res0s)
+    return _finish_solution(st, settings, eq, state, ctx, (c, h, b), res0s)
 
 
-def _finish_solution(st, settings, eq, final: LoopState, gacbh,
+def _finish_solution(st, settings, eq, final: LoopState, ctx, cbh,
                      res0s) -> Solution:
     """Exit-time recheck of the certificates at the returned iterate, then
     backscale.  The code is upgraded when the recheck certifies a strictly
     better tier (definitive > reduced accuracy > failure), never
     downgraded.  The in-loop residuals are already exact f64 here, so the
     recheck repeats the reference's tail for parity."""
-    G, A, c, h, b = gacbh
+    c, h, b = cbh
     w = final.it
     code = final.code
     if st.dim_kkt and st.m:
         full_check, red_check = _checks(settings)
-        _, _, w_re = _statistics(st, settings, w, G, A, c, h, b, res0s)
+        _, _, w_re = _statistics(st, settings, w, ctx, c, h, b, res0s)
         code_re_full = full_check(w_re)
         code_re_red = red_check(w_re)
         cand = torch.where(code_re_full != _NOTCONV, code_re_full,

@@ -870,3 +870,157 @@ def test_scan_solver_on_card_matches_cpu(cuda):
     assert torch.equal(gpu.info.iter.cpu(), cpu.info.iter)
     np.testing.assert_allclose(gpu.info.pcost.cpu().numpy(),
                                cpu.info.pcost.numpy(), rtol=1e-8)
+
+
+def spmv_case(rng, km, nm, widths, lanes, per_lane):
+    """A (km, nm) operand (or one a lane) whose column j holds ``widths[j]``
+    nonzeros at random rows, and its ``SparseOperand``."""
+    from eicos_tpu_torch.ops import spmv
+
+    src = np.concatenate([rng.choice(km, size=w, replace=False)
+                          for w in widths]).astype(np.int64)
+    out = np.repeat(np.arange(nm), widths)
+    idx, W = spmv.csc_table(src, out, km, nm)
+    shape = (lanes, km, nm) if per_lane else (km, nm)
+    M = np.zeros(shape)
+    M[..., src, out] = rng.standard_normal((lanes, len(src)) if per_lane
+                                           else len(src))
+    return spmv.SparseOperand(torch.tensor(M, device="cuda"), idx, W)
+
+
+@pytest.mark.parametrize("per_lane", [False, True], ids=["shared", "lanes"])
+@pytest.mark.parametrize("k", [1, 2, 16])
+def test_spmv_kernel_matches_plain(cuda, per_lane, k):
+    """The gather kernel against the plain gather (width groups engaged)
+    on the same inputs: within 1e-14 relative; one launch a product, the
+    same bits on a repeat, and a 2-d argument gives the rows of the 3-d
+    product."""
+    from eicos_tpu_torch.ops import kernels, spmv
+
+    rng = np.random.default_rng(k)
+    km, nm, lanes = 700, 900, 5
+    op = spmv_case(rng, km, nm, rng.choice([0, 1, 1, 2, 3, 7], nm), lanes,
+                   per_lane)
+    assert op.groups is not None
+    a = torch.tensor(rng.standard_normal((lanes, k, km)), device=cuda)
+    want = op.rmatmul_plain(a)
+    before = kernels.COUNTS["spmv"]
+    got = op.rmatmul(a)
+    assert kernels.COUNTS["spmv"] == before + 1
+    assert rel(got, want) <= 1e-14
+    again = spmv.spmv(a, op.colptr, op.rows, op.vals, nm)
+    assert torch.equal(again, got)
+    assert torch.equal(again, spmv.spmv(a, op.colptr, op.rows, op.vals, nm))
+    assert torch.equal(op.rmatmul(a[:, 0]), op.rmatmul(a[:, :1])[:, 0])
+    torch.cuda.synchronize()
+
+
+def test_spmv_wrapper_checks_inputs(cuda):
+    from eicos_tpu_torch.ops import spmv
+
+    rng = np.random.default_rng(0)
+    op = spmv_case(rng, 40, 30, np.ones(30, np.int64), 2, False)
+    a = torch.zeros(2, 1, 40, dtype=torch.float64, device=cuda)
+    with pytest.raises(ValueError):          # f32
+        spmv.spmv(a.float(), op.colptr, op.rows, op.vals, 30)
+    with pytest.raises(ValueError):          # not 3-d
+        spmv.spmv(a[:, 0], op.colptr, op.rows, op.vals, 30)
+    with pytest.raises(ValueError):          # colptr of another length
+        spmv.spmv(a, op.colptr[:-1], op.rows, op.vals, 30)
+    with pytest.raises(ValueError):          # vals of another length
+        spmv.spmv(a, op.colptr, op.rows, op.vals[:-1], 30)
+
+
+@pytest.mark.parametrize("dims,wide", [((12, 2, 3), False),
+                                       ((3, 24, 12), True)])
+def test_operand_path_on_card_matches_cpu(cuda, dims, wide):
+    """A banded batch of four lanes on the card takes the operands (the
+    gather kernel; with A's columns too wide, dgemm on the stacks) and the
+    rotated refinement loop, and ends each lane with the CPU plain path's
+    exit code and iteration count, the objective within 1e-8 relative."""
+    import eicos_tpu_torch as pt
+    from eicos_tpu_torch import corpus, kkt
+    from eicos_tpu_torch.ops import kernels
+    from eicos_tpu_torch.plan import make_band_plan
+
+    st, base = corpus.make_mpc_like(*dims, seed=1)
+    st = st.with_gsplit(base.G, base.A)
+    st = st.with_band_plan(make_band_plan(st, base.G, base.A))
+    rng = np.random.default_rng(7)
+    probs = [pt.ProblemData(G=base.G, A=base.A,
+                            c=base.c + 0.02 * rng.standard_normal(st.n),
+                            h=base.h, b=base.b) for _ in range(4)]
+    shared = ("G", "A", "h")
+    batch = pt.BatchedSolver.stack(probs, shared=shared)
+    settings = pt.Settings(kkt_strategy="banded")
+    ctx = kkt.make_context(st, torch.tensor(base.G, device=cuda),
+                           torch.tensor(base.A, device=cuda), settings)
+    assert (type(ctx.sGA) is kkt.WideOperand) == wide
+    kernels.reset_counts()
+    gpu = pt.BatchedSolver(st, settings, shared=shared).solve(batch)
+    assert kernels.COUNTS["spmv"] > 0
+    assert (kernels.COUNTS["dgemm"] > 0) == wide
+    cpu = pt.BatchedSolver(st, settings, shared=shared,
+                           device="cpu").solve(batch)
+    assert torch.equal(gpu.exit_code.cpu(), cpu.exit_code)
+    assert torch.equal(gpu.info.iter.cpu(), cpu.info.iter)
+    np.testing.assert_allclose(gpu.info.pcost.cpu().numpy(),
+                               cpu.info.pcost.numpy(), rtol=1e-8)
+
+
+@pytest.mark.parametrize("strategy", ["reduced", "banded"])
+def test_block64_on_card_matches_cpu(cuda, strategy):
+    """``Settings(block=64)`` on the card: the plain leaf (no leaf kernel),
+    dgemm in the dense recursion, the inverse-solve kernels on the factor
+    padded to 128; the same code and iterations as the CPU, objective
+    within 1e-8."""
+    import eicos_tpu_torch as pt
+    from eicos_tpu_torch import corpus
+    from eicos_tpu_torch.ops import kernels
+    from eicos_tpu_torch.plan import make_band_plan
+
+    st, d = corpus.make_mpc_like(20, 2, 3, seed=1)
+    st = st.with_gsplit(d.G, d.A)
+    if strategy == "banded":
+        st = st.with_band_plan(make_band_plan(st, d.G, d.A, block=64))
+    cfg = pt.Settings(kkt_strategy=strategy, block=64)
+    kernels.reset_counts()
+    gpu = pt.solve(st, d, cfg)
+    launches = dict(kernels.COUNTS)
+    assert launches["leaf_ldl"] == 0 and launches["spmv"] > 0
+    if strategy == "reduced":
+        assert launches["dgemm"] > 0 and launches["linv_fwd"] > 0
+    cpu = pt.solve(st, d, cfg, device="cpu")
+    assert int(gpu.exit_code) == int(cpu.exit_code) == 0
+    assert int(gpu.info.iter) == int(cpu.info.iter)
+    assert abs(float(gpu.info.pcost) - float(cpu.info.pcost)) <= 1e-8 * abs(
+        float(cpu.info.pcost))
+
+
+def test_mesh_of_visible_cards_matches_unsharded(cuda):
+    """``BatchedSolver(mesh=make_mesh())`` over the visible cards equals
+    the unsharded solve of each shard bit for bit (one card: the whole
+    batch)."""
+    import eicos_tpu_torch as pt
+    from eicos_tpu_torch import corpus
+    from eicos_tpu_torch.parallel import make_mesh
+    from eicos_tpu_torch.plan import make_band_plan
+
+    st, base = corpus.make_mpc_like(12, 2, 3, seed=1)
+    st = st.with_gsplit(base.G, base.A)
+    st = st.with_band_plan(make_band_plan(st, base.G, base.A))
+    mesh = make_mesh()
+    lanes = 2 * len(mesh)
+    rng = np.random.default_rng(7)
+    probs = [pt.ProblemData(G=base.G, A=base.A,
+                            c=base.c + 0.02 * rng.standard_normal(st.n),
+                            h=base.h, b=base.b) for _ in range(lanes)]
+    shared = ("G", "A", "h")
+    settings = pt.Settings(kkt_strategy="banded")
+    sol = pt.BatchedSolver(st, settings, shared=shared, mesh=mesh).solve(
+        pt.BatchedSolver.stack(probs, shared=shared))
+    for i in range(len(mesh)):
+        one = pt.BatchedSolver(st, settings, shared=shared).solve(
+            pt.BatchedSolver.stack(probs[2 * i:2 * i + 2], shared=shared))
+        assert torch.equal(sol.x[2 * i:2 * i + 2], one.x)
+        assert torch.equal(sol.exit_code[2 * i:2 * i + 2], one.exit_code)

@@ -1,8 +1,9 @@
 """The port stands alone: importing it loads neither JAX nor eicos_tpu, its
 sources import neither, and its entry points run on CUDA unless asked for
-the CPU.  The configurations it covers solve as the JAX package solves
-them; the one it does not cover (a block size other than 128) raises."""
+the CPU.  The configurations that once raised solve as the JAX package
+solves them."""
 
+import os
 import pathlib
 import re
 import subprocess
@@ -93,12 +94,12 @@ def test_rescue_is_next_slice(lp):
 
 @pytest.mark.parametrize("case", ["float32", "bwb7", "block64"])
 def test_unported_configurations_raise(lp, case):
-    """A block size other than 128 raises NotImplementedError; nothing
-    falls back.  The two configurations that raised until the banded scan
-    was ported solve as the JAX package solves them: a plan at block
-    bandwidth above 6 (the LP's plan declared at 7) with the same exit
-    code (OPTIMAL) and iteration count and the objective within 1e-8
-    relative; an f32 factor under "banded", on a small SOCP under a
+    """The three configurations that raised until they were ported solve
+    as the JAX package solves them: a block size of 64 under "reduced"
+    (the plain leaf, as the JAX package runs it off 128) with the same
+    exit code (OPTIMAL) and iteration count and the objective within 1e-8
+    relative; a plan at block bandwidth above 6 (the LP's plan declared at
+    7) likewise; an f32 factor under "banded", on a small SOCP under a
     keep_soc plan (an LP's RCM order puts -delta pivots early, which an
     f32 factor does not survive: ROADMAP Queue 3), with the same exit
     code and iteration count and the objective within 1e-6."""
@@ -113,9 +114,15 @@ def test_unported_configurations_raise(lp, case):
 
     st, d = lp
     if case == "block64":
-        with pytest.raises(NotImplementedError):
-            pt.solve(st, d, pt.Settings(kkt_strategy="reduced", block=64),
-                     device="cpu")
+        jst, jd = jcorpus.make_mpc_like(horizon=4, nx=2, nu=2, seed=1)
+        jst = jst.with_gsplit(jd.G, jd.A)
+        cfg = dict(kkt_strategy="reduced", block=64)
+        ref = jt.solve(jst, jd, jt.Settings(**cfg))
+        sol = pt.solve(st, d, pt.Settings(**cfg), device="cpu")
+        assert int(sol.exit_code) == int(ref.exit_code) == 0
+        assert int(sol.info.iter) == int(ref.info.iter)
+        want = float(ref.info.pcost)
+        assert abs(float(sol.info.pcost) - want) <= 1e-8 * abs(want)
         return
     f32 = case == "float32"
     make = jcorpus.make_mpc_soc if f32 else jcorpus.make_mpc_like
@@ -281,3 +288,22 @@ def test_settings_validate_like_reference():
         pt.Settings(kkt_strategy="banded ")
     assert pt.Settings(chunk_store="i8", pallas_leaf="off").block == 128
     assert np.isclose(pt.Settings().deltastat, 7e-8)
+
+
+def test_reference_dir_follows_the_variable(tmp_path):
+    """Both packages read the corpus headers from ``EICOS_REFERENCE_TESTS``
+    when it is set.  Without it each has its own default: the JAX
+    package a fixed absolute path, the port ``reference/test`` inside its
+    checkout."""
+    code = ("import eicos_tpu.corpus as j, eicos_tpu_torch.corpus as p\n"
+            "print(j.REFERENCE_TEST_DIR)\nprint(p.REFERENCE_TEST_DIR)\n")
+    env = dict(os.environ, EICOS_REFERENCE_TESTS=str(tmp_path))
+    out = subprocess.run([sys.executable, "-c", code], check=True,
+                         capture_output=True, text=True, env=env,
+                         cwd=PKG.parent).stdout.split("\n")
+    assert out[0] == out[1] == str(tmp_path)
+    env.pop("EICOS_REFERENCE_TESTS")
+    out = subprocess.run([sys.executable, "-c", code], check=True,
+                         capture_output=True, text=True, env=env,
+                         cwd=PKG.parent).stdout.split("\n")
+    assert out[1] == str(PKG.parent / "reference" / "test")

@@ -1,0 +1,130 @@
+"""The card path's refinement on the CPU: with ``kkt._sliced_live`` forced
+on, the port builds the operands of ``kkt.make_sliced`` from CPU tensors
+(the plain gather and ``torch.matmul``) and refines in the JAX package's
+rotated TPU loop.  Held against the JAX package with its own TPU gate
+(``gemv_ds_available``) forced on, against the port's residual-first loop,
+and counted: one corrective solve and one host sync fewer per refined
+solve."""
+
+import numpy as np
+import pytest
+import torch
+
+import eicos_tpu as jt
+from eicos_tpu import corpus as jcorpus
+from eicos_tpu.ops import pallas_gemm_ds
+from eicos_tpu.plan import make_band_plan as jplan
+
+import eicos_tpu_torch as pt
+from eicos_tpu_torch import corpus, kkt
+from eicos_tpu_torch.ops import spmv
+from eicos_tpu_torch.plan import make_band_plan
+from eicos_tpu_torch.structure import ProblemStructure
+
+
+def lp(banded: bool):
+    st, d = corpus.make_mpc_like(8, 2, 3, seed=1)
+    st = st.with_gsplit(d.G, d.A)
+    if banded:
+        st = st.with_band_plan(make_band_plan(st, d.G, d.A))
+    return st, d
+
+
+def counted_solve(monkeypatch, st, data, settings, live: bool):
+    """Solve with the gate ``live`` and count the corrective solves (calls
+    of every ``solve_exact``), the refined solves that have a lane to
+    refine, and the host syncs."""
+    counts = dict(solves=0, refined=0)
+    real_factor, real_refined = kkt.factor, kkt.solve_refined
+
+    def factor(*args, **kw):
+        solve_exact = real_factor(*args, **kw)
+
+        def counted(rhs):
+            counts["solves"] += 1
+            return solve_exact(rhs)
+        return counted
+
+    def refined(*args, **kw):
+        active = args[6] if len(args) > 6 else kw.get("active")
+        counts["refined"] += int(active is None or bool(active.any()))
+        return real_refined(*args, **kw)
+
+    with monkeypatch.context() as mp:
+        mp.setattr(kkt, "factor", factor)
+        mp.setattr(kkt, "solve_refined", refined)
+        if live:
+            mp.setattr(kkt, "_sliced_live", lambda G: True)
+        syncs0 = kkt.host_syncs
+        sol = pt.solve(st, data, settings, device="cpu")
+        counts["syncs"] = kkt.host_syncs - syncs0
+    return sol, counts
+
+
+def test_banded_operand_path_matches_jax(monkeypatch):
+    """A banded solve of ``make_mpc_like(8, 2, 3, seed=1)`` (gsplit, RCM
+    plan) on the operand path, every operand a gather, against the JAX
+    package on its TPU path's operands and rotated loop (no Pallas call is
+    reached there: every operand is a ``SparseOperand``): the same exit
+    code and iteration count, objectives within 1e-10 relative."""
+    monkeypatch.setattr(pallas_gemm_ds, "gemv_ds_available", lambda: True)
+    jst, jd = jcorpus.make_mpc_like(8, 2, 3, seed=1)
+    jst = jst.with_gsplit(jd.G, jd.A)
+    jst = jst.with_band_plan(jplan(jst, jd.G, jd.A))
+    ref = jt.solve(jst, jd, jt.Settings(kkt_strategy="banded"))
+    st, d = lp(True)
+    monkeypatch.setattr(kkt, "_sliced_live", lambda G: True)
+    ctx = kkt.make_context(st, torch.tensor(d.G), torch.tensor(d.A),
+                           pt.Settings(kkt_strategy="banded"))
+    assert all(type(getattr(ctx, k)) is spmv.SparseOperand for k in (
+        "sG", "sGT", "sA", "sAT", "sGA", "sAGT", "sGe", "sGeT"))
+    sol = pt.solve(st, d, pt.Settings(kkt_strategy="banded"), device="cpu")
+    assert int(sol.exit_code) == int(ref.exit_code) == 0
+    assert int(sol.info.iter) == int(ref.info.iter)
+    want = float(ref.info.pcost)
+    assert abs(float(sol.info.pcost) - want) <= 1e-10 * abs(want)
+
+
+def test_reduced_operand_path_matches_residual_first(monkeypatch):
+    """"reduced" on the operand path against the port's own residual-first
+    solve.  The JAX package cannot be the reference here: with its gate
+    forced on, its dense recursion (``ops/ldl._use_ds_gemm`` reads the
+    same gate) calls the Pallas GEMM, which on the CPU runs only in
+    interpret mode and refuses.  The same exit code and iteration count,
+    objectives within 1e-10 relative."""
+    st, d = lp(False)
+    cfg = pt.Settings(kkt_strategy="reduced")
+    base, c0 = counted_solve(monkeypatch, st, d, cfg, live=False)
+    sol, c1 = counted_solve(monkeypatch, st, d, cfg, live=True)
+    assert int(sol.exit_code) == int(base.exit_code) == 0
+    assert int(sol.info.iter) == int(base.info.iter)
+    want = float(base.info.pcost)
+    assert abs(float(sol.info.pcost) - want) <= 1e-10 * abs(want)
+    assert c1["solves"] < c0["solves"] and c1["syncs"] < c0["syncs"]
+
+
+@pytest.mark.parametrize("strategy", ["reduced", "full"])
+def test_rotated_loop_saves_one_backsolve(monkeypatch, strategy):
+    """The rotated loop does one corrective solve and one host sync fewer
+    per refined solve that has a lane to refine, and otherwise the same
+    arithmetic.  On an LP without equality rows and without a recorded
+    pattern every operand is the dense product of the residual-first path
+    (``torch.matmul`` on the same matrices), so the two solves differ in
+    the loop order alone: the same bits, the same refinement counts."""
+    _, d = corpus.make_mpc_like(8, 2, 3, seed=1)
+    m, n = d.G.shape
+    st = ProblemStructure.create(n, 0, m, m)
+    data = pt.ProblemData(G=d.G, A=np.zeros((0, n)), c=d.c, h=d.h,
+                          b=np.zeros(0))
+    cfg = pt.Settings(kkt_strategy=strategy)
+    base, c0 = counted_solve(monkeypatch, st, data, cfg, live=False)
+    sol, c1 = counted_solve(monkeypatch, st, data, cfg, live=True)
+    assert int(base.exit_code) == 0
+    for a, b in ((sol.x, base.x), (sol.z, base.z), (sol.info.iter,
+                                                    base.info.iter)):
+        assert torch.equal(a, b)
+    for a, b in zip(sol.history[9:], base.history[9:]):
+        assert torch.equal(a, b)
+    assert c0["refined"] == c1["refined"] > 0
+    assert c1["solves"] == c0["solves"] - c0["refined"]
+    assert c1["syncs"] == c0["syncs"] - c0["refined"]
