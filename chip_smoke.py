@@ -8,8 +8,11 @@ port's paths through its entry points:
      them the recursion's products with their structure flags, its
      machine code checked for DMMA, the two inverse-solve passes, the
      substitution pack and its two sweeps; the gather kernel of the
-     residual products on phase 2's six operands and phase 12's two at
-     128 lanes, beside the dense product and ``torch.sparse``; dgemm as
+     residual products, fused with each product site's concatenation and
+     affine tail, on phase 2's six operands and phase 12's two at 128
+     lanes in every site's form, bit for bit against the unfused sequence
+     it replaces, timed over back-to-back launches beside the dense
+     product and ``torch.sparse``; dgemm as
      K12 on the wide operands of phases 7 and 12, sA, sAT, sGA, sAGT, at
      their lanes and at 128);
   2. the main path as bench.py configures it: the 128-lane MPC01-scale
@@ -68,8 +71,9 @@ CPU plain path on lane 0, repeat bit for bit, and end every lane OPTIMAL;
 lanes that do not must end with the same code on the CPU plain path.
 Phases 2, 6, 7 and 12 must launch the gather kernel (their residual,
 elimination and computeResiduals products), 7 and 12 also dgemm (their
-wide operands), and print their sweep pairs, host syncs and product
-time before the gates.
+wide operands), give the bits of a solve through the unfused sequence
+(the gather kernel, then the product sites' torch ops), and print their
+sweep pairs, host syncs and product time before the gates.
 
     python3 chip_smoke.py
 
@@ -596,7 +600,9 @@ def dgemm_sass(kernels):
 def spmv_cases(torch, corpus, kkt):
     """The operands the gather kernel gets on the paths: phase 2's six
     (sG, sGT, sA, sAT and the stacks sGA, sAGT) and phase 12's sG, sGT,
-    with the dense matrix each replaces, from the raw G and A."""
+    with the dense matrix each replaces, from the raw G and A, and where
+    the sites split the contraction input (sGA: [z | y] at m) and the
+    output (sAGT: [y | z] at p); the other operands split at a third."""
     out = []
     for label, kw, keys in (
             ("phase 2", dict(horizon=HORIZON, nx=NX, nu=NU, seed=3),
@@ -610,61 +616,226 @@ def spmv_cases(torch, corpus, kkt):
                      sGA=torch.cat([G, A]), sAGT=torch.cat([A.T, G.T], 1))
         ops = kkt.make_sliced(st, G, A, st.m)
         for key in keys:
-            out.append((label, key, ops[key], dense[key].contiguous()))
+            op = ops[key]
+            km0 = st.m if key == "sGA" else op.km // 3
+            split = st.p if key == "sAGT" else op.nm // 3
+            out.append((label, key, op, dense[key].contiguous(), km0, split))
         del G, A, ops, dense
     return out
 
 
+def loop_ms(torch, fn, n=20, reps=5):
+    """Device time of one call of ``fn`` in ms: CUDA events around ``n``
+    back-to-back calls, divided by ``n``, median of ``reps``; and the
+    host's time to queue one call, in ms.  The stream first spins
+    (``torch.cuda._sleep``) for longer than the host takes to queue the
+    ``n`` calls, so the device runs them back to back and the events read
+    the device, not the host's launch path, while the host's clock reads
+    the launch path alone."""
+    fn()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    for _ in range(n):
+        fn()
+    host = time.perf_counter() - t0
+    torch.cuda.synchronize()
+    cycles = int(min(max(3 * host, 1e-3), 0.5) * 2.0e9)
+    times, queue = [], []
+    for _ in range(reps):
+        e0 = torch.cuda.Event(enable_timing=True)
+        e1 = torch.cuda.Event(enable_timing=True)
+        torch.cuda._sleep(cycles)
+        e0.record()
+        t0 = time.perf_counter()
+        for _ in range(n):
+            fn()
+        queue.append((time.perf_counter() - t0) * 1e3 / n)
+        e1.record()
+        e1.synchronize()
+        times.append(e0.elapsed_time(e1) / n)
+    return float(np.median(times)), float(np.median(queue))
+
+
+SPMV_FORMS = ("product", "rx", "elim", "elim_t", "ex", "eyz", "ryz")
+# the spmv record's keys beyond the common ones: the residual's fused form
+# "ex" and the sequence it replaces (device and host time a call, and the
+# bound with the epilogue's bytes), the dense product, and the profiler's
+# device time a launch in phase 2's solve
+SPMV_EXTRA = ("fused_ms", "unfused_ms", "fused_bound_ms", "fused_host_ms",
+              "unfused_host_ms", "dense_ms", "solve_ms_a_launch")
+
+
+def spmv_form(torch, form, a, nm, km0, split, rnd, delta=3e-8):
+    """One epilogue form of the fused call, as a product site calls it,
+    on the input ``a`` (L, k, km) (two-segment forms take its two views
+    split at ``km0``, as [z | y]; split forms split the output at
+    ``split``, as [y | z]): the fused call's keywords (``a`` the first
+    segment) and the sequence it replaces, given ``K``, the kernel with no
+    epilogue on the concatenation: K, then the site's torch ops as they
+    ran before the fusion.  Bases and x are strided views of one
+    right-hand side, as at the sites."""
+    a0, a1 = a[..., :km0], a[..., km0:]
+    rhs = rnd(3 * nm + 7)
+    base, x = rhs[..., 3:3 + nm], rhs[..., nm + 5:2 * nm + 5]
+    b0, b1 = base[..., :split], base[..., split:]
+    x0, x1 = x[..., :split], x[..., split:]
+    w = rnd(nm - split)
+    if form == "product":
+        return dict(a=a), lambda K: K(a)
+    if form == "rx":                    # -[G; A]'[z | y]
+        return (dict(a=a0, a2=a1, op="sub"),
+                lambda K: -K(torch.cat([a0, a1], -1)))
+    if form == "elim":                  # bx + G' welim(bz)
+        return dict(a=a, base=base), lambda K: base + K(a)
+    if form == "elim_t":                # G dx - bz
+        return dict(a=a, base=base, op="rsub"), lambda K: K(a) - base
+    if form == "ex":                    # bx - [G; A]'[dz | dy] - d dx
+        return (dict(a=a0, a2=a1, base=base, op="sub", gamma=-delta, x=x),
+                lambda K: base - K(torch.cat([a0, a1], -1)) - delta * x)
+    if form == "eyz":                   # [by - A dx + d dy | bz - G dx + Wdz + d dz]
+        def seq(K):
+            t = K(a)
+            return torch.cat([b0 - t[..., :split] + delta * x0,
+                              b1 - t[..., split:] + w + delta * x1], -1)
+        return (dict(a=a, base=(b0, b1), op="sub", w=(None, w), gamma=delta,
+                     x=(x0, x1), split=split), seq)
+    assert form == "ryz"                # [A x | s + G x]
+
+    def seq(K):
+        t = K(a)
+        return torch.cat([t[..., :split], b1 + t[..., split:]], -1)
+    return dict(a=a, base=(None, b1), split=split), seq
+
+
+def epilogue_reads(kw, nm):
+    """Output-shaped inputs the epilogue reads, in columns a row."""
+    split = kw.get("split")
+    cols = 0
+    for name in ("base", "w", "x"):
+        v = kw.get(name)
+        if isinstance(v, tuple):
+            cols += sum(c for t, c in zip(v, (split, nm - split))
+                        if t is not None)
+        elif v is not None:
+            cols += nm
+    return cols
+
+
+def bits_equal(torch, a, b):
+    """Bit for bit, signed zeros included."""
+    return torch.equal(a.view(torch.int64), b.view(torch.int64))
+
+
 def check_spmv_kernel(torch, corpus, kkt, spmv):
-    """The gather kernel (``csrc/spmv.cu``, one launch a product) on the
-    paths' operands at 128 lanes and k = 1, 2 against its plain version
-    (the JAX package's width-grouped gather), beside the dense
-    ``torch.matmul`` it replaces and ``torch.sparse`` CSR @ on the same
-    operand.  Returns its record (the headline: ``SPMV_RECORD``)."""
+    """The gather kernel (``csrc/spmv.cu``, one launch a fused product) on
+    the paths' operands at 128 lanes and k = 1, 2, in every epilogue form
+    of the product sites (``SPMV_FORMS``): within ``SPMV_TOL`` of its
+    plain version (``rmatmul_plain``, the JAX package's width-grouped
+    gather, then ``spmv.fused_tail``), and bit for bit equal to the
+    sequence it replaces (the kernel with no epilogue, then the site's
+    torch ops) and to its repeat.  ``elim_t`` sets a tenth of its base to
+    the product, so those zeros carry acc - base's sign.  Times by
+    ``loop_ms``: the product, its plain version, the dense
+    ``torch.matmul`` it replaces
+    and ``torch.sparse`` CSR @ on the same operand; each fused form beside
+    the sequence it replaces.  Returns its record (the headline:
+    ``SPMV_RECORD``, the product and the residual's fused form "ex")."""
     record = None
     worst = 0.0
     gen = torch.Generator(device="cuda").manual_seed(11)
-    for label, key, op, M in spmv_cases(torch, corpus, kkt):
+    for label, key, op, M, km0, split in spmv_cases(torch, corpus, kkt):
         if not isinstance(op, spmv.SparseOperand):
             fail(f"spmv: {label} {key} is not a gather operand")
         csr = M.T.to_sparse_csr()
         nnz = op.rows.numel()
+        table = nnz * 12 + (op.nm + 1) * 4
+
+        def K(a):
+            return spmv.spmv(a.contiguous(), op.colptr, op.rows, op.vals,
+                             op.nm)
+
         for k in (1, 2):
-            a = torch.randn(LANES, k, op.km, generator=gen, device="cuda",
-                            dtype=torch.float64)
-            want = op.rmatmul_plain(a)
-            got = op.rmatmul(a)
-            torch.cuda.synchronize()
-            err = rel_err(got, want)
-            worst = max(worst, err)
             rows = LANES * k
-            at = a.reshape(rows, op.km).T.contiguous()
-            times = dict(
-                ms=cuda_ms(lambda: op.rmatmul(a)),
-                plain_ms=cuda_ms(lambda: op.rmatmul_plain(a)),
-                dense_ms=cuda_ms(lambda: torch.matmul(a, M)),
-                library_ms=cuda_ms(lambda: torch.sparse.mm(csr, at)))
-            b_ms, b_by = bound(rows * (op.km + op.nm) * 8
-                               + nnz * 12 + (op.nm + 1) * 4, 2 * nnz * rows)
-            print(f"spmv {label} {key}: ({LANES}, {k}, {op.km}) @ ({op.km}, "
-                  f"{op.nm}), {nnz} nonzeros, W {op.W}: "
-                  + ", ".join(f"{n} {v:.4f}" for n, v in times.items())
-                  + f"; bound {b_ms:.5f} ms by {b_by}; rel err {err:.2e}")
-            if (key, k) == SPMV_RECORD and label == "phase 2":
-                record = dict(
-                    name="spmv", route="cuda",
-                    source="eicos_tpu_torch/csrc/spmv.cu",
-                    replaces="eicos_tpu/ops/spmv.py:112 (SparseOperand."
-                             "rmatmul, an XLA gather: no Pallas kernel)",
-                    launches=0, max_abs_err=float((got - want).abs().max()),
-                    ms=times["ms"], plain_ms=times["plain_ms"],
-                    bound_ms=b_ms, bound_by=b_by,
-                    library_ms=times["library_ms"],
-                    dense_ms=times["dense_ms"])
-            del a, at, want, got
+
+            def rnd(cols):
+                return torch.randn(LANES, k, cols, generator=gen,
+                                   device="cuda", dtype=torch.float64)
+
+            a = rnd(op.km)
+            head = (key, k) == SPMV_RECORD and label == "phase 2"
+            fused = {}
+            for form in SPMV_FORMS:
+                kw, seq = spmv_form(torch, form, a, op.nm, km0, split, rnd)
+                if form == "elim_t":
+                    kw["base"][..., ::10] = K(a)[..., ::10]
+                first = kw.pop("a")
+                tail = {n: v for n, v in kw.items() if n != "a2"}
+                want = spmv.fused_tail(op.rmatmul_plain(a), **tail)
+                got = op.rmatmul_fused(first, **kw)
+                again = op.rmatmul_fused(first, **kw)
+                old = seq(K)
+                torch.cuda.synchronize()
+                err = rel_err(got, want)
+                worst = max(worst, err)
+                if not (bits_equal(torch, got, old)
+                        and bits_equal(torch, got, again)):
+                    fail(f"spmv {label} {key} k={k} {form}: the fused call's "
+                         f"bits differ from the sequence it replaces or from "
+                         f"its repeat")
+                if form == "elim_t" and not bool((got[..., ::10] == 0).all()):
+                    fail(f"spmv {label} {key} k={k}: acc - base gave no zero")
+                if form != "product":
+                    fused[form] = (
+                        *loop_ms(torch, lambda: op.rmatmul_fused(first, **kw)),
+                        *loop_ms(torch, lambda: seq(K), reps=3),
+                        bound(rows * (op.km + op.nm
+                                      + epilogue_reads(kw, op.nm)) * 8
+                              + table, 2 * nnz * rows)[0], err)
+                    continue
+                at = a.reshape(rows, op.km).T.contiguous()
+                times = dict(
+                    ms=loop_ms(torch, lambda: op.rmatmul(a))[0],
+                    plain_ms=loop_ms(torch, lambda: op.rmatmul_plain(a),
+                                     reps=3)[0],
+                    dense_ms=loop_ms(torch, lambda: torch.matmul(a, M),
+                                     reps=3)[0],
+                    library_ms=loop_ms(torch, lambda: torch.sparse.mm(
+                        csr, at), reps=3)[0])
+                b_ms, b_by = bound(rows * (op.km + op.nm) * 8 + table,
+                                   2 * nnz * rows)
+                print(f"spmv {label} {key}: ({LANES}, {k}, {op.km}) @ "
+                      f"({op.km}, {op.nm}), {nnz} nonzeros, W {op.W}: "
+                      + ", ".join(f"{n} {v:.4f}" for n, v in times.items())
+                      + f"; bound {b_ms:.5f} ms by {b_by} "
+                      f"({b_ms / times['ms']:.1%} of ms); rel err {err:.2e}")
+                if head:
+                    record = dict(
+                        name="spmv", route="cuda",
+                        source="eicos_tpu_torch/csrc/spmv.cu",
+                        replaces="eicos_tpu/ops/spmv.py:114 (SparseOperand."
+                                 "rmatmul, an XLA gather: no Pallas kernel)",
+                        launches=0,
+                        max_abs_err=float((got - want).abs().max()),
+                        ms=times["ms"], plain_ms=times["plain_ms"],
+                        bound_ms=b_ms, bound_by=b_by,
+                        library_ms=times["library_ms"],
+                        dense_ms=times["dense_ms"])
+                del at
+            print(f"spmv {label} {key} k={k}, fused forms (device ms, host "
+                  f"ms a call; the sequence it replaces, the same; bound "
+                  f"with the epilogue's bytes, ms; rel err): " + "; ".join(
+                      f"{f} {v[0]:.4f}, {v[1]:.4f}; {v[2]:.4f}, {v[3]:.4f}; "
+                      f"{v[4]:.5f}; {v[5]:.1e}" for f, v in fused.items()))
+            if head:
+                f_ms, f_host, s_ms, s_host, fb_ms, _ = fused["ex"]
+                record.update(fused_ms=f_ms, unfused_ms=s_ms,
+                              fused_bound_ms=fb_ms, fused_host_ms=f_host,
+                              unfused_host_ms=s_host)
+            del a, want, got, again, old
         del csr
-    print(f"spmv: max rel err vs plain over every case {worst:.3e} "
-          f"(tolerance {SPMV_TOL})")
+    print(f"spmv: max rel err vs plain over every case and form {worst:.3e} "
+          f"(tolerance {SPMV_TOL}); every fused call bit-equal to the "
+          f"sequence it replaces and to its repeat")
     if not worst <= SPMV_TOL:
         fail("spmv: the gather kernel disagrees with its plain version")
     torch.cuda.empty_cache()
@@ -1184,11 +1355,13 @@ def build_wide_batch(pt, corpus, make_band_plan):
     return perturbed_lanes(pt, st, base, WIDE_LANES, WIDE["nx"], 7)
 
 
-def profile_solve(torch, bs, batch, cuda_only=False):
-    """Device time by kernel over one solve (torch.profiler) and the
-    device's idle share of the solve's wall time.  ``cuda_only`` records
-    the device activity alone: a solve of ~10^6 launches (the scan) takes
-    minutes of the profiler's host-side processing with the CPU's."""
+def profile_solve(torch, bs, batch, cuda_only=False, label="profile"):
+    """Device time by kernel over one solve (torch.profiler), the
+    device's idle share of the solve's wall time and the solve's kernel
+    launches, all kernels counted.  ``cuda_only`` records the device
+    activity alone: a solve of ~10^6 launches (the scan) takes minutes of
+    the profiler's host-side processing with the CPU's.  Returns the
+    spmv kernel's device time a launch in ms (None without a trace)."""
     from torch.profiler import ProfilerActivity, profile
 
     acts = [ProfilerActivity.CUDA]
@@ -1215,18 +1388,22 @@ def profile_solve(torch, bs, batch, cuda_only=False):
     rows.sort(reverse=True)
     busy = sum(r[0] for r in rows)
     if not rows:
-        print("profile: no device time in the trace (not measured)")
-        return
-    print(f"profile: one solve {wall * 1e3:.1f} ms wall, device busy "
+        print(f"{label}: no device time in the trace (not measured)")
+        return None
+    print(f"{label}: one solve {wall * 1e3:.1f} ms wall, device busy "
           f"{busy:.1f} ms (idle share {1 - busy / (wall * 1e3):.3f}); "
           f"{sum(r[2] for r in rows)} kernel launches; the profile took "
           f"{time.perf_counter() - t_prof:.1f} s")
     for ms, key, count in rows[:10]:
         print(f"  {ms:9.3f} ms  {count:6d}x  {key[:90]}")
+    per_launch = {}
     for name in ("spmv", "dgemm"):
         mine = [r for r in rows if name in r[1]]
-        print(f"  {name} kernels: {sum(r[0] for r in mine):.3f} ms in "
-              f"{sum(r[2] for r in mine)} launches")
+        ms, count = sum(r[0] for r in mine), sum(r[2] for r in mine)
+        per_launch[name] = ms / count if count else None
+        print(f"  {name} kernels: {ms:.3f} ms in {count} launches"
+              + (f", {ms / count * 1e3:.2f} us a launch" if count else ""))
+    return per_launch["spmv"]
 
 
 def drive(torch, kernels, kkt, bs, batch):
@@ -1280,6 +1457,30 @@ def same_bits(torch, first, again, label):
     print(f"{label}: a repeated solve gives the same bits: {same}")
     if not same:
         fail(f"{label}: two solves of the same batch differ")
+
+
+def same_bits_unfused(torch, bs, batch, first, label):
+    """A solve with every fused gather call (``SparseOperand.
+    rmatmul_fused``) run as the sequence it replaces, the kernel with no
+    epilogue on the concatenated input and then ``spmv.fused_tail``'s torch
+    ops, as the product sites ran before the fusion, must give the bits
+    of ``first``."""
+    from eicos_tpu_torch.ops import spmv
+
+    real = spmv.SparseOperand.rmatmul_fused
+
+    def unfused(self, a, a2=None, base=None, op="add", w=None, gamma=0.0,
+                x=None, split=None):
+        ab = a if a2 is None else torch.cat([a, a2], -1)
+        return spmv.fused_tail(real(self, ab), base, op, w, gamma, x, split)
+
+    spmv.SparseOperand.rmatmul_fused = unfused
+    try:
+        sol = bs.solve(batch)
+        torch.cuda.synchronize()
+    finally:
+        spmv.SparseOperand.rmatmul_fused = real
+    same_bits(torch, first, sol, f"{label}, the unfused sequence's solve")
 
 
 def outcome(sol, label):
@@ -1406,6 +1607,8 @@ def run_path(torch, pt, kernels, kkt, label, st, probs, batch, shared,
     solve (all printed before the gates), the bit-repeat check, the exit
     codes before and after the rescue, every lane OPTIMAL (or as on the
     CPU), lane 0 on the CPU plain path.
+    A path that launches the gather kernel also gives the bits of its
+    unfused sequence (``same_bits_unfused``).
     Returns the launch counts and the solution of the first solve."""
     lanes = len(probs)
     bs = pt.BatchedSolver(st, settings, shared=shared, rescue=rescue)
@@ -1417,8 +1620,10 @@ def run_path(torch, pt, kernels, kkt, label, st, probs, batch, shared,
     need_launched(launches, names, label)
     first = sol
     sol, _ = timed(torch, bs, batch, lanes, reps)
-    profile_solve(torch, bs, batch, cuda_only)
+    profile_solve(torch, bs, batch, cuda_only, label=f"{label}, profile")
     same_bits(torch, first, sol, label)
+    if "spmv" in names:
+        same_bits_unfused(torch, bs, batch, first, label)
     del first
     if rescue is not None:
         outcome(pt.BatchedSolver(st, settings, shared=shared).solve(batch),
@@ -1885,8 +2090,10 @@ def main():
     spmv_record["launches"] = launches["spmv"]
     first = sol
     sol, _ = timed(torch, bs, batch, LANES)
-    profile_solve(torch, bs, batch)
+    spmv_record["solve_ms_a_launch"] = profile_solve(
+        torch, bs, batch, label="main path (phase 2), profile")
     same_bits(torch, first, sol, "main path")
+    same_bits_unfused(torch, bs, batch, first, "main path")
     codes, iters, hist = outcome(sol, "main path")
     if hist != {0: LANES}:
         fail(f"not every lane exited OPTIMAL: {hist}")
@@ -2216,6 +2423,8 @@ def main():
         | ({"bw3": wide[r["name"]]} if r["name"] in wide else {})
         | ({"scan": scan[r["name"]]} if r["name"] in scan else {})
         | ({"k12": k12_record} if r["name"] == "dgemm" else {})
+        | ({"fused": {k: r[k] for k in SPMV_EXTRA}}
+           if r["name"] == "spmv" else {})
         for r in band_records + dense_records + subst_records
         + [spmv_record]]}))
     print(smi)

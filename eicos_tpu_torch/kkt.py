@@ -114,7 +114,7 @@ from .ops.band import band_factor, band_solve
 from .ops.band_ldl import B, KP
 from .ops.gemm import matmul
 from .ops.ldl import ldl_factor, ldl_factor_subst, ldl_solve, pad_to_block
-from .ops.spmv import SparseOperand, SparsePattern, csc_table
+from .ops.spmv import SparseOperand, SparsePattern, csc_table, fused_tail
 from .segsum import SegmentSum, segment_map, segment_sum
 from .structure import ProblemStructure
 
@@ -511,6 +511,13 @@ class WideOperand:
         if a.dim() == 2:
             return matmul(a[:, None], self.bmat)[:, 0]
         return matmul(a, self.bmat)
+
+    def rmatmul_fused(self, a, a2=None, base=None, op="add", w=None,
+                      gamma=0.0, x=None, split=None):
+        """``SparseOperand.rmatmul_fused``'s function: the product of the
+        concatenation, then ``spmv.fused_tail``'s torch ops."""
+        ab = a if a2 is None else torch.cat([a, a2], -1)
+        return fused_tail(self.rmatmul(ab), base, op, w, gamma, x, split)
 
 
 def _sliced_live(G: torch.Tensor) -> bool:
@@ -1065,7 +1072,7 @@ def factor(st: ProblemStructure, ctx: KKTContext,
         if not me:
             r1 = bx
         elif oz:
-            r1 = bx + ctx.sGe.rmatmul(welim(bz_e))
+            r1 = ctx.sGe.rmatmul_fused(welim(bz_e), base=bx)
         else:
             r1 = bx + welim(bz_e) @ Ge
         rr = torch.cat([bz_s, r1, by,
@@ -1078,7 +1085,7 @@ def factor(st: ProblemStructure, ctx: KKTContext,
         if not me:
             dz_e = bz_e
         elif oz:
-            dz_e = welim(ctx.sGeT.rmatmul(dx) - bz_e)
+            dz_e = welim(ctx.sGeT.rmatmul_fused(dx, base=bz_e, op="rsub"))
         else:
             dz_e = welim(dx @ Ge.transpose(-1, -2) - bz_e)
         dz = torch.cat([dz_e, dzs], -1)
@@ -1126,17 +1133,24 @@ def solve_refined(st: ProblemStructure, ctx: KKTContext, solve_exact,
         # ez = bz - G dx + W^2 dz + d dz
         Wdz = (dz if scal is None or not m
                else cones.scale2(st.cone, scal, dz))
+        # on the operands each product and its tail is one fused call
+        # (``spmv.fused_tail``: y - d * x as y + (-d) * x, the same bits)
         if m and p and ctx.sGA is not None:
-            ex = bx - ctx.sGA.rmatmul(torch.cat([dz, dy], -1)) - delta * dx
-            axgx = ctx.sAGT.rmatmul(dx)
-            ey = by - axgx[..., :p] + delta * dy
-            ez = bz - axgx[..., p:] + Wdz + delta * dz
+            ex = ctx.sGA.rmatmul_fused(dz, dy, base=bx, op="sub",
+                                       gamma=-delta, x=dx)
+            eyz = ctx.sAGT.rmatmul_fused(dx, base=(by, bz), op="sub",
+                                         w=(None, Wdz), gamma=delta,
+                                         x=(dy, dz), split=p)
+            ey, ez = eyz[..., :p], eyz[..., p:]
         elif ctx.sG is not None:
-            ex = bx - (ctx.sG.rmatmul(dz) if m else 0.0) - delta * dx
+            ex = (ctx.sG.rmatmul_fused(dz, base=bx, op="sub", gamma=-delta,
+                                       x=dx) if m else bx - 0.0 - delta * dx)
             if p:
-                ex = ex - ctx.sA.rmatmul(dy)
-            ey = (by - ctx.sAT.rmatmul(dx) + delta * dy) if p else by
-            ez = (bz - ctx.sGT.rmatmul(dx) + Wdz + delta * dz) if m else bz
+                ex = ctx.sA.rmatmul_fused(dy, base=ex, op="sub")
+            ey = (ctx.sAT.rmatmul_fused(dx, base=by, op="sub", gamma=delta,
+                                        x=dy) if p else by)
+            ez = (ctx.sGT.rmatmul_fused(dx, base=bz, op="sub", w=Wdz,
+                                        gamma=delta, x=dz) if m else bz)
         else:
             ex = bx - (dz @ G if m else 0.0) - delta * dx
             if p:

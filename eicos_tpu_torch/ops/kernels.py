@@ -58,7 +58,7 @@ LIBS = {
                     {"eicos_dense_fwd": [_P] * 5 + [_I, _I, _I, _P],
                      "eicos_dense_bwd": [_P] * 4 + [_I, _I, _I, _P]}),
     "spmv": ("spmv.cu",
-             {"eicos_spmv": [_P] * 4 + [_LL, _P] + [_I] * 4 + [_P]}),
+             {"eicos_spmv": [_P, _P]}),
 }
 
 COUNTS = {"band_factor_bw": 0, "band_fwd_bw": 0, "band_bwd_bw": 0,

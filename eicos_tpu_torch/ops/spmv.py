@@ -13,17 +13,24 @@ table, or refuses an operand whose widest column has more than
 per structure; a solve's ``SparseOperand`` only gathers the coefficients
 from the equilibrated matrix.
 
-For a CUDA tensor ``SparseOperand.rmatmul`` launches ``csrc/spmv.cu`` (one
-launch a product, counted in ``kernels.COUNTS["spmv"]``) on a CSC form of
-the same table; for a CPU tensor it runs ``rmatmul_plain``, the JAX
-package's gather with its width groups, so the two can be held against
-each other on one table.  The JAX package computes this product as an XLA
-gather, not a Pallas kernel: the kernel has no TPU counterpart.
+For a CUDA tensor ``SparseOperand.rmatmul_fused`` launches ``csrc/spmv.cu``
+(one launch a product, counted in ``kernels.COUNTS["spmv"]``) on a CSC
+form of the same table, with the product site's work around it in the
+same pass: a contraction input in two segments ``[a | a2]`` in place of a
+``torch.cat``, and the affine tail ``((base op acc) + w) + gamma x`` of
+``fused_tail``, optionally in two column segments.  For a CPU tensor it
+runs ``rmatmul_plain``, the JAX package's gather with its width groups,
+then ``fused_tail``'s torch ops, so the two can be held against each
+other on one table.  The JAX package computes this product as an XLA
+gather, not a Pallas kernel, inside a jitted step where XLA fuses the
+tail: the kernel has no TPU counterpart.
 """
 
 from __future__ import annotations
 
+import ctypes
 import functools
+import struct
 
 import numpy as np
 import torch
@@ -31,6 +38,42 @@ import torch
 from . import kernels
 
 WIDTH_MAX = 16
+OPS = {"add": 0, "sub": 1, "rsub": 2}     # base + acc, base - acc, acc - base
+
+
+def _tail(y, base, op, w, gamma, x):
+    if base is not None:
+        y = (base + y if op == "add" else base - y if op == "sub"
+             else y - base)
+    elif op == "sub":
+        y = -y
+    if w is not None:
+        y = y + w
+    if x is not None:
+        y = y + gamma * x
+    return y
+
+
+def _pair(v):
+    return (None, None) if v is None else tuple(v)
+
+
+def fused_tail(acc, base=None, op="add", w=None, gamma=0.0, x=None,
+               split=None):
+    """The fused call's epilogue as torch ops: ``((base op acc) + w) +
+    gamma * x``, each term optional, op "add" (base + acc), "sub" (base -
+    acc; no base: -acc) or "rsub" (acc - base), rounded op by op in this
+    order, as the kernel rounds them.  With ``split`` the columns below it
+    take the first of each pair ``base``, ``w``, ``x`` and the others the
+    second (either may be None).  ``y + gamma * x`` with gamma = -d gives
+    the bits of ``y - d * x``: IEEE defines a - b as a + (-b)."""
+    if op not in OPS:
+        raise ValueError(f"op must be one of {sorted(OPS)}, got {op!r}")
+    if split is None:
+        return _tail(acc, base, op, w, gamma, x)
+    (b0, b1), (w0, w1), (x0, x1) = _pair(base), _pair(w), _pair(x)
+    return torch.cat([_tail(acc[..., :split], b0, op, w0, gamma, x0),
+                      _tail(acc[..., split:], b1, op, w1, gamma, x1)], -1)
 
 
 def csc_table(src, out, km: int, nm: int):
@@ -134,6 +177,7 @@ class SparseOperand:
         self.km, self.nm, self.W = km, nm, pattern.W
         self.colptr, self.rows = pattern.colptr, pattern.rows
         self.vals = bmat[..., pattern.src, pattern.cols]   # ([L,] nnz)
+        self._table = None      # the kernel's table arguments, checked once
 
     @functools.cached_property
     def coef(self) -> torch.Tensor:
@@ -182,38 +226,155 @@ class SparseOperand:
     def rmatmul(self, a: torch.Tensor) -> torch.Tensor:
         """x @ M for a (L, k, km) or (L, km) f64: the kernel on a CUDA
         tensor, the plain version on a CPU one."""
+        return self.rmatmul_fused(a)
+
+    def rmatmul_fused(self, a: torch.Tensor, a2: torch.Tensor = None,
+                      base=None, op: str = "add", w=None, gamma: float = 0.0,
+                      x=None, split: int = None) -> torch.Tensor:
+        """``fused_tail(([a | a2]) @ M, base, op, w, gamma, x, split)``:
+        one kernel launch on a CUDA tensor; on a CPU one ``rmatmul_plain``
+        of the concatenation, then ``fused_tail``'s torch ops.  ``a`` (L,
+        k, km0) or (L, km0), ``a2`` the remaining km - km0 columns of the
+        contraction input (or None); ``base``, ``w``, ``x`` (pairs with
+        ``split``) strided views of the output's shape (L, k, nm) or (L,
+        nm) with unit column stride."""
         if kernels.on_cpu(a):
-            return self.rmatmul_plain(a)
-        a3, flat = self._lanes(a)
-        res = spmv(a3.contiguous(), self.colptr, self.rows, self.vals,
-                   self.nm)
-        return res[:, 0] if flat else res
+            ab = a if a2 is None else torch.cat([a, a2], -1)
+            return fused_tail(self.rmatmul_plain(ab), base, op, w, gamma, x,
+                              split)
+        if self._table is None:
+            self._table = _table(self.colptr, self.rows, self.vals, self.nm,
+                                 a.device)
+        if a.dim() == 3:
+            return _launch(a, a2, self._table, self.nm, base, op, w, gamma,
+                           x, split)
+        if split is None:
+            base, w, x = _lift(base), _lift(w), _lift(x)
+        else:
+            base, w, x = _lift_pair(base), _lift_pair(w), _lift_pair(x)
+        return _launch(a[:, None], _lift(a2), self._table, self.nm, base, op,
+                       w, gamma, x, split)[:, 0]
 
 
-def spmv(a: torch.Tensor, colptr: torch.Tensor, rows: torch.Tensor,
-         vals: torch.Tensor, nm: int) -> torch.Tensor:
-    """out[l, r, j] = sum_t vals[l, t] a[l, r, rows[t]] over t in
-    colptr[j]..colptr[j+1], in that order, on the card.  ``a`` (L, k, km)
-    f64 contiguous, ``colptr`` (nm + 1,) and ``rows`` (nnz,) int32,
-    ``vals`` (nnz,) shared or (L, nnz) per lane."""
-    if a.dim() != 3:
-        raise ValueError(f"spmv: a must be (L, k, km), got {tuple(a.shape)}")
-    lanes, k, km = a.shape
-    dev = a.device
+def _lift(t):
+    return None if t is None else t[:, None]
+
+
+def _lift_pair(v):
+    return (None, None) if v is None else (_lift(v[0]), _lift(v[1]))
+
+
+class _Strided(ctypes.Structure):
+    _fields_ = [("p", ctypes.c_void_p), ("ls", ctypes.c_longlong),
+                ("rs", ctypes.c_longlong)]
+
+
+class _SpmvArgs(ctypes.Structure):
+    """``EicosSpmvArgs`` of ``csrc/spmv.cu``, field for field: its layout
+    (``_PACK`` packs a call's arguments in it as a flat array)."""
+    _fields_ = [("a0", _Strided), ("a1", _Strided),
+                ("km0", ctypes.c_longlong), ("colptr", ctypes.c_void_p),
+                ("rows", ctypes.c_void_p), ("vals", ctypes.c_void_p),
+                ("vstride", ctypes.c_longlong), ("out", ctypes.c_void_p),
+                ("lanes", ctypes.c_longlong), ("k", ctypes.c_longlong),
+                ("km", ctypes.c_longlong), ("nm", ctypes.c_longlong),
+                ("op", ctypes.c_longlong), ("gamma", ctypes.c_double),
+                ("split", ctypes.c_longlong), ("base", _Strided * 2),
+                ("w", _Strided * 2), ("x", _Strided * 2)]
+
+
+# every field eight bytes: pointers and integers as int64, gamma a double
+_PACK = struct.Struct("<" + "".join(
+    "d" if name == "gamma" else "q" * (ctypes.sizeof(ft) // 8)
+    for name, ft in _SpmvArgs._fields_))
+_NONE = (0, 0, 0)
+F64 = torch.float64
+
+
+def _view(name, t, shape, dev):
+    """(pointer, lane stride, row stride) of a float64 view of ``shape``
+    (L, k, cols) on ``dev`` with unit column stride; (0, 0, 0) for None."""
+    if t is None:
+        return _NONE
+    if t.dtype is not F64 or t.shape != shape or t.device != dev:
+        raise ValueError(f"spmv: {name} must be a float64 {shape} view on "
+                         f"{dev}, got {t.dtype} {tuple(t.shape)} on "
+                         f"{t.device}")
+    ls, rs, cs = t.stride()
+    if cs != 1 and shape[2] > 1:
+        raise ValueError(f"spmv: {name} must have unit column stride, got "
+                         f"strides {t.stride()}")
+    return t.data_ptr(), ls, rs
+
+
+def _table(colptr, rows, vals, nm, dev):
+    """The CSC table's part of the arguments, checked: (colptr, rows,
+    vals pointers, the values' lane stride, their lanes or None)."""
     nnz = rows.shape[0]
-    kernels.check("a", a, (lanes, k, km), dev)
     kernels.check("colptr", colptr, (nm + 1,), dev, dtype=torch.int32)
     kernels.check("rows", rows, (nnz,), dev, contiguous=nnz > 0,
                   dtype=torch.int32)
-    kernels.check("vals", vals, (lanes, nnz)[2 - vals.dim():], dev,
+    if vals.dim() not in (1, 2):
+        raise ValueError(f"spmv: vals must be (nnz,) or (L, nnz), got "
+                         f"{tuple(vals.shape)}")
+    kernels.check("vals", vals, vals.shape[:-1] + (nnz,), dev,
                   contiguous=nnz > 0)
-    out = torch.empty((lanes, k, nm), dtype=a.dtype, device=dev)
+    per_lane = vals.dim() == 2
+    return (colptr.data_ptr(), rows.data_ptr(), vals.data_ptr(),
+            nnz if per_lane else 0, vals.shape[0] if per_lane else None)
+
+
+def _launch(a, a2, table, nm, base, op, w, gamma, x, split):
+    """One launch of the kernel (see ``spmv``) on a checked table."""
+    if op not in OPS:
+        raise ValueError(f"spmv: op must be one of {sorted(OPS)}, got {op!r}")
+    if a.dim() != 3:
+        raise ValueError(f"spmv: a must be (L, k, km), got {tuple(a.shape)}")
+    lanes, k, km0 = a.shape
+    dev = a.device
+    if table[4] is not None and table[4] != lanes:
+        raise ValueError(f"spmv: {table[4]} lanes of values, {lanes} of a")
+    km = km0 if a2 is None else km0 + a2.shape[-1]
+    if split is None:
+        shape = (lanes, k, nm)
+        b0 = _view("base", base, shape, dev)
+        w0 = _view("w", w, shape, dev)
+        x0 = _view("x", x, shape, dev)
+        b1 = w1 = x1 = _NONE
+        split = nm
+    else:
+        if not 0 <= split <= nm:
+            raise ValueError(f"spmv: split {split} outside [0, {nm}]")
+        (p0, p1), (v0, v1), (y0, y1) = _pair(base), _pair(w), _pair(x)
+        s0, s1 = (lanes, k, split), (lanes, k, nm - split)
+        b0, b1 = _view("base[0]", p0, s0, dev), _view("base[1]", p1, s1, dev)
+        w0, w1 = _view("w[0]", v0, s0, dev), _view("w[1]", v1, s1, dev)
+        x0, x1 = _view("x[0]", y0, s0, dev), _view("x[1]", y1, s1, dev)
+    out = torch.empty((lanes, k, nm), dtype=F64, device=dev)
+    args = _PACK.pack(
+        *_view("a", a, (lanes, k, km0), dev),
+        *_view("a2", a2, (lanes, k, km - km0), dev), km0, *table[:4],
+        out.data_ptr(), lanes, k, km, nm, OPS[op], gamma, split,
+        *b0, *b1, *w0, *w1, *x0, *x1)
     if lanes * k and nm:
         with torch.cuda.device(dev):
-            kernels.launch(kernels.lib("spmv").eicos_spmv,
-                           a.data_ptr(), colptr.data_ptr(), rows.data_ptr(),
-                           vals.data_ptr(), nnz if vals.dim() == 2 else 0,
-                           out.data_ptr(), lanes, k, km, nm,
+            kernels.launch(kernels.lib("spmv").eicos_spmv, args,
                            kernels.stream(a))
         kernels.count("spmv")
     return out
+
+
+def spmv(a: torch.Tensor, colptr: torch.Tensor, rows: torch.Tensor,
+         vals: torch.Tensor, nm: int, a2: torch.Tensor = None, base=None,
+         op: str = "add", w=None, gamma: float = 0.0, x=None,
+         split: int = None) -> torch.Tensor:
+    """On the card: acc[l, r, j] = sum_t vals[l, t] [a | a2][l, r, rows[t]]
+    over t in colptr[j]..colptr[j+1], in that order, and out =
+    ``fused_tail(acc, base, op, w, gamma, x, split)`` in the same launch.
+    ``a`` (L, k, km0) and ``a2`` (L, k, km - km0) or None, f64 views with
+    unit column stride; ``colptr`` (nm + 1,) and ``rows`` (nnz,) int32,
+    ``vals`` (nnz,) shared or (L, nnz) per lane; ``base``, ``w``, ``x``
+    (L, k, nm) views, or with ``split`` pairs of (L, k, split) and (L, k,
+    nm - split) views."""
+    return _launch(a, a2, _table(colptr, rows, vals, nm, a.device), nm, base,
+                   op, w, gamma, x, split)

@@ -183,21 +183,22 @@ def _statistics(st, settings, w: Iterate, ctx, c, h, b, res0s):
     residuals (rx, ry, rz), rt and ``w`` with its statistics filled in.
     The products take the context's operands where it has them (two fused
     products over [G; A] and [A' | G'] where A has rows, as the JAX
-    package's TPU path does), else the dense equilibrated G and A."""
+    package's TPU path does, each with its negation or its + s in the
+    same call), else the dense equilibrated G and A."""
     n, p, m = st.n, st.p, st.m
     G, A = ctx.G, ctx.A
     lanes = w.x.shape[0]
     resx0, resy0, resz0 = res0s
     zero = w.x.new_zeros(lanes)
     if p and ctx.sGA is not None:
-        rx_h = -ctx.sGA.rmatmul(torch.cat([w.z, w.y], -1))
-        axgx = ctx.sAGT.rmatmul(w.x)
-        ry_h = axgx[:, :p]
-        rz_h = w.s + axgx[:, p:]
+        rx_h = ctx.sGA.rmatmul_fused(w.z, w.y, op="sub")
+        ryz = ctx.sAGT.rmatmul_fused(w.x, base=(None, w.s), split=p)
+        ry_h = ryz[:, :p]
+        rz_h = ryz[:, p:]
     elif ctx.sG is not None:
-        rx_h = -ctx.sG.rmatmul(w.z)
+        rx_h = ctx.sG.rmatmul_fused(w.z, op="sub")
         ry_h = w.x.new_zeros(lanes, 0)
-        rz_h = w.s + ctx.sGT.rmatmul(w.x)
+        rz_h = ctx.sGT.rmatmul_fused(w.x, base=w.s)
     else:
         rx_h = -_vm(w.z, G)
         if p:

@@ -931,6 +931,126 @@ def test_spmv_wrapper_checks_inputs(cuda):
         spmv.spmv(a, op.colptr, op.rows, op.vals[:-1], 30)
 
 
+def bits(t):
+    """A tensor's bits, signed zeros included."""
+    return t.view(torch.int64)
+
+
+def fused_forms(a, nm, km0, split, rng):
+    """The product sites' forms of the fused call on ``a`` (L, k, km), as
+    ``chip_smoke.spmv_form`` writes them (the call's keywords and the
+    sequence it replaces), on inputs drawn from ``rng``."""
+    import chip_smoke
+
+    def rnd(cols):
+        return torch.tensor(rng.standard_normal(tuple(a.shape[:-1]) + (cols,)),
+                            device=a.device)
+
+    return {form: chip_smoke.spmv_form(torch, form, a, nm, km0, split, rnd)
+            for form in chip_smoke.SPMV_FORMS if form != "product"}
+
+
+@pytest.mark.parametrize("per_lane", [False, True], ids=["shared", "lanes"])
+@pytest.mark.parametrize("k", [1, 2, 5, 16])
+def test_spmv_fused_matches_plain_and_unfused_bits(cuda, per_lane, k):
+    """The fused call in every product site's form (two-segment inputs,
+    each epilogue, a split output; bases and x strided views of one
+    right-hand side) from k = 1 to the refinement's widest (16), shared
+    and per-lane values: within 1e-14 relative of its plain version,
+    bit for bit equal to the kernel with no epilogue followed by the
+    site's torch ops (zeros of acc - base included), one
+    launch a call, and the same bits on a repeat."""
+    from eicos_tpu_torch.ops import kernels, spmv
+
+    rng = np.random.default_rng(10 + k)
+    km, nm, lanes = 700, 900, 5
+    op = spmv_case(rng, km, nm, rng.choice([0, 1, 1, 2, 3, 7], nm), lanes,
+                   per_lane)
+    a = torch.tensor(rng.standard_normal((lanes, k, km)), device=cuda)
+
+    def K(v):
+        return spmv.spmv(v.contiguous(), op.colptr, op.rows, op.vals, nm)
+
+    forms = fused_forms(a, nm, 300, 350, rng)
+    forms["elim_t"][0]["base"][..., ::10] = K(a)[..., ::10]
+    for form, (kw, seq) in forms.items():
+        first = kw.pop("a")
+        tail = {n: v for n, v in kw.items() if n != "a2"}
+        want = spmv.fused_tail(op.rmatmul_plain(a), **tail)
+        before = kernels.COUNTS["spmv"]
+        got = op.rmatmul_fused(first, **kw)
+        assert kernels.COUNTS["spmv"] == before + 1, form
+        assert rel(got, want) <= 1e-14, form
+        assert torch.equal(bits(got), bits(seq(K))), form
+        assert torch.equal(bits(got), bits(op.rmatmul_fused(first, **kw)))
+    got = op.rmatmul_fused(a, **forms["elim_t"][0])
+    assert (got[..., ::10] == 0).all() and not torch.signbit(
+        got[..., ::10]).any()
+    torch.cuda.synchronize()
+
+
+@pytest.mark.parametrize("per_lane", [False, True], ids=["shared", "lanes"])
+def test_spmv_row_groups_give_each_rows_bits(cuda, per_lane):
+    """Where the kernel's rows a thread do not divide the rows (5 lanes of
+    3) and, per lane, a group stops at its lane's last row, each row of a
+    call, with and without an epilogue, has the bits of that row computed
+    alone (a group of one row); a 2-d input gives the rows of the 3-d
+    product."""
+    from eicos_tpu_torch.ops import spmv
+
+    rng = np.random.default_rng(4)
+    km, nm, lanes, k = 300, 260, 5, 3
+    op = spmv_case(rng, km, nm, rng.choice([0, 1, 2, 5, 9], nm), lanes,
+                   per_lane)
+    a = torch.tensor(rng.standard_normal((lanes, k, km)), device=cuda)
+    kw = fused_forms(a, nm, 120, 100, rng)["eyz"][0]
+    kw.pop("a")
+
+    def rows(v, l, r):
+        return None if v is None else v[l:l + 1, r:r + 1]
+
+    for tail in ({}, kw):
+        got = spmv.spmv(a, op.colptr, op.rows, op.vals, nm, **tail)
+        for l in range(lanes):
+            # a copy: a lane's slice of the values need not be 16-byte
+            # aligned, as the wrapper requires
+            vals = op.vals[l:l + 1].clone() if per_lane else op.vals
+            for r in range(k):
+                one = {n: (tuple(rows(t, l, r) for t in v)
+                           if isinstance(v, tuple) else rows(v, l, r)
+                           if torch.is_tensor(v) else v)
+                       for n, v in tail.items()}
+                alone = spmv.spmv(a[l:l + 1, r:r + 1], op.colptr, op.rows,
+                                  vals, nm, **one)
+                assert torch.equal(bits(got[l:l + 1, r:r + 1]),
+                                   bits(alone)), (l, r, bool(tail))
+    flat = op.rmatmul_fused(a[:, 0], a2=None, base=a[:, 1, :nm], op="rsub")
+    assert torch.equal(bits(flat), bits(op.rmatmul_fused(
+        a[:, :1], base=a[:, 1:2, :nm], op="rsub")[:, 0]))
+    torch.cuda.synchronize()
+
+
+def test_spmv_wrapper_checks_fused_inputs(cuda):
+    from eicos_tpu_torch.ops import spmv
+
+    rng = np.random.default_rng(1)
+    op = spmv_case(rng, 40, 30, np.ones(30, np.int64), 2, False)
+    a = torch.zeros(2, 1, 40, dtype=torch.float64, device=cuda)
+    base = torch.zeros(2, 1, 30, dtype=torch.float64, device=cuda)
+    args = (op.colptr, op.rows, op.vals, 30)
+    with pytest.raises(ValueError):          # an unknown op
+        spmv.spmv(a, *args, base=base, op="mul")
+    with pytest.raises(ValueError):          # split outside the columns
+        spmv.spmv(a, *args, base=(None, base), split=31)
+    with pytest.raises(ValueError):          # base of another shape
+        spmv.spmv(a, *args, base=base[..., :29])
+    with pytest.raises(ValueError):          # x without unit column stride
+        spmv.spmv(a, *args, x=torch.zeros(2, 1, 60, dtype=torch.float64,
+                                          device=cuda)[..., ::2])
+    with pytest.raises(ValueError):          # a second segment of f32
+        spmv.spmv(a[..., :10], *args, a2=a[..., 10:].float())
+
+
 @pytest.mark.parametrize("dims,wide", [((12, 2, 3), False),
                                        ((3, 24, 12), True)])
 def test_operand_path_on_card_matches_cpu(cuda, dims, wide):

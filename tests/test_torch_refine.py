@@ -128,3 +128,105 @@ def test_rotated_loop_saves_one_backsolve(monkeypatch, strategy):
     assert c0["refined"] == c1["refined"] > 0
     assert c1["solves"] == c0["solves"] - c0["refined"]
     assert c1["syncs"] == c0["syncs"] - c0["refined"]
+
+
+SITES = {
+    # (caller, operand key): the fused call's form at that site
+    ("solve_exact", "sGe"): dict(a2=False, base=True, op="add", w=False,
+                                 x=False, split=None),
+    ("solve_exact", "sGeT"): dict(a2=False, base=True, op="rsub", w=False,
+                                  x=False, split=None),
+    ("residual", "sGA"): dict(a2=True, base=True, op="sub", w=False,
+                              x=True, split=None),
+    ("residual", "sAGT"): dict(a2=False, base=(True, True), op="sub",
+                               w=(False, True), x=(True, True), split="p"),
+    ("_statistics", "sGA"): dict(a2=True, base=False, op="sub", w=False,
+                                 x=False, split=None),
+    ("_statistics", "sAGT"): dict(a2=False, base=(False, True), op="add",
+                                  w=False, x=False, split="p"),
+}
+UNSTACKED = {
+    ("residual", "sG"): dict(a2=False, base=True, op="sub", w=False, x=True,
+                             split=None),
+    ("residual", "sGT"): dict(a2=False, base=True, op="sub", w=True, x=True,
+                              split=None),
+    ("_statistics", "sG"): dict(a2=False, base=False, op="sub", w=False,
+                                x=False, split=None),
+    ("_statistics", "sGT"): dict(a2=False, base=True, op="add", w=False,
+                                 x=False, split=None),
+}
+
+
+def spied_solve(monkeypatch, st, data, settings):
+    """A CPU solve on the operand path with ``SparseOperand.rmatmul_fused``
+    and ``torch.cat`` spied on: every fused call's caller, operand keys
+    and form, and the callers of every ``torch.cat``."""
+    import sys
+
+    calls, cats, keys = [], [], {}
+    real_fused = spmv.SparseOperand.rmatmul_fused
+    real_cat = torch.cat
+    real_sliced = kkt.make_sliced
+
+    def present(v):
+        return (tuple(t is not None for t in v) if isinstance(v, tuple)
+                else v is not None)
+
+    def fused(self, a, a2=None, base=None, op="add", w=None, gamma=0.0,
+              x=None, split=None):
+        calls.append((sys._getframe(1).f_code.co_name, keys[id(self)],
+                      dict(a2=a2 is not None, base=present(base), op=op,
+                           w=present(w), x=present(x), split=split)))
+        return real_fused(self, a, a2, base, op, w, gamma, x, split)
+
+    def cat(*args, **kw):
+        cats.append(sys._getframe(1).f_code.co_name)
+        return real_cat(*args, **kw)
+
+    def sliced(*args, **kw):
+        ops = real_sliced(*args, **kw)
+        for key, op in ops.items():
+            keys.setdefault(id(op), set()).add(key)
+        return ops
+
+    monkeypatch.setattr(kkt, "_sliced_live", lambda G: True)
+    monkeypatch.setattr(kkt, "make_sliced", sliced)
+    monkeypatch.setattr(spmv.SparseOperand, "rmatmul_fused", fused)
+    monkeypatch.setattr(torch, "cat", cat)
+    sol = pt.solve(st, data, settings, device="cpu")
+    return sol, calls, cats
+
+
+@pytest.mark.parametrize("stacked", [True, False], ids=["stacked", "p0"])
+def test_operand_sites_call_the_fused_entry(monkeypatch, stacked):
+    """With the gate forced on, every product site of ``solve_exact``'s
+    elimination, ``residual`` and ``_statistics`` calls the fused entry
+    with its tail in the call (the forms of ``SITES``: the stacked
+    operands; ``UNSTACKED``: an LP without equality rows, whose residual
+    takes G and G' alone), nothing else calls it, and neither
+    ``residual`` nor ``_statistics`` calls ``torch.cat``: no operand is
+    concatenated before its product.  The solve ends OPTIMAL."""
+    st, d = lp(True)
+    data = d
+    if not stacked:
+        st = ProblemStructure.create(st.n, 0, st.m, st.m).with_gsplit(
+            d.G, np.zeros((0, st.n)))
+        data = pt.ProblemData(G=d.G, A=np.zeros((0, st.n)), c=d.c, h=d.h,
+                              b=np.zeros(0))
+    sol, calls, cats = spied_solve(monkeypatch, st, data,
+                                   pt.Settings(kkt_strategy="reduced"))
+    assert int(sol.exit_code) == 0
+    want = SITES if stacked else {
+        ("solve_exact", "sGe"): SITES[("solve_exact", "sGe")],
+        ("solve_exact", "sGeT"): SITES[("solve_exact", "sGeT")], **UNSTACKED}
+    seen = {}
+    for caller, keys, form in calls:
+        site = [s for s in want if s[0] == caller and s[1] in keys]
+        assert len(site) == 1, (caller, keys, form)
+        expect = dict(want[site[0]])
+        if expect["split"] == "p":
+            expect["split"] = st.p
+        assert form == expect, (site[0], form)
+        seen[site[0]] = seen.get(site[0], 0) + 1
+    assert set(seen) == set(want)
+    assert "residual" not in cats and "_statistics" not in cats
