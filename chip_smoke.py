@@ -66,6 +66,14 @@ port's paths through its entry points:
  16. ``BatchedSolver(mesh=make_mesh())`` on phase 2's batch over the
      visible cards, the same bits as the unsharded solve.
 
+Every solve runs its interior-point loop as captured CUDA graphs from
+iteration 1 on (``eicos_tpu_torch.graphs``).  Every driven solve of phases
+2-13, 15 and 16 is held to the same solve with its segments called eagerly
+(``same_bits_eager``: exit codes, iterations, x, y, z, launch counts and
+host syncs), with each one's captures, replays, capture time and peak
+device memory printed; phases 2 and 6 compare the two in one call (eager,
+graphed, graphed, eager: solves/s, idle share, host launch calls).
+
 Phases 6, 7 and 12 must launch their band (12: leaf) kernels, match the
 CPU plain path on lane 0, repeat bit for bit, and end every lane OPTIMAL;
 lanes that do not must end with the same code on the CPU plain path.
@@ -85,6 +93,7 @@ before that line.
 """
 
 import contextlib
+import gc
 import io
 import json
 import os
@@ -1355,27 +1364,49 @@ def build_wide_batch(pt, corpus, make_band_plan):
     return perturbed_lanes(pt, st, base, WIDE_LANES, WIDE["nx"], 7)
 
 
+RUNTIME_LAUNCHES = ("cudaLaunchKernel", "cudaLaunchKernelExC",
+                    "cudaLaunchKernelEx", "cudaGraphLaunch", "cuLaunchKernel",
+                    "cuLaunchKernelEx", "cuGraphLaunch")
+LAST = {}                         # the last ``drive``: runner stats, peaks
+
+
 def profile_solve(torch, bs, batch, cuda_only=False, label="profile"):
     """Device time by kernel over one solve (torch.profiler), the
-    device's idle share of the solve's wall time and the solve's kernel
-    launches, all kernels counted.  ``cuda_only`` records the device
-    activity alone: a solve of ~10^6 launches (the scan) takes minutes of
-    the profiler's host-side processing with the CPU's.  Returns the
-    spmv kernel's device time a launch in ms (None without a trace)."""
+    device's idle share of the solve's wall time, the solve's kernel
+    launches, all kernels counted, and its host launch calls: the
+    runtime's kernel and graph launch rows, plus the port's kernels that
+    the host launched outside a graph, which those rows do not see (the
+    kernels' libraries link the CUDA runtime statically; ``ab_graphs``
+    prints the check).
+    ``cuda_only`` records the device activity alone: a solve of ~10^6
+    launches (the eager scan) takes minutes of the profiler's host-side
+    processing with the CPU's.  Returns a dict (``spmv_ms``, the spmv
+    kernel's device time a launch, None without a trace; ``busy``,
+    ``wall`` in ms, ``idle``, ``kernels``, ``runtime``: the launch rows
+    by name, ``port_eager``: the port's launches outside graphs)."""
+    from eicos_tpu_torch import graphs
+    from eicos_tpu_torch.ops import kernels
     from torch.profiler import ProfilerActivity, profile
 
     acts = [ProfilerActivity.CUDA]
     if not cuda_only:
         acts.insert(0, ProfilerActivity.CPU)
     torch.cuda.synchronize()
+    kernels.reset_counts()
+    graphs.reset_stats()
     t_prof = time.perf_counter()
     with profile(activities=acts) as prof:
         t0 = time.perf_counter()
         bs.solve(batch)
         torch.cuda.synchronize()
         wall = time.perf_counter() - t0
-    rows = []
+    graphed = graphs.STATS["graph_counts"]
+    port_eager = sum(v - graphed.get(k, 0) for k, v in kernels.COUNTS.items())
+    replays = graphs.STATS["replays"]
+    rows, runtime = [], {}
     for e in prof.key_averages():
+        if e.key in RUNTIME_LAUNCHES:
+            runtime[e.key] = runtime.get(e.key, 0) + e.count
         # device-side events only: an operator's own row repeats the time
         # of the kernels it launched
         if getattr(e, "device_type", None) != torch.autograd.DeviceType.CUDA:
@@ -1389,11 +1420,17 @@ def profile_solve(torch, bs, batch, cuda_only=False, label="profile"):
     busy = sum(r[0] for r in rows)
     if not rows:
         print(f"{label}: no device time in the trace (not measured)")
-        return None
+        return dict(spmv_ms=None, busy=None, wall=wall * 1e3, idle=None,
+                    kernels=None, runtime=runtime, port_eager=port_eager)
+    n_kernels = sum(r[2] for r in rows)
+    host = sum(runtime.values()) + port_eager
     print(f"{label}: one solve {wall * 1e3:.1f} ms wall, device busy "
           f"{busy:.1f} ms (idle share {1 - busy / (wall * 1e3):.3f}); "
-          f"{sum(r[2] for r in rows)} kernel launches; the profile took "
+          f"{n_kernels} kernel launches; the profile took "
           f"{time.perf_counter() - t_prof:.1f} s")
+    print(f"{label}: host launch calls {host} (runtime rows {runtime}, the "
+          f"port's kernels launched outside graphs {port_eager}; {replays} "
+          f"graph replays); eager, every kernel a host launch: {n_kernels}")
     for ms, key, count in rows[:10]:
         print(f"  {ms:9.3f} ms  {count:6d}x  {key[:90]}")
     per_launch = {}
@@ -1403,38 +1440,137 @@ def profile_solve(torch, bs, batch, cuda_only=False, label="profile"):
         per_launch[name] = ms / count if count else None
         print(f"  {name} kernels: {ms:.3f} ms in {count} launches"
               + (f", {ms / count * 1e3:.2f} us a launch" if count else ""))
-    return per_launch["spmv"]
+    return dict(spmv_ms=per_launch["spmv"], busy=busy, wall=wall * 1e3,
+                idle=1 - busy / (wall * 1e3), kernels=n_kernels,
+                runtime=runtime, port_eager=port_eager, host=host)
+
+
+@contextlib.contextmanager
+def eager_segments():
+    """Inside the block every segment of the solve loop calls its function
+    eagerly, as iteration 0 does: no graph is captured."""
+    from eicos_tpu_torch import graphs
+
+    real = graphs.Segment.__call__
+    graphs.Segment.__call__ = lambda self, *args: self.fn(*args)
+    try:
+        yield
+    finally:
+        graphs.Segment.__call__ = real
 
 
 def drive(torch, kernels, kkt, bs, batch):
     """One solve with every launch count at 0 just before it: returns the
     solution, the counts just after (with the number of factors under
-    "factors": ``kkt.factor`` is wrapped to count its calls for the
-    solve), the host syncs and the wall time."""
+    "factors": ``kkt.factor`` is wrapped to count its calls, through
+    ``kernels.count``, so that a replayed factor counts too), the host
+    syncs and the wall time.  ``LAST`` gets the runner's stats and the
+    peak device memory of the solve."""
+    from eicos_tpu_torch import graphs
+
     real = kkt.factor
-    factors = [0]
 
     def counted(*args, **kw):
-        factors[0] += 1
+        kernels.count("factors")
         return real(*args, **kw)
 
     torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
     kernels.reset_counts()
+    graphs.reset_stats()
+    kernels.COUNTS["factors"] = 0
     syncs0 = kkt.host_syncs
     kkt.factor = counted
     try:
         t0 = time.perf_counter()
         sol = bs.solve(batch)
         torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+        launches = dict(kernels.COUNTS)
     finally:
         kkt.factor = real
-    return (sol, dict(kernels.COUNTS, factors=factors[0]),
-            kkt.host_syncs - syncs0, time.perf_counter() - t0)
+        kernels.COUNTS.pop("factors")
+    LAST.clear()
+    LAST.update(graphs=dict(graphs.STATS),
+                peak=torch.cuda.max_memory_allocated() / 2 ** 30,
+                reserved=torch.cuda.max_memory_reserved() / 2 ** 30)
+    return sol, launches, kkt.host_syncs - syncs0, wall
+
+
+def graph_line(label):
+    """The runner's account of the last ``drive``, printed, with the
+    memory still reserved once the cache is emptied (a graph pool that
+    outlived its solve would stay there)."""
+    g = LAST["graphs"]
+    torch = sys.modules["torch"]
+    torch.cuda.empty_cache()
+    print(f"{label}: graphs: {g['captures']} captures, {g['replays']} "
+          f"replays, {g['copies']} input copies, {g['eager']} eager segment "
+          f"calls; capture {g['capture_s']:.3f} s; peak device memory "
+          f"{LAST['peak']:.3f} GiB allocated, {LAST['reserved']:.3f} GiB "
+          f"reserved; {torch.cuda.memory_reserved() / 2 ** 30:.3f} GiB "
+          f"reserved after the solve, the cache emptied")
+    return dict(LAST)
+
+
+def same_bits_eager(torch, kernels, kkt, bs, batch, first, launches, syncs,
+                    label):
+    """The graphed solve ``first`` (its launch counts and host syncs from
+    ``drive``) against the same solve with every segment called eagerly:
+    the same exit codes, iterations, x, y and z, the same counts and
+    syncs.  Prints both solves' captures and peak memory."""
+    graphed = graph_line(f"{label}, graphed")
+    with eager_segments():
+        sol, e_launches, e_syncs, t_e = drive(torch, kernels, kkt, bs, batch)
+    graph_line(f"{label}, eager ({t_e:.3f} s)")
+    same = all(torch.equal(a, b) for a, b in (
+        (first.exit_code, sol.exit_code), (first.info.iter, sol.info.iter),
+        (first.x, sol.x), (first.y, sol.y), (first.z, sol.z)))
+    print(f"{label}: the graphed solve gives the eager solve's bits: {same}; "
+          f"counts equal: {launches == e_launches}; host syncs {syncs} and "
+          f"{e_syncs}; captures {graphed['graphs']['captures']}")
+    if not same or launches != e_launches or syncs != e_syncs:
+        fail(f"{label}: the graphed solve differs from the eager one "
+             f"(counts {launches} / {e_launches}, syncs {syncs} / "
+             f"{e_syncs})")
+    if first.info.iter.max() > 1 and not graphed["graphs"]["captures"]:
+        fail(f"{label}: a solve past iteration 1 captured no graph")
+
+
+def ab_graphs(torch, bs, batch, lanes, label):
+    """Eager, graphed, graphed, eager in one call: solves/s (median of 5
+    after a warm solve), the idle share of a profiled solve (the device
+    traced alone: the runtime's launch rows come with it) and the host
+    launch calls of each.  Returns the four readings."""
+    out = []
+    for mode in ("eager", "graphed", "graphed", "eager"):
+        ctx = eager_segments() if mode == "eager" else contextlib.nullcontext()
+        with ctx:
+            bs.solve(batch)
+            _, rate = timed(torch, bs, batch, lanes, reps=5)
+            prof = profile_solve(torch, bs, batch, cuda_only=True,
+                                 label=f"{label}, A/B {mode}")
+        if prof["kernels"] is None:
+            fail(f"{label}: the A/B profile has no device time")
+        if mode == "eager":
+            # every device event of an eager solve is one launch (or a
+            # copy): the rows alone fall short of them by the port's
+            print(f"{label}, A/B eager: {sum(prof['runtime'].values())} "
+                  f"runtime launch rows + {prof['port_eager']} port "
+                  f"launches against {prof['kernels']} device events")
+        out.append((mode, rate, prof))
+    print(f"{label}, A/B in one call: " + "; ".join(
+        f"{m} {r:.2f} solves/s, idle {p['idle']:.3f}, {p['kernels']} device "
+        f"events, {p['host']} host launch calls" for m, r, p in out))
+    return out
 
 
 def timed(torch, bs, batch, lanes, reps=3):
     """Median wall time of ``reps`` solves after the first; prints it and
-    returns the last solution and the median solves/s."""
+    returns the last solution and the median solves/s.  The garbage of
+    earlier work (a profile's events above all) is collected first, so that
+    no collection pass lands inside a timed solve."""
+    gc.collect()
     times = []
     for _ in range(reps):
         t0 = time.perf_counter()
@@ -1601,12 +1737,14 @@ def objectives_close(sol, want, tol_by_tier, label):
 
 
 def run_path(torch, pt, kernels, kkt, label, st, probs, batch, shared,
-             settings, rescue, names, reps=3, cuda_only=False):
+             settings, rescue, names, reps=3, cuda_only=False, ab=False):
     """Drive one path of the port at full width: a first solve with the
     launch counts read around it, ``reps`` timed solves and one profiled
     solve (all printed before the gates), the bit-repeat check, the exit
     codes before and after the rescue, every lane OPTIMAL (or as on the
-    CPU), lane 0 on the CPU plain path.
+    CPU), lane 0 on the CPU plain path.  The first solve is held to the
+    same solve with its segments run eagerly (``same_bits_eager``); ``ab``
+    adds the in-call comparison of the two (``ab_graphs``).
     A path that launches the gather kernel also gives the bits of its
     unfused sequence (``same_bits_unfused``).
     Returns the launch counts and the solution of the first solve."""
@@ -1619,6 +1757,10 @@ def run_path(torch, pt, kernels, kkt, label, st, probs, batch, shared,
     print_solve_counts(launches, syncs, label)
     need_launched(launches, names, label)
     first = sol
+    same_bits_eager(torch, kernels, kkt, bs, batch, first, launches, syncs,
+                    label)
+    if ab:
+        ab_graphs(torch, bs, batch, lanes, label)
     sol, _ = timed(torch, bs, batch, lanes, reps)
     profile_solve(torch, bs, batch, cuda_only, label=f"{label}, profile")
     same_bits(torch, first, sol, label)
@@ -1769,6 +1911,8 @@ def phase_scan(torch, pt, corpus, kernels, kkt, leaf, plain,
     del own
     print(f"scan band, band_gemm f32: first solve {t_first:.3f} s; host "
           f"syncs {syncs}; kernel launches {launches}")
+    same_bits_eager(torch, kernels, kkt, gs, batch, gsol, launches, syncs,
+                    "scan band, band_gemm f32")
     scan_launches(launches, "leaf_ldl", nb, "scan band, band_gemm f32")
     codes, _, _ = outcome(gsol, "scan band, band_gemm f32")
     short = [int(i) for i in np.flatnonzero(codes != 0)][:SCAN_CPU_LANES]
@@ -1797,6 +1941,8 @@ def phase_f32_banded(torch, pt, corpus, kernels, kkt, leaf, plain,
           f"bwb={st.band.bwb}, {LANES} lanes; first solve {t_first:.3f} s; "
           f"host syncs {syncs}; kernel launches {launches}")
     need_launched(launches, ["leaf_ldl_f32"], "banded, f32 factor")
+    same_bits_eager(torch, kernels, kkt, bs, batch, sol, launches, syncs,
+                    "banded, f32 factor")
     if any(launches[n] for n in ("leaf_ldl", "dgemm")):
         fail(f"banded, f32 factor: launched an f64 kernel: {launches}")
     scan_launches(launches, "leaf_ldl_f32", nb, "banded, f32 factor")
@@ -1987,6 +2133,8 @@ def phase_block64(torch, pt, kernels, kkt, make_band_plan, st, probs,
               f"host syncs {syncs}; kernel launches {launches}; the leaf is "
               f"plain by design: {launches['leaf_ldl']} leaf_ldl launches")
         need_launched(launches, must, label)
+        same_bits_eager(torch, kernels, kkt, bs, batch, sol, launches, syncs,
+                        label)
         if launches["leaf_ldl"] or launches["band_factor_bw"]:
             fail(f"{label}: a leaf or band kernel ran off 128: {launches}")
         _, _, hist = outcome(sol, label)
@@ -2012,6 +2160,8 @@ def phase_mesh(torch, pt, kernels, kkt, make_mesh, st, batch, shared,
     print(f"mesh: {LANES} lanes; solve {t_first:.3f} s; host syncs {syncs}; "
           f"rescued lanes {list(ms_.last_rescued)}")
     need_launched(launches, ["band_factor_bw", "spmv"], "mesh")
+    same_bits_eager(torch, kernels, kkt, ms_, batch, msol, launches, syncs,
+                    "mesh")
     ref = pt.BatchedSolver(st, settings, shared=shared, rescue=rescue).solve(
         batch)
     same_bits(torch, ref, msol, "mesh against the unsharded solve")
@@ -2089,9 +2239,12 @@ def main():
         r["launches"] = launches[r["name"]]
     spmv_record["launches"] = launches["spmv"]
     first = sol
+    same_bits_eager(torch, kernels, kkt, bs, batch, first, launches, syncs,
+                    "main path")
+    ab_graphs(torch, bs, batch, LANES, "main path")
     sol, _ = timed(torch, bs, batch, LANES)
     spmv_record["solve_ms_a_launch"] = profile_solve(
-        torch, bs, batch, label="main path (phase 2), profile")
+        torch, bs, batch, label="main path (phase 2), profile")["spmv_ms"]
     same_bits(torch, first, sol, "main path")
     same_bits_unfused(torch, bs, batch, first, "main path")
     codes, iters, hist = outcome(sol, "main path")
@@ -2123,6 +2276,8 @@ def main():
     fs = pt.BatchedSolver(st, pt.Settings(kkt_strategy="banded", iter_max=3),
                           shared=shared, rescue=rescue)
     fsol, launches, syncs, t_f = drive(torch, kernels, kkt, fs, sub)
+    same_bits_eager(torch, kernels, kkt, fs, sub, fsol, launches, syncs,
+                    "forced rescue")
     _, _, hist = outcome(fsol, "forced rescue")
     print(f"forced rescue: {t_f:.3f} s; rescued lanes {list(fs.last_rescued)}"
           f"; kernel launches {launches}")
@@ -2147,6 +2302,8 @@ def main():
     for r in dense_records:
         r["launches"] = launches[r["name"]]
     first = rsol
+    same_bits_eager(torch, kernels, kkt, rs, batch, first, launches, syncs,
+                    "reduced")
     rsol, inverse_rate = timed(torch, rs, batch, LANES)
     same_bits(torch, first, rsol, "reduced")
     del first
@@ -2180,6 +2337,8 @@ def main():
           f"device memory {torch.cuda.max_memory_allocated() / 2 ** 30:.3f} "
           f"GiB")
     need_launched(launches, dense_names, "SOCP reduced")
+    same_bits_eager(torch, kernels, kkt, ss, sbatch, ssol, launches, syncs,
+                    "SOCP reduced")
     print(f"SOCP reduced: exit codes by lane {ssol.exit_code.tolist()}")
     same_bits(torch, ssol, ss.solve(sbatch), "SOCP reduced")
     same_as_cpu(pt, sst, sprobs[0], red, ssol, "SOCP reduced")
@@ -2199,7 +2358,7 @@ def main():
         fail(f"SOCP lane: unexpected plan (bwb {kst.band.bwb})")
     _, ksol = run_path(torch, pt, kernels, kkt, "SOCP lane", kst, kprobs,
                        kbatch, kshared, settings, rescue,
-                       band_names + ["spmv"])
+                       band_names + ["spmv"], ab=True)
     soc_band_pcost = ksol.info.pcost.cpu().numpy()
     del kbatch, kprobs, ksol
     torch.cuda.empty_cache()
@@ -2240,6 +2399,8 @@ def main():
         if r["name"] != "leaf_ldl_f32":
             r["launches"] = launches[r["name"]]
     first = usol
+    same_bits_eager(torch, kernels, kkt, us, batch, first, launches, syncs,
+                    "reduced on substitution")
     usol, subst_rate = timed(torch, us, batch, LANES)
     same_bits(torch, first, usol, "reduced on substitution")
     del first
@@ -2270,6 +2431,8 @@ def main():
           f"{t_first:.3f} s; host syncs {syncs}; kernel launches {launches}")
     need_launched(launches, subst_names, "normal")
     first = nsol
+    same_bits_eager(torch, kernels, kkt, ns, nbatch, first, launches, syncs,
+                    "normal")
     nsol, _ = timed(torch, ns, nbatch, LANES, reps=2)
     same_bits(torch, first, nsol, "normal")
     del first
@@ -2334,6 +2497,8 @@ def main():
         need_launched(launches, ["leaf_ldl", "dgemm"] + must, label)
         if any(launches[n] for n in never):
             fail(f"{label}: launched {never}: {launches}")
+        same_bits_eager(torch, kernels, kkt, fs_, fbatch, fsol, launches,
+                        syncs, label)
         again, rate = timed(torch, fs_, fbatch, FULL_LANES, reps=1)
         same_bits(torch, fsol, again, label)
         codes, iters, hist = outcome(fsol, label)
@@ -2362,6 +2527,8 @@ def main():
     for r in subst_records:
         if r["name"] == "leaf_ldl_f32":
             r["launches"] = launches[r["name"]]
+    same_bits_eager(torch, kernels, kkt, hs, batch, hsol, launches, syncs,
+                    "reduced, f32 factor")
     again, _ = timed(torch, hs, batch, LANES, reps=2)
     same = torch.equal(hsol.exit_code, again.exit_code) and torch.equal(
         hsol.x, again.x)

@@ -48,16 +48,22 @@ class _ConeConsts(NamedTuple):
     is_head: torch.Tensor       # (ms,) bool
     head_offsets: torch.Tensor  # (n_sc,) int64
     segs: SegmentSum            # the per-cone sums over the SOC part
+    heads: torch.Tensor         # (ms, n_sc) f64: 1 at each cone's head
 
 
 @functools.lru_cache(maxsize=64)
 def _consts(st: ConeStructure, device: str) -> _ConeConsts:
+    """The cone layout's index tensors on ``device``, built once: a
+    captured CUDA graph copies nothing from the host."""
+    head_offsets = torch.as_tensor(st.head_offsets, dtype=torch.int64,
+                                   device=device)
+    heads = torch.zeros(st.ms, st.n_sc, dtype=torch.float64, device=device)
+    heads[head_offsets, torch.arange(st.n_sc, device=device)] = 1.0
     return _ConeConsts(
         seg=torch.as_tensor(st.seg, dtype=torch.int64, device=device),
         is_head=torch.as_tensor(st.is_head, device=device),
-        head_offsets=torch.as_tensor(st.head_offsets, dtype=torch.int64,
-                                     device=device),
-        segs=segment_map(st.seg, device))
+        head_offsets=head_offsets, segs=segment_map(st.seg, device),
+        heads=heads)
 
 
 def _k(st, x) -> _ConeConsts:
@@ -387,8 +393,7 @@ def w2_soc_dense(st: ConeStructure, scal: Scaling):
     onehot = (k.seg[:, None] == torch.arange(st.n_sc,
                                              device=k.seg.device)[None, :])
     Q = torch.where(onehot, scal.q_flat[:, :, None], 0.0)  # (L, ms, n_sc)
-    E = torch.zeros(st.ms, st.n_sc, dtype=scal.a.dtype, device=k.seg.device)
-    E[k.head_offsets, torch.arange(st.n_sc, device=k.seg.device)] = 1.0
+    E = k.heads.to(scal.a.dtype)
     ec = (scal.eta2 * scal.cc)[:, :, None]
     ed = (scal.eta2 * scal.dd)[:, :, None]
     W2 = W2 + E @ (ec * Q.transpose(1, 2)) + Q @ (ec * E.T)

@@ -956,9 +956,8 @@ def _factor_full(st: ProblemStructure, ctx: KKTContext,
                  scal: Optional[cones.Scaling], settings, lanes: int):
     """``factor`` for the "full" strategy: K over [z | x | y] with
     -(W^2 + dI) written into the base, nothing eliminated."""
-    n, p, m = st.n, st.p, st.m
+    m = st.m
     delta = settings.deltastat
-    D = m + n + p
     Dp = ctx.K0.shape[-1]
     K = ctx.K0.expand(lanes, Dp, Dp).clone()
     if m:
@@ -973,21 +972,102 @@ def _factor_full(st: ProblemStructure, ctx: KKTContext,
         del blk
     fac = _factor_in_dtype(K, settings)
     del K
+    return ExactSolve(kind="full", st=st, ctx=ctx, fac=fac, scal=None,
+                      winv_lp=None, delta=delta)
 
-    def solve_exact(rhs):
+
+class ExactSolve(NamedTuple):
+    """``factor``'s result: the factor and what one solve of the factored
+    system reads, as data, so that a captured segment's outputs hold every
+    tensor of it (``graphs``).  Calling it runs ``solve_exact``."""
+
+    kind: str                        # "full", "dense" or "band"
+    st: ProblemStructure
+    ctx: KKTContext
+    fac: tuple                       # LDLFactors, LDLSubstFactors, BandFactors
+    scal: Optional[cones.Scaling]    # in the factor's type
+    winv_lp: Optional[torch.Tensor]  # (L, l) (W_lp^2 + dI)^{-1}
+    delta: float
+    gemm_dtype: Optional[torch.dtype] = None  # the scan's product type
+    scaled_kept: bool = False        # the factor holds S K S (kept cones)
+
+    def __call__(self, rhs):
+        return solve_exact(self, rhs)
+
+
+def _welim(es: ExactSolve, v):
+    """(W^2 + dI)^{-1} on the eliminated rows of v (L, k, me)."""
+    l = es.st.l
+    v_lp = v[..., :l] * es.winv_lp[:, None, :]
+    if v.shape[-1] == l:
+        return v_lp
+    return torch.cat([v_lp, _elim_soc(es.st, es.scal, es.delta, v[..., l:])],
+                     -1)
+
+
+def solve_exact(es: ExactSolve, rhs):
+    """One solve of the factored system without refinement, for packed
+    right-hand sides rhs (L, k, n+p+m) -> (dx, dy, dz) (``factor``)."""
+    st, ctx = es.st, es.ctx
+    n, p, m, l = st.n, st.p, st.m, st.l
+    if es.kind == "full":
+        D = m + n + p
+        Dp = ctx.K0.shape[-1]
         bx, by, bz = rhs[..., :n], rhs[..., n:n + p], rhs[..., n + p:]
         rr = torch.cat([bz, bx, by,
                         rhs.new_zeros(*rhs.shape[:-1], Dp - D)], -1)
-        x = _solve_padded(fac, rr)
+        x = _solve_padded(es.fac, rr)
         return x[..., m:m + n], x[..., m + n:D], x[..., :m]
-
-    return solve_exact
+    k = rhs.shape[1]
+    if k > KP:
+        raise ValueError(f"at most {KP} right-hand sides, got {k}")
+    ms = st.m - l if ctx.keep_soc else 0
+    me = l if ctx.keep_soc else st.m
+    D = ms + n + p
+    G = ctx.Gf
+    fdtype = G.dtype
+    Dp = ctx.dense.Dp if es.kind == "dense" else ctx.band.Dp
+    Ge = G[..., :me, :]
+    # the eliminated rows' operands, at f64 (``eicos_tpu.kkt``'s ``oz``)
+    oz = ctx.sGe is not None and fdtype == torch.float64
+    out_dtype = rhs.dtype
+    rhs = rhs.to(fdtype)
+    bx, by, bz = rhs[..., :n], rhs[..., n:n + p], rhs[..., n + p:]
+    bz_e, bz_s = bz[..., :me], bz[..., me:]
+    if es.scaled_kept:
+        bz_s = cones.scale_winv_soc(st.cone, es.scal, bz_s)
+    if not me:
+        r1 = bx
+    elif oz:
+        r1 = ctx.sGe.rmatmul_fused(_welim(es, bz_e), base=bx)
+    else:
+        r1 = bx + _welim(es, bz_e) @ Ge
+    rr = torch.cat([bz_s, r1, by,
+                    rhs.new_zeros(*rhs.shape[:-1], Dp - D)], -1)
+    if es.kind == "dense":
+        x = ldl_solve(es.fac, rr)
+    else:
+        maps = ctx.band
+        x = band_solve(es.fac, rr[..., maps.perm],
+                       gemm_dtype=es.gemm_dtype)[..., maps.iperm]
+    dzs = x[..., :ms]
+    if es.scaled_kept:
+        dzs = cones.scale_winv_soc(st.cone, es.scal, dzs)
+    dx, dy = x[..., ms:ms + n], x[..., ms + n:D]
+    if not me:
+        dz_e = bz_e
+    elif oz:
+        dz_e = _welim(es, ctx.sGeT.rmatmul_fused(dx, base=bz_e, op="rsub"))
+    else:
+        dz_e = _welim(es, dx @ Ge.transpose(-1, -2) - bz_e)
+    dz = torch.cat([dz_e, dzs], -1)
+    return dx.to(out_dtype), dy.to(out_dtype), dz.to(out_dtype)
 
 
 def factor(st: ProblemStructure, ctx: KKTContext,
-           scal: Optional[cones.Scaling], settings, lanes: int):
+           scal: Optional[cones.Scaling], settings, lanes: int) -> ExactSolve:
     """Assemble and factor for the current NT scaling (None = identity
-    scalings, the init factorization).  Returns
+    scalings, the init factorization).  Returns an ``ExactSolve``:
     ``solve_exact(rhs) -> (dx, dy, dz)`` for packed right-hand sides
     (L, k, n+p+m), one solve of the factored system without refinement.
 
@@ -1002,7 +1082,7 @@ def factor(st: ProblemStructure, ctx: KKTContext,
     directions are cast back."""
     if settings.kkt_strategy == "full":
         return _factor_full(st, ctx, scal, settings, lanes)
-    n, p, l = st.n, st.p, st.l
+    n, l = st.n, st.l
     delta = settings.deltastat
     G = ctx.Gf
     fdtype = G.dtype
@@ -1012,86 +1092,31 @@ def factor(st: ProblemStructure, ctx: KKTContext,
         winv_lp = G.new_full((lanes, l), 1.0 / (1.0 + delta))
     else:
         winv_lp = 1.0 / (scal.v_lp + delta)
-    ms = st.m - l if ctx.keep_soc else 0
-    me = l if ctx.keep_soc else st.m
-    D = ms + n + p
-    scaled_kept = False
+    common = dict(st=st, ctx=ctx, scal=scal, winv_lp=winv_lp, delta=delta)
 
     if settings.kkt_strategy in ("reduced", "normal"):
-        Dp = ctx.dense.Dp
         K = dense_matrix(st, ctx, scal, winv_lp, delta)
         fac = _factor_in_dtype(K, settings)
         del K
-
-        def padded_solve(rr):
-            return ldl_solve(fac, rr)
+        return ExactSolve(kind="dense", fac=fac, **common)
+    maps = ctx.band
+    # the scan's product type (``ops/band.py`` reads it only there)
+    gdt = torch.float32 if settings.band_gemm == "float32" else None
+    if maps.scatter is not None:
+        fac = band_factor(*band_blocks(st, ctx, winv_lp, delta, scal))
+        return ExactSolve(kind="band", fac=fac, gemm_dtype=gdt,
+                          scaled_kept=ctx.keep_soc and scal is not None,
+                          **common)
+    if ctx.keep_soc:
+        # a keep_soc plan off the scatter path: the unscaled dense K
+        src = dense_matrix(st, ctx, scal, winv_lp, delta)
     else:
-        maps = ctx.band
-        Dp = maps.Dp
-        # the scan's product type (``ops/band.py`` reads it only there)
-        gdt = torch.float32 if settings.band_gemm == "float32" else None
-        if maps.scatter is not None:
-            scaled_kept = ctx.keep_soc and scal is not None
-            fac = band_factor(*band_blocks(st, ctx, winv_lp, delta, scal))
-        else:
-            if ctx.keep_soc:
-                # a keep_soc plan off the scatter path: the unscaled dense K
-                src = dense_matrix(st, ctx, scal, winv_lp, delta)
-            else:
-                src = G.new_zeros(lanes, n, n)
-                _assemble_h(st, ctx, ctx.dense, src, scal, winv_lp, delta)
-            fac = band_factor(*_gathered_blocks(ctx, src.view(lanes, -1)),
-                              gemm_dtype=gdt)
-            del src
-
-        def padded_solve(rr):
-            return band_solve(fac, rr[..., maps.perm],
-                              gemm_dtype=gdt)[..., maps.iperm]
-
-    Ge = G[..., :me, :]
-    # the eliminated rows' operands, at f64 (``eicos_tpu.kkt``'s ``oz``)
-    oz = ctx.sGe is not None and fdtype == torch.float64
-
-    def welim(v):
-        # (W^2 + dI)^{-1} on the eliminated rows of v (L, k, me)
-        v_lp = v[..., :l] * winv_lp[:, None, :]
-        if me == l:
-            return v_lp
-        return torch.cat([v_lp, _elim_soc(st, scal, delta, v[..., l:])], -1)
-
-    def solve_exact(rhs):
-        k = rhs.shape[1]
-        if k > KP:
-            raise ValueError(f"at most {KP} right-hand sides, got {k}")
-        out_dtype = rhs.dtype
-        rhs = rhs.to(fdtype)
-        bx, by, bz = rhs[..., :n], rhs[..., n:n + p], rhs[..., n + p:]
-        bz_e, bz_s = bz[..., :me], bz[..., me:]
-        if scaled_kept:
-            bz_s = cones.scale_winv_soc(st.cone, scal, bz_s)
-        if not me:
-            r1 = bx
-        elif oz:
-            r1 = ctx.sGe.rmatmul_fused(welim(bz_e), base=bx)
-        else:
-            r1 = bx + welim(bz_e) @ Ge
-        rr = torch.cat([bz_s, r1, by,
-                        rhs.new_zeros(*rhs.shape[:-1], Dp - D)], -1)
-        x = padded_solve(rr)
-        dzs = x[..., :ms]
-        if scaled_kept:
-            dzs = cones.scale_winv_soc(st.cone, scal, dzs)
-        dx, dy = x[..., ms:ms + n], x[..., ms + n:D]
-        if not me:
-            dz_e = bz_e
-        elif oz:
-            dz_e = welim(ctx.sGeT.rmatmul_fused(dx, base=bz_e, op="rsub"))
-        else:
-            dz_e = welim(dx @ Ge.transpose(-1, -2) - bz_e)
-        dz = torch.cat([dz_e, dzs], -1)
-        return dx.to(out_dtype), dy.to(out_dtype), dz.to(out_dtype)
-
-    return solve_exact
+        src = G.new_zeros(lanes, n, n)
+        _assemble_h(st, ctx, ctx.dense, src, scal, winv_lp, delta)
+    fac = band_factor(*_gathered_blocks(ctx, src.view(lanes, -1)),
+                      gemm_dtype=gdt)
+    del src
+    return ExactSolve(kind="band", fac=fac, gemm_dtype=gdt, **common)
 
 
 class KKTSolveResult(NamedTuple):
@@ -1099,6 +1124,153 @@ class KKTSolveResult(NamedTuple):
     dy: torch.Tensor
     dz: torch.Tensor
     nitref: torch.Tensor  # (L, k) int32 refinement count
+
+
+class RefineState(NamedTuple):
+    """The state of one refined solve between trips (``refine_start``,
+    ``refine_trip``), each field (L, k, ...) with k right-hand sides.
+    ``cx, cy, cz`` are the residual of (dx, dy, dz) in the rotated loop
+    and the last corrections in the residual-first loop."""
+
+    dx: torch.Tensor
+    dy: torch.Tensor
+    dz: torch.Tensor
+    cx: torch.Tensor
+    cy: torch.Tensor
+    cz: torch.Tensor
+    nerr_prev: torch.Tensor  # (L, k)
+    kk: torch.Tensor         # (L, 1) int32: the lane's trips so far
+    kout: torch.Tensor       # (L, k) int32 refinement count
+    done: torch.Tensor       # (L, k) bool
+    thresh: torch.Tensor     # (L, k), read only
+
+
+def residual(st: ProblemStructure, ctx: KKTContext, scal, rhs, settings,
+             dx, dy, dz):
+    """The residual of (dx, dy, dz) against the exact regularized operator
+    and its largest entry per column:
+    ex = bx - G'dz - d dx - A'dy;  ey = by - A dx + d dy;
+    ez = bz - G dx + W^2 dz + d dz.  On the operands each product and its
+    tail is one fused call (``spmv.fused_tail``: y - d * x as y + (-d) * x,
+    the same bits)."""
+    n, p, m = st.n, st.p, st.m
+    delta = settings.deltastat
+    G, A = ctx.G, ctx.A
+    lanes, K = rhs.shape[0], rhs.shape[1]
+    bx, by, bz = rhs[..., :n], rhs[..., n:n + p], rhs[..., n + p:]
+    Wdz = (dz if scal is None or not m
+           else cones.scale2(st.cone, scal, dz))
+    if m and p and ctx.sGA is not None:
+        ex = ctx.sGA.rmatmul_fused(dz, dy, base=bx, op="sub",
+                                   gamma=-delta, x=dx)
+        eyz = ctx.sAGT.rmatmul_fused(dx, base=(by, bz), op="sub",
+                                     w=(None, Wdz), gamma=delta,
+                                     x=(dy, dz), split=p)
+        ey, ez = eyz[..., :p], eyz[..., p:]
+    elif ctx.sG is not None:
+        ex = (ctx.sG.rmatmul_fused(dz, base=bx, op="sub", gamma=-delta,
+                                   x=dx) if m else bx - 0.0 - delta * dx)
+        if p:
+            ex = ctx.sA.rmatmul_fused(dy, base=ex, op="sub")
+        ey = (ctx.sAT.rmatmul_fused(dx, base=by, op="sub", gamma=delta,
+                                    x=dy) if p else by)
+        ez = (ctx.sGT.rmatmul_fused(dx, base=bz, op="sub", w=Wdz,
+                                    gamma=delta, x=dz) if m else bz)
+    else:
+        Gt, At = G.transpose(-1, -2), A.transpose(-1, -2)
+        ex = bx - (dz @ G if m else 0.0) - delta * dx
+        if p:
+            ex = ex - dy @ A
+        ey = (by - dx @ At + delta * dy) if p else by
+        ez = (bz - dx @ Gt + Wdz + delta * dz) if m else bz
+    nerr = ex.abs().amax(-1) if n else rhs.new_zeros(lanes, K)
+    if m:
+        nerr = torch.maximum(nerr, ez.abs().amax(-1))
+    if p:
+        nerr = torch.maximum(nerr, ey.abs().amax(-1))
+    return ex, ey, ez, nerr
+
+
+def refine_start(st: ProblemStructure, ctx: KKTContext, solve_exact,
+                 scal: Optional[cones.Scaling], rhs, settings,
+                 active: Optional[torch.Tensor] = None) -> RefineState:
+    """The first solve of ``solve_refined`` and its stopping threshold;
+    in the rotated loop also the first residual and the columns it
+    already stops."""
+    lanes, K = rhs.shape[0], rhs.shape[1]
+    dx, dy, dz = solve_exact(rhs)
+    thresh = (1.0 + rhs.abs().amax(-1)) * settings.linsysacc
+    kk = torch.zeros((lanes, 1), dtype=torch.int32, device=rhs.device)
+    kout = torch.zeros((lanes, K), dtype=torch.int32, device=rhs.device)
+    done = torch.zeros((lanes, K), dtype=torch.bool, device=rhs.device)
+    if active is not None:
+        done = done | ~active[:, None]
+    if ctx.sGA is not None:
+        ex, ey, ez, nerr_prev = residual(st, ctx, scal, rhs, settings,
+                                         dx, dy, dz)
+        done = done | (nerr_prev < thresh) | (settings.nitref == 0)
+        return RefineState(dx, dy, dz, ex, ey, ez, nerr_prev, kk, kout,
+                           done, thresh)
+    return RefineState(dx, dy, dz, torch.zeros_like(dx),
+                       torch.zeros_like(dy), torch.zeros_like(dz),
+                       rhs.new_full((lanes, K), torch.inf), kk, kout, done,
+                       thresh)
+
+
+def refine_trip(st: ProblemStructure, ctx: KKTContext, solve_exact,
+                scal: Optional[cones.Scaling], rhs, settings,
+                r: RefineState) -> None:
+    """One trip of ``solve_refined``'s loop, written into ``r`` in place
+    once every new value is computed."""
+    nitref = settings.nitref
+    irerrfact = settings.irerrfact
+    kk, done = r.kk, r.done
+    act = ~done
+    if ctx.sGA is not None:
+        am = act[..., None]
+        rx, ry, rz = solve_exact(torch.cat([r.cx, r.cy, r.cz], -1))
+        dx1 = torch.where(am, r.dx + rx, r.dx)
+        dy1 = torch.where(am, r.dy + ry, r.dy)
+        dz1 = torch.where(am, r.dz + rz, r.dz)
+        ex, ey, ez, nerr = residual(st, ctx, scal, rhs, settings,
+                                    dx1, dy1, dz1)
+        t = kk + 1
+        undo = act & (nerr > r.nerr_prev)
+        stop = act & (undo | (t == nitref) | (nerr < r.thresh)
+                      | (r.nerr_prev < irerrfact * nerr))
+        um = undo[..., None]
+        new = (torch.where(um, r.dx, dx1), torch.where(um, r.dy, dy1),
+               torch.where(um, r.dz, dz1), ex, ey, ez,
+               torch.where(act, nerr, r.nerr_prev),
+               # a lane's loop counter only runs while one of its columns
+               # does
+               kk + act.any(-1, keepdim=True).to(kk.dtype),
+               torch.where(act, torch.where(undo, t - 1, t), r.kout),
+               done | stop)
+    else:
+        ex, ey, ez, nerr = residual(st, ctx, scal, rhs, settings,
+                                    r.dx, r.dy, r.dz)
+        undo = act & (kk > 0) & (nerr > r.nerr_prev)
+        stop = act & (undo | (kk == nitref) | (nerr < r.thresh)
+                      | ((kk > 0) & (r.nerr_prev < irerrfact * nerr)))
+        rx, ry, rz = solve_exact(torch.cat([ex, ey, ez], -1))
+        um = undo[..., None]
+        advm = (act & ~stop)[..., None]
+
+        def step(cur, corr_old, corr_new):
+            new = torch.where(um, cur - corr_old,
+                              torch.where(advm, cur + corr_new, cur))
+            return new, torch.where(advm, corr_new, corr_old)
+
+        dx, cx = step(r.dx, r.cx, rx)
+        dy, cy = step(r.dy, r.cy, ry)
+        dz, cz = step(r.dz, r.cz, rz)
+        new = (dx, dy, dz, cx, cy, cz, torch.where(act, nerr, r.nerr_prev),
+               kk + act.any(-1, keepdim=True).to(kk.dtype),
+               torch.where(act, torch.where(undo, kk - 1, kk), r.kout),
+               done | stop)
+    for dst, src in zip(r[:len(new)], new):
+        dst.copy_(src)
 
 
 def solve_refined(st: ProblemStructure, ctx: KKTContext, solve_exact,
@@ -1110,7 +1282,9 @@ def solve_refined(st: ProblemStructure, ctx: KKTContext, solve_exact,
 
     ``rhs`` is (L, k, n+p+m).  Each column of each lane stops on its own,
     as the JAX package's vmapped loop does; ``active`` (L,) marks the lanes
-    whose result is used (the others start stopped).
+    whose result is used (the others start stopped).  ``refine_start``,
+    then ``refine_trip`` until every column has stopped (one host read a
+    trip): the solver runs the same two as parts of its graphed segments.
 
     With the context's operands (``make_sliced``, a CUDA tensor) the big
     products go through them, two fused products over the stacks [G; A]
@@ -1121,109 +1295,7 @@ def solve_refined(st: ProblemStructure, ctx: KKTContext, solve_exact,
     and the loop is residual-first, the reference's order, as on the JAX
     package's CPU.  The two orders give the same corrections, undo targets
     and counts; their last bits differ."""
-    n, p, m = st.n, st.p, st.m
-    delta = settings.deltastat
-    G, A = ctx.G, ctx.A
-    Gt, At = G.transpose(-1, -2), A.transpose(-1, -2)
-    lanes, K = rhs.shape[0], rhs.shape[1]
-    bx, by, bz = rhs[..., :n], rhs[..., n:n + p], rhs[..., n + p:]
-
-    def residual(dx, dy, dz):
-        # ex = bx - G'dz - d dx - A'dy;  ey = by - A dx + d dy;
-        # ez = bz - G dx + W^2 dz + d dz
-        Wdz = (dz if scal is None or not m
-               else cones.scale2(st.cone, scal, dz))
-        # on the operands each product and its tail is one fused call
-        # (``spmv.fused_tail``: y - d * x as y + (-d) * x, the same bits)
-        if m and p and ctx.sGA is not None:
-            ex = ctx.sGA.rmatmul_fused(dz, dy, base=bx, op="sub",
-                                       gamma=-delta, x=dx)
-            eyz = ctx.sAGT.rmatmul_fused(dx, base=(by, bz), op="sub",
-                                         w=(None, Wdz), gamma=delta,
-                                         x=(dy, dz), split=p)
-            ey, ez = eyz[..., :p], eyz[..., p:]
-        elif ctx.sG is not None:
-            ex = (ctx.sG.rmatmul_fused(dz, base=bx, op="sub", gamma=-delta,
-                                       x=dx) if m else bx - 0.0 - delta * dx)
-            if p:
-                ex = ctx.sA.rmatmul_fused(dy, base=ex, op="sub")
-            ey = (ctx.sAT.rmatmul_fused(dx, base=by, op="sub", gamma=delta,
-                                        x=dy) if p else by)
-            ez = (ctx.sGT.rmatmul_fused(dx, base=bz, op="sub", w=Wdz,
-                                        gamma=delta, x=dz) if m else bz)
-        else:
-            ex = bx - (dz @ G if m else 0.0) - delta * dx
-            if p:
-                ex = ex - dy @ A
-            ey = (by - dx @ At + delta * dy) if p else by
-            ez = (bz - dx @ Gt + Wdz + delta * dz) if m else bz
-        nerr = ex.abs().amax(-1) if n else rhs.new_zeros(lanes, K)
-        if m:
-            nerr = torch.maximum(nerr, ez.abs().amax(-1))
-        if p:
-            nerr = torch.maximum(nerr, ey.abs().amax(-1))
-        return ex, ey, ez, nerr
-
-    dx, dy, dz = solve_exact(rhs)
-    thresh = (1.0 + rhs.abs().amax(-1)) * settings.linsysacc
-    nitref = settings.nitref
-    irerrfact = settings.irerrfact
-    kk = torch.zeros((lanes, 1), dtype=torch.int32, device=rhs.device)
-    kout = torch.zeros((lanes, K), dtype=torch.int32, device=rhs.device)
-    done = torch.zeros((lanes, K), dtype=torch.bool, device=rhs.device)
-    if active is not None:
-        done = done | ~active[:, None]
-
-    if ctx.sGA is not None:
-        ex, ey, ez, nerr_prev = residual(dx, dy, dz)
-        done = done | (nerr_prev < thresh) | (nitref == 0)
-        while not all_true(done):
-            act = ~done
-            am = act[..., None]
-            rx, ry, rz = solve_exact(torch.cat([ex, ey, ez], -1))
-            dx1 = torch.where(am, dx + rx, dx)
-            dy1 = torch.where(am, dy + ry, dy)
-            dz1 = torch.where(am, dz + rz, dz)
-            ex, ey, ez, nerr = residual(dx1, dy1, dz1)
-            t = kk + 1
-            undo = act & (nerr > nerr_prev)
-            stop = act & (undo | (t == nitref) | (nerr < thresh)
-                          | (nerr_prev < irerrfact * nerr))
-            um = undo[..., None]
-            dx = torch.where(um, dx, dx1)
-            dy = torch.where(um, dy, dy1)
-            dz = torch.where(um, dz, dz1)
-            nerr_prev = torch.where(act, nerr, nerr_prev)
-            kout = torch.where(act, torch.where(undo, t - 1, t), kout)
-            # a lane's loop counter only runs while one of its columns does
-            kk = kk + act.any(-1, keepdim=True).to(kk.dtype)
-            done = done | stop
-        return KKTSolveResult(dx=dx, dy=dy, dz=dz, nitref=kout)
-
-    cx, cy, cz = (torch.zeros_like(dx), torch.zeros_like(dy),
-                  torch.zeros_like(dz))
-    nerr_prev = rhs.new_full((lanes, K), torch.inf)
-    while not all_true(done):
-        ex, ey, ez, nerr = residual(dx, dy, dz)
-        act = ~done
-        undo = act & (kk > 0) & (nerr > nerr_prev)
-        stop = act & (undo | (kk == nitref) | (nerr < thresh)
-                      | ((kk > 0) & (nerr_prev < irerrfact * nerr)))
-        rx, ry, rz = solve_exact(torch.cat([ex, ey, ez], -1))
-        um = undo[..., None]
-        advm = (act & ~stop)[..., None]
-
-        def step(cur, corr_old, corr_new):
-            new = torch.where(um, cur - corr_old,
-                              torch.where(advm, cur + corr_new, cur))
-            return new, torch.where(advm, corr_new, corr_old)
-
-        dx, cx = step(dx, cx, rx)
-        dy, cy = step(dy, cy, ry)
-        dz, cz = step(dz, cz, rz)
-        nerr_prev = torch.where(act, nerr, nerr_prev)
-        kout = torch.where(act, torch.where(undo, kk - 1, kk), kout)
-        # a lane's loop counter only runs while one of its columns does
-        kk = kk + act.any(-1, keepdim=True).to(kk.dtype)
-        done = done | stop
-    return KKTSolveResult(dx=dx, dy=dy, dz=dz, nitref=kout)
+    r = refine_start(st, ctx, solve_exact, scal, rhs, settings, active)
+    while not all_true(r.done):
+        refine_trip(st, ctx, solve_exact, scal, rhs, settings, r)
+    return KKTSolveResult(dx=r.dx, dy=r.dy, dz=r.dz, nitref=r.kout)

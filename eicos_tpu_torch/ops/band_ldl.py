@@ -86,8 +86,8 @@ def _unblocked_ldl(M: torch.Tensor):
     M = M.clone()
     L = torch.zeros_like(M)
     d = torch.zeros(M.shape[:-1], dtype=M.dtype, device=M.device)
-    tiny = torch.tensor(1e-20 if M.dtype == torch.float32 else 1e-150,
-                        dtype=M.dtype, device=M.device)
+    # filled on the device: a CUDA graph captures no host-to-device copy
+    tiny = M.new_full((), 1e-20 if M.dtype == torch.float32 else 1e-150)
     for j in range(Bn):
         dj = M[:, j, j]
         dj = torch.where(dj.abs() < tiny, torch.where(dj < 0, -tiny, tiny),

@@ -10,13 +10,18 @@ are bound with ``ctypes``: pointers and the stream pass as ``c_void_p``.
 ``leaf.py``, ``gemm.py``, ``dense.py``, ``spmv.py``) adds one through
 ``count`` where it launches the kernel, and nowhere else, so a run can show
 that the main path went through the kernels.  ``count`` and ``lib`` hold a
-lock: a sharded solve launches from one host thread per device.  The
-wrappers share the dispatch rule below: a CPU tensor takes the plain
-version, a CUDA tensor launches the kernel or raises.
+lock: a sharded solve launches from one host thread per device.  Inside
+``recording()`` a thread's counts go to a dict of their own instead:
+``graphs`` records what a captured segment launches and adds it to
+``COUNTS`` with ``add_counts`` at every replay, so the counts of a graphed
+solve are those of the same solve run eagerly.  The wrappers share the
+dispatch rule below: a CPU tensor takes the plain version, a CUDA tensor
+launches the kernel or raises.
 """
 
 from __future__ import annotations
 
+import contextlib
 import ctypes
 import hashlib
 import os
@@ -69,6 +74,7 @@ BUILD_LOG: dict = {}      # library name -> nvcc's output (ptxas -v report)
 
 _loaded: dict = {}
 _LOCK = threading.RLock()
+_TLS = threading.local()       # ``rec``: this thread's recording, or None
 
 
 def reset_counts() -> None:
@@ -78,9 +84,33 @@ def reset_counts() -> None:
 
 
 def count(name: str) -> None:
-    """One launch of kernel ``name``."""
+    """One launch of kernel ``name``: into this thread's recording where
+    one is open, else into ``COUNTS``."""
+    rec = getattr(_TLS, "rec", None)
+    if rec is not None:
+        rec[name] = rec.get(name, 0) + 1
+        return
     with _LOCK:
         COUNTS[name] += 1
+
+
+def add_counts(delta: dict) -> None:
+    """Add a recording's counts to ``COUNTS``."""
+    with _LOCK:
+        for name, n in delta.items():
+            COUNTS[name] += n
+
+
+@contextlib.contextmanager
+def recording():
+    """Inside the block, this thread's ``count`` calls add to the yielded
+    dict instead of ``COUNTS``."""
+    prev = getattr(_TLS, "rec", None)
+    _TLS.rec = rec = {}
+    try:
+        yield rec
+    finally:
+        _TLS.rec = prev
 
 
 def _nvcc() -> str:

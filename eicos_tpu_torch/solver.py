@@ -4,14 +4,22 @@ homogeneous self-dual embedding, batched over lanes: a port of
 updateStatistics, checkExitConditions, isBetterThan, RHSaffine,
 RHScombined and backscale).
 
-``lax.while_loop`` under ``vmap`` becomes a host loop over a batched state
-with a leading lane axis.  Every lane runs the same arithmetic; a lane that
-has exited keeps its state unchanged from then on, as a lane of the JAX
-package's vmapped loop does.  The loop reads one flag back from the device
-per iteration ("all lanes done"); the refinement loops in ``kkt`` read one
-per trip.  ``kkt.host_syncs`` counts them.  A live table (``LiveTable``:
-``solve_live``, ``Settings(verbose_live=True)``) adds one host copy of lane
-0's history per group of rows it prints.
+``lax.while_loop`` under ``vmap`` becomes a loop over a batched state with
+a leading lane axis.  Every lane runs the same arithmetic; a lane that has
+exited keeps its state unchanged from then on, as a lane of the JAX
+package's vmapped loop does.  The loop body runs as five segments of a
+``graphs.Runner``: part A (statistics, history, exit logic, scalings, the
+factor, the predictor solve's start), the refinement trip at two
+right-hand sides, part B (the affine step and the combined right-hand
+side's solve start), the trip at one, and part C (the step and the new
+state, written into the loop's state buffers in place).  On a CUDA tensor
+iteration 0 runs them eagerly and from iteration 1 each is captured once
+as a CUDA graph and then replayed, the counterpart of the JAX package's
+compiled loop; on a CPU tensor they are plain calls.  The host reads one
+flag back from the device per iteration ("all lanes done") and one per
+refinement trip; ``kkt.host_syncs`` counts them.  A live table
+(``LiveTable``: ``solve_live``, ``Settings(verbose_live=True)``) adds one
+host copy of lane 0's history per group of rows it prints.
 
 Semantics kept exactly from the reference (they decide exit codes):
 updateScalings' out-of-cone flag is ignored (NaNs flow into the NaN exit);
@@ -27,7 +35,7 @@ from typing import NamedTuple, Optional
 
 import torch
 
-from . import cones, kkt
+from . import cones, graphs, kkt
 from .equilibrate import equilibrate
 from .exitcodes import ExitCode
 from .problem import ProblemData
@@ -105,6 +113,41 @@ class LoopState(NamedTuple):
     code: torch.Tensor
     done: torch.Tensor
     hist: History
+
+
+class _PartA(NamedTuple):
+    """What part A of an iteration gives B and C."""
+
+    w: Iterate                 # the iterate with its statistics
+    rx: torch.Tensor
+    ry: torch.Tensor
+    rz: torch.Tensor
+    rt: torch.Tensor
+    hist: History
+    code: torch.Tensor         # the exit code of lanes exiting now
+    exit_now: torch.Tensor
+    final_it: Iterate          # the iterate an exiting lane returns
+    best: Iterate
+    stepping: torch.Tensor     # lanes that take a step
+    scal: cones.Scaling
+    lam: torch.Tensor
+    solve: object              # kkt.ExactSolve
+    rhs: torch.Tensor          # (L, 2, n+p+m) the predictor's right-hand sides
+    ref: kkt.RefineState
+
+
+class _PartB(NamedTuple):
+    """What part B of an iteration gives C."""
+
+    dtau_denom: torch.Tensor
+    dtauaff: torch.Tensor
+    dkapaff: torch.Tensor
+    sigma: torch.Tensor
+    sigmamu: torch.Tensor
+    step_aff: torch.Tensor
+    lam_ds: torch.Tensor
+    rhs: torch.Tensor          # (L, 1, n+p+m) the combined right-hand side
+    ref: kkt.RefineState
 
 
 class Solution(NamedTuple):
@@ -373,8 +416,9 @@ def solve_batch(structure: ProblemStructure, data: ProblemData,
         e_vec[st.l + torch.as_tensor(cone.head_offsets)] = 1.0
     sel_rows = torch.arange(nh, device=c.device)
 
-    while not kkt.all_true(state.done):
-        stt = state
+    def part_a(stt: LoopState) -> _PartA:
+        """Statistics, history, exit logic, scalings, the factor and the
+        predictor solve's start."""
         i = stt.iter
         (rx, ry, rz), rt, w = _statistics(st, settings, stt.it._replace(
             iter=i), ctx, c, h, b, res0s)
@@ -425,24 +469,33 @@ def solve_batch(structure: ProblemStructure, data: ProblemData,
         restore = restore | safeguard_trip
         code = code.to(torch.int32)
 
-        final_it = _where(restore, stt.best, w)
-        best = _where((i == 0) | better, w, stt.best)
-
         # ---- step computation; lanes exiting now need no step
         stepping = ~stt.done & ~exit_now
         scal, lam = cones.update_scalings(cone, w.s, w.z)
-        solve_exact = None      # release the previous factor first
-        solve_exact = kkt.factor(st, ctx, scal, settings, lanes)
+        solve = kkt.factor(st, ctx, scal, settings, lanes)
         rhs_aff = torch.cat([rx, -ry, w.s - rz], -1)
-        sol12 = kkt.solve_refined(
-            st, ctx, solve_exact, scal, torch.stack([stt.rhs1, rhs_aff], 1),
-            settings, stepping)
-        dx1, dy1, dz1 = sol12.dx[:, 0], sol12.dy[:, 0], sol12.dz[:, 0]
-        dx2, dy2, dz2 = sol12.dx[:, 1], sol12.dy[:, 1], sol12.dz[:, 1]
+        rhs = torch.stack([stt.rhs1, rhs_aff], 1)
+        return _PartA(
+            w=w, rx=rx, ry=ry, rz=rz, rt=rt, hist=hist, code=code,
+            exit_now=exit_now, final_it=_where(restore, stt.best, w),
+            best=_where((i == 0) | better, w, stt.best), stepping=stepping,
+            scal=scal, lam=lam, solve=solve, rhs=rhs,
+            ref=kkt.refine_start(st, ctx, solve, scal, rhs, settings,
+                                 stepping))
+
+    def trip(solve, scal, rhs, ref: kkt.RefineState) -> None:
+        kkt.refine_trip(st, ctx, solve, scal, rhs, settings, ref)
+
+    def part_b(stt: LoopState, a: _PartA) -> _PartB:
+        """The affine step, its line search, the combined right-hand side
+        and its solve's start."""
+        w, scal, lam = a.w, a.scal, a.lam
+        dx1, dy1, dz1 = a.ref.dx[:, 0], a.ref.dy[:, 0], a.ref.dz[:, 0]
+        dx2, dy2, dz2 = a.ref.dx[:, 1], a.ref.dy[:, 1], a.ref.dz[:, 1]
 
         dtau_denom = (w.kap / w.tau - _dot(c, dx1) - _dot(b, dy1)
                       - _dot(h, dz1))
-        dtauaff = (rt - w.kap + _dot(c, dx2) + _dot(b, dy2)
+        dtauaff = (a.rt - w.kap + _dot(c, dx2) + _dot(b, dy2)
                    + _dot(h, dz2)) / dtau_denom
 
         dzaff = dz2 + dtauaff[:, None] * dz1
@@ -464,20 +517,31 @@ def solve_batch(structure: ProblemStructure, data: ProblemData,
         lam_ds = cones.conic_division(cone, lam, ds)
         W_lam_ds = cones.scale(cone, scal, lam_ds)
         oms = (1.0 - sigma)[:, None]
-        rhs_comb = torch.cat([oms * rx, -oms * ry, -oms * rz + W_lam_ds], -1)
-        sol3 = kkt.solve_refined(st, ctx, solve_exact, scal,
-                                 rhs_comb[:, None, :], settings, stepping)
-        dx2c, dy2c, dz2c = sol3.dx[:, 0], sol3.dy[:, 0], sol3.dz[:, 0]
+        rhs = torch.cat([oms * a.rx, -oms * a.ry, -oms * a.rz + W_lam_ds],
+                        -1)[:, None, :]
+        return _PartB(
+            dtau_denom=dtau_denom, dtauaff=dtauaff, dkapaff=dkapaff,
+            sigma=sigma, sigmamu=sigmamu, step_aff=step_aff, lam_ds=lam_ds,
+            rhs=rhs, ref=kkt.refine_start(st, ctx, a.solve, scal, rhs,
+                                          settings, a.stepping))
 
-        bkap = w.kap * w.tau + dkapaff * dtauaff - sigmamu
-        dtau = ((1.0 - sigma) * rt - bkap / w.tau + _dot(c, dx2c)
-                + _dot(b, dy2c) + _dot(h, dz2c)) / dtau_denom
+    def part_c(stt: LoopState, a: _PartA, b_: _PartB) -> None:
+        """The combined step, its line search and the new state, written
+        into ``stt`` in place; lanes that have exited keep theirs."""
+        w, scal, lam = a.w, a.scal, a.lam
+        dx1, dy1, dz1 = a.ref.dx[:, 0], a.ref.dy[:, 0], a.ref.dz[:, 0]
+        dx2c, dy2c, dz2c = b_.ref.dx[:, 0], b_.ref.dy[:, 0], b_.ref.dz[:, 0]
+        sigma, sigmamu = b_.sigma, b_.sigmamu
+
+        bkap = w.kap * w.tau + b_.dkapaff * b_.dtauaff - sigmamu
+        dtau = ((1.0 - sigma) * a.rt - bkap / w.tau + _dot(c, dx2c)
+                + _dot(b, dy2c) + _dot(h, dz2c)) / b_.dtau_denom
         dx = dx2c + dtau[:, None] * dx1
         dy = dy2c + dtau[:, None] * dy1
         dz = dz2c + dtau[:, None] * dz1
 
         W_dz = cones.scale(cone, scal, dz)
-        ds_by_W = -(lam_ds + W_dz)
+        ds_by_W = -(b_.lam_ds + W_dz)
         dkap = -(bkap + w.kap * dtau) / w.tau
         step = settings.gamma * cones.line_search(
             cone, lam, ds_by_W, W_dz, w.tau, dtau, w.kap, dkap,
@@ -488,20 +552,47 @@ def solve_batch(structure: ProblemStructure, data: ProblemData,
             x=w.x + sc * dx, y=w.y + sc * dy, z=w.z + sc * dz,
             s=w.s + sc * ds_final, kap=w.kap + step * dkap,
             tau=w.tau + step * dtau, sigma=sigma, step=step,
-            step_aff=step_aff, nitref1=sol12.nitref[:, 0],
-            nitref2=sol12.nitref[:, 1], nitref3=sol3.nitref[:, 0])
+            step_aff=b_.step_aff, nitref1=a.ref.kout[:, 0],
+            nitref2=a.ref.kout[:, 1], nitref3=b_.ref.kout[:, 0])
 
-        cont = LoopState(it=stepped, best=best, rhs1=stt.rhs1,
+        i = stt.iter
+        cont = LoopState(it=stepped, best=a.best, rhs1=stt.rhs1,
                          pres_prev=w.pres, iter=i + 1,
-                         code=torch.full_like(code, _NOTCONV), done=false,
-                         hist=hist)
-        exit_state = LoopState(it=final_it, best=stt.best, rhs1=stt.rhs1,
-                               pres_prev=w.pres, iter=i, code=code,
-                               done=~false, hist=hist)
+                         code=torch.full_like(a.code, _NOTCONV), done=false,
+                         hist=a.hist)
+        exit_state = LoopState(it=a.final_it, best=stt.best, rhs1=stt.rhs1,
+                               pres_prev=w.pres, iter=i, code=a.code,
+                               done=~false, hist=a.hist)
         # exited lanes keep their state, as under vmap
-        state = _where(stt.done, stt, _where(exit_now, exit_state, cont))
-        if live is not None:
-            live.trip(state)
+        graphs.copy_into(stt, _where(stt.done, stt,
+                                     _where(a.exit_now, exit_state, cont)))
+
+    # the loop body runs as graphed segments on a CUDA tensor (``graphs``):
+    # iteration 0 eagerly, then captured once and replayed; the host reads
+    # one flag an iteration and one a refinement trip
+    with graphs.Runner(c.device) as runner:
+        runner.hold(ctx)
+        # the cone constants that the segments read, held for the call
+        runner.hold(cones._consts(cone, str(c.device)))
+        state = runner.buffers(state)
+        seg_a = runner.segment("iteration A", part_a)
+        trip2 = runner.segment("refinement trip, 2 right-hand sides", trip)
+        seg_b = runner.segment("iteration B", part_b)
+        trip1 = runner.segment("refinement trip, 1 right-hand side", trip)
+        seg_c = runner.segment("iteration C", part_c)
+        while not kkt.all_true(state.done):
+            a = seg_a(state)
+            while not kkt.all_true(a.ref.done):
+                trip2(a.solve, a.scal, a.rhs, a.ref)
+            b_ = seg_b(state, a)
+            while not kkt.all_true(b_.ref.done):
+                trip1(a.solve, a.scal, b_.rhs, b_.ref)
+            seg_c(state, a, b_)
+            # the loop holds one factor at a time
+            del a, b_
+            runner.arm()
+            if live is not None:
+                live.trip(state)
 
     if live is not None:
         live.trip(state, last=True)

@@ -1144,3 +1144,165 @@ def test_mesh_of_visible_cards_matches_unsharded(cuda):
             pt.BatchedSolver.stack(probs[2 * i:2 * i + 2], shared=shared))
         assert torch.equal(sol.x[2 * i:2 * i + 2], one.x)
         assert torch.equal(sol.exit_code[2 * i:2 * i + 2], one.exit_code)
+
+
+# ------------------------------------------- the loop as captured graphs
+
+def _graph_case(pt, corpus, case):
+    """(structure, batch, BatchedSolver kwargs) of a small card case of
+    each path that reaches ``solve_batch``."""
+    from eicos_tpu_torch.plan import make_band_plan
+
+    shared = ("G", "A", "h")
+    lanes, rescue = 2, None
+    if case in ("banded-socp",):
+        st, base = corpus.make_mpc_soc(horizon=30, nx=2, nu=4, seed=5)
+        st = st.with_gsplit(base.G, base.A)
+        st = st.with_band_plan(make_band_plan(st, base.G, base.A,
+                                              keep_soc=True))
+        settings, lanes = pt.Settings(kkt_strategy="banded"), 4
+    elif case == "wide":
+        st, base = corpus.make_mpc_like(horizon=6, nx=40, nu=20, seed=3)
+        st = st.with_gsplit(base.G, base.A)
+        st = st.with_band_plan(make_band_plan(st, base.G, base.A))
+        settings = pt.Settings(kkt_strategy="banded")
+    elif case == "scan":
+        st, base = corpus.make_mpc_like(horizon=3, nx=256, nu=128, seed=3)
+        st = st.with_gsplit(base.G, base.A)
+        st = st.with_band_plan(make_band_plan(st, base.G, base.A))
+        settings = pt.Settings(kkt_strategy="banded")
+    elif case == "block64":
+        st, base = corpus.make_mpc_like(20, 2, 3, seed=1)
+        st = st.with_gsplit(base.G, base.A)
+        st = st.with_band_plan(make_band_plan(st, base.G, base.A, block=64))
+        settings = pt.Settings(kkt_strategy="banded", block=64)
+    else:
+        st, base = corpus.make_mpc_like(horizon=30, nx=2, nu=4, seed=3)
+        st = st.with_gsplit(base.G, base.A)
+        st = st.with_band_plan(make_band_plan(st, base.G, base.A))
+        settings = {
+            "banded-lp": pt.Settings(kkt_strategy="banded"),
+            "reduced": pt.Settings(kkt_strategy="reduced"),
+            "full": pt.Settings(),
+            "rescue": pt.Settings(kkt_strategy="banded", iter_max=3),
+        }[case]
+        if case == "rescue":
+            rescue = pt.Settings(kkt_strategy="reduced")
+    rng = np.random.default_rng(7)
+    probs = [pt.ProblemData(G=base.G, A=base.A,
+                            c=base.c + 0.02 * rng.standard_normal(st.n),
+                            h=base.h, b=base.b) for _ in range(lanes)]
+    return st, pt.BatchedSolver.stack(probs, shared=shared), dict(
+        settings=settings, shared=shared, rescue=rescue)
+
+
+def _counted(torch_, st, batch, kw):
+    """One solve with the launch counts, host syncs and runner stats read
+    around it."""
+    import eicos_tpu_torch as pt
+    from eicos_tpu_torch import graphs, kkt
+    from eicos_tpu_torch.ops import kernels
+
+    graphs.reset_stats()
+    kernels.reset_counts()
+    syncs0 = kkt.host_syncs
+    bs = pt.BatchedSolver(st, **kw)
+    sol = bs.solve(batch)
+    torch_.cuda.synchronize()
+    return (sol, dict(kernels.COUNTS), kkt.host_syncs - syncs0,
+            dict(graphs.STATS), bs.last_rescued)
+
+
+GRAPH_CASES = ["banded-lp", "banded-socp", "wide", "scan", "block64",
+               "reduced", "full", "rescue"]
+
+
+@pytest.mark.parametrize("case", GRAPH_CASES)
+def test_graphed_solve_equals_eager(cuda, monkeypatch, case):
+    """A solve whose loop runs as captured graphs against the same solve
+    with every segment called eagerly: exit codes, iterations, x, y, z,
+    s and the refinement counts bit for bit, the same kernel launch
+    counts and host syncs; the graphed one captured and replayed."""
+    import eicos_tpu_torch as pt
+    from eicos_tpu_torch import corpus, graphs
+
+    st, batch, kw = _graph_case(pt, corpus, case)
+    got, counts, syncs, stats, rescued = _counted(torch, st, batch, kw)
+    assert stats["captures"] >= 3 and stats["replays"] > stats["captures"]
+    with monkeypatch.context() as mp:
+        mp.setattr(graphs.Segment, "__call__",
+                   lambda self, *args: self.fn(*args))
+        want, wcounts, wsyncs, wstats, wrescued = _counted(torch, st, batch,
+                                                           kw)
+    assert wstats["captures"] == 0
+    for f in ("exit_code", "x", "y", "z", "s"):
+        assert torch.equal(getattr(got, f), getattr(want, f)), f
+    for f in ("iter", "nitref1", "nitref2", "nitref3", "pcost"):
+        assert torch.equal(getattr(got.info, f), getattr(want.info, f)), f
+    assert counts == wcounts and syncs == wsyncs and rescued == wrescued
+    if case == "rescue":
+        assert len(rescued) > 0
+
+
+@pytest.mark.parametrize("case", ["banded-lp", "banded-socp", "reduced",
+                                  "full", "rescue"])
+def test_failed_capture_raises(cuda, monkeypatch, case):
+    """A segment whose function fails while it is being captured raises
+    ``RuntimeError`` naming the segment; the solve does not finish
+    eagerly."""
+    import eicos_tpu_torch as pt
+    from eicos_tpu_torch import cones, corpus
+
+    real = cones.update_scalings
+
+    def failing(*args, **kw):
+        if torch.cuda.is_current_stream_capturing():
+            raise ValueError("refused inside a capture")
+        return real(*args, **kw)
+
+    monkeypatch.setattr(cones, "update_scalings", failing)
+    st, batch, kw = _graph_case(pt, corpus, case)
+    with pytest.raises(RuntimeError, match="capturing segment 'iteration A' "
+                       "failed: refused inside a capture"):
+        pt.BatchedSolver(st, **kw).solve(batch)
+
+
+def test_host_read_inside_a_capture_raises(cuda, monkeypatch):
+    """A host read (``.item()``) inside a segment: its warm-up runs, its
+    capture fails on the card and raises ``RuntimeError`` naming the
+    segment."""
+    import eicos_tpu_torch as pt
+    from eicos_tpu_torch import cones, corpus
+
+    real = cones.update_scalings
+
+    def reading(*args, **kw):
+        out = real(*args, **kw)
+        out[1].sum().item()
+        return out
+
+    monkeypatch.setattr(cones, "update_scalings", reading)
+    st, batch, kw = _graph_case(pt, corpus, "banded-lp")
+    with pytest.raises(RuntimeError, match="capturing segment 'iteration A' "
+                       "failed"):
+        pt.BatchedSolver(st, **kw).solve(batch)
+    torch.cuda.synchronize()
+
+
+def test_graphed_solves_release_their_pools(cuda):
+    """Repeated graphed solves of the dense path (cuBLAS inside the
+    captured factor) leave no graph pool behind: after the cache is
+    emptied, the reserved memory does not grow from one solve to the
+    next."""
+    import eicos_tpu_torch as pt
+    from eicos_tpu_torch import corpus
+
+    st, batch, kw = _graph_case(pt, corpus, "reduced")
+    bs = pt.BatchedSolver(st, **kw)
+    reserved = []
+    for _ in range(4):
+        bs.solve(batch)
+        torch.cuda.synchronize()
+        torch.cuda.empty_cache()
+        reserved.append(torch.cuda.memory_reserved())
+    assert reserved[3] <= reserved[1], reserved

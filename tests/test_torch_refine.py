@@ -33,9 +33,9 @@ def lp(banded: bool):
 def counted_solve(monkeypatch, st, data, settings, live: bool):
     """Solve with the gate ``live`` and count the corrective solves (calls
     of every ``solve_exact``), the refined solves that have a lane to
-    refine, and the host syncs."""
+    refine (their starts, ``kkt.refine_start``), and the host syncs."""
     counts = dict(solves=0, refined=0)
-    real_factor, real_refined = kkt.factor, kkt.solve_refined
+    real_factor, real_refined = kkt.factor, kkt.refine_start
 
     def factor(*args, **kw):
         solve_exact = real_factor(*args, **kw)
@@ -52,7 +52,7 @@ def counted_solve(monkeypatch, st, data, settings, live: bool):
 
     with monkeypatch.context() as mp:
         mp.setattr(kkt, "factor", factor)
-        mp.setattr(kkt, "solve_refined", refined)
+        mp.setattr(kkt, "refine_start", refined)
         if live:
             mp.setattr(kkt, "_sliced_live", lambda G: True)
         syncs0 = kkt.host_syncs
