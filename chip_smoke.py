@@ -65,14 +65,28 @@ port's paths through its entry points:
      "banded" (the plain leaf by design), lane 0 against the CPU;
  16. ``BatchedSolver(mesh=make_mesh())`` on phase 2's batch over the
      visible cards, the same bits as the unsharded solve.
+ 17. repeated solves: phase 2's and phase 6's ``BatchedSolver`` (with
+     rescue) solve a batch X, then, after ``update_data`` with every value
+     new (each row of G and h, and of A and b, scaled by a positive
+     factor, one a cone; c moved), Y, then X five times; phase 3's forced
+     rescue twice, with 5 and then 7 failing lanes (both padded to 8);
+     phase 10's ``Solver(G, A, c, h, b)`` through ``update_data``; phases
+     12 and 16 repeated.  Every solve after a solver's first captures no
+     graph and calls no segment eagerly, and gives the bits, launch counts
+     and host syncs of a fresh solver's solve of its data; the first result
+     is unchanged at the end.  First and repeated solves/s, host launch
+     calls, idle share and the memory held between solves are printed.
 
-Every solve runs its interior-point loop as captured CUDA graphs from
-iteration 1 on (``eicos_tpu_torch.graphs``).  Every driven solve of phases
-2-13, 15 and 16 is held to the same solve with its segments called eagerly
-(``same_bits_eager``: exit codes, iterations, x, y, z, launch counts and
-host syncs), with each one's captures, replays, capture time and peak
-device memory printed; phases 2 and 6 compare the two in one call (eager,
-graphed, graphed, eager: solves/s, idle share, host launch calls).
+Every solve runs as captured CUDA graphs (``eicos_tpu_torch.graphs``):
+a solver object's first solve captures its program, every later solve of
+it replays the program with the new values copied in.  Every driven first
+solve of phases 2-13, 15 and 16 is held to the same solve with its
+segments called eagerly (``same_bits_eager``: exit codes, iterations, x,
+y, z, launch counts and host syncs), with each one's captures, replays,
+capture time and peak device memory printed; phases 2 and 6 compare the
+two in one call (eager, graphed, graphed, eager: solves/s, idle share,
+host launch calls).  Each phase releases its solvers' programs before the
+next one starts.
 
 Phases 6, 7 and 12 must launch their band (12: leaf) kernels, match the
 CPU plain path on lane 0, repeat bit for bit, and end every lane OPTIMAL;
@@ -1367,7 +1381,7 @@ def build_wide_batch(pt, corpus, make_band_plan):
 RUNTIME_LAUNCHES = ("cudaLaunchKernel", "cudaLaunchKernelExC",
                     "cudaLaunchKernelEx", "cudaGraphLaunch", "cuLaunchKernel",
                     "cuLaunchKernelEx", "cuGraphLaunch")
-LAST = {}                         # the last ``drive``: runner stats, peaks
+LAST = {}                         # the last ``drive``: graph stats, peaks
 
 
 def profile_solve(torch, bs, batch, cuda_only=False, label="profile"):
@@ -1401,7 +1415,9 @@ def profile_solve(torch, bs, batch, cuda_only=False, label="profile"):
         torch.cuda.synchronize()
         wall = time.perf_counter() - t0
     graphed = graphs.STATS["graph_counts"]
-    port_eager = sum(v - graphed.get(k, 0) for k, v in kernels.COUNTS.items())
+    # the port's launches outside graphs: eager ones and the warm-ups'
+    port_eager = sum(v - graphed.get(k, 0) + graphs.STATS["warm_counts"].get(
+        k, 0) for k, v in kernels.COUNTS.items() if k != "factors")
     replays = graphs.STATS["replays"]
     rows, runtime = [], {}
     for e in prof.key_averages():
@@ -1447,8 +1463,8 @@ def profile_solve(torch, bs, batch, cuda_only=False, label="profile"):
 
 @contextlib.contextmanager
 def eager_segments():
-    """Inside the block every segment of the solve loop calls its function
-    eagerly, as iteration 0 does: no graph is captured."""
+    """Inside the block every segment of a solve calls its function
+    eagerly: no graph is captured or replayed."""
     from eicos_tpu_torch import graphs
 
     real = graphs.Segment.__call__
@@ -1459,37 +1475,43 @@ def eager_segments():
         graphs.Segment.__call__ = real
 
 
-def drive(torch, kernels, kkt, bs, batch):
-    """One solve with every launch count at 0 just before it: returns the
-    solution, the counts just after (with the number of factors under
-    "factors": ``kkt.factor`` is wrapped to count its calls, through
-    ``kernels.count``, so that a replayed factor counts too), the host
-    syncs and the wall time.  ``LAST`` gets the runner's stats and the
-    peak device memory of the solve."""
-    from eicos_tpu_torch import graphs
-
+def count_factors(kernels, kkt):
+    """Wrap ``kkt.factor`` for good to count its calls under "factors" in
+    ``kernels.COUNTS``, through ``kernels.count``, so that a captured
+    factor counts at every replay of a program kept across solves.  Once
+    a run."""
+    if getattr(kkt.factor, "counts_factors", False):
+        return
     real = kkt.factor
 
     def counted(*args, **kw):
         kernels.count("factors")
         return real(*args, **kw)
 
+    counted.counts_factors = True
+    kernels.COUNTS.setdefault("factors", 0)
+    kkt.factor = counted
+
+
+def drive(torch, kernels, kkt, bs, batch):
+    """One solve with every launch count at 0 just before it: returns the
+    solution, the counts just after (with the number of factors under
+    "factors", ``count_factors``), the host syncs and the wall time.
+    ``LAST`` gets the graph stats and the peak device memory of the
+    solve."""
+    from eicos_tpu_torch import graphs
+
+    count_factors(kernels, kkt)
     torch.cuda.synchronize()
     torch.cuda.reset_peak_memory_stats()
     kernels.reset_counts()
     graphs.reset_stats()
-    kernels.COUNTS["factors"] = 0
     syncs0 = kkt.host_syncs
-    kkt.factor = counted
-    try:
-        t0 = time.perf_counter()
-        sol = bs.solve(batch)
-        torch.cuda.synchronize()
-        wall = time.perf_counter() - t0
-        launches = dict(kernels.COUNTS)
-    finally:
-        kkt.factor = real
-        kernels.COUNTS.pop("factors")
+    t0 = time.perf_counter()
+    sol = bs.solve(batch)
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    launches = dict(kernels.COUNTS)
     LAST.clear()
     LAST.update(graphs=dict(graphs.STATS),
                 peak=torch.cuda.max_memory_allocated() / 2 ** 30,
@@ -1498,9 +1520,9 @@ def drive(torch, kernels, kkt, bs, batch):
 
 
 def graph_line(label):
-    """The runner's account of the last ``drive``, printed, with the
-    memory still reserved once the cache is emptied (a graph pool that
-    outlived its solve would stay there)."""
+    """The graphs' account of the last ``drive``, printed, with the
+    memory still reserved once the cache is emptied: what the solvers'
+    kept programs hold between solves."""
     g = LAST["graphs"]
     torch = sys.modules["torch"]
     torch.cuda.empty_cache()
@@ -1509,7 +1531,8 @@ def graph_line(label):
           f"calls; capture {g['capture_s']:.3f} s; peak device memory "
           f"{LAST['peak']:.3f} GiB allocated, {LAST['reserved']:.3f} GiB "
           f"reserved; {torch.cuda.memory_reserved() / 2 ** 30:.3f} GiB "
-          f"reserved after the solve, the cache emptied")
+          f"reserved after the solve, the cache emptied (held by the kept "
+          f"programs)")
     return dict(LAST)
 
 
@@ -1610,12 +1633,16 @@ def same_bits_unfused(torch, bs, batch, first, label):
         ab = a if a2 is None else torch.cat([a, a2], -1)
         return spmv.fused_tail(real(self, ab), base, op, w, gamma, x, split)
 
+    # the solver's kept programs replay the fused calls they captured:
+    # released before and after, the solve captures the patched ones
+    bs.close()
     spmv.SparseOperand.rmatmul_fused = unfused
     try:
         sol = bs.solve(batch)
         torch.cuda.synchronize()
     finally:
         spmv.SparseOperand.rmatmul_fused = real
+        bs.close()
     same_bits(torch, first, sol, f"{label}, the unfused sequence's solve")
 
 
@@ -1774,6 +1801,7 @@ def run_path(torch, pt, kernels, kkt, label, st, probs, batch, shared,
     outcome(sol, label)
     all_optimal_or_as_cpu(pt, st, probs, shared, settings, rescue, sol, label)
     same_as_cpu(pt, st, probs[0], settings, sol, label)
+    bs.close()
     return launches, sol
 
 
@@ -1830,11 +1858,17 @@ def captured_blocks(kkt, count, lanes):
     """Inside the block, ``kkt.band_factor`` records copies of its first
     ``count`` calls' inputs, the path's own gathered blocks of the first
     ``lanes`` lanes with the product type, into the yielded list."""
+    import torch
+
     real = kkt.band_factor
     got = []
 
     def capture(Kd, Ks, gemm_dtype=None):
-        if len(got) < count:
+        # a graph's capture records the factor and computes nothing: the
+        # first calls that compute are the prologue's warm-up (the init
+        # factor) and iteration 0's
+        if (len(got) < count
+                and not torch.cuda.is_current_stream_capturing()):
             got.append((Kd[:lanes].clone(), Ks[:lanes].clone(), gemm_dtype))
         return real(Kd, Ks, gemm_dtype)
 
@@ -1918,6 +1952,7 @@ def phase_scan(torch, pt, corpus, kernels, kkt, leaf, plain,
     short = [int(i) for i in np.flatnonzero(codes != 0)][:SCAN_CPU_LANES]
     tiers_as_cpu(pt, st, probs, shared, g32, gsol, short or [0],
                  "scan band, band_gemm f32")
+    gs.close()
     del gs, gsol, batch, probs
     torch.cuda.empty_cache()
     return record
@@ -1967,6 +2002,7 @@ def phase_f32_banded(torch, pt, corpus, kernels, kkt, leaf, plain,
     profile_solve(torch, bs, batch, cuda_only=True)
     tiers_as_cpu(pt, st, probs, shared, f32, sol, list(range(CPU_LANES)),
                  "banded, f32 factor")
+    bs.close()
     del bs, sol, again, batch
     torch.cuda.empty_cache()
     return record
@@ -2105,6 +2141,8 @@ def phase_entry(torch, pt, probs, shared, st):
     if not (ms >= ev and ms >= 10 * launch_ms):
         fail("utils.timing.timed did not wait for the queued products")
     del a
+    for solver in (one, s, bs):
+        solver.close()
 
 
 def phase_block64(torch, pt, kernels, kkt, make_band_plan, st, probs,
@@ -2141,6 +2179,7 @@ def phase_block64(torch, pt, kernels, kkt, make_band_plan, st, probs,
         if hist != {0: BLOCK64_LANES}:
             fail(f"{label}: not every lane OPTIMAL: {hist}")
         same_as_cpu(pt, pst, probs[0], cfg, sol, label)
+        bs.close()
         del bs, sol
     torch.cuda.empty_cache()
 
@@ -2166,8 +2205,274 @@ def phase_mesh(torch, pt, kernels, kkt, make_mesh, st, batch, shared,
         batch)
     same_bits(torch, ref, msol, "mesh against the unsharded solve")
     outcome(msol, "mesh")
+    ms_.close()
     del ms_, msol, ref
     torch.cuda.empty_cache()
+
+
+def rescaled(pt, st, batch, seed):
+    """``batch`` (shared G, A, h; per-lane c, b) with every value new and
+    its feasible set kept: each row of G and h times a factor in [0.5, 2]
+    (one factor a cone, so that s stays in its cone), each row of A and b
+    too; c moved by 1e-2 of a normal draw."""
+    rng = np.random.default_rng(seed)
+    rg = rng.uniform(0.5, 2.0, st.m)
+    off = st.l
+    for q in st.q:
+        rg[off:off + q] = rg[off]
+        off += q
+    ra = rng.uniform(0.5, 2.0, st.p)
+    c = np.asarray(batch.c)
+    return pt.ProblemData(
+        G=rg[:, None] * np.asarray(batch.G),
+        A=ra[:, None] * np.asarray(batch.A), h=rg * np.asarray(batch.h),
+        b=ra * np.asarray(batch.b), c=c + 0.01 * rng.standard_normal(c.shape))
+
+
+def replayed_only(label):
+    """The last ``drive`` captured no graph and called no segment
+    eagerly: a solve of a kept program."""
+    g = LAST["graphs"]
+    print(f"{label}: {g['captures']} captures, {g['eager']} eager segment "
+          f"calls, {g['replays']} replays, {g['copies']} input copies")
+    if g["captures"] or g["eager"]:
+        fail(f"{label}: a repeated solve captured or ran segments eagerly "
+             f"({g['captures']} captures, {g['eager']} eager calls)")
+
+
+def same_solve(torch, got, want, label, counts=None, syncs=None):
+    """``got`` must have ``want``'s bits (exit codes, iterations, x, y, z)
+    and, where given, the same (launch counts, host syncs) pairs."""
+    same = all(torch.equal(a, b) for a, b in (
+        (got.exit_code, want.exit_code), (got.info.iter, want.info.iter),
+        (got.x, want.x), (got.y, want.y), (got.z, want.z)))
+    print(f"{label}: a fresh solve's bits: {same}"
+          + ("" if counts is None else f"; counts equal: "
+             f"{counts[0] == counts[1]}; host syncs {syncs[0]} and "
+             f"{syncs[1]}"))
+    if not same or (counts is not None and (counts[0] != counts[1]
+                                            or syncs[0] != syncs[1])):
+        fail(f"{label}: the solve differs from a fresh solve of its data")
+
+
+def held_memory(torch):
+    """(allocated, reserved) GiB once the cache is emptied: what the live
+    solvers hold between solves."""
+    torch.cuda.synchronize()
+    gc.collect()
+    torch.cuda.empty_cache()
+    return (torch.cuda.memory_allocated() / 2 ** 30,
+            torch.cuda.memory_reserved() / 2 ** 30)
+
+
+def first_rates(torch, make, batch, lanes, reps):
+    """Solves/s of ``reps`` new solvers' first solves (median; garbage
+    collected before each), each solver released after."""
+    times = []
+    for _ in range(reps):
+        bs = make()
+        gc.collect()
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        bs.solve(batch)
+        torch.cuda.synchronize()
+        times.append(time.perf_counter() - t0)
+        bs.close()
+    return lanes / float(np.median(times)), times
+
+
+def repeat_batched(torch, pt, kernels, kkt, label, st, batch, shared,
+                   settings, rescue, lanes):
+    """Phase 17 on one ``BatchedSolver``: X, then Y after ``update_data``
+    with every value new, then X five times; every solve after the first
+    replays only and gives a fresh solve's bits, counts and syncs; the
+    first result is the caller's.  Prints first and repeated solves/s,
+    host launch calls, idle share and memory; returns them."""
+    from eicos_tpu_torch import graphs
+
+    def make():
+        return pt.BatchedSolver(st, settings, shared=shared, rescue=rescue)
+
+    bs = make()
+    first, f_counts, f_syncs, t_first = drive(torch, kernels, kkt, bs, batch)
+    first_graphs = dict(LAST)
+    kept = graphs.clone(first)
+    y = rescaled(pt, st, batch, seed=23)
+    bs.update_data(**{f: getattr(y, f) for f in ("G", "A", "c", "h", "b")})
+    ysol, y_counts, y_syncs, _ = drive(torch, kernels, kkt, bs, None)
+    replayed_only(f"{label}, Y after update_data")
+    outcome(ysol, f"{label}, Y")
+    fresh = make()
+    want, w_counts, w_syncs, _ = drive(torch, kernels, kkt, fresh, y)
+    fresh.close()
+    del fresh
+    same_solve(torch, ysol, want, f"{label}, Y", (y_counts, w_counts),
+               (y_syncs, w_syncs))
+    del ysol, want
+    gc.collect()
+    walls, peaks = [], []
+    for i in range(5):
+        sol, counts, syncs, wall = drive(torch, kernels, kkt, bs, batch)
+        replayed_only(f"{label}, X again ({i + 1})")
+        same_solve(torch, sol, first, f"{label}, X again ({i + 1})",
+                   (counts, f_counts), (syncs, f_syncs))
+        walls.append(wall)
+        peaks.append((LAST["peak"], LAST["reserved"]))
+    same_solve(torch, first, kept, f"{label}, the first result at the end")
+    rep_rate = lanes / float(np.median(walls))
+    held = held_memory(torch)
+    prof_rep = profile_solve(torch, bs, batch, cuda_only=True,
+                             label=f"{label}, repeated solve, profile")
+    fresh = make()
+    prof_first = profile_solve(torch, fresh, batch, cuda_only=True,
+                               label=f"{label}, first solve, profile")
+    fresh.close()
+    del fresh
+    first_rate, first_times = first_rates(torch, make, batch, lanes, 5)
+    bs.close()
+    released = held_memory(torch)
+    out = dict(first_rate=first_rate, rep_rate=rep_rate,
+               first_host=prof_first["host"], rep_host=prof_rep["host"],
+               first_idle=prof_first["idle"], rep_idle=prof_rep["idle"],
+               capture_s=first_graphs["graphs"]["capture_s"],
+               captures=first_graphs["graphs"]["captures"],
+               first_peak=(first_graphs["peak"], first_graphs["reserved"]),
+               rep_peak=max(peaks), held=held, released=released)
+    print(f"{label}: solves/s first {first_rate:.2f} (times {first_times}), "
+          f"repeated {rep_rate:.2f} (walls {walls}); host launch calls a "
+          f"solve first {out['first_host']}, repeated {out['rep_host']}; "
+          f"idle share first {out['first_idle']:.3f}, repeated "
+          f"{out['rep_idle']:.3f}; the first solve captured {out['captures']}"
+          f" graphs in {out['capture_s']:.3f} s; peak GiB (allocated, "
+          f"reserved) first {out['first_peak'][0]:.3f}, "
+          f"{out['first_peak'][1]:.3f}, repeated {out['rep_peak'][0]:.3f}, "
+          f"{out['rep_peak'][1]:.3f}; held between solves {held[0]:.3f}, "
+          f"{held[1]:.3f}; after close() {released[0]:.3f}, "
+          f"{released[1]:.3f}")
+    return out
+
+
+def phase_repeat(torch, pt, corpus, kernels, kkt, make_band_plan, make_mesh,
+                 st, probs, batch, shared, settings, rescue):
+    """Phase 17: repeated solves through kept programs (module doc)."""
+    from eicos_tpu_torch import graphs
+
+    t0 = time.perf_counter()
+    lp = repeat_batched(torch, pt, kernels, kkt, "repeat, phase 2", st, batch,
+                        shared, settings, rescue, LANES)
+    print(f"repeat, phase 2: {time.perf_counter() - t0:.1f} s")
+    t0 = time.perf_counter()
+    kst, _, kbatch, kshared = build_socp_batch(pt, corpus, LANES,
+                                               make_band_plan)
+    soc = repeat_batched(torch, pt, kernels, kkt, "repeat, phase 6", kst,
+                         kbatch, kshared, settings, rescue, LANES)
+    del kbatch
+    print(f"repeat, phase 6: {time.perf_counter() - t0:.1f} s")
+
+    # phase 3's forced rescue with 5, then 7 failing lanes: both pad to 8
+    t0 = time.perf_counter()
+    forced = pt.Settings(kkt_strategy="banded", iter_max=3)
+    fs = pt.BatchedSolver(st, forced, shared=shared, rescue=rescue)
+    five = pt.BatchedSolver.stack(probs[:5], shared=shared)
+    seven = pt.BatchedSolver.stack(probs[5:12], shared=shared)
+    drive(torch, kernels, kkt, fs, five)
+    rprog = fs._rescue_program
+    caps = rprog.captures
+    print(f"repeat, forced rescue of 5: rescued {list(fs.last_rescued)}; "
+          f"the rescue program captured {caps} graphs for "
+          f"{rprog.inputs[2].shape[0]} lanes")
+    rsol, r_counts, r_syncs, _ = drive(torch, kernels, kkt, fs, seven)
+    print(f"repeat, forced rescue of 7: rescued {list(fs.last_rescued)}; "
+          f"the same rescue program: {fs._rescue_program is rprog}, "
+          f"{rprog.captures - caps} new captures")
+    if (fs.last_rescued != tuple(range(7)) or fs._rescue_program is not rprog
+            or rprog.captures != caps):
+        fail("repeat, forced rescue: the second rescue did not replay the "
+             "first one's padded program")
+    _, _, hist = outcome(rsol, "repeat, forced rescue of 7")
+    if hist != {0: 7}:
+        fail(f"repeat, forced rescue of 7: not every lane OPTIMAL: {hist}")
+    fresh = pt.BatchedSolver(st, forced, shared=shared, rescue=rescue)
+    want, w_counts, w_syncs, _ = drive(torch, kernels, kkt, fresh, seven)
+    same_solve(torch, rsol, want, "repeat, forced rescue of 7",
+               (r_counts, w_counts), (r_syncs, w_syncs))
+    fresh.close()
+    fs.close()
+    del fresh, fs, rsol, want
+    print(f"repeat, forced rescue: {time.perf_counter() - t0:.1f} s")
+
+    # phase 10's Solver at the default settings ("full") on lane 0
+    t0 = time.perf_counter()
+    p0 = probs[0]
+    one = pt.Solver(p0.G, p0.A, p0.c, p0.h, p0.b)
+    drive(torch, kernels, kkt, one, False)
+    y = rescaled(pt, st, pt.ProblemData(G=p0.G, A=p0.A, c=p0.c[None],
+                                        h=p0.h, b=p0.b[None]), seed=29)
+    new = dict(G=y.G, A=y.A, c=y.c[0], h=y.h, b=y.b[0])
+    one.update_data(**new)
+    code, counts, syncs, wall = drive(torch, kernels, kkt, one, False)
+    replayed_only("repeat, Solver (full) after update_data")
+    other = pt.Solver(**new)
+    _, w_counts, w_syncs, w_wall = drive(torch, kernels, kkt, other, False)
+    print(f"repeat, Solver (full): code {int(code)}; re-solve {wall:.3f} s, "
+          f"a new Solver's first solve {w_wall:.3f} s")
+    same_solve(torch, one.last_solution, other.last_solution,
+               "repeat, Solver (full)", (counts, w_counts),
+               (syncs, w_syncs))
+    one.close()
+    other.close()
+    del one, other
+    print(f"repeat, Solver: {time.perf_counter() - t0:.1f} s")
+
+    # phase 12: the scan
+    t0 = time.perf_counter()
+    sst, _, sbatch, sshared = build_scan_batch(pt, corpus, make_band_plan)
+    ss = pt.BatchedSolver(sst, settings, shared=sshared)
+    sfirst, s_counts, s_syncs, s_first = drive(torch, kernels, kkt, ss,
+                                               sbatch)
+    s_caps = LAST["graphs"]["captures"]
+    s_cap_s = LAST["graphs"]["capture_s"]
+    ssol, counts, syncs, _ = drive(torch, kernels, kkt, ss, sbatch)
+    replayed_only("repeat, scan")
+    same_solve(torch, ssol, sfirst, "repeat, scan", (counts, s_counts),
+               (syncs, s_syncs))
+    del ssol
+    _, s_rate = timed(torch, ss, sbatch, SCAN_LANES, reps=3)
+    prof_rep = profile_solve(torch, ss, sbatch, cuda_only=True,
+                             label="repeat, scan, repeated solve, profile")
+    s_held = held_memory(torch)
+    ss.close()
+    fresh = pt.BatchedSolver(sst, settings, shared=sshared)
+    prof_first = profile_solve(torch, fresh, sbatch, cuda_only=True,
+                               label="repeat, scan, first solve, profile")
+    fresh.close()
+    del fresh, ss, sbatch, sfirst
+    scan = dict(first_rate=SCAN_LANES / s_first, rep_rate=s_rate,
+                first_host=prof_first["host"], rep_host=prof_rep["host"],
+                first_idle=prof_first["idle"], rep_idle=prof_rep["idle"],
+                captures=s_caps, capture_s=s_cap_s, held=s_held)
+    print(f"repeat, scan: solves/s first {scan['first_rate']:.2f}, repeated "
+          f"{s_rate:.2f}; host launch calls a solve first "
+          f"{scan['first_host']}, repeated {scan['rep_host']}; idle share "
+          f"first {scan['first_idle']:.3f}, repeated {scan['rep_idle']:.3f}; "
+          f"{s_caps} captures in {s_cap_s:.3f} s; held between solves "
+          f"{s_held[0]:.3f}, {s_held[1]:.3f} GiB; "
+          f"{time.perf_counter() - t0:.1f} s")
+
+    # phase 16: the mesh
+    t0 = time.perf_counter()
+    ms_ = pt.BatchedSolver(st, settings, shared=shared, rescue=rescue,
+                           mesh=make_mesh())
+    mfirst, m_counts, m_syncs, _ = drive(torch, kernels, kkt, ms_, batch)
+    msol, counts, syncs, _ = drive(torch, kernels, kkt, ms_, batch)
+    replayed_only("repeat, mesh")
+    same_solve(torch, msol, mfirst, "repeat, mesh", (counts, m_counts),
+               (syncs, m_syncs))
+    ms_.close()
+    del ms_, msol, mfirst
+    print(f"repeat, mesh: {time.perf_counter() - t0:.1f} s; graphs.STATS "
+          f"after the phase: {graphs.STATS['captures']} captures")
+    return dict(lp=lp, soc=soc, scan=scan)
 
 
 def main():
@@ -2268,6 +2573,8 @@ def main():
     print(f"synchronizing calls flagged by torch in one solve: {flagged} "
           f"(loop count {counted})")
     same_as_cpu(pt, st, probs[0], settings, sol, "main path")
+    bs.close()
+    del bs
     print(f"phase 2: {time.perf_counter() - t_phase:.1f} s")
 
     # ---- phase 3: forced rescue, the primary cut at 3 iterations
@@ -2287,6 +2594,8 @@ def main():
     if hist != {0: RESCUE_LANES}:
         fail(f"forced rescue: not every lane OPTIMAL: {hist}")
     need_launched(launches, band_names + dense_names, "forced rescue")
+    fs.close()
+    del fs
     print(f"phase 3: {time.perf_counter() - t_phase:.1f} s")
 
     # ---- phase 4: the reduced strategy at full width
@@ -2319,6 +2628,7 @@ def main():
     same_as_cpu(pt, st, probs[0], red, rsol, "reduced")
     red0 = (int(rsol.exit_code[0]), int(rsol.info.iter[0]),
             float(rsol.info.pcost[0]))
+    rs.close()
     del rs, rsol
     torch.cuda.empty_cache()
     print(f"phase 4: {time.perf_counter() - t_phase:.1f} s")
@@ -2347,6 +2657,7 @@ def main():
 
     # ---- phase 6: the SOCP lane of the main path (NT-scaled kept cones)
     t_phase = time.perf_counter()
+    ss.close()
     del ss, ssol, sbatch
     torch.cuda.empty_cache()
     kst, kprobs, kbatch, kshared = build_socp_batch(pt, corpus, LANES,
@@ -2415,6 +2726,7 @@ def main():
     same_as_cpu(pt, st, probs[0],
                 pt.Settings(kkt_strategy="reduced", dense_solve="subst"),
                 usol, "reduced on substitution")
+    us.close()
     del us, usol
     torch.cuda.empty_cache()
     print(f"phase 8: {time.perf_counter() - t_phase:.1f} s")
@@ -2449,6 +2761,7 @@ def main():
     profile_solve(torch, ns, nbatch)
     tiers_as_cpu(pt, nst, nprobs, nshared, normal, nsol, short or [0],
                  "normal")
+    ns.close()
     del ns, nsol, nbatch, nprobs
     torch.cuda.empty_cache()
     print(f"phase 9: {time.perf_counter() - t_phase:.1f} s")
@@ -2480,6 +2793,7 @@ def main():
             or not abs(float(info.pcost) - red0[2])
             <= STRATEGY_TOL * abs(red0[2])):
         fail("full: lane 0 disagrees with the reduced strategy")
+    one.close()
     del one
     fbatch = pt.BatchedSolver.stack(probs[:FULL_LANES], shared=shared)
     for label, cfg, must, never in (
@@ -2507,6 +2821,7 @@ def main():
         objectives_close(fsol, banded_pcost[:FULL_LANES], {2: STRATEGY_TOL},
                          label)
         profile_solve(torch, fs_, fbatch)
+        fs_.close()
         del fs_, fsol, again
         torch.cuda.empty_cache()
     del fbatch
@@ -2541,6 +2856,7 @@ def main():
     profile_solve(torch, hs, batch)
     tiers_as_cpu(pt, st, probs, shared, f32, hsol, list(range(CPU_LANES)),
                  "reduced, f32 factor")
+    hs.close()
     del hs, hsol, again
     torch.cuda.empty_cache()
     print(f"phase 11: {time.perf_counter() - t_phase:.1f} s")
@@ -2573,6 +2889,12 @@ def main():
     phase_mesh(torch, pt, kernels, kkt, make_mesh, st, batch, shared,
                settings, rescue)
     print(f"phase 16: {time.perf_counter() - t_phase:.1f} s")
+
+    # ---- phase 17: repeated solves through the solvers' kept programs
+    t_phase = time.perf_counter()
+    phase_repeat(torch, pt, corpus, kernels, kkt, make_band_plan, make_mesh,
+                 st, probs, batch, shared, settings, rescue)
+    print(f"phase 17: {time.perf_counter() - t_phase:.1f} s")
 
     order = ("name", "route", "source", "replaces", "launches",
              "max_abs_err", "ms", "plain_ms", "bound_ms", "bound_by",

@@ -101,8 +101,8 @@ def cmd_demo(args) -> int:
                        + 0.05 * rng.standard_normal(st.n))
     print(f"Data update time: {toc(t0):.1f} ms")
     code, ms = timed(solver.solve)
-    print(f"Second solve time: {ms:.1f} ms -> {code.name}, "
-          f"{int(solver.get_info().iter)} iters")
+    print(f"Second solve time (cached program): {ms:.1f} ms -> "
+          f"{code.name}, {int(solver.get_info().iter)} iters")
     if code not in ok:
         return 1
 

@@ -4,6 +4,15 @@ port of ``eicos_tpu.api``.
 
 Both run on CUDA unless the caller passes ``device="cpu"``; without a CUDA
 device they raise instead of moving to the CPU on their own.
+
+Each object keeps the solve programs it runs (``graphs.Program``: on the
+card, the solve captured as CUDA graphs at its first solve and replayed
+by every later one, with the new values copied in), one for its settings
+and one for its rescue: the update_data fast path, the counterpart of the
+JAX package's cached executable.  A program holds device memory (its
+graphs' pool, its input buffers, the loop state) until the object is
+collected, ``close()`` is called, or a solve of another key (a batch of
+another lane count, a rescue of another padded size) replaces it.
 """
 
 from __future__ import annotations
@@ -18,8 +27,8 @@ from .exitcodes import ExitCode
 from .problem import ProblemData, make_problem
 from .settings import Settings
 from .parallel.sharding import shard_batch, solve_shards
-from .solver import (LiveTable, Solution, resolve_device, solve_batch,
-                     squeeze_lane, to_device)
+from .solver import (LiveTable, Solution, program_for, resolve_device,
+                     solve_batch, squeeze_lane, to_device)
 from .structure import ProblemStructure
 
 _FIELDS = ("G", "A", "c", "h", "b")
@@ -83,6 +92,7 @@ class Solver:
         self.rescue = _rescue_settings(rescue)
         self._solution: Optional[Solution] = None
         self._dev: Optional[ProblemData] = None
+        self._programs: dict = {}   # rescue? -> its kept program
 
     @classmethod
     def from_csc(cls, n, m, p, l, ncones, q, Gpr, Gjc, Gir, Apr, Ajc, Air,
@@ -111,7 +121,8 @@ class Solver:
                    rescue=rescue, device=device)
 
     def update_data(self, G=None, A=None, c=None, h=None, b=None):
-        """Replace problem values; dimensions must match."""
+        """Replace problem values; dimensions must match.  The programs
+        stay: the next solve replays them on the new values."""
         st = self.structure
         d = self._data
         self._data = ProblemData(
@@ -130,15 +141,10 @@ class Solver:
         """Solve (and, under ``rescue``, re-solve once); with ``verbose``
         print the reference's iteration table and summary afterwards, from
         one host copy of the solution."""
-        # device-resident values, cached until update_data
-        if self._dev is None:
-            self._dev = to_device(self._data, self.device)
-        sol = squeeze_lane(solve_batch(self.structure, self._dev,
-                                       self.settings))
+        sol = self._solve(self.settings)
         code = int(sol.exit_code)
         if self.rescue is not None and _code_rank(code) < 2:
-            rsol = squeeze_lane(solve_batch(self.structure, self._dev,
-                                            self.rescue))
+            rsol = self._solve(self.rescue, rescue=True)
             if _code_rank(int(rsol.exit_code)) > _code_rank(code):
                 sol = rsol
         self._solution = sol
@@ -158,14 +164,29 @@ class Solver:
         the same bits as ``solve()``'s."""
         from .utils.printing import host_copy, print_summary
 
-        if self._dev is None:
-            self._dev = to_device(self._data, self.device)
-        sol = squeeze_lane(solve_batch(self.structure, self._dev,
-                                       self.settings,
-                                       live=LiveTable(seg, file)))
+        sol = self._solve(self.settings, live=LiveTable(seg, file))
         self._solution = sol
         print_summary(self.structure, host_copy(sol), file=file)
         return ExitCode(int(sol.exit_code))
+
+    def _solve(self, settings: Settings, live=None, rescue: bool = False):
+        """One solve under ``settings`` through the object's program for
+        them (the rescue's with ``rescue``)."""
+        # device-resident values, cached until update_data
+        if self._dev is None:
+            self._dev = to_device(self._data, self.device)
+        program = program_for(self._programs.get(rescue), self.structure,
+                              self._dev, settings, owner=self)
+        self._programs[rescue] = program
+        return squeeze_lane(solve_batch(self.structure, self._dev, settings,
+                                        live=live, program=program))
+
+    def close(self) -> None:
+        """Release the device memory of the solver's programs; a later
+        solve captures anew."""
+        for program in self._programs.values():
+            program.close()
+        self._programs.clear()
 
     def solution(self) -> np.ndarray:
         """Primal solution x."""
@@ -196,12 +217,19 @@ class BatchedSolver:
     solved again under the fallback; a lane takes the fallback's result
     where its tier is better, and ``last_rescued`` lists those lanes.
 
+    The rescue sub-batch is padded to the next power of two lanes by
+    repeating its first lane, as ``eicos_tpu.api`` pads it, so that
+    distinct failure counts share a few rescue programs; the object keeps
+    the last one.  Lanes never couple, so the padding changes no lane's
+    result.
+
     ``mesh``: optional sequence of devices (``parallel.make_mesh``): the
     lanes split evenly over it, the shared fields are copied to each
-    device, the shards are solved at once and the solution is gathered on
-    ``mesh[0]`` (``parallel/sharding.py``).  The rescue sub-batch is not
-    sharded: it is small by construction, and a sub-mesh-size batch cannot
-    split evenly.  ``device`` is then ``mesh[0]``."""
+    device, the shards are solved at once, each through the object's
+    program for its device, and the solution is gathered on ``mesh[0]``
+    (``parallel/sharding.py``).  The rescue sub-batch is not sharded: it
+    is small by construction, and a sub-mesh-size batch cannot split
+    evenly.  ``device`` is then ``mesh[0]``."""
 
     def __init__(self, structure: ProblemStructure,
                  settings: Settings = Settings(), shared: tuple = (),
@@ -216,6 +244,10 @@ class BatchedSolver:
         self.last_rescued: tuple = ()
         self._last_in = None
         self._last_dev = None
+        # one program a device of the mesh (one without), and the rescue's
+        self._programs: list = [None] * (len(self.mesh) if self.mesh
+                                         else 1)
+        self._rescue_program = None
 
     def update_data(self, **fields) -> None:
         """Replace fields of the last batch (per-lane fields with their lane
@@ -244,14 +276,28 @@ class BatchedSolver:
             self._last_dev = self._place(batch)
         if self._last_dev is None:
             raise ValueError("no batch to solve")
+        shards = [self._last_dev] if self.mesh is None else self._last_dev
+        self._programs = [
+            program_for(prog, self.structure, shard, self.settings, self)
+            for prog, shard in zip(self._programs, shards)]
         if self.mesh is None:
-            sols = solve_batch(self.structure, self._last_dev, self.settings)
+            sols = solve_batch(self.structure, self._last_dev, self.settings,
+                               program=self._programs[0])
         else:
             sols = solve_shards(self.structure, self._last_dev, self.mesh,
-                                self.settings)
+                                self.settings, programs=self._programs)
         if self.rescue is not None:
             sols = self._apply_rescue(sols)
         return sols
+
+    def close(self) -> None:
+        """Release the device memory of the solver's programs; a later
+        solve captures anew."""
+        for program in self._programs + [self._rescue_program]:
+            if program is not None:
+                program.close()
+        self._programs = [None] * len(self._programs)
+        self._rescue_program = None
 
     def _gather_lanes(self, idx) -> ProblemData:
         """The sub-batch of lanes ``idx`` on ``self.device``; shared G and
@@ -270,8 +316,9 @@ class BatchedSolver:
 
     def _apply_rescue(self, sols: Solution) -> Solution:
         """Solve the lanes without a definitive exit once more under the
-        rescue settings, as one batch, and merge in every lane whose tier
-        improves.  Fields whose per-lane shape differs between the two
+        rescue settings, as one batch padded to a power of two lanes with
+        copies of its first, and merge in every lane whose tier improves.
+        Fields whose per-lane shape differs between the two
         configurations (the history, iter_max + 1 long) keep the
         primary's values."""
         codes = sols.exit_code.cpu().numpy()
@@ -279,17 +326,25 @@ class BatchedSolver:
         self.last_rescued = ()
         if lanes.size == 0:
             return sols
-        idx = torch.as_tensor(lanes, device=sols.exit_code.device)
-        rsols = solve_batch(self.structure, self._gather_lanes(idx),
-                            self.rescue)
-        rcodes = rsols.exit_code.cpu().numpy()
+        nsub = 1 << int(lanes.size - 1).bit_length()
+        padded = np.concatenate([lanes, np.repeat(lanes[:1],
+                                                  nsub - lanes.size)])
+        sub = self._gather_lanes(torch.as_tensor(
+            padded, device=sols.exit_code.device))
+        self._rescue_program = program_for(self._rescue_program,
+                                           self.structure, sub, self.rescue,
+                                           self)
+        rsols = solve_batch(self.structure, sub, self.rescue,
+                            program=self._rescue_program)
+        rcodes = rsols.exit_code.cpu().numpy()[:lanes.size]
         take = np.array([j for j in range(lanes.size)
                          if _code_rank(int(rcodes[j]))
                          > _code_rank(int(codes[lanes[j]]))], dtype=np.int64)
         if take.size == 0:
             return sols
-        dest = torch.as_tensor(lanes[take], device=idx.device)
-        src = torch.as_tensor(take, device=idx.device)
+        dev = sols.exit_code.device
+        dest = torch.as_tensor(lanes[take], device=dev)
+        src = torch.as_tensor(take, device=dev)
 
         def merge(full, sub):
             if isinstance(full, tuple):

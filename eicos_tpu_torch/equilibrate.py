@@ -42,8 +42,9 @@ def equilibrate(st: ProblemStructure, G, A, c, h, b,
     x_equil = torch.ones(*lead, n, dtype=dt, device=dev)
     A_equil = torch.ones(*lead, p, dtype=dt, device=dev)
     G_equil = torch.ones(*lead, m, dtype=dt, device=dev)
-    seg = (torch.as_tensor(st.cone.seg, dtype=torch.int64, device=dev)
-           if st.n_sc else None)
+    # the cone ids from the device's cached constants: a captured
+    # prologue copies nothing from the host
+    seg = cones._consts(st.cone, str(dev)).seg if st.n_sc else None
 
     for _ in range(iters):
         absA = A.abs()

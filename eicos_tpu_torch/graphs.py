@@ -1,41 +1,60 @@
-"""The interior-point loop as captured CUDA graphs: the port's counterpart
-of the JAX package's jit-compiled loop body.
+"""The solve as captured CUDA graphs: the port's counterpart of the JAX
+package's jit-compiled solve and of its cached executable.
 
-``solver.solve_batch`` runs its loop body as five ``Segment``s of one
-``Runner``: the iteration's parts A, B and C and the two refinement trips
-(two right-hand sides and one).  A segment wraps a function of tensors and
-runs it by the device of the runner:
+``solver.solve_batch`` runs a solve as ``Segment``s of one ``Program``: the
+prologue (equilibration, the KKT context, the init factor and its solves'
+start), the init systems' refinement trip, the loop state's init, the
+iteration's parts A, B and C with the two refinement trips (two
+right-hand sides and one), and the finish.  A segment wraps a function of
+tensors and runs it by the device of its program:
 
 - CPU: the function is called, every time; nothing touches ``torch.cuda``.
-- CUDA: a segment's first call runs the function eagerly (the warm-up:
-  kernels built and loaded, caches filled, cuBLAS handles made).  Once the
-  runner is armed (after the loop's iteration 0), the next call captures
-  the function into a ``torch.cuda.CUDAGraph`` on a side stream
+- CUDA: a segment's first call runs the function eagerly as its warm-up
+  (kernels built and loaded, caches filled, cuBLAS handles made), on
+  scratch copies of the arguments it updates in place and with its
+  kernel launches uncounted; the same call then captures the function
+  into a ``torch.cuda.CUDAGraph`` on a side stream
   (``capture_error_mode="thread_local"``: a sharded solve captures from
   one host thread a device) and replays it; later calls replay only.
 
-Inputs.  A tensor that the runner holds (``hold``: the solve's constants;
-``buffers``: the loop state; every captured segment's outputs) is read in
-place by the graph, and every later call must pass that same tensor.  Any
-other tensor is copied into a static buffer before each replay.  Other
-arguments must be the same objects (or equal scalars) at every call.
-Outputs are the captured tensors, and each replay rewrites them in place:
-read a segment's outputs before it replays again.  A segment that updates
-its inputs does so with ``copy_`` at its end, after it has computed every
-new value from the old ones (the loop state in C, the refinement state in
-the trips), so no replay reads a buffer it has already overwritten.
+A ``Program`` lives as long as the solver object that owns it
+(``api.Solver``, ``api.BatchedSolver``): it is captured at the first solve
+and replayed by every later solve of its key (structure, settings, and
+each input's shape, dtype and device), whose values are copied into the
+program's static input buffers first.
 
-Pools.  Each graph has a memory pool of its own: a shared pool is safe only
-when the graphs replay in the order they were captured, and a trip replays
-zero or more times an iteration.  The graphs and their pools live for one
-``solve_batch`` call; nothing made inside a capture may outlive it (see
-``Runner.stream``: cuBLAS's workspace would).
+Inputs.  A tensor that the program holds (``hold``: constants, the loop
+state and every captured segment's outputs; ``buffers``: the input
+buffers) is read in place by the graph, and every later call must pass
+that same tensor; a held tuple is one argument, compared by identity.
+Any other tensor is copied into a static buffer before each replay.
+Other arguments must be the same objects (or equal scalars) at every
+call.  Outputs are the captured tensors, and each
+replay rewrites them in place: read a segment's outputs before it replays
+again.  A segment that updates its inputs (``writes``) does so with
+``copy_`` at its end, after it has computed every new value from the old
+ones (the loop state in C, the refinement state in the trips), so no
+replay reads a buffer it has already overwritten.
+
+Pool.  A program's graphs share one memory pool.  A graph captured later
+may take memory that an earlier one freed inside its capture, its
+temporaries, and never memory that holds a tensor still alive.  Every
+captured output is held until the program closes, so what two graphs share
+is temporaries alone, which only the graph's own replay reads: they may
+replay in any order, as the trips do (zero or more times an iteration),
+one at a time on one stream.  The graphs, their pool and the held tensors
+live until the program is closed: at the end of the call for a program
+made by ``solve_batch`` alone, else by its owner, or when the owner is
+garbage-collected.  Nothing made inside a capture may outlive the program
+(see ``Program.stream``: cuBLAS's workspace would).
 
 Counts.  A capture records the kernel launches that its function makes
 (``kernels.recording``) and each replay adds them to ``kernels.COUNTS``,
 so a graphed solve counts as the same solve run eagerly.  ``STATS`` sums
-captures, replays, input copies, eager calls, capture time and the port's
-kernel launches made by replays, over every runner.
+captures, replays, input copies, eager calls (warm-ups included), capture
+time, the port's kernel launches made by replays (``graph_counts``) and
+those of the warm-ups, which ``COUNTS`` leaves out (``warm_counts``), over
+every program.
 
 Failures raise: a capture or replay that fails raises ``RuntimeError``
 naming the segment, and nothing runs the segment eagerly instead.
@@ -46,6 +65,7 @@ from __future__ import annotations
 import contextlib
 import threading
 import time
+import weakref
 
 import torch
 
@@ -61,28 +81,34 @@ def reset_stats() -> None:
     with _LOCK:
         STATS.clear()
         STATS.update(captures=0, replays=0, copies=0, eager=0, capture_s=0.0,
-                     graph_counts={})
+                     graph_counts={}, warm_counts={})
 
 
 reset_stats()
 
 
-def _stat(counts=None, **kw) -> None:
+def _stat(counts=None, warm=None, **kw) -> None:
     with _LOCK:
         for k, v in kw.items():
             STATS[k] += v
-        for k, v in (counts or {}).items():
-            STATS["graph_counts"][k] = STATS["graph_counts"].get(k, 0) + v
+        for key, add in (("graph_counts", counts), ("warm_counts", warm)):
+            for k, v in (add or {}).items():
+                STATS[key][k] = STATS[key].get(k, 0) + v
+
+
+def _is_node(tree) -> bool:
+    """Tuples, lists and NamedTuples are nodes of a tree."""
+    typ = type(tree)
+    return typ is tuple or typ is list or (isinstance(tree, tuple)
+                                           and hasattr(typ, "_fields"))
 
 
 def _flatten(tree, opaque: dict, leaves: list):
     """Append the leaves of ``tree`` to ``leaves`` and return its spec:
-    tuples, lists and NamedTuples are nodes, except those in ``opaque``
-    (by id); anything else is a leaf."""
-    typ = type(tree)
-    if id(tree) not in opaque and (typ is tuple or typ is list or (
-            isinstance(tree, tuple) and hasattr(typ, "_fields"))):
-        return typ, tuple(_flatten(x, opaque, leaves) for x in tree)
+    nodes are flattened, except those in ``opaque`` (by id); anything else
+    is a leaf."""
+    if id(tree) not in opaque and _is_node(tree):
+        return type(tree), tuple(_flatten(x, opaque, leaves) for x in tree)
     leaves.append(tree)
     return None
 
@@ -102,6 +128,14 @@ def tensors(tree) -> list:
     return [x for x in leaves if isinstance(x, torch.Tensor)]
 
 
+def clone(tree):
+    """A copy of ``tree`` in new tensors (the other leaves as they are)."""
+    leaves: list = []
+    spec = _flatten(tree, {}, leaves)
+    return _unflatten(spec, iter([
+        x.clone() if isinstance(x, torch.Tensor) else x for x in leaves]))
+
+
 def copy_into(dst, src) -> None:
     """``copy_`` every tensor of ``src`` into its place in ``dst``, a tree
     of the same structure."""
@@ -115,11 +149,11 @@ def _captures(device: torch.device) -> bool:
 
 
 class _CudaGraph:
-    """One ``torch.cuda.CUDAGraph``, captured on the runner's side
-    stream and replayed on the current one."""
+    """One ``torch.cuda.CUDAGraph``, captured on the program's side
+    stream into the program's pool and replayed on the current stream."""
 
-    def __init__(self, stream):
-        self.stream = stream
+    def __init__(self, stream, pool):
+        self.stream, self.pool = stream, pool
         self.graph = torch.cuda.CUDAGraph()
 
     def capture(self, fn, args):
@@ -127,7 +161,8 @@ class _CudaGraph:
         self.stream.wait_stream(cur)
         with torch.cuda.device(self.stream.device), \
                 torch.cuda.stream(self.stream):
-            self.graph.capture_begin(capture_error_mode="thread_local")
+            self.graph.capture_begin(pool=self.pool,
+                                     capture_error_mode="thread_local")
             try:
                 out = fn(*args)
             except BaseException:
@@ -142,31 +177,41 @@ class _CudaGraph:
         self.graph.replay()
 
 
-def _new_graph(runner: "Runner"):
-    return _CudaGraph(runner.stream())
+def _new_graph(program: "Program"):
+    return _CudaGraph(program.stream(), program.pool())
 
 
 class Segment:
-    """A function of tensors that a ``Runner`` runs eagerly, or captures
-    and then replays (module doc)."""
+    """A function of tensors that a ``Program`` runs eagerly, or captures
+    and then replays (module doc).  ``writes`` are the positions of the
+    arguments that the function updates in place."""
 
-    def __init__(self, runner: "Runner", name: str, fn):
-        self.runner, self.name, self.fn = runner, name, fn
-        self.warm = False
+    def __init__(self, program: "Program", name: str, fn, writes=()):
+        self.program, self.name, self.fn = program, name, fn
+        self.writes = frozenset(writes)
         self._graph = None
 
     def __call__(self, *args):
-        r = self.runner
-        if self._graph is None:
-            if not (r.graphed and r.armed and self.warm):
-                self.warm = True
-                _stat(eager=1)
-                return self.fn(*args)
-            return self._capture(args)
-        return self._replay(args)
+        if self._graph is not None:
+            return self._replay(args)
+        if not self.program.graphed:
+            _stat(eager=1)
+            return self.fn(*args)
+        self._warm_up(args)
+        return self._capture(args)
+
+    def _warm_up(self, args) -> None:
+        """The eager call before the capture, on scratch copies of the
+        arguments that the function writes, its launches not counted: the
+        capture then finds every kernel built, cache filled and handle
+        made."""
+        with kernels.recording() as launched:
+            self.fn(*[clone(x) if i in self.writes else x
+                      for i, x in enumerate(args)])
+        _stat(eager=1, warm=launched)
 
     def _capture(self, args):
-        r = self.runner
+        r = self.program
         leaves: list = []
         self._spec = _flatten(args, r._opaque, leaves)
         self._static, self._copied = [], set()
@@ -185,15 +230,15 @@ class Segment:
             raise RuntimeError(f"capturing segment {self.name!r} failed: "
                                f"{e}") from e
         _stat(captures=1, capture_s=time.perf_counter() - t0)
-        for t in tensors(out):
-            r._keep(t)
+        r.captures += 1
+        r.hold(out)
         self._graph, self._out, self._delta = graph, out, delta
         self._launch(0)
         return out
 
     def _replay(self, args):
         leaves: list = []
-        if _flatten(args, self.runner._opaque, leaves) != self._spec:
+        if _flatten(args, self.program._opaque, leaves) != self._spec:
             raise RuntimeError(f"segment {self.name!r}: arguments of another "
                                f"structure than at its capture")
         copies = 0
@@ -226,18 +271,28 @@ class Segment:
         _stat(self._delta, replays=1, copies=copies)
 
 
-class Runner:
-    """The segments of one ``solve_batch`` call on ``device`` and the
-    tensors they share; a context manager that releases the graphs, their
-    pools and the held tensors at its exit."""
 
-    def __init__(self, device):
+class Program:
+    """The segments of a solve on ``device`` and the tensors they share,
+    kept from one solve to the next (module doc); a context manager that
+    releases them at its exit.  ``key`` is what the program was built for
+    (``solver.program_key``); ``inputs`` its static input buffers
+    (``load``), ``state`` the loop state and ``parts`` the solver's
+    segments, all made by its first solve.  ``owner``: an object whose
+    collection closes the program."""
+
+    def __init__(self, device, key=None, owner=None):
         self.device = torch.device(device)
         self.graphed = _captures(self.device)
-        self.armed = False
-        self._held: dict = {}       # id -> tensor, kept alive for the call
+        self.key = key
+        self.inputs = self.state = self.parts = None
+        self.captures = 0           # graphs captured by this program
+        self._held: dict = {}       # id -> tensor, kept alive until close
         self._opaque: dict = {}     # id -> constant held as one argument
         self._segments: list = []
+        self._pool = None           # the graphs' memory pool
+        self._finalizer = (None if owner is None
+                           else weakref.finalize(owner, self.close))
 
     def _keep(self, t: torch.Tensor) -> torch.Tensor:
         self._held[id(t)] = t
@@ -264,39 +319,70 @@ class Runner:
             streams[self.device] = s
         return s
 
+    def pool(self):
+        """The memory pool that the program's graphs share (module doc)."""
+        if self._pool is None:
+            self._pool = torch.cuda.graph_pool_handle()
+        return self._pool
+
     def hold(self, tree):
-        """Hold ``tree``, a constant of the call, for the call: segments
-        read its tensors in place and take ``tree`` itself as one
-        argument, compared by identity."""
-        self._opaque[id(tree)] = tree
-        for t in tensors(tree):
-            self._keep(t)
+        """Hold ``tree`` until the program closes: segments read its
+        tensors in place and take it, and each node inside it, as one
+        argument, compared by identity.  A captured output is held so."""
+        if _is_node(tree):
+            self._opaque[id(tree)] = tree
+            for x in tree:
+                self.hold(x)
+        elif isinstance(tree, torch.Tensor):
+            self._keep(tree)
         return tree
 
     def buffers(self, tree):
-        """A copy of ``tree`` in distinct tensors, held for the call: the
-        state that a segment updates in place."""
-        leaves: list = []
-        spec = _flatten(tree, {}, leaves)
-        return _unflatten(spec, iter([
-            self._keep(x.clone()) if isinstance(x, torch.Tensor) else x
-            for x in leaves]))
+        """A copy of ``tree`` in distinct tensors, held until the program
+        closes: the state that a segment updates in place."""
+        out = clone(tree)
+        for t in tensors(out):
+            self._keep(t)
+        return out
 
-    def segment(self, name: str, fn) -> Segment:
-        seg = Segment(self, name, fn)
+    def segment(self, name: str, fn, writes=()) -> Segment:
+        seg = Segment(self, name, fn, writes)
         self._segments.append(seg)
         return seg
 
-    def arm(self) -> None:
-        """From now on a warm segment captures at its next call."""
-        self.armed = True
+    def load(self, data, adopt: bool = False):
+        """The input buffers, holding ``data``'s values: made from its
+        first ``data`` (as they are with ``adopt``, else copies), then
+        written with each new ``data``'s values, except a field that is
+        its buffer already, which is read in place."""
+        if self.inputs is None:
+            if adopt:
+                self.inputs = data
+                for t in tensors(data):
+                    self._keep(t)
+            else:
+                self.inputs = self.buffers(data)
+            return self.inputs
+        copies = 0
+        for buf, x in zip(tensors(self.inputs), tensors(data), strict=True):
+            if x is not buf:
+                buf.copy_(x)
+                copies += 1
+        _stat(copies=copies)
+        return self.inputs
 
     def close(self) -> None:
+        """Release the graphs, their pool, the buffers and the held
+        tensors; a later solve builds the program anew."""
+        if self._finalizer is not None:
+            self._finalizer.detach()
         for seg in self._segments:
             seg._graph = seg._out = seg._static = None
         self._segments.clear()
         self._held.clear()
         self._opaque.clear()
+        self._pool = None
+        self.inputs = self.state = self.parts = None
 
     def __enter__(self):
         return self

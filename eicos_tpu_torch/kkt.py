@@ -469,7 +469,9 @@ class KKTContext(NamedTuple):
     path) and the iteration-invariant coefficients of the H contributions.
     ``Gf`` is G in the type the factor is assembled in (G itself at f64);
     the coefficients and, under "reduced" and "normal", ``K0`` are in that
-    type too."""
+    type too.  A solve's prologue makes it (``solver``): a kept program's
+    replay rewrites every tensor of it from the new G and A, the
+    operands' coefficients included."""
 
     G: torch.Tensor
     A: torch.Tensor
@@ -646,6 +648,13 @@ def _full_base(st, G, A, delta, block: int):
     return K0
 
 
+@functools.lru_cache(maxsize=16)
+def _base_consts(delta: float, dtype, device: str) -> torch.Tensor:
+    """The band base's constants (-delta, 0, 1) on ``device``, made once:
+    a captured prologue copies nothing from the host."""
+    return torch.tensor([-delta, 0.0, 1.0], dtype=dtype, device=device)
+
+
 def make_context(st: ProblemStructure, G, A, settings) -> KKTContext:
     require_slice(st, settings)
     dev = str(G.device)
@@ -695,7 +704,7 @@ def make_context(st: ProblemStructure, G, A, settings) -> KKTContext:
         ctx = ctx._replace(soc=sm, soc_gsub=gsub)
         if not keep:
             ctx = ctx._replace(soc_gram=gsub.transpose(-1, -2) @ gsub)
-    consts = torch.tensor([-delta, 0.0, 1.0], dtype=G.dtype, device=G.device)
+    consts = _base_consts(delta, G.dtype, str(G.device))
     other = torch.cat([A.reshape(*lead, -1), consts.expand(*lead, 3)], -1)
     return ctx._replace(
         Kd0=torch.where(maps.dmask, 0.0, other[..., maps.dio]).to(fdtype),

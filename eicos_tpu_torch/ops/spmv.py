@@ -161,10 +161,11 @@ class SparseOperand:
     operand's ``rmatmul``.  ``bmat`` is the (km, nm) operand in the product
     orientation, shared, or (L, km, nm) per lane; ``idx`` (nm, W) its table
     from ``csc_table``, or ``pattern`` its ``SparsePattern`` on bmat's
-    device.  Building one gathers the coefficients, nothing else.
+    device.  Building one gathers the coefficients, nothing else (on a
+    CPU tensor also the plain form's table of them).
 
-    The plain form keeps the JAX package's width groups, built at its
-    first call; the kernel form is the pattern's CSC array."""
+    The plain form keeps the JAX package's width groups; the kernel form
+    is the pattern's CSC array."""
 
     def __init__(self, bmat: torch.Tensor, idx=None, W=None,
                  pattern: SparsePattern = None):
@@ -178,6 +179,11 @@ class SparseOperand:
         self.colptr, self.rows = pattern.colptr, pattern.rows
         self.vals = bmat[..., pattern.src, pattern.cols]   # ([L,] nnz)
         self._table = None      # the kernel's table arguments, checked once
+        if kernels.on_cpu(bmat):
+            # the plain form's coefficients are made with the values, so a
+            # replayed solve prologue (``graphs``) makes both anew; the
+            # kernel reads ``vals`` itself, in place
+            _ = self.coef, self.groups
 
     @functools.cached_property
     def coef(self) -> torch.Tensor:

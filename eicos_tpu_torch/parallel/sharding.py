@@ -15,7 +15,7 @@ from __future__ import annotations
 
 import contextlib
 import threading
-from typing import Sequence
+from typing import Optional, Sequence
 
 import numpy as np
 import torch
@@ -73,9 +73,13 @@ def _gather(parts: list, device: torch.device):
 
 def solve_shards(structure: ProblemStructure, shards: list,
                  mesh: Sequence[torch.device],
-                 settings: Settings = Settings()) -> Solution:
+                 settings: Settings = Settings(),
+                 programs: Optional[Sequence] = None) -> Solution:
     """Solve the shards of ``shard_batch`` at once, one host thread a
-    device, and gather the ``Solution`` on ``mesh[0]``."""
+    device, and gather the ``Solution`` on ``mesh[0]``.  ``programs``:
+    one ``graphs.Program`` a shard (``solver.program_for``), which the
+    shard's thread captures and replays; without them each shard's solve
+    makes its own for the call."""
     results: list = [None] * len(shards)
     errors: list = []
 
@@ -85,7 +89,9 @@ def solve_shards(structure: ProblemStructure, shards: list,
                else contextlib.nullcontext())
         try:
             with ctx:
-                results[i] = solve_batch(structure, shards[i], settings)
+                results[i] = solve_batch(
+                    structure, shards[i], settings,
+                    program=None if programs is None else programs[i])
                 if dev.type == "cuda":
                     torch.cuda.synchronize(dev)
         except BaseException as e:      # re-raised on the calling thread

@@ -7,19 +7,24 @@ RHScombined and backscale).
 ``lax.while_loop`` under ``vmap`` becomes a loop over a batched state with
 a leading lane axis.  Every lane runs the same arithmetic; a lane that has
 exited keeps its state unchanged from then on, as a lane of the JAX
-package's vmapped loop does.  The loop body runs as five segments of a
-``graphs.Runner``: part A (statistics, history, exit logic, scalings, the
-factor, the predictor solve's start), the refinement trip at two
-right-hand sides, part B (the affine step and the combined right-hand
-side's solve start), the trip at one, and part C (the step and the new
-state, written into the loop's state buffers in place).  On a CUDA tensor
-iteration 0 runs them eagerly and from iteration 1 each is captured once
-as a CUDA graph and then replayed, the counterpart of the JAX package's
-compiled loop; on a CPU tensor they are plain calls.  The host reads one
-flag back from the device per iteration ("all lanes done") and one per
-refinement trip; ``kkt.host_syncs`` counts them.  A live table
-(``LiveTable``: ``solve_live``, ``Settings(verbose_live=True)``) adds one
-host copy of lane 0's history per group of rows it prints.
+package's vmapped loop does.  The whole solve runs as the segments of a
+``graphs.Program``: the prologue (equilibration, the KKT context, the init
+factor and the start of the init systems' solve), their refinement trip,
+the loop state's init, then a loop body of part A (statistics, history,
+exit logic, scalings, the factor, the predictor solve's start), the
+refinement trip at two right-hand sides, part B (the affine step and the
+combined right-hand side's solve start), the trip at one, and part C (the
+step and the new state, written into the loop's state buffers in place),
+and the finish.  On a CUDA tensor each segment is captured once as a CUDA
+graph, at its first call, and replayed from then on: by every later call
+of the solve and, where the caller keeps the program (``program_for``;
+``api.Solver`` and ``api.BatchedSolver`` keep theirs), by every later
+solve of the same key, the counterpart of the JAX package's compiled
+solve and its cached executable.  On a CPU tensor they are plain calls.
+The host reads one flag back from the device per iteration ("all lanes
+done") and one per refinement trip; ``kkt.host_syncs`` counts them.  A
+live table (``LiveTable``: ``solve_live``, ``Settings(verbose_live=True)``)
+adds one host copy of lane 0's history per group of rows it prints.
 
 Semantics kept exactly from the reference (they decide exit codes):
 updateScalings' out-of-cone flag is ignored (NaNs flow into the NaN exit);
@@ -36,7 +41,7 @@ from typing import NamedTuple, Optional
 import torch
 
 from . import cones, graphs, kkt
-from .equilibrate import equilibrate
+from .equilibrate import Equilibration, equilibrate
 from .exitcodes import ExitCode
 from .problem import ProblemData
 from .settings import Settings
@@ -347,81 +352,146 @@ class LiveTable:
         self.finished = done
 
 
-def solve_batch(structure: ProblemStructure, data: ProblemData,
-                settings: Settings = Settings(),
-                live: Optional[LiveTable] = None) -> Solution:
-    """Solve a batch of problems sharing ``structure``.  ``data`` holds
-    float64 tensors on one device: c (L, n), h (L, m), b (L, p); G and A
-    shared, (m, n) and (p, n), or per lane, (L, m, n) and (L, p, n).
-    ``live`` prints the iteration table during the solve; without it,
-    ``Settings(verbose_live=True)`` prints lane 0's rows as each
-    iteration ends (a ``LiveTable`` of one trip a group)."""
-    st = structure
-    kkt.require_slice(st, settings)
-    if live is None and settings.verbose_live:
-        live = LiveTable()
+class _Prologue(NamedTuple):
+    """What the prologue gives the rest of a solve."""
+
+    eq: Equilibration
+    res0s: tuple               # the residual norms' floors of c, b, h
+    ctx: kkt.KKTContext
+    init: kkt.ExactSolve       # the factor at identity scalings
+    rhs: torch.Tensor          # (L, 2, n+p+m) the two init systems
+    ref: kkt.RefineState       # their refined solve, between trips
+
+
+class _Parts(NamedTuple):
+    """A program's segments, in the order a solve calls them, and the
+    function that gives the loop state's first value (the state buffers
+    are made from it once)."""
+
+    prologue: graphs.Segment
+    init_trip: graphs.Segment
+    init_state: graphs.Segment
+    a: graphs.Segment
+    trip2: graphs.Segment
+    b: graphs.Segment
+    trip1: graphs.Segment
+    c: graphs.Segment
+    finish: graphs.Segment
+    first_state: object
+
+
+def program_key(structure: ProblemStructure, data: ProblemData,
+                settings: Settings) -> tuple:
+    """What a program is built for: the structure, the settings, and each
+    input's shape (its lanes, and which of G and A carry a lane axis),
+    dtype and device."""
+    return (structure, settings) + tuple(
+        (tuple(t.shape), t.dtype, t.device) for t in _fields(data))
+
+
+def _fields(data: ProblemData) -> tuple:
+    return data.G, data.A, data.c, data.h, data.b
+
+
+def program_for(program: Optional[graphs.Program],
+                structure: ProblemStructure, data: ProblemData,
+                settings: Settings, owner=None) -> graphs.Program:
+    """``program`` where it was built for this solve's key; else it is
+    closed first (its device memory released) and a new program, closed
+    when ``owner`` is collected, takes its place."""
+    key = program_key(structure, data, settings)
+    if program is not None:
+        if program.key == key:
+            return program
+        program.close()
+    return graphs.Program(data.c.device, key, owner)
+
+
+def _parts(program: graphs.Program, st: ProblemStructure,
+           settings: Settings, lanes: int, dtype, device) -> _Parts:
+    """The segments of a solve, made once a program.  Their functions
+    close over the key's values and the structure's constants only:
+    everything that depends on the problem's values comes in as an
+    argument, so that a segment called (on a CPU tensor) or replayed
+    (on a CUDA one) by a later solve reads that solve's values."""
     n, p, m = st.n, st.p, st.m
     cone = st.cone
-    lanes = data.c.shape[0]
     gamma = settings.gamma
-
-    eq = equilibrate(st, data.G, data.A, data.c, data.h, data.b,
-                     iters=settings.equil_iters)
-    G, A, c, h, b = eq.G, eq.A, eq.c, eq.h, eq.b
-    res0s = (torch.clamp(_norm(c), min=1.0), torch.clamp(_norm(b), min=1.0),
-             torch.clamp(_norm(h), min=1.0))
-    ctx = kkt.make_context(st, G, A, settings)
     full_check, red_check = _checks(settings)
-
-    def zeros(*shape, dtype=c.dtype):
-        return torch.zeros(*shape, dtype=dtype, device=c.device)
-
-    def fill(v, dtype=c.dtype):
-        return torch.full((lanes,), v, dtype=dtype, device=c.device)
-
-    # ---- init: identity scalings, the two init systems
-    solve0 = kkt.factor(st, ctx, None, settings, lanes)
-    rhs_init = torch.stack([torch.cat([zeros(lanes, n), b, h], -1),
-                            torch.cat([-c, zeros(lanes, p + m)], -1)], 1)
-    r12 = kkt.solve_refined(st, ctx, solve0, None, rhs_init, settings)
-    # the loop holds one factor at a time (a dense factor is an (L, Dp,
-    # Dp) Linv): each is released before the next one is built
-    del solve0
-    nan = fill(torch.nan)
-    false = fill(False, torch.bool)
-    it0 = Iterate(
-        x=r12.dx[:, 0], y=r12.dy[:, 1],
-        z=cones.bring_to_cone(cone, r12.dz[:, 1], gamma),
-        s=cones.bring_to_cone(cone, -r12.dz[:, 0], gamma),
-        kap=fill(1.0), tau=fill(1.0), cx=fill(0.0), by=fill(0.0),
-        hz=fill(0.0), pcost=nan, dcost=nan, gap=nan, relgap=nan,
-        has_relgap=false, pres=nan, dres=nan, pinfres=nan,
-        has_pinfres=false, dinfres=nan, has_dinfres=false, mu=nan,
-        kapovert=nan, sigma=fill(0.0), step=fill(0.0), step_aff=fill(0.0),
-        iter=fill(0, torch.int32), nitref1=r12.nitref[:, 0],
-        nitref2=r12.nitref[:, 1], nitref3=fill(0, torch.int32))
     nh = settings.iter_max + 1
-    hist0 = History(*([torch.full((lanes, nh), torch.nan, dtype=c.dtype,
-                                  device=c.device)] * 9
-                      + [zeros(lanes, nh, dtype=torch.int32)] * 3))
-    state = LoopState(
-        it=it0, best=it0, rhs1=torch.cat([-c, b, h], -1),
-        pres_prev=fill(torch.finfo(c.dtype).max),
-        iter=fill(0, torch.int32), code=fill(int(ExitCode.FATAL), torch.int32),
-        done=false, hist=hist0)
 
+    def zeros(*shape, dtype=dtype):
+        return torch.zeros(*shape, dtype=dtype, device=device)
+
+    def fill(v, dtype=dtype):
+        return torch.full((lanes,), v, dtype=dtype, device=device)
+
+    # the structure's constants, made outside every capture and held
+    consts = cones._consts(cone, str(device))
     e_vec = zeros(m)
     e_vec[:st.l] = 1.0
     if st.n_sc:
-        e_vec[st.l + torch.as_tensor(cone.head_offsets)] = 1.0
-    sel_rows = torch.arange(nh, device=c.device)
+        e_vec[st.l + consts.head_offsets] = 1.0
+    sel_rows = torch.arange(nh, device=device)
+    false = fill(False, torch.bool)
+    program.hold((consts, e_vec, sel_rows, false))
 
-    def part_a(stt: LoopState) -> _PartA:
+    def prologue(G, A, c, h, b) -> _Prologue:
+        """Equilibration, the KKT context, the init factor (identity
+        scalings) and the start of the two init systems' refined solve."""
+        eq = equilibrate(st, G, A, c, h, b, iters=settings.equil_iters)
+        c, h, b = eq.c, eq.h, eq.b
+        res0s = (torch.clamp(_norm(c), min=1.0),
+                 torch.clamp(_norm(b), min=1.0),
+                 torch.clamp(_norm(h), min=1.0))
+        ctx = kkt.make_context(st, eq.G, eq.A, settings)
+        init = kkt.factor(st, ctx, None, settings, lanes)
+        rhs = torch.stack([torch.cat([zeros(lanes, n), b, h], -1),
+                           torch.cat([-c, zeros(lanes, p + m)], -1)], 1)
+        return _Prologue(eq=eq, res0s=res0s, ctx=ctx, init=init, rhs=rhs,
+                         ref=kkt.refine_start(st, ctx, init, None, rhs,
+                                              settings))
+
+    def trip(ctx, solve, scal, rhs, ref: kkt.RefineState) -> None:
+        kkt.refine_trip(st, ctx, solve, scal, rhs, settings, ref)
+
+    def init_state(pro: _Prologue, state: LoopState) -> None:
+        """The loop's first state, from the init systems' solutions,
+        written into ``state`` in place."""
+        graphs.copy_into(state, _first_state(pro))
+
+    def _first_state(pro: _Prologue) -> LoopState:
+        r, eq = pro.ref, pro.eq
+        nan = fill(torch.nan)
+        it0 = Iterate(
+            x=r.dx[:, 0], y=r.dy[:, 1],
+            z=cones.bring_to_cone(cone, r.dz[:, 1], gamma),
+            s=cones.bring_to_cone(cone, -r.dz[:, 0], gamma),
+            kap=fill(1.0), tau=fill(1.0), cx=fill(0.0), by=fill(0.0),
+            hz=fill(0.0), pcost=nan, dcost=nan, gap=nan, relgap=nan,
+            has_relgap=false, pres=nan, dres=nan, pinfres=nan,
+            has_pinfres=false, dinfres=nan, has_dinfres=false, mu=nan,
+            kapovert=nan, sigma=fill(0.0), step=fill(0.0),
+            step_aff=fill(0.0), iter=fill(0, torch.int32),
+            nitref1=r.kout[:, 0], nitref2=r.kout[:, 1],
+            nitref3=fill(0, torch.int32))
+        hist0 = History(*([torch.full((lanes, nh), torch.nan, dtype=dtype,
+                                      device=device)] * 9
+                          + [zeros(lanes, nh, dtype=torch.int32)] * 3))
+        return LoopState(
+            it=it0, best=it0, rhs1=torch.cat([-eq.c, eq.b, eq.h], -1),
+            pres_prev=fill(torch.finfo(dtype).max),
+            iter=fill(0, torch.int32),
+            code=fill(int(ExitCode.FATAL), torch.int32), done=false,
+            hist=hist0)
+
+    def part_a(stt: LoopState, pro: _Prologue) -> _PartA:
         """Statistics, history, exit logic, scalings, the factor and the
         predictor solve's start."""
+        ctx, eq = pro.ctx, pro.eq
         i = stt.iter
         (rx, ry, rz), rt, w = _statistics(st, settings, stt.it._replace(
-            iter=i), ctx, c, h, b, res0s)
+            iter=i), ctx, eq.c, eq.h, eq.b, pro.res0s)
         sel = sel_rows[None, :] == i[:, None]
 
         def rec(row, val):
@@ -483,12 +553,10 @@ def solve_batch(structure: ProblemStructure, data: ProblemData,
             ref=kkt.refine_start(st, ctx, solve, scal, rhs, settings,
                                  stepping))
 
-    def trip(solve, scal, rhs, ref: kkt.RefineState) -> None:
-        kkt.refine_trip(st, ctx, solve, scal, rhs, settings, ref)
-
-    def part_b(stt: LoopState, a: _PartA) -> _PartB:
+    def part_b(stt: LoopState, a: _PartA, pro: _Prologue) -> _PartB:
         """The affine step, its line search, the combined right-hand side
         and its solve's start."""
+        c, h, b = pro.eq.c, pro.eq.h, pro.eq.b
         w, scal, lam = a.w, a.scal, a.lam
         dx1, dy1, dz1 = a.ref.dx[:, 0], a.ref.dy[:, 0], a.ref.dz[:, 0]
         dx2, dy2, dz2 = a.ref.dx[:, 1], a.ref.dy[:, 1], a.ref.dz[:, 1]
@@ -522,12 +590,13 @@ def solve_batch(structure: ProblemStructure, data: ProblemData,
         return _PartB(
             dtau_denom=dtau_denom, dtauaff=dtauaff, dkapaff=dkapaff,
             sigma=sigma, sigmamu=sigmamu, step_aff=step_aff, lam_ds=lam_ds,
-            rhs=rhs, ref=kkt.refine_start(st, ctx, a.solve, scal, rhs,
+            rhs=rhs, ref=kkt.refine_start(st, pro.ctx, a.solve, scal, rhs,
                                           settings, a.stepping))
 
-    def part_c(stt: LoopState, a: _PartA, b_: _PartB) -> None:
+    def part_c(stt: LoopState, a: _PartA, b_: _PartB, pro: _Prologue) -> None:
         """The combined step, its line search and the new state, written
         into ``stt`` in place; lanes that have exited keep theirs."""
+        c, h, b = pro.eq.c, pro.eq.h, pro.eq.b
         w, scal, lam = a.w, a.scal, a.lam
         dx1, dy1, dz1 = a.ref.dx[:, 0], a.ref.dy[:, 0], a.ref.dz[:, 0]
         dx2c, dy2c, dz2c = b_.ref.dx[:, 0], b_.ref.dy[:, 0], b_.ref.dz[:, 0]
@@ -567,36 +636,92 @@ def solve_batch(structure: ProblemStructure, data: ProblemData,
         graphs.copy_into(stt, _where(stt.done, stt,
                                      _where(a.exit_now, exit_state, cont)))
 
-    # the loop body runs as graphed segments on a CUDA tensor (``graphs``):
-    # iteration 0 eagerly, then captured once and replayed; the host reads
-    # one flag an iteration and one a refinement trip
-    with graphs.Runner(c.device) as runner:
-        runner.hold(ctx)
-        # the cone constants that the segments read, held for the call
-        runner.hold(cones._consts(cone, str(c.device)))
-        state = runner.buffers(state)
-        seg_a = runner.segment("iteration A", part_a)
-        trip2 = runner.segment("refinement trip, 2 right-hand sides", trip)
-        seg_b = runner.segment("iteration B", part_b)
-        trip1 = runner.segment("refinement trip, 1 right-hand side", trip)
-        seg_c = runner.segment("iteration C", part_c)
-        while not kkt.all_true(state.done):
-            a = seg_a(state)
-            while not kkt.all_true(a.ref.done):
-                trip2(a.solve, a.scal, a.rhs, a.ref)
-            b_ = seg_b(state, a)
-            while not kkt.all_true(b_.ref.done):
-                trip1(a.solve, a.scal, b_.rhs, b_.ref)
-            seg_c(state, a, b_)
-            # the loop holds one factor at a time
-            del a, b_
-            runner.arm()
-            if live is not None:
-                live.trip(state)
+    def finish(stt: LoopState, pro: _Prologue) -> Solution:
+        eq = pro.eq
+        return _finish_solution(st, settings, eq, stt, pro.ctx,
+                                (eq.c, eq.h, eq.b), pro.res0s)
 
+    seg = program.segment
+    return _Parts(
+        prologue=seg("prologue", prologue),
+        init_trip=seg("init refinement trip", trip, writes=(4,)),
+        init_state=seg("loop state init", init_state, writes=(1,)),
+        a=seg("iteration A", part_a),
+        trip2=seg("refinement trip, 2 right-hand sides", trip, writes=(4,)),
+        b=seg("iteration B", part_b),
+        trip1=seg("refinement trip, 1 right-hand side", trip, writes=(4,)),
+        c=seg("iteration C", part_c, writes=(0,)),
+        finish=seg("finish", finish), first_state=_first_state)
+
+
+def solve_batch(structure: ProblemStructure, data: ProblemData,
+                settings: Settings = Settings(),
+                live: Optional[LiveTable] = None,
+                program: Optional[graphs.Program] = None) -> Solution:
+    """Solve a batch of problems sharing ``structure``.  ``data`` holds
+    float64 tensors on one device: c (L, n), h (L, m), b (L, p); G and A
+    shared, (m, n) and (p, n), or per lane, (L, m, n) and (L, p, n).
+    ``live`` prints the iteration table during the solve; without it,
+    ``Settings(verbose_live=True)`` prints lane 0's rows as each
+    iteration ends (a ``LiveTable`` of one trip a group).
+
+    ``program`` (``program_for``): the segments of an earlier solve of
+    the same key, replayed with ``data``'s values copied into its input
+    buffers; on a CUDA tensor its first solve captures them.  Without
+    one, the solve makes a program for itself and releases it at the end.
+    The returned tensors are the caller's: no later solve changes them."""
+    st = structure
+    kkt.require_slice(st, settings)
+    if live is None and settings.verbose_live:
+        live = LiveTable()
+    key = program_key(st, data, settings)
+    own = program is None
+    if own:
+        program = graphs.Program(data.c.device, key)
+    elif program.key != key:
+        raise ValueError("the program was built for another structure, "
+                         "settings or input shape")
+    try:
+        return _run(program, st, settings, data, live, adopt=own)
+    finally:
+        if own:
+            program.close()
+
+
+def _run(program: graphs.Program, st: ProblemStructure, settings: Settings,
+         data: ProblemData, live: Optional[LiveTable], adopt: bool):
+    """One solve through ``program``'s segments: the host reads one flag
+    an init trip, an iteration and a refinement trip."""
+    inputs = program.load(_fields(data), adopt=adopt)
+    if program.parts is None:
+        program.parts = _parts(program, st, settings, data.c.shape[0],
+                               data.c.dtype, data.c.device)
+    parts = program.parts
+    pro = parts.prologue(*inputs)
+    while not kkt.all_true(pro.ref.done):
+        parts.init_trip(pro.ctx, pro.init, None, pro.rhs, pro.ref)
+    if program.state is None:
+        program.state = program.hold(program.buffers(
+            parts.first_state(pro)))
+    state = program.state
+    parts.init_state(pro, state)
+    while not kkt.all_true(state.done):
+        a = parts.a(state, pro)
+        while not kkt.all_true(a.ref.done):
+            parts.trip2(pro.ctx, a.solve, a.scal, a.rhs, a.ref)
+        b_ = parts.b(state, a, pro)
+        while not kkt.all_true(b_.ref.done):
+            parts.trip1(pro.ctx, a.solve, a.scal, b_.rhs, b_.ref)
+        parts.c(state, a, b_, pro)
+        # on the CPU the loop holds one factor at a time
+        del a, b_
+        if live is not None:
+            live.trip(state)
     if live is not None:
         live.trip(state, last=True)
-    return _finish_solution(st, settings, eq, state, ctx, (c, h, b), res0s)
+    # the finish's tensors are the program's (its graph's outputs, the
+    # loop state): the caller gets copies
+    return graphs.clone(parts.finish(state, pro))
 
 
 def _finish_solution(st, settings, eq, final: LoopState, ctx, cbh,

@@ -1306,3 +1306,96 @@ def test_graphed_solves_release_their_pools(cuda):
         torch.cuda.empty_cache()
         reserved.append(torch.cuda.memory_reserved())
     assert reserved[3] <= reserved[1], reserved
+
+
+# ------------------------------------- programs kept across solves
+
+def _stats_solve(torch_, bs, batch=None):
+    """One solve of a kept solver with the counts, syncs and graph
+    stats read around it."""
+    from eicos_tpu_torch import graphs, kkt
+    from eicos_tpu_torch.ops import kernels
+
+    graphs.reset_stats()
+    kernels.reset_counts()
+    syncs0 = kkt.host_syncs
+    sol = bs.solve(batch)
+    torch_.cuda.synchronize()
+    return (sol, dict(kernels.COUNTS), kkt.host_syncs - syncs0,
+            dict(graphs.STATS))
+
+
+@pytest.mark.parametrize("case", ["banded-lp", "banded-socp"])
+def test_repeated_solves_replay_a_kept_program(cuda, case):
+    """A ``BatchedSolver`` solves X, then Y (every value of G, A, c, h, b
+    new: rows rescaled), then X: the later solves capture nothing and call
+    no segment eagerly, and each gives a fresh solver's bits, launch
+    counts and host syncs; the first result is unchanged at the end."""
+    import eicos_tpu_torch as pt
+    from eicos_tpu_torch import corpus, graphs
+    from test_torch_program import rescaled
+
+    st, X, kw = _graph_case(pt, corpus, case)
+    Y = rescaled(st, X, seed=11)
+    bs = pt.BatchedSolver(st, **kw)
+    first = _stats_solve(torch, bs, X)[0]
+    kept = graphs.clone(first)
+    for batch in (Y, X):
+        got, counts, syncs, stats = _stats_solve(torch, bs, batch)
+        assert stats["captures"] == 0 and stats["eager"] == 0, stats
+        want, wcounts, wsyncs, _ = _stats_solve(torch, pt.BatchedSolver(
+            st, **kw), batch)
+        for f in ("exit_code", "x", "y", "z", "s"):
+            assert torch.equal(getattr(got, f), getattr(want, f)), f
+        assert torch.equal(got.info.iter, want.info.iter)
+        assert counts == wcounts and syncs == wsyncs
+        assert got.exit_code.tolist() == [0] * got.exit_code.shape[0]
+    for a, b in zip(graphs.tensors(first), graphs.tensors(kept)):
+        assert torch.equal(a.nan_to_num(7.0), b.nan_to_num(7.0))
+
+
+def test_solver_update_data_replays_on_card(cuda):
+    """``Solver.update_data`` with every value new: the re-solve captures
+    nothing and gives a fresh ``Solver``'s bits."""
+    import eicos_tpu_torch as pt
+    from eicos_tpu_torch import corpus, graphs
+    from test_torch_program import rescaled
+
+    st, X, kw = _graph_case(pt, corpus, "banded-lp")
+    y = rescaled(st, X, seed=5)
+    new = dict(G=y.G, A=y.A, c=y.c[0], h=y.h, b=y.b[0])
+    s = pt.Solver(X.G, X.A, X.c[0], X.h, X.b[0], settings=kw["settings"])
+    assert s.solve() == pt.ExitCode.OPTIMAL
+    s.update_data(**new)
+    graphs.reset_stats()
+    assert s.solve() == pt.ExitCode.OPTIMAL
+    assert graphs.STATS["captures"] == 0 and graphs.STATS["eager"] == 0
+    other = pt.Solver(new["G"], new["A"], new["c"], new["h"], new["b"],
+                      settings=kw["settings"])
+    other.solve()
+    for f in ("exit_code", "x", "y", "z"):
+        assert torch.equal(getattr(s.last_solution, f),
+                           getattr(other.last_solution, f)), f
+
+
+def test_reserved_memory_flat_over_repeated_solves(cuda):
+    """Five repeated solves of a kept program: the reserved device memory,
+    and its peak within each solve, do not move after the first solve."""
+    import eicos_tpu_torch as pt
+    from eicos_tpu_torch import corpus
+
+    st, batch, kw = _graph_case(pt, corpus, "reduced")
+    bs = pt.BatchedSolver(st, **kw)
+    bs.solve(batch)
+    torch.cuda.synchronize()
+    held, peaks = [], []
+    for _ in range(5):
+        torch.cuda.reset_peak_memory_stats()
+        bs.solve(batch)
+        torch.cuda.synchronize()
+        peaks.append(torch.cuda.max_memory_reserved())
+        held.append(torch.cuda.memory_reserved())
+    assert len(set(held)) == 1 and len(set(peaks)) == 1, (held, peaks)
+    bs.close()
+    torch.cuda.empty_cache()
+    assert torch.cuda.memory_reserved() < held[0]

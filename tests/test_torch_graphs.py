@@ -1,10 +1,10 @@
-"""The segment runner of ``eicos_tpu_torch.graphs`` on the CPU.
+"""Segments and programs of ``eicos_tpu_torch.graphs`` on the CPU.
 
 A CPU tensor never captures and never touches ``torch.cuda``.  The replay
 discipline of a CUDA graph (static inputs read in place or copied in,
 captured outputs rewritten in place by every replay, launch counts added
 per replay) is held on the CPU through ``FakeGraph``, injected where the
-runner makes its graphs: a whole solve through it gives the bits, the
+program makes its graphs: a whole solve through it gives the bits, the
 counts and the host syncs of the direct solve.  The card's own graphs are
 held in ``tests/test_torch_cuda.py``."""
 
@@ -18,14 +18,37 @@ from eicos_tpu_torch.ops import kernels
 from eicos_tpu_torch.plan import make_band_plan
 
 
+def rewritten(kept, new):
+    """(kept tensor, new tensor) pairs of two outputs of one function:
+    through tuples and lists, and through the attributes of any other
+    object that is not the same in both (an operand of the KKT context
+    holds the coefficients its graph rewrites).  An attribute that only
+    the kept output has (a value cached on it later) is not rewritten,
+    as a real replay would not rewrite it."""
+    if kept is new:
+        return
+    if isinstance(kept, torch.Tensor):
+        yield kept, new
+    elif isinstance(kept, (tuple, list)):
+        for k, n in zip(kept, new, strict=True):
+            yield from rewritten(k, n)
+    elif type(kept) is type(new) and hasattr(kept, "__dict__"):
+        fresh = vars(new)
+        for name, k in vars(kept).items():
+            if name in fresh:
+                yield from rewritten(k, fresh[name])
+
+
 class FakeGraph:
     """A CUDA graph's contract, kept on the CPU.  A capture records work
     and does none, so ``capture`` runs the function on copies of its
     inputs (they take its in-place writes) and keeps the outputs, an input
     passed through standing for itself; ``replay`` runs the function on
-    the static inputs and copies the results into the kept outputs, as a
-    replay rewrites them in place.  A replay runs no Python: the counts
-    its function makes are dropped (the runner adds the captured ones)."""
+    the static inputs and copies the results into the kept outputs, and
+    into the tensors that objects of the outputs hold (``rewritten``), as
+    a replay rewrites every tensor its capture made.  A replay runs no
+    Python: the counts its function makes are dropped (the program adds
+    the captured ones)."""
 
     def capture(self, fn, args):
         leaves = []
@@ -45,17 +68,15 @@ class FakeGraph:
     def replay(self):
         with kernels.recording():
             new = self.fn(*self.args)
-        for s, n in zip(graphs.tensors(self.out), graphs.tensors(new),
-                        strict=True):
-            if s is not n:
-                s.copy_(n)
+        for s, n in rewritten(self.out, new):
+            s.copy_(n)
 
 
 @pytest.fixture
 def fake(monkeypatch):
     """Segments on CPU tensors capture into ``FakeGraph``s."""
     monkeypatch.setattr(graphs, "_captures", lambda device: True)
-    monkeypatch.setattr(graphs, "_new_graph", lambda runner: FakeGraph())
+    monkeypatch.setattr(graphs, "_new_graph", lambda program: FakeGraph())
 
 
 def bits(t):
@@ -96,7 +117,7 @@ def counted_solve(st, d, settings):
 def test_cpu_segments_never_touch_cuda(monkeypatch):
     """A CPU solve with every entry of ``torch.cuda`` that a graph needs
     made to raise: it solves, and a segment calls its function at every
-    call, after the runner is armed too."""
+    call."""
     def boom(*args, **kw):
         raise AssertionError("torch.cuda touched")
 
@@ -108,15 +129,12 @@ def test_cpu_segments_never_touch_cuda(monkeypatch):
     sol = pt.solve(st, d, pt.Settings(kkt_strategy="banded"), device="cpu")
     assert int(sol.exit_code) == 0
     calls = []
-    with graphs.Runner("cpu") as runner:
-        seg = runner.segment("probe", lambda v: calls.append(1) or v + 1)
+    with graphs.Program("cpu") as program:
+        seg = program.segment("probe", lambda v: calls.append(1) or v + 1)
         x = torch.zeros(3)
-        for _ in range(2):
-            seg(x)
-        runner.arm()
-        for _ in range(3):
+        for _ in range(5):
             assert torch.equal(seg(x), x + 1)
-    assert len(calls) == 5
+    assert len(calls) == 5 and program.captures == 0
 
 
 @pytest.mark.parametrize("case,strategy,operands", [
@@ -139,7 +157,7 @@ def test_fake_graphs_give_the_direct_bits(monkeypatch, case, strategy,
     want, wcounts, wsyncs, _ = counted_solve(st, d, settings)
     with monkeypatch.context() as mp:
         mp.setattr(graphs, "_captures", lambda device: True)
-        mp.setattr(graphs, "_new_graph", lambda runner: FakeGraph())
+        mp.setattr(graphs, "_new_graph", lambda program: FakeGraph())
         got, counts, syncs, stats = counted_solve(st, d, settings)
     assert int(want.exit_code) == 0
     assert same_solution(got, want)
@@ -149,8 +167,9 @@ def test_fake_graphs_give_the_direct_bits(monkeypatch, case, strategy,
 
 
 def test_replays_add_the_captured_counts(fake):
-    """The eager call counts as it runs, the capture's launches count once
-    with the replay that follows it, and every later replay adds them."""
+    """The warm-up before the capture counts apart (``warm_counts``), the
+    capture's launches count once with the replay that follows it, and
+    every later replay adds them."""
     graphs.reset_stats()
     kernels.reset_counts()
 
@@ -160,18 +179,17 @@ def test_replays_add_the_captured_counts(fake):
         kernels.count("dgemm")
         return v * 2.0
 
-    with graphs.Runner("cpu") as runner:
-        x = runner.buffers(torch.arange(3.0))
-        seg = runner.segment("probe", body)
-        seg(x)
-        runner.arm()
-        for _ in range(4):
+    with graphs.Program("cpu") as program:
+        x = program.buffers(torch.arange(3.0))
+        seg = program.segment("probe", body)
+        for _ in range(5):
             out = seg(x)
     assert kernels.COUNTS["spmv"] == 5 and kernels.COUNTS["dgemm"] == 10
     assert torch.equal(out, torch.arange(3.0) * 2.0)
     assert graphs.STATS["eager"] == 1 and graphs.STATS["captures"] == 1
-    assert graphs.STATS["replays"] == 4
-    assert graphs.STATS["graph_counts"] == {"spmv": 4, "dgemm": 8}
+    assert graphs.STATS["replays"] == 5
+    assert graphs.STATS["graph_counts"] == {"spmv": 5, "dgemm": 10}
+    assert graphs.STATS["warm_counts"] == {"spmv": 1, "dgemm": 2}
 
 
 def test_inputs_are_copied_or_read_in_place(fake):
@@ -179,12 +197,11 @@ def test_inputs_are_copied_or_read_in_place(fake):
     replay); any other tensor is copied into the graph's buffer; outputs
     are rewritten in place; a replaced held tensor or a changed scalar
     raises, naming the segment."""
-    with graphs.Runner("cpu") as runner:
-        state = runner.buffers(torch.zeros(2))
-        seg = runner.segment("probe", lambda s, v, k: s + v * k)
-        seg(state, torch.ones(2), 3.0)
-        runner.arm()
+    with graphs.Program("cpu") as program:
+        state = program.buffers(torch.zeros(2))
+        seg = program.segment("probe", lambda s, v, k: s + v * k)
         out = seg(state, torch.ones(2), 3.0)
+        assert seg(state, torch.ones(2), 3.0) is out
         assert torch.equal(out, torch.full((2,), 3.0))
         state.fill_(1.0)
         again = seg(state, torch.full((2,), 2.0), 3.0)
@@ -199,19 +216,17 @@ def test_inputs_are_copied_or_read_in_place(fake):
 
 def test_failed_capture_raises_naming_the_segment(monkeypatch):
     """A capture that fails raises ``RuntimeError`` with the segment's
-    name; the segment is not run eagerly instead."""
+    name; after its warm-up, the segment is not run eagerly instead."""
     class Broken:
         def capture(self, fn, args):
             raise RuntimeError("operation not permitted when stream is "
                                "capturing")
 
     monkeypatch.setattr(graphs, "_captures", lambda device: True)
-    monkeypatch.setattr(graphs, "_new_graph", lambda runner: Broken())
+    monkeypatch.setattr(graphs, "_new_graph", lambda program: Broken())
     calls = []
-    with graphs.Runner("cpu") as runner:
-        seg = runner.segment("iteration A", lambda v: calls.append(1) or v)
-        seg(torch.zeros(1))
-        runner.arm()
+    with graphs.Program("cpu") as program:
+        seg = program.segment("iteration A", lambda v: calls.append(1) or v)
         with pytest.raises(RuntimeError, match="capturing segment "
                            "'iteration A' failed"):
             seg(torch.zeros(1))
@@ -222,8 +237,8 @@ def test_buffers_are_distinct_and_state_updates_in_place():
     """``buffers`` copies a tree whose fields share tensors into distinct
     ones; ``copy_into`` writes a tree into them."""
     t = torch.zeros(2)
-    with graphs.Runner("cpu") as runner:
-        a, b_ = runner.buffers((t, t))
+    with graphs.Program("cpu") as program:
+        a, b_ = program.buffers((t, t))
         assert a is not b_ and a is not t
         graphs.copy_into((a, b_), (torch.ones(2), torch.full((2,), 2.0)))
     assert torch.equal(a, torch.ones(2)) and torch.equal(b_, 2 * a)
