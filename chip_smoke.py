@@ -14,7 +14,9 @@ port's paths through its entry points:
      it replaces, timed over back-to-back launches beside the dense
      product and ``torch.sparse``; dgemm as
      K12 on the wide operands of phases 7 and 12, sA, sAT, sGA, sAGT, at
-     their lanes and at 128);
+     their lanes and at 128; S2, the loop condition of a composed solve,
+     counting a WHILE node's trips as its plain version does on the main
+     path's flag shapes, timed in a graph of 65 evaluations);
   2. the main path as bench.py configures it: the 128-lane MPC01-scale
      banded LP batch through ``BatchedSolver`` with a "reduced" rescue
      (128/128 OPTIMAL, no lane rescued), lane 0 again on the CPU;
@@ -72,20 +74,26 @@ port's paths through its entry points:
      rescue twice, with 5 and then 7 failing lanes (both padded to 8);
      phase 10's ``Solver(G, A, c, h, b)`` through ``update_data``; phases
      12 and 16 repeated.  Every solve after a solver's first captures no
-     graph and calls no segment eagerly, and gives the bits, launch counts
-     and host syncs of a fresh solver's solve of its data; the first result
-     is unchanged at the end.  First and repeated solves/s, host launch
-     calls, idle share and the memory held between solves are printed.
+     graph, calls no segment eagerly, is one composed launch a program
+     with no host sync, and gives the bits of a fresh solver's solve of
+     its data and, settled, its launch counts, each of its loop tests an
+     S2 launch; the first result is unchanged at the end.  First and
+     repeated solves/s, host launch calls, idle share, the composition's
+     cost and the memory held between solves are printed.
 
 Every solve runs as captured CUDA graphs (``eicos_tpu_torch.graphs``):
-a solver object's first solve captures its program, every later solve of
-it replays the program with the new values copied in.  Every driven first
-solve of phases 2-13, 15 and 16 is held to the same solve with its
-segments called eagerly (``same_bits_eager``: exit codes, iterations, x,
-y, z, launch counts and host syncs), with each one's captures, replays,
-capture time and peak device memory printed; phases 2 and 6 compare the
-two in one call (eager, graphed, graphed, eager: solves/s, idle share,
-host launch calls).  Each phase releases its solvers' programs before the
+a solver object's first solve captures its program and composes it into
+one graph with the loops as conditional WHILE nodes; every later solve of
+it is one launch of that graph with the new values copied in.  Every
+driven first solve of phases 2-13, 15 and 16 is held to the same solve
+with its segments called eagerly (``same_bits_eager``: exit codes,
+iterations, x, y, z, launch counts and host syncs), with each one's
+captures, replays, capture time and peak device memory printed, and the
+solver's next solve, composed, to the first (``same_composed``: bits, 0
+host syncs, the settled counts, the composition's time and memory);
+phases 2 and 6 compare the three in one call (eager, composed,
+host-driven, host-driven, composed, eager: solves/s, idle share, host
+launch calls).  Each phase releases its solvers' programs before the
 next one starts.
 
 Phases 6, 7 and 12 must launch their band (12: leaf) kernels, match the
@@ -1335,6 +1343,98 @@ def check_subst_kernels(torch, leaf, ldl, dense, kernels):
     return records
 
 
+def fill_graph(torch, flags):
+    """A captured graph, kept for composing, that sets every flag true."""
+    g = torch.cuda.CUDAGraph(keep_graph=True)
+    with torch.cuda.graph(g):
+        flags.fill_(True)
+    return g
+
+
+def loop_graph(torch, flags, trips, pre, body_graph):
+    """S2 on ``flags`` (counted at ``trips[0]``), then a WHILE node whose
+    body is ``body_graph`` and S2 again (``trips[1]``); ``pre`` more S2
+    nodes before them, all on one handle.  Instantiated."""
+    from eicos_tpu_torch.ops.graph_loop import LoopGraph
+
+    lg = LoopGraph(flags.device)
+    try:
+        h = lg.handle(lg.root)
+        dep = None
+        for _ in range(pre + 1):
+            dep = lg.cond(lg.root, dep, h, flags, trips, 0)
+        _, body = lg.while_(lg.root, dep, h)
+        last = lg.child(body, None, body_graph.raw_cuda_graph())
+        lg.cond(body, last, h, flags, trips, 1)
+        lg.instantiate()
+    except BaseException:
+        lg.close()
+        raise
+    return lg
+
+
+def check_loop_cond(torch):
+    """S2 (``loop_cond``) against ``loop_cond_plain`` on the main path's
+    flag shapes, (128,) the lanes' done, (128, 2) and (128, 1) the
+    refinement columns', each all true, with one entry false and with
+    random entries: a graph of S2, then WHILE { set every flag true; S2 }
+    must count the trips the plain version counts (1 and "not all").
+    Timed: a graph of 64 S2 nodes in a row and a WHILE whose flags are
+    all true, 20 launches back to back (``loop_ms``), a 65th of a launch
+    an evaluation; the plain version (``~t.all()`` and the counter's
+    increment as torch ops, without the read back) by the same loop."""
+    from eicos_tpu_torch.ops.graph_loop import loop_cond_plain
+
+    dev = torch.device("cuda", torch.cuda.current_device())
+    rng = np.random.default_rng(17)
+    err = 0
+    for shape in ((LANES,), (LANES, 2), (LANES, 1)):
+        for pattern in ("all", "one", "random"):
+            f = np.ones(shape, bool)
+            if pattern == "one":
+                f.flat[int(rng.integers(f.size))] = False
+            elif pattern == "random":
+                f = rng.random(shape) < 0.9
+            flags = torch.tensor(f, device=dev)
+            trips = torch.zeros(2, dtype=torch.int64, device=dev)
+            lg = loop_graph(torch, flags, trips, 0, fill_graph(torch, flags))
+            try:
+                lg.launch()
+                torch.cuda.synchronize()
+            finally:
+                lg.close()
+            plain = torch.zeros(2, dtype=torch.int64)
+            pf = torch.tensor(f)
+            if loop_cond_plain(pf, plain, 0):
+                pf.fill_(True)
+                loop_cond_plain(pf, plain, 1)
+            err = max(err, int((trips.cpu() - plain).abs().max()))
+    flags = torch.ones(LANES, 2, dtype=torch.bool, device=dev)
+    trips = torch.zeros(2, dtype=torch.int64, device=dev)
+    lg = loop_graph(torch, flags, trips, 63, fill_graph(torch, flags))
+    try:
+        launch_ms, _ = loop_ms(torch, lg.launch)
+    finally:
+        lg.close()
+    torch.cuda.synchronize()
+    ms = launch_ms / 65
+    plain_ms, _ = loop_ms(torch, lambda: loop_cond_plain(flags, trips, 0))
+    bound_ms, by = bound(flags.numel() + 16, flags.numel())
+    print(f"loop_cond (S2): trip counts against the plain version on 9 flag "
+          f"tensors, max abs error {err}; {ms * 1e3:.2f} us an evaluation "
+          f"({launch_ms:.4f} ms a launch of 65), plain {plain_ms:.4f} ms, "
+          f"bound {bound_ms:.2e} ms ({by})")
+    if err:
+        fail(f"loop_cond disagrees with its plain version by {err} trips")
+    return dict(name="loop_cond", route="cuda",
+                source="eicos_tpu_torch/csrc/graph_loop.cu",
+                replaces="eicos_tpu/solver.py:635 (lax.while_loop's "
+                "condition, no Pallas kernel; kkt.py:1205, :1246)",
+                launches=None, max_abs_err=float(err), ms=ms,
+                plain_ms=plain_ms, bound_ms=bound_ms, bound_by=by,
+                library_ms=None)
+
+
 def perturbed_lanes(pt, st, base, lanes, nx, seed):
     """bench.py's lanes of one base problem: shared G/A/h, per-lane c and
     x0 (the first ``nx`` entries of b)."""
@@ -1384,41 +1484,28 @@ RUNTIME_LAUNCHES = ("cudaLaunchKernel", "cudaLaunchKernelExC",
 LAST = {}                         # the last ``drive``: graph stats, peaks
 
 
-def profile_solve(torch, bs, batch, cuda_only=False, label="profile"):
-    """Device time by kernel over one solve (torch.profiler), the
-    device's idle share of the solve's wall time, the solve's kernel
-    launches, all kernels counted, and its host launch calls: the
-    runtime's kernel and graph launch rows, plus the port's kernels that
-    the host launched outside a graph, which those rows do not see (the
-    kernels' libraries link the CUDA runtime statically; ``ab_graphs``
-    prints the check).
-    ``cuda_only`` records the device activity alone: a solve of ~10^6
-    launches (the eager scan) takes minutes of the profiler's host-side
-    processing with the CPU's.  Returns a dict (``spmv_ms``, the spmv
-    kernel's device time a launch, None without a trace; ``busy``,
-    ``wall`` in ms, ``idle``, ``kernels``, ``runtime``: the launch rows
-    by name, ``port_eager``: the port's launches outside graphs)."""
+def trace_solve(torch, bs, batch, acts):
+    """One solve under ``torch.profiler`` with ``acts``, its launch counts
+    settled: (wall s, the kernel rows (ms, name, count) by time, the
+    runtime's launch rows by name, the port's launches outside graphs,
+    segment replays)."""
     from eicos_tpu_torch import graphs
     from eicos_tpu_torch.ops import kernels
-    from torch.profiler import ProfilerActivity, profile
+    from torch.profiler import profile
 
-    acts = [ProfilerActivity.CUDA]
-    if not cuda_only:
-        acts.insert(0, ProfilerActivity.CPU)
     torch.cuda.synchronize()
     kernels.reset_counts()
     graphs.reset_stats()
-    t_prof = time.perf_counter()
     with profile(activities=acts) as prof:
         t0 = time.perf_counter()
         bs.solve(batch)
         torch.cuda.synchronize()
         wall = time.perf_counter() - t0
+    graphs.settle()
     graphed = graphs.STATS["graph_counts"]
     # the port's launches outside graphs: eager ones and the warm-ups'
     port_eager = sum(v - graphed.get(k, 0) + graphs.STATS["warm_counts"].get(
         k, 0) for k, v in kernels.COUNTS.items() if k != "factors")
-    replays = graphs.STATS["replays"]
     rows, runtime = [], {}
     for e in prof.key_averages():
         if e.key in RUNTIME_LAUNCHES:
@@ -1433,6 +1520,44 @@ def profile_solve(torch, bs, batch, cuda_only=False, label="profile"):
         if dev:
             rows.append((dev / 1e3, e.key, e.count))
     rows.sort(reverse=True)
+    return wall, rows, runtime, port_eager, graphs.STATS["replays"]
+
+
+HOST_LOOP = [False]               # inside ``host_loop()``
+
+
+def composes(bs):
+    """The solver's next solve is one composed launch: a program of it
+    has composed and no ``host_loop()`` is open."""
+    return not HOST_LOOP[0] and any(p.loop is not None
+                                    for p in programs_of(bs))
+
+
+def profile_solve(torch, bs, batch, cuda_only=False, label="profile"):
+    """Device time by kernel over one solve (torch.profiler), the
+    device's idle share of the solve's wall time, the solve's kernel
+    launches, all kernels counted, and its host launch calls: the
+    runtime's kernel and graph launch rows, plus the port's kernels that
+    the host launched outside a graph, which those rows do not see (the
+    kernels' libraries link the CUDA runtime statically; ``ab_graphs``
+    prints the check).  ``cuda_only`` records the device activity alone:
+    a solve of ~10^6 launches (the eager scan) takes minutes of the
+    profiler's host-side processing with the CPU's.  A composed solve
+    goes to ``profile_composed``.  Returns a dict (``spmv_ms``, the spmv
+    kernel's device time a launch, None without a trace; ``busy``,
+    ``wall`` in ms, ``idle``, ``kernels``, ``runtime``: the launch rows
+    by name, ``port_eager``: the port's launches outside graphs,
+    ``host``)."""
+    from torch.profiler import ProfilerActivity
+
+    if composes(bs):
+        return profile_composed(torch, bs, batch, cuda_only, label)
+    acts = [ProfilerActivity.CUDA]
+    if not cuda_only:
+        acts.insert(0, ProfilerActivity.CPU)
+    t_prof = time.perf_counter()
+    wall, rows, runtime, port_eager, replays = trace_solve(torch, bs, batch,
+                                                           acts)
     busy = sum(r[0] for r in rows)
     if not rows:
         print(f"{label}: no device time in the trace (not measured)")
@@ -1446,7 +1571,8 @@ def profile_solve(torch, bs, batch, cuda_only=False, label="profile"):
           f"{time.perf_counter() - t_prof:.1f} s")
     print(f"{label}: host launch calls {host} (runtime rows {runtime}, the "
           f"port's kernels launched outside graphs {port_eager}; {replays} "
-          f"graph replays); eager, every kernel a host launch: {n_kernels}")
+          f"segment replays); eager, every kernel a host launch: "
+          f"{n_kernels}")
     for ms, key, count in rows[:10]:
         print(f"  {ms:9.3f} ms  {count:6d}x  {key[:90]}")
     per_launch = {}
@@ -1461,18 +1587,78 @@ def profile_solve(torch, bs, batch, cuda_only=False, label="profile"):
                 runtime=runtime, port_eager=port_eager, host=host)
 
 
+def profile_composed(torch, bs, batch, cuda_only, label):
+    """``profile_solve`` of a composed solve.  CUPTI's kernel tracing
+    does not see a conditional node's body reliably (it saw 1,692 of a
+    phase-2 solve's ~21,400 kernels, and all of a phase-6 one's in
+    another call) and once faulted inside one, so no composed solve is
+    traced on the device: the host launch rows come from a trace of the
+    host's activity alone, the wall time and the device span (CUDA
+    events around the solve) from an unprofiled solve, and the device
+    busy time and kernel rows from the same solve's host-driven replay,
+    which runs the same kernels but S2's; the idle share is busy over the
+    unprofiled composed wall time (derived, printed so)."""
+    from torch.profiler import ProfilerActivity
+
+    torch.cuda.synchronize()
+    e0 = torch.cuda.Event(enable_timing=True)
+    e1 = torch.cuda.Event(enable_timing=True)
+    t0 = time.perf_counter()
+    e0.record()
+    bs.solve(batch)
+    e1.record()
+    torch.cuda.synchronize()
+    wall = (time.perf_counter() - t0) * 1e3
+    span = e0.elapsed_time(e1)
+    _, _, runtime, port_eager, replays = trace_solve(
+        torch, bs, batch, [ProfilerActivity.CPU])
+    host = sum(runtime.values()) + port_eager
+    with host_loop():
+        out = profile_solve(torch, bs, batch, cuda_only,
+                            f"{label}, its host-driven replay traced")
+    if out["busy"] is None:
+        return dict(out, wall=wall, idle=None, runtime=runtime,
+                    port_eager=port_eager, host=host, span=span)
+    idle = 1 - out["busy"] / wall
+    print(f"{label}: a composed solve {wall:.1f} ms wall, {span:.1f} ms "
+          f"device span (events); device busy {out['busy']:.1f} ms (its "
+          f"host-driven replay's trace); idle share {idle:.3f} (derived); "
+          f"host launch calls {host} (runtime rows {runtime}, the port's "
+          f"kernels launched outside graphs {port_eager}; {replays} segment "
+          f"runs, settled)")
+    return dict(out, wall=wall, idle=idle, runtime=runtime,
+                port_eager=port_eager, host=host, span=span)
+
+
 @contextlib.contextmanager
 def eager_segments():
     """Inside the block every segment of a solve calls its function
-    eagerly: no graph is captured or replayed."""
+    eagerly: no graph is captured, replayed, composed or launched."""
     from eicos_tpu_torch import graphs
 
-    real = graphs.Segment.__call__
+    real = graphs.Segment.__call__, graphs.Program.compose
     graphs.Segment.__call__ = lambda self, *args: self.fn(*args)
+    graphs.Program.compose = lambda self, steps: None
+    try:
+        with host_loop():
+            yield
+    finally:
+        graphs.Segment.__call__, graphs.Program.compose = real
+
+
+@contextlib.contextmanager
+def host_loop():
+    """Inside the block a kept program's solve is driven from the host
+    (segment replays, one flag read a loop test) even where it has
+    composed: the A/B's other arm."""
+    from eicos_tpu_torch import graphs
+
+    real, prev = graphs.Program.launch, HOST_LOOP[0]
+    graphs.Program.launch, HOST_LOOP[0] = (lambda self: None), True
     try:
         yield
     finally:
-        graphs.Segment.__call__ = real
+        graphs.Program.launch, HOST_LOOP[0] = real, prev
 
 
 def count_factors(kernels, kkt):
@@ -1495,8 +1681,10 @@ def count_factors(kernels, kkt):
 
 def drive(torch, kernels, kkt, bs, batch):
     """One solve with every launch count at 0 just before it: returns the
-    solution, the counts just after (with the number of factors under
-    "factors", ``count_factors``), the host syncs and the wall time.
+    solution, the counts just after, settled (``graphs.settle``: the
+    composed launches' segment runs and S2 launches, read from the card's
+    trip counters; the number of factors under "factors",
+    ``count_factors``), the host syncs and the wall time.
     ``LAST`` gets the graph stats and the peak device memory of the
     solve."""
     from eicos_tpu_torch import graphs
@@ -1511,6 +1699,7 @@ def drive(torch, kernels, kkt, bs, batch):
     sol = bs.solve(batch)
     torch.cuda.synchronize()
     wall = time.perf_counter() - t0
+    graphs.settle()
     launches = dict(kernels.COUNTS)
     LAST.clear()
     LAST.update(graphs=dict(graphs.STATS),
@@ -1528,7 +1717,9 @@ def graph_line(label):
     torch.cuda.empty_cache()
     print(f"{label}: graphs: {g['captures']} captures, {g['replays']} "
           f"replays, {g['copies']} input copies, {g['eager']} eager segment "
-          f"calls; capture {g['capture_s']:.3f} s; peak device memory "
+          f"calls, {g['loops']} composed launches of {g['solves']} program "
+          f"solves; capture {g['capture_s']:.3f} s, composing "
+          f"{g['compose_s']:.3f} s; peak device memory "
           f"{LAST['peak']:.3f} GiB allocated, {LAST['reserved']:.3f} GiB "
           f"reserved; {torch.cuda.memory_reserved() / 2 ** 30:.3f} GiB "
           f"reserved after the solve, the cache emptied (held by the kept "
@@ -1541,7 +1732,9 @@ def same_bits_eager(torch, kernels, kkt, bs, batch, first, launches, syncs,
     """The graphed solve ``first`` (its launch counts and host syncs from
     ``drive``) against the same solve with every segment called eagerly:
     the same exit codes, iterations, x, y and z, the same counts and
-    syncs.  Prints both solves' captures and peak memory."""
+    syncs.  Prints both solves' captures and peak memory.  Then the
+    solver's next solve, composed (``same_composed``), whose counts it
+    returns."""
     graphed = graph_line(f"{label}, graphed")
     with eager_segments():
         sol, e_launches, e_syncs, t_e = drive(torch, kernels, kkt, bs, batch)
@@ -1558,16 +1751,92 @@ def same_bits_eager(torch, kernels, kkt, bs, batch, first, launches, syncs,
              f"{e_syncs})")
     if first.info.iter.max() > 1 and not graphed["graphs"]["captures"]:
         fail(f"{label}: a solve past iteration 1 captured no graph")
+    return same_composed(torch, kernels, kkt, bs, batch, first, launches,
+                         syncs, label)
+
+
+def programs_of(bs):
+    """The kept programs of a solver (a ``Solver``'s by settings, a
+    ``BatchedSolver``'s a device and its rescue's)."""
+    progs = bs._programs
+    progs = list(progs.values()) if isinstance(progs, dict) else list(progs)
+    progs.append(getattr(bs, "_rescue_program", None))
+    return [p for p in progs if p is not None]
+
+
+def loop_line(bs, label):
+    """Each composed program's instantiate time and the device memory its
+    instantiation took (``cudaMemGetInfo`` before and after), printed."""
+    out = []
+    for p in programs_of(bs):
+        if p.loop is not None:
+            out.append((p.loop.instantiate_s, p.loop.held_bytes / 2 ** 20))
+    print(f"{label}: composed graphs (instantiate s, MiB on the card): "
+          + ", ".join(f"({t:.3f}, {m:.1f})" for t, m in out))
+    return out
+
+
+def composed_only(label, syncs):
+    """The last ``drive`` was one composed launch a program solve: no
+    capture, no eager call, no host sync."""
+    g = LAST["graphs"]
+    print(f"{label}: {g['loops']} composed launches of {g['solves']} program"
+          f" solves, {g['replays']} segment runs (settled), {syncs} host "
+          f"syncs, {g['captures']} captures, {g['eager']} eager calls")
+    if (g["loops"] != g["solves"] or not g["loops"] or syncs
+            or g["captures"] or g["eager"]):
+        fail(f"{label}: a kept program's solve was not one composed launch "
+             f"with no host sync ({g['loops']} launches, {g['solves']} "
+             f"solves, {syncs} syncs)")
+
+
+def as_composed(counts, syncs):
+    """A host-driven solve's counts as a composed solve of the same data
+    shows them, settled: each of its loop tests an S2 launch."""
+    return dict(counts, loop_cond=counts.get("loop_cond", 0) + syncs)
+
+
+def same_composed(torch, kernels, kkt, bs, batch, first, launches, syncs,
+                  label):
+    """The solver's next solve, one composed launch a program, against its
+    host-driven first solve ``first`` (its counts and syncs from
+    ``drive``): the same bits, 0 host syncs, and the first's counts once
+    settled, each loop test an S2 launch.  Prints the composition's cost;
+    returns the composed solve's counts."""
+    sol, c_launches, c_syncs, wall = drive(torch, kernels, kkt, bs, batch)
+    composed_only(f"{label}, composed", c_syncs)
+    loop_line(bs, label)
+    same = all(torch.equal(a, b) for a, b in (
+        (first.exit_code, sol.exit_code), (first.info.iter, sol.info.iter),
+        (first.x, sol.x), (first.y, sol.y), (first.z, sol.z)))
+    want = as_composed(launches, syncs)
+    print(f"{label}: the composed solve ({wall:.3f} s) gives the host-driven "
+          f"solve's bits: {same}; settled counts equal: {c_launches == want}"
+          f"; S2 launches {c_launches['loop_cond']}, host syncs {syncs} "
+          f"before")
+    if not same or c_launches != want:
+        fail(f"{label}: the composed solve differs from the host-driven one "
+             f"(counts {c_launches} / {want})")
+    return c_launches
+
+
+AB_MODES = ("eager", "composed", "host-driven", "host-driven", "composed",
+            "eager")
 
 
 def ab_graphs(torch, bs, batch, lanes, label):
-    """Eager, graphed, graphed, eager in one call: solves/s (median of 5
-    after a warm solve), the idle share of a profiled solve (the device
-    traced alone: the runtime's launch rows come with it) and the host
-    launch calls of each.  Returns the four readings."""
+    """Eager, composed, host-driven, host-driven, composed, eager in one
+    call (``AB_MODES``; host-driven: the segments' graphs replayed from
+    the host loop, a kept program's solve before composing): solves/s
+    (median of 5 after a warm solve), the idle share of a profiled solve
+    (the device traced alone: the runtime's launch rows come with it) and
+    the host launch calls of each, with the composition's instantiate
+    time and memory.  Returns the readings."""
     out = []
-    for mode in ("eager", "graphed", "graphed", "eager"):
-        ctx = eager_segments() if mode == "eager" else contextlib.nullcontext()
+    composed = loop_line(bs, f"{label}, A/B")
+    for mode in AB_MODES:
+        ctx = {"eager": eager_segments, "host-driven": host_loop}.get(
+            mode, contextlib.nullcontext)()
         with ctx:
             bs.solve(batch)
             _, rate = timed(torch, bs, batch, lanes, reps=5)
@@ -1584,7 +1853,9 @@ def ab_graphs(torch, bs, batch, lanes, label):
         out.append((mode, rate, prof))
     print(f"{label}, A/B in one call: " + "; ".join(
         f"{m} {r:.2f} solves/s, idle {p['idle']:.3f}, {p['kernels']} device "
-        f"events, {p['host']} host launch calls" for m, r, p in out))
+        f"events, {p['host']} host launch calls" for m, r, p in out)
+        + f"; composed graph instantiated in {composed[0][0]:.3f} s, "
+        f"{composed[0][1]:.1f} MiB")
     return out
 
 
@@ -2229,29 +2500,22 @@ def rescaled(pt, st, batch, seed):
         b=ra * np.asarray(batch.b), c=c + 0.01 * rng.standard_normal(c.shape))
 
 
-def replayed_only(label):
-    """The last ``drive`` captured no graph and called no segment
-    eagerly: a solve of a kept program."""
-    g = LAST["graphs"]
-    print(f"{label}: {g['captures']} captures, {g['eager']} eager segment "
-          f"calls, {g['replays']} replays, {g['copies']} input copies")
-    if g["captures"] or g["eager"]:
-        fail(f"{label}: a repeated solve captured or ran segments eagerly "
-             f"({g['captures']} captures, {g['eager']} eager calls)")
-
-
 def same_solve(torch, got, want, label, counts=None, syncs=None):
     """``got`` must have ``want``'s bits (exit codes, iterations, x, y, z)
-    and, where given, the same (launch counts, host syncs) pairs."""
+    and, where given the (got, want) launch counts and host syncs of a
+    composed solve ``got`` and a fresh host-driven ``want``, 0 host syncs
+    and ``want``'s counts with each of its loop tests an S2 launch."""
     same = all(torch.equal(a, b) for a, b in (
         (got.exit_code, want.exit_code), (got.info.iter, want.info.iter),
         (got.x, want.x), (got.y, want.y), (got.z, want.z)))
+    ok = counts is None or (syncs[0] == 0 and counts[0] == as_composed(
+        counts[1], syncs[1]))
     print(f"{label}: a fresh solve's bits: {same}"
-          + ("" if counts is None else f"; counts equal: "
-             f"{counts[0] == counts[1]}; host syncs {syncs[0]} and "
-             f"{syncs[1]}"))
-    if not same or (counts is not None and (counts[0] != counts[1]
-                                            or syncs[0] != syncs[1])):
+          + ("" if counts is None else f"; settled counts equal: "
+             f"{counts[0] == as_composed(counts[1], syncs[1])}; host syncs "
+             f"{syncs[0]} (the fresh solve {syncs[1]}); S2 launches "
+             f"{counts[0].get('loop_cond')}"))
+    if not same or not ok:
         fail(f"{label}: the solve differs from a fresh solve of its data")
 
 
@@ -2285,9 +2549,10 @@ def repeat_batched(torch, pt, kernels, kkt, label, st, batch, shared,
                    settings, rescue, lanes):
     """Phase 17 on one ``BatchedSolver``: X, then Y after ``update_data``
     with every value new, then X five times; every solve after the first
-    replays only and gives a fresh solve's bits, counts and syncs; the
-    first result is the caller's.  Prints first and repeated solves/s,
-    host launch calls, idle share and memory; returns them."""
+    is one composed launch with no host sync and gives a fresh solve's
+    bits and, settled, its counts; the first result is the caller's.
+    Prints first and repeated solves/s, host launch calls, idle share,
+    the composition's cost and memory; returns them."""
     from eicos_tpu_torch import graphs
 
     def make():
@@ -2296,11 +2561,12 @@ def repeat_batched(torch, pt, kernels, kkt, label, st, batch, shared,
     bs = make()
     first, f_counts, f_syncs, t_first = drive(torch, kernels, kkt, bs, batch)
     first_graphs = dict(LAST)
+    composed = loop_line(bs, label)
     kept = graphs.clone(first)
     y = rescaled(pt, st, batch, seed=23)
     bs.update_data(**{f: getattr(y, f) for f in ("G", "A", "c", "h", "b")})
     ysol, y_counts, y_syncs, _ = drive(torch, kernels, kkt, bs, None)
-    replayed_only(f"{label}, Y after update_data")
+    composed_only(f"{label}, Y after update_data", y_syncs)
     outcome(ysol, f"{label}, Y")
     fresh = make()
     want, w_counts, w_syncs, _ = drive(torch, kernels, kkt, fresh, y)
@@ -2313,7 +2579,7 @@ def repeat_batched(torch, pt, kernels, kkt, label, st, batch, shared,
     walls, peaks = [], []
     for i in range(5):
         sol, counts, syncs, wall = drive(torch, kernels, kkt, bs, batch)
-        replayed_only(f"{label}, X again ({i + 1})")
+        composed_only(f"{label}, X again ({i + 1})", syncs)
         same_solve(torch, sol, first, f"{label}, X again ({i + 1})",
                    (counts, f_counts), (syncs, f_syncs))
         walls.append(wall)
@@ -2336,6 +2602,8 @@ def repeat_batched(torch, pt, kernels, kkt, label, st, batch, shared,
                first_idle=prof_first["idle"], rep_idle=prof_rep["idle"],
                capture_s=first_graphs["graphs"]["capture_s"],
                captures=first_graphs["graphs"]["captures"],
+               compose_s=first_graphs["graphs"]["compose_s"],
+               composed=composed,
                first_peak=(first_graphs["peak"], first_graphs["reserved"]),
                rep_peak=max(peaks), held=held, released=released)
     print(f"{label}: solves/s first {first_rate:.2f} (times {first_times}), "
@@ -2343,7 +2611,9 @@ def repeat_batched(torch, pt, kernels, kkt, label, st, batch, shared,
           f"solve first {out['first_host']}, repeated {out['rep_host']}; "
           f"idle share first {out['first_idle']:.3f}, repeated "
           f"{out['rep_idle']:.3f}; the first solve captured {out['captures']}"
-          f" graphs in {out['capture_s']:.3f} s; peak GiB (allocated, "
+          f" graphs in {out['capture_s']:.3f} s and composed them in "
+          f"{out['compose_s']:.3f} s (instantiate s, MiB: {composed}); peak "
+          f"GiB (allocated, "
           f"reserved) first {out['first_peak'][0]:.3f}, "
           f"{out['first_peak'][1]:.3f}, repeated {out['rep_peak'][0]:.3f}, "
           f"{out['rep_peak'][1]:.3f}; held between solves {held[0]:.3f}, "
@@ -2392,6 +2662,15 @@ def phase_repeat(torch, pt, corpus, kernels, kkt, make_band_plan, make_mesh,
     _, _, hist = outcome(rsol, "repeat, forced rescue of 7")
     if hist != {0: 7}:
         fail(f"repeat, forced rescue of 7: not every lane OPTIMAL: {hist}")
+    # the primary's program was new at 7 lanes; the rescue's launched its
+    # composed graph
+    print(f"repeat, forced rescue of 7: {LAST['graphs']['loops']} composed "
+          f"launch (the rescue's) of {LAST['graphs']['solves']} solves")
+    if LAST["graphs"]["loops"] != 1:
+        fail("repeat, forced rescue of 7: the rescue's kept program did not "
+             "launch its composed graph")
+    rsol, r_counts, r_syncs, _ = drive(torch, kernels, kkt, fs, seven)
+    composed_only("repeat, forced rescue of 7 again", r_syncs)
     fresh = pt.BatchedSolver(st, forced, shared=shared, rescue=rescue)
     want, w_counts, w_syncs, _ = drive(torch, kernels, kkt, fresh, seven)
     same_solve(torch, rsol, want, "repeat, forced rescue of 7",
@@ -2411,7 +2690,7 @@ def phase_repeat(torch, pt, corpus, kernels, kkt, make_band_plan, make_mesh,
     new = dict(G=y.G, A=y.A, c=y.c[0], h=y.h, b=y.b[0])
     one.update_data(**new)
     code, counts, syncs, wall = drive(torch, kernels, kkt, one, False)
-    replayed_only("repeat, Solver (full) after update_data")
+    composed_only("repeat, Solver (full) after update_data", syncs)
     other = pt.Solver(**new)
     _, w_counts, w_syncs, w_wall = drive(torch, kernels, kkt, other, False)
     print(f"repeat, Solver (full): code {int(code)}; re-solve {wall:.3f} s, "
@@ -2433,7 +2712,7 @@ def phase_repeat(torch, pt, corpus, kernels, kkt, make_band_plan, make_mesh,
     s_caps = LAST["graphs"]["captures"]
     s_cap_s = LAST["graphs"]["capture_s"]
     ssol, counts, syncs, _ = drive(torch, kernels, kkt, ss, sbatch)
-    replayed_only("repeat, scan")
+    composed_only("repeat, scan", syncs)
     same_solve(torch, ssol, sfirst, "repeat, scan", (counts, s_counts),
                (syncs, s_syncs))
     del ssol
@@ -2465,7 +2744,7 @@ def phase_repeat(torch, pt, corpus, kernels, kkt, make_band_plan, make_mesh,
                            mesh=make_mesh())
     mfirst, m_counts, m_syncs, _ = drive(torch, kernels, kkt, ms_, batch)
     msol, counts, syncs, _ = drive(torch, kernels, kkt, ms_, batch)
-    replayed_only("repeat, mesh")
+    composed_only("repeat, mesh", syncs)
     same_solve(torch, msol, mfirst, "repeat, mesh", (counts, m_counts),
                (syncs, m_syncs))
     ms_.close()
@@ -2518,6 +2797,7 @@ def main():
     subst_records = check_subst_kernels(torch, leaf, ldl, dense, kernels)
     spmv_record = check_spmv_kernel(torch, corpus, kkt, spmv)
     k12_record = check_wide_operands(torch, corpus, kkt, gemm, kernels)
+    s2_record = check_loop_cond(torch)
     print(f"kernel checks: {time.perf_counter() - t0:.1f} s")
     band_names = [r["name"] for r in band_records]
     wide_names = [r["name"] for r in wide_records]
@@ -2544,8 +2824,10 @@ def main():
         r["launches"] = launches[r["name"]]
     spmv_record["launches"] = launches["spmv"]
     first = sol
-    same_bits_eager(torch, kernels, kkt, bs, batch, first, launches, syncs,
-                    "main path")
+    composed = same_bits_eager(torch, kernels, kkt, bs, batch, first,
+                               launches, syncs, "main path")
+    need_launched(composed, ["loop_cond"], "main path, composed")
+    s2_record["launches"] = composed["loop_cond"]
     ab_graphs(torch, bs, batch, LANES, "main path")
     sol, _ = timed(torch, bs, batch, LANES)
     spmv_record["solve_ms_a_launch"] = profile_solve(
@@ -2559,9 +2841,12 @@ def main():
         fail(f"the main path rescued lanes {list(bs.last_rescued)}")
     banded_pcost = sol.info.pcost.cpu().numpy()
     # torch's own account of the synchronizing calls of one solve, beside
-    # the loops' count (one per IPM iteration and refinement trip)
+    # the loops' count (one per loop test of a host-driven solve)
     import warnings
 
+    # (``same_bits_unfused`` released the program: one solve composes it)
+    bs.solve(batch)
+    torch.cuda.synchronize()
     torch.cuda.set_sync_debug_mode("warn")
     with warnings.catch_warnings(record=True) as caught:
         warnings.simplefilter("always")
@@ -2570,8 +2855,9 @@ def main():
         counted = kkt.host_syncs - syncs0
     torch.cuda.set_sync_debug_mode(0)
     flagged = sum("synchroniz" in str(w.message) for w in caught)
-    print(f"synchronizing calls flagged by torch in one solve: {flagged} "
-          f"(loop count {counted})")
+    print(f"synchronizing calls flagged by torch in one composed solve: "
+          f"{flagged} (loop count {counted}; the rescue reads the exit "
+          f"codes)")
     same_as_cpu(pt, st, probs[0], settings, sol, "main path")
     bs.close()
     del bs
@@ -2915,7 +3201,7 @@ def main():
         | ({"fused": {k: r[k] for k in SPMV_EXTRA}}
            if r["name"] == "spmv" else {})
         for r in band_records + dense_records + subst_records
-        + [spmv_record]]}))
+        + [spmv_record, s2_record]]}))
     print(smi)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

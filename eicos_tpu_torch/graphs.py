@@ -23,6 +23,22 @@ and replayed by every later solve of its key (structure, settings, and
 each input's shape, dtype and device), whose values are copied into the
 program's static input buffers first.
 
+Composed solve.  At the end of its first solve a kept program on the card
+composes its segments into one CUDA graph (``compose``; ``_new_loop``,
+``ops/graph_loop.py``): each segment's captured graph a child graph node,
+each loop of the solve (init trip, iterations, the two refinement trips)
+a conditional WHILE node whose body ends with S2, the kernel that sets
+the node's handle to "not every lane done" and counts its own launches on
+the card.  Every later solve of the program is its input copies, one
+``launch`` and a copy of the result: no host read.  The host loop stays
+for the first solve, CPU tensors, a live table and programs that no owner
+keeps (module-level ``solve``).  The composed graph reads the program's
+held tensors in place, so every argument of a composed segment call is
+one (``Segment.compose`` raises otherwise), and a loop's body may hold
+only the node types a conditional body allows (kernel, memset, memcpy
+between device memory, empty, child graph, conditional; a segment with
+another raises naming it).
+
 Inputs.  A tensor that the program holds (``hold``: constants, the loop
 state and every captured segment's outputs; ``buffers``: the input
 buffers) is read in place by the graph, and every later call must pass
@@ -50,14 +66,21 @@ garbage-collected.  Nothing made inside a capture may outlive the program
 
 Counts.  A capture records the kernel launches that its function makes
 (``kernels.recording``) and each replay adds them to ``kernels.COUNTS``,
-so a graphed solve counts as the same solve run eagerly.  ``STATS`` sums
+so a graphed solve counts as the same solve run eagerly.  A composed
+launch runs segments the host does not see: ``settle()`` reads each
+composed program's trip counters (one host read a program) and adds each
+segment's counts once a run, and S2's launches under ``loop_cond``, so a
+settled composed solve counts as the host-driven one, whose loop tests
+(its host syncs) are S2's launches.  ``STATS`` sums program solves,
 captures, replays, input copies, eager calls (warm-ups included), capture
-time, the port's kernel launches made by replays (``graph_counts``) and
-those of the warm-ups, which ``COUNTS`` leaves out (``warm_counts``), over
-every program.
+time, composed launches (``loops``), composing time, the port's kernel
+launches made by replays (``graph_counts``) and those of the warm-ups,
+which ``COUNTS`` leaves out (``warm_counts``), over every program;
+``reset_stats`` drops composed launches not settled yet.
 
-Failures raise: a capture or replay that fails raises ``RuntimeError``
-naming the segment, and nothing runs the segment eagerly instead.
+Failures raise: a capture, replay, composition or composed launch that
+fails raises ``RuntimeError`` naming the segment (or the CUDA call), and
+nothing runs the segment eagerly or the solve from the host instead.
 """
 
 from __future__ import annotations
@@ -66,6 +89,7 @@ import contextlib
 import threading
 import time
 import weakref
+from typing import NamedTuple
 
 import torch
 
@@ -75,13 +99,34 @@ STATS: dict = {}
 _LOCK = threading.Lock()
 _TLS = threading.local()    # ``streams``: this thread's capture stream a device
 _SCALARS = (bool, int, float, str, type(None), torch.dtype, torch.device)
+_PENDING: "weakref.WeakSet" = weakref.WeakSet()   # programs to settle
 
 
 def reset_stats() -> None:
+    """Zero ``STATS``; composed launches not settled yet are dropped
+    (their trip counters read as the new start)."""
+    for program in _take_pending():
+        program.settle(add=False)
     with _LOCK:
         STATS.clear()
-        STATS.update(captures=0, replays=0, copies=0, eager=0, capture_s=0.0,
-                     graph_counts={}, warm_counts={})
+        STATS.update(solves=0, captures=0, replays=0, copies=0, eager=0,
+                     capture_s=0.0, loops=0, compose_s=0.0, graph_counts={},
+                     warm_counts={})
+
+
+def _take_pending() -> list:
+    with _LOCK:
+        out = list(_PENDING)
+        _PENDING.clear()
+    return out
+
+
+def settle() -> None:
+    """Add the segment replays and kernel launches of every composed
+    launch since the last settle to ``kernels.COUNTS`` and ``STATS``,
+    from the device's trip counters: one host read a program."""
+    for program in _take_pending():
+        program.settle()
 
 
 reset_stats()
@@ -154,7 +199,9 @@ class _CudaGraph:
 
     def __init__(self, stream, pool):
         self.stream, self.pool = stream, pool
-        self.graph = torch.cuda.CUDAGraph()
+        # the captured graph stays valid after capture_end, to be composed;
+        # the replay instantiates it at its first call
+        self.graph = torch.cuda.CUDAGraph(keep_graph=True)
 
     def capture(self, fn, args):
         cur = torch.cuda.current_stream(self.stream.device)
@@ -176,9 +223,79 @@ class _CudaGraph:
     def replay(self) -> None:
         self.graph.replay()
 
+    def raw(self) -> int:
+        """The captured ``cudaGraph_t``."""
+        return self.graph.raw_cuda_graph()
+
 
 def _new_graph(program: "Program"):
     return _CudaGraph(program.stream(), program.pool())
+
+
+class Loop(NamedTuple):
+    """A loop of a composed plan: ``body`` (segments and loops) runs while
+    not every entry of ``flag`` is true, tested before the first trip and
+    after each; ``pre`` and ``trip`` are the trip counter slots of the two
+    tests (``Program.compose``)."""
+
+    flag: torch.Tensor
+    body: tuple
+    pre: int
+    trip: int
+
+
+def _new_loop(program: "Program", plan: tuple):
+    """``plan`` as one CUDA graph (``ops/graph_loop.LoopGraph``), built and
+    instantiated: a segment is a child graph node of its captured graph,
+    a ``Loop`` an S2 node and a WHILE node whose body ends with another S2
+    node.  The nodes in a loop's body must be of the types a conditional
+    body may hold (checked first, naming the segment).  The graph's
+    ``instantiate_s`` and ``held_bytes`` (the device memory that
+    instantiation took, by ``cudaMemGetInfo``) are what composing cost."""
+    from .ops.graph_loop import LoopGraph
+
+    free0 = torch.cuda.mem_get_info(program.device)[0]
+    t0 = time.perf_counter()
+    g = LoopGraph(program.device)
+    try:
+        _emit(g, g.root, plan, program.trips, False)
+        g.instantiate()
+    except BaseException:
+        g.close()
+        raise
+    g.instantiate_s = time.perf_counter() - t0
+    g.held_bytes = free0 - torch.cuda.mem_get_info(program.device)[0]
+    return g
+
+
+def _emit(g, root, items, trips, in_body: bool):
+    """Add ``items`` to ``root``, a graph of ``g``, one after another;
+    returns the last node."""
+    dep = None
+    for it in items:
+        if isinstance(it, Loop):
+            h = g.handle(root)
+            dep = g.cond(root, dep, h, it.flag, trips, it.pre)
+            node, body = g.while_(root, dep, h)
+            last = _emit(g, body, it.body, trips, True)
+            g.cond(body, last, h, it.flag, trips, it.trip)
+            dep = node
+            continue
+        raw = it._graph.raw()
+        try:
+            if in_body:
+                g.check(raw)
+            dep = g.child(root, dep, raw)
+        except RuntimeError as e:
+            raise RuntimeError(f"composing segment {it.name!r} failed: "
+                               f"{e}") from e
+    return dep
+
+
+def _composes(device: torch.device) -> bool:
+    """Programs on ``device`` that an owner keeps compose their solve into
+    one graph: CUDA tensors do."""
+    return device.type == "cuda"
 
 
 class Segment:
@@ -189,7 +306,7 @@ class Segment:
     def __init__(self, program: "Program", name: str, fn, writes=()):
         self.program, self.name, self.fn = program, name, fn
         self.writes = frozenset(writes)
-        self._graph = None
+        self._graph = self._out = None
 
     def __call__(self, *args):
         if self._graph is not None:
@@ -198,7 +315,35 @@ class Segment:
             _stat(eager=1)
             return self.fn(*args)
         self._warm_up(args)
-        return self._capture(args)
+        out = self._capture(args)
+        self._launch(0)
+        return out
+
+    @property
+    def out(self):
+        """The captured outputs, which every replay rewrites."""
+        return self._out
+
+    def compose(self, args) -> None:
+        """Ready the segment for a composed graph that calls it with
+        ``args``: captured (warmed up, not launched) if it never ran, and
+        reading only tensors that the program holds, these same ones,
+        since nothing is copied inside a composed launch."""
+        if self._graph is None:
+            self._warm_up(args)
+            self._capture(args)
+        leaves: list = []
+        if _flatten(args, self.program._opaque, leaves) != self._spec:
+            raise RuntimeError(f"segment {self.name!r}: arguments of another "
+                               f"structure than at its capture")
+        for i, (x, s) in enumerate(zip(leaves, self._static)):
+            if i in self._copied or not (x is s or (
+                    isinstance(x, _SCALARS) and type(x) is type(s)
+                    and x == s)):
+                raise RuntimeError(
+                    f"segment {self.name!r}: a composed graph reads its "
+                    f"arguments in place, and argument {i} is not the "
+                    f"tensor the program holds for it")
 
     def _warm_up(self, args) -> None:
         """The eager call before the capture, on scratch copies of the
@@ -233,7 +378,6 @@ class Segment:
         r.captures += 1
         r.hold(out)
         self._graph, self._out, self._delta = graph, out, delta
-        self._launch(0)
         return out
 
     def _replay(self, args):
@@ -284,6 +428,8 @@ class Program:
     def __init__(self, device, key=None, owner=None):
         self.device = torch.device(device)
         self.graphed = _captures(self.device)
+        # a kept program composes its solve at the end of its first
+        self.composes = owner is not None and _composes(self.device)
         self.key = key
         self.inputs = self.state = self.parts = None
         self.captures = 0           # graphs captured by this program
@@ -291,8 +437,15 @@ class Program:
         self._opaque: dict = {}     # id -> constant held as one argument
         self._segments: list = []
         self._pool = None           # the graphs' memory pool
+        self._init_loop()
         self._finalizer = (None if owner is None
                            else weakref.finalize(owner, self.close))
+
+    def _init_loop(self) -> None:
+        self.loop = None            # the composed graph (``compose``)
+        self.plan = self.result = self.trips = None
+        self._launches = 0          # composed launches made
+        self._settled = (0, None)   # (launches, trip counters) settled
 
     def _keep(self, t: torch.Tensor) -> torch.Tensor:
         self._held[id(t)] = t
@@ -354,7 +507,8 @@ class Program:
         """The input buffers, holding ``data``'s values: made from its
         first ``data`` (as they are with ``adopt``, else copies), then
         written with each new ``data``'s values, except a field that is
-        its buffer already, which is read in place."""
+        its buffer already, which is read in place.  Once a solve."""
+        _stat(solves=1)
         if self.inputs is None:
             if adopt:
                 self.inputs = data
@@ -371,11 +525,101 @@ class Program:
         _stat(copies=copies)
         return self.inputs
 
+    def compose(self, steps) -> None:
+        """Build the composed graph from ``steps(call, loop)``, a solve's
+        control flow written against two functions: ``call(segment,
+        *args)`` (records the call and returns the segment's captured
+        outputs) and ``loop(flag, body)`` (records ``body()``'s calls as a
+        ``Loop`` on ``flag``, a held tensor); what ``steps`` returns is
+        the composed solve's result, rewritten by every launch.  Every
+        segment called is captured first if it never ran (``Segment.
+        compose``).  Raises ``RuntimeError`` if a segment, a node or the
+        instantiation fails: nothing is run instead."""
+        t0 = time.perf_counter()
+        slots = [0]
+        stack: list = [[]]
+
+        def call(seg: Segment, *args):
+            seg.compose(args)
+            stack[-1].append(seg)
+            return seg.out
+
+        def loop(flag, body) -> None:
+            if id(flag) not in self._held:
+                raise RuntimeError("a composed loop's flag must be a tensor "
+                                   "that the program holds")
+            stack.append([])
+            body()
+            items = tuple(stack.pop())
+            stack[-1].append(Loop(flag, items, slots[0], slots[0] + 1))
+            slots[0] += 2
+
+        result = steps(call, loop)
+        self.trips = self._keep(torch.zeros(slots[0], dtype=torch.int64,
+                                            device=self.device))
+        self.plan, self.result = tuple(stack[0]), result
+        self.loop = _new_loop(self, self.plan)
+        self._settled = (0, [0] * slots[0])
+        _stat(compose_s=time.perf_counter() - t0)
+
+    def launch(self):
+        """The solve as one launch of the composed graph; returns the
+        result, which the launch rewrites, or None where the program has
+        not composed (the caller then drives the segments itself)."""
+        if self.loop is None:
+            return None
+        try:
+            self.loop.launch()
+        except Exception as e:
+            raise RuntimeError(f"launching the composed solve failed: "
+                               f"{e}") from e
+        self._launches += 1
+        _stat(loops=1)
+        with _LOCK:
+            _PENDING.add(self)
+        return self.result
+
+    def settle(self, add: bool = True) -> None:
+        """Read the trip counters (one host read) and, with ``add``, add
+        what the composed launches since the last settle ran to
+        ``kernels.COUNTS`` and ``STATS``: each segment's captured counts
+        once a run, S2's launches under ``loop_cond``."""
+        launches = self._launches - self._settled[0]
+        if not launches:
+            return
+        trips = self.trips.tolist()
+        delta = [t - s for t, s in zip(trips, self._settled[1])]
+        self._settled = (self._launches, trips)
+        if not add:
+            return
+        counts = {"loop_cond": sum(delta)}
+        replays = 0
+
+        def run(items, n: int) -> None:
+            nonlocal replays
+            for it in items:
+                if isinstance(it, Loop):
+                    run(it.body, delta[it.trip])
+                    continue
+                replays += n
+                for k, v in it._delta.items():
+                    counts[k] = counts.get(k, 0) + v * n
+
+        run(self.plan, launches)
+        kernels.add_counts(counts)
+        _stat(counts, replays=replays)
+
     def close(self) -> None:
         """Release the graphs, their pool, the buffers and the held
-        tensors; a later solve builds the program anew."""
+        tensors; a later solve builds the program anew.  Composed
+        launches not settled yet go uncounted."""
         if self._finalizer is not None:
             self._finalizer.detach()
+        with _LOCK:
+            _PENDING.discard(self)
+        if self.loop is not None:
+            self.loop.close()
+        self._init_loop()
         for seg in self._segments:
             seg._graph = seg._out = seg._static = None
         self._segments.clear()

@@ -125,8 +125,10 @@ _SYNC_LOCK = threading.Lock()
 
 
 def all_true(t: torch.Tensor) -> bool:
-    """``bool(t.all())``: the one host synchronisation a solve loop makes
-    per trip, counted in ``host_syncs``."""
+    """``bool(t.all())``: the one host synchronisation a solve loop driven
+    from the host makes per trip, counted in ``host_syncs``.  A kept
+    program's composed solve makes none: S2 tests the same flag on the card
+    (``ops/graph_loop.py``)."""
     global host_syncs
     with _SYNC_LOCK:
         host_syncs += 1

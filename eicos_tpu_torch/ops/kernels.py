@@ -9,7 +9,10 @@ are bound with ``ctypes``: pointers and the stream pass as ``c_void_p``.
 ``COUNTS`` holds one plain integer per kernel: its wrapper (``band.py``,
 ``leaf.py``, ``gemm.py``, ``dense.py``, ``spmv.py``) adds one through
 ``count`` where it launches the kernel, and nowhere else, so a run can show
-that the main path went through the kernels.  ``count`` and ``lib`` hold a
+that the main path went through the kernels.  ``loop_cond`` (S2,
+``graph_loop.py``) launches only on the card, as nodes of a composed
+program graph: each node counts its launches on the device, and
+``graphs.settle`` adds them here.  ``count`` and ``lib`` hold a
 lock: a sharded solve launches from one host thread per device.  Inside
 ``recording()`` a thread's counts go to a dict of their own instead:
 ``graphs`` records what a captured segment launches and adds it to
@@ -35,9 +38,11 @@ BUILD_DIR = os.path.join(_PKG_DIR, "_build")
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
               "-O3", "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v")
 
-# library name -> (source file, {C symbol: ctypes argtypes})
+# library name -> (source file, {C symbol: ctypes argtypes}[, restype]);
+# the restype is ``c_int``, a CUDA error code, unless given
 _P, _I = ctypes.c_void_p, ctypes.c_int
 _LL, _D = ctypes.c_longlong, ctypes.c_double
+_ULL, _PP = ctypes.c_ulonglong, ctypes.POINTER(ctypes.c_void_p)
 LIBS = {
     "band_factor_bw": ("band_factor_bw.cu",
                        {"eicos_band_factor_bw": [_P] * 5 + [_I, _I, _I, _P]}),
@@ -64,12 +69,25 @@ LIBS = {
                      "eicos_dense_bwd": [_P] * 4 + [_I, _I, _I, _P]}),
     "spmv": ("spmv.cu",
              {"eicos_spmv": [_P, _P]}),
+    # the program graph and S2 (``graph_loop.py``): every function returns
+    # a null pointer or an error message
+    "graph_loop": ("graph_loop.cu",
+                   {"eicos_loop_create": [_I, _PP],
+                    "eicos_loop_handle": [_P, ctypes.POINTER(_ULL)],
+                    "eicos_loop_while": [_P, _P, _ULL, _PP, _PP],
+                    "eicos_loop_child": [_P, _P, _P, _PP],
+                    "eicos_loop_cond": [_P, _P, _ULL, _P, _I, _P, _PP],
+                    "eicos_loop_check": [_P],
+                    "eicos_loop_instantiate": [_I, _P, _P, _PP],
+                    "eicos_loop_launch": [_I, _P, _P],
+                    "eicos_loop_destroy": [_P, _P]},
+                   ctypes.c_char_p),
 }
 
 COUNTS = {"band_factor_bw": 0, "band_fwd_bw": 0, "band_bwd_bw": 0,
           "leaf_ldl": 0, "dgemm": 0, "linv_fwd": 0, "linv_bwd": 0,
           "leaf_ldl_f32": 0, "dense_pack": 0, "dense_fwd": 0, "dense_bwd": 0,
-          "spmv": 0}
+          "spmv": 0, "loop_cond": 0}
 BUILD_LOG: dict = {}      # library name -> nvcc's output (ptxas -v report)
 
 _loaded: dict = {}
@@ -173,10 +191,11 @@ def lib(name: str):
         if name not in _loaded:
             build()
             cdll = ctypes.CDLL(lib_path(name))
-            for sym, argtypes in LIBS[name][1].items():
+            _, symbols, *restype = LIBS[name]
+            for sym, argtypes in symbols.items():
                 fn = getattr(cdll, sym)
                 fn.argtypes = argtypes
-                fn.restype = ctypes.c_int
+                fn.restype = restype[0] if restype else ctypes.c_int
             _loaded[name] = cdll
     return _loaded[name]
 

@@ -78,8 +78,9 @@ def solve_shards(structure: ProblemStructure, shards: list,
     """Solve the shards of ``shard_batch`` at once, one host thread a
     device, and gather the ``Solution`` on ``mesh[0]``.  ``programs``:
     one ``graphs.Program`` a shard (``solver.program_for``), which the
-    shard's thread captures and replays; without them each shard's solve
-    makes its own for the call."""
+    shard's thread captures, composes and launches with its device
+    current; without them each shard's solve makes its own for the
+    call."""
     results: list = [None] * len(shards)
     errors: list = []
 

@@ -21,10 +21,16 @@ of the solve and, where the caller keeps the program (``program_for``;
 ``api.Solver`` and ``api.BatchedSolver`` keep theirs), by every later
 solve of the same key, the counterpart of the JAX package's compiled
 solve and its cached executable.  On a CPU tensor they are plain calls.
-The host reads one flag back from the device per iteration ("all lanes
-done") and one per refinement trip; ``kkt.host_syncs`` counts them.  A
-live table (``LiveTable``: ``solve_live``, ``Settings(verbose_live=True)``)
-adds one host copy of lane 0's history per group of rows it prints.
+The loops are written once (``_steps``): driven from the host, which
+reads one flag back from the device per iteration ("all lanes done") and
+one per refinement trip (``kkt.host_syncs`` counts them), or, for a kept
+program after its first solve, composed into one graph whose conditional
+WHILE nodes test the same flags on the card (``graphs.Program.compose``):
+one launch and no host read a solve, as the JAX package's single
+``lax.while_loop``.  A live table (``LiveTable``: ``solve_live``,
+``Settings(verbose_live=True)``) drives the loop from the host and adds
+one host copy of lane 0's history per group of rows it prints; the
+module-level ``solve`` keeps no program and is host-driven too.
 
 Semantics kept exactly from the reference (they decide exit codes):
 updateScalings' out-of-cone flag is ignored (NaNs flow into the NaN exit);
@@ -690,38 +696,71 @@ def solve_batch(structure: ProblemStructure, data: ProblemData,
 
 def _run(program: graphs.Program, st: ProblemStructure, settings: Settings,
          data: ProblemData, live: Optional[LiveTable], adopt: bool):
-    """One solve through ``program``'s segments: the host reads one flag
-    an init trip, an iteration and a refinement trip."""
+    """One solve through ``program``: one launch of its composed graph
+    where it has one and no live table reads the loop, else the segments
+    driven from the host (one flag read an init trip, an iteration and a
+    refinement trip), after which a kept program composes."""
     inputs = program.load(_fields(data), adopt=adopt)
     if program.parts is None:
         program.parts = _parts(program, st, settings, data.c.shape[0],
                                data.c.dtype, data.c.device)
     parts = program.parts
-    pro = parts.prologue(*inputs)
-    while not kkt.all_true(pro.ref.done):
-        parts.init_trip(pro.ctx, pro.init, None, pro.rhs, pro.ref)
+    # the result's tensors are the program's (a graph's outputs, the loop
+    # state): the caller gets copies
+    if live is None:
+        out = program.launch()
+        if out is not None:
+            return graphs.clone(out)
+    out = _steps(program, parts, inputs, _host_call, _host_loop, live)
+    if program.composes and program.loop is None:
+        program.compose(lambda call, loop: _steps(program, parts, inputs,
+                                                  call, loop))
+    return graphs.clone(out)
+
+
+def _host_call(segment: graphs.Segment, *args):
+    return segment(*args)
+
+
+def _host_loop(flag: torch.Tensor, body) -> None:
+    while not kkt.all_true(flag):
+        body()
+
+
+def _steps(program: graphs.Program, parts: _Parts, inputs, call, loop,
+           live: Optional[LiveTable] = None):
+    """A solve's control flow over its segments, the JAX package's
+    ``lax.while_loop``s: ``call(segment, *args)`` runs a segment and
+    ``loop(flag, body)`` runs ``body()`` while not every entry of
+    ``flag`` is true.  The host runs it with ``_host_call`` and
+    ``_host_loop``; ``graphs.Program.compose`` records it into one graph.
+    Returns the finish's ``Solution``."""
+    pro = call(parts.prologue, *inputs)
+    loop(pro.ref.done, lambda: call(parts.init_trip, pro.ctx, pro.init,
+                                    None, pro.rhs, pro.ref))
     if program.state is None:
         program.state = program.hold(program.buffers(
             parts.first_state(pro)))
     state = program.state
-    parts.init_state(pro, state)
-    while not kkt.all_true(state.done):
-        a = parts.a(state, pro)
-        while not kkt.all_true(a.ref.done):
-            parts.trip2(pro.ctx, a.solve, a.scal, a.rhs, a.ref)
-        b_ = parts.b(state, a, pro)
-        while not kkt.all_true(b_.ref.done):
-            parts.trip1(pro.ctx, a.solve, a.scal, b_.rhs, b_.ref)
-        parts.c(state, a, b_, pro)
-        # on the CPU the loop holds one factor at a time
-        del a, b_
+    call(parts.init_state, pro, state)
+
+    def iteration() -> None:
+        # on the CPU the loop holds one factor at a time: a and b_ go
+        # with the trip
+        a = call(parts.a, state, pro)
+        loop(a.ref.done, lambda: call(parts.trip2, pro.ctx, a.solve, a.scal,
+                                      a.rhs, a.ref))
+        b_ = call(parts.b, state, a, pro)
+        loop(b_.ref.done, lambda: call(parts.trip1, pro.ctx, a.solve,
+                                       a.scal, b_.rhs, b_.ref))
+        call(parts.c, state, a, b_, pro)
         if live is not None:
             live.trip(state)
+
+    loop(state.done, iteration)
     if live is not None:
         live.trip(state, last=True)
-    # the finish's tensors are the program's (its graph's outputs, the
-    # loop state): the caller gets copies
-    return graphs.clone(parts.finish(state, pro))
+    return call(parts.finish, state, pro)
 
 
 def _finish_solution(st, settings, eq, final: LoopState, ctx, cbh,

@@ -1232,6 +1232,7 @@ def test_graphed_solve_equals_eager(cuda, monkeypatch, case):
     with monkeypatch.context() as mp:
         mp.setattr(graphs.Segment, "__call__",
                    lambda self, *args: self.fn(*args))
+        mp.setattr(graphs.Program, "compose", lambda self, steps: None)
         want, wcounts, wsyncs, wstats, wrescued = _counted(torch, st, batch,
                                                            kw)
     assert wstats["captures"] == 0
@@ -1321,6 +1322,7 @@ def _stats_solve(torch_, bs, batch=None):
     syncs0 = kkt.host_syncs
     sol = bs.solve(batch)
     torch_.cuda.synchronize()
+    graphs.settle()
     return (sol, dict(kernels.COUNTS), kkt.host_syncs - syncs0,
             dict(graphs.STATS))
 
@@ -1328,9 +1330,11 @@ def _stats_solve(torch_, bs, batch=None):
 @pytest.mark.parametrize("case", ["banded-lp", "banded-socp"])
 def test_repeated_solves_replay_a_kept_program(cuda, case):
     """A ``BatchedSolver`` solves X, then Y (every value of G, A, c, h, b
-    new: rows rescaled), then X: the later solves capture nothing and call
-    no segment eagerly, and each gives a fresh solver's bits, launch
-    counts and host syncs; the first result is unchanged at the end."""
+    new: rows rescaled), then X: the later solves capture nothing, call
+    no segment eagerly and are one composed launch with 0 host syncs, and
+    each gives a fresh solver's bits and, settled, its launch counts (its
+    loop tests as S2 launches); the first result is unchanged at the
+    end."""
     import eicos_tpu_torch as pt
     from eicos_tpu_torch import corpus, graphs
     from test_torch_program import rescaled
@@ -1343,12 +1347,13 @@ def test_repeated_solves_replay_a_kept_program(cuda, case):
     for batch in (Y, X):
         got, counts, syncs, stats = _stats_solve(torch, bs, batch)
         assert stats["captures"] == 0 and stats["eager"] == 0, stats
+        assert stats["loops"] == 1 and syncs == 0, stats
         want, wcounts, wsyncs, _ = _stats_solve(torch, pt.BatchedSolver(
             st, **kw), batch)
         for f in ("exit_code", "x", "y", "z", "s"):
             assert torch.equal(getattr(got, f), getattr(want, f)), f
         assert torch.equal(got.info.iter, want.info.iter)
-        assert counts == wcounts and syncs == wsyncs
+        assert counts == dict(wcounts, loop_cond=wsyncs)
         assert got.exit_code.tolist() == [0] * got.exit_code.shape[0]
     for a, b in zip(graphs.tensors(first), graphs.tensors(kept)):
         assert torch.equal(a.nan_to_num(7.0), b.nan_to_num(7.0))
@@ -1399,3 +1404,123 @@ def test_reserved_memory_flat_over_repeated_solves(cuda):
     bs.close()
     torch.cuda.empty_cache()
     assert torch.cuda.memory_reserved() < held[0]
+
+
+# ------------------------------------- the solve as one composed graph
+
+def _flag_body(cuda, N):
+    """A captured graph (kept for composing) that adds one to a counter
+    and sets one entry of a (4, 2) flag to "counter >= N", the others
+    true; and its tensors."""
+    count = torch.zeros(1, dtype=torch.int64, device=cuda)
+    flags = torch.ones(4, 2, dtype=torch.bool, device=cuda)
+    flags[2, 1] = N <= 0
+
+    def body():
+        count.add_(1)
+        flags[2, 1:].copy_(count >= N)
+
+    s = torch.cuda.Stream()
+    s.wait_stream(torch.cuda.current_stream())
+    with torch.cuda.stream(s):
+        body()
+    torch.cuda.current_stream().wait_stream(s)
+    count.zero_()
+    g = torch.cuda.CUDAGraph(keep_graph=True)
+    with torch.cuda.graph(g):
+        body()
+    return g, count, flags
+
+
+@pytest.mark.parametrize("N", [0, 1, 7])
+def test_loop_cond_runs_a_while_body_n_times(cuda, N):
+    """S2 alone: a graph of S2, then WHILE { a body that counts and flips
+    one lane's flag after N trips; S2 }: the body runs N times, the first
+    S2 node counts one launch and the body's N, as ``loop_cond_plain``
+    counts on the same flags."""
+    from eicos_tpu_torch.ops.graph_loop import LoopGraph, loop_cond_plain
+
+    g, count, flags = _flag_body(cuda, N)
+    trips = torch.zeros(2, dtype=torch.int64, device=cuda)
+    lg = LoopGraph(cuda)
+    try:
+        h = lg.handle(lg.root)
+        dep = lg.cond(lg.root, None, h, flags, trips, 0)
+        _, body = lg.while_(lg.root, dep, h)
+        last = lg.child(body, None, g.raw_cuda_graph())
+        lg.cond(body, last, h, flags, trips, 1)
+        lg.instantiate()
+        for launch in (1, 2):
+            count.zero_()
+            flags[2, 1] = N <= 0
+            lg.launch()
+            torch.cuda.synchronize()
+            assert int(count) == N
+            assert trips.tolist() == [launch, launch * N]
+    finally:
+        lg.close()
+    plain = torch.zeros(2, dtype=torch.int64)
+    f = torch.ones(4, 2, dtype=torch.bool)
+    f[2, 1] = N <= 0
+    n = 0
+    go = loop_cond_plain(f, plain, 0)
+    while go:
+        n += 1
+        f[2, 1] = n >= N
+        go = loop_cond_plain(f, plain, 1)
+    assert n == N and plain.tolist() == [1, N]
+
+
+@pytest.mark.parametrize("case", ["banded-lp", "banded-socp"])
+def test_composed_solve_equals_host_replay(cuda, monkeypatch, case):
+    """A kept solver's second solve is one composed launch: the bits of
+    the same program's host-driven replay (exit codes, iterations, x, y,
+    z, s, the refinement counts), 0 host syncs against the replay's one a
+    loop test, and, settled, the replay's launch counts with each loop
+    test an S2 launch."""
+    import eicos_tpu_torch as pt
+    from eicos_tpu_torch import corpus, graphs
+
+    st, batch, kw = _graph_case(pt, corpus, case)
+    bs = pt.BatchedSolver(st, **kw)
+    bs.solve(batch)
+    program = bs._programs[0]
+    assert program.loop is not None
+    print(f"{case}: composed in {program.loop.instantiate_s:.3f} s, "
+          f"{program.loop.held_bytes} bytes on the card")
+    got, counts, syncs, stats = _stats_solve(torch, bs, batch)
+    assert stats["loops"] == 1 and syncs == 0 and stats["replays"] > 0
+    with monkeypatch.context() as mp:
+        mp.setattr(graphs.Program, "launch", lambda self: None)
+        want, wcounts, wsyncs, wstats = _stats_solve(torch, bs, batch)
+    assert wstats["loops"] == 0 and wsyncs > 0
+    assert wstats["replays"] == stats["replays"]
+    for f in ("exit_code", "x", "y", "z", "s"):
+        assert torch.equal(getattr(got, f), getattr(want, f)), f
+    for f in ("iter", "nitref1", "nitref2", "nitref3", "pcost"):
+        assert torch.equal(getattr(got.info, f), getattr(want.info, f)), f
+    assert counts == dict(wcounts, loop_cond=wsyncs)
+
+
+def test_disallowed_node_in_a_loop_raises(cuda):
+    """A segment whose graph copies from pinned host memory (a memcpy node
+    from the host, or an event node, which a conditional body may not
+    hold) inside a composed loop: composing raises ``RuntimeError`` naming
+    the segment and the node."""
+    from eicos_tpu_torch import graphs
+
+    class Owner:
+        pass
+
+    owner = Owner()
+    host = torch.ones(4, dtype=torch.float64).pin_memory()
+    with graphs.Program(cuda, owner=owner) as program:
+        x = program.buffers(torch.zeros(4, dtype=torch.float64, device=cuda))
+        done = program.buffers(torch.ones(1, dtype=torch.bool, device=cuda))
+        seg = program.segment("host copy", lambda v: v.copy_(
+            host, non_blocking=True), writes=(0,))
+        seg(x)
+        with pytest.raises(RuntimeError, match="composing segment 'host "
+                           "copy' failed: "):
+            program.compose(lambda call, loop: loop(
+                done, lambda: call(seg, x)))
