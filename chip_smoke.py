@@ -1435,6 +1435,157 @@ def check_loop_cond(torch):
                 library_ms=None)
 
 
+def stamp_graph(torch, flags, trips, body_graph):
+    """A traced program graph's shape on the stamp block at ``trips[2]``:
+    a start stamp, S2 on ``flags`` (counted at ``trips[0]``, closing the
+    first accumulator), a WHILE node whose body is ``body_graph`` and S2
+    again (``trips[1]``, closing the second), an end stamp closing the
+    third.  Instantiated; returns it and the accumulators' cells."""
+    from eicos_tpu_torch.ops.graph_loop import (END, STAMP_CELLS, START,
+                                                LoopGraph)
+
+    block = 2
+    acc = tuple(block + STAMP_CELLS + k for k in range(3))
+    lg = LoopGraph(flags.device)
+    try:
+        h = lg.handle(lg.root)
+        dep = lg.stamp(lg.root, None, trips, block, START)
+        dep = lg.cond(lg.root, dep, h, flags, trips, 0, block, acc[0])
+        node, body = lg.while_(lg.root, dep, h)
+        last = lg.child(body, None, body_graph.raw_cuda_graph())
+        lg.cond(body, last, h, flags, trips, 1, block, acc[1])
+        lg.stamp(lg.root, node, trips, block, END, acc[2])
+        lg.instantiate()
+    except BaseException:
+        lg.close()
+        raise
+    return lg, acc
+
+
+def stamp_replay(torch, f, reads, acc):
+    """The block that ``loop_stamp_plain`` and the stamped
+    ``loop_cond_plain`` make of the launches of ``stamp_graph`` on flags
+    ``f``, fed the card's own clock readings: ``reads`` holds ``trips``
+    before the first launch and after each.  A launch's start and end are
+    its ring entry; its S2 stamps are the start plus the first
+    accumulator's growth, and that plus the second's."""
+    from eicos_tpu_torch.ops.graph_loop import (END, LAUNCHES, RING,
+                                                STAMP_RING, START,
+                                                loop_cond_plain,
+                                                loop_stamp_plain)
+
+    block = 2
+    plain = torch.tensor(reads[0])
+    pf = torch.tensor(f)
+    for before, after in zip(reads, reads[1:]):
+        i = before[block + LAUNCHES]
+        e = block + RING + 2 * (i % STAMP_RING)
+        t0, t_end = after[e], after[e + 1]
+        t1 = t0 + after[acc[0]] - before[acc[0]]
+        loop_stamp_plain(plain, block, START, t0)
+        if loop_cond_plain(pf, plain, 0, block, acc[0], t1):
+            pf.fill_(True)
+            loop_cond_plain(pf, plain, 1, block, acc[1],
+                            t1 + after[acc[1]] - before[acc[1]])
+        loop_stamp_plain(plain, block, END, t_end, acc[2])
+    return plain
+
+
+def check_loop_stamp(torch):
+    """The stamp kernel (``loop_stamp``) and S2's stamps against
+    ``loop_stamp_plain`` and the stamped ``loop_cond_plain`` on the main
+    path's flag shapes, as ``check_loop_cond`` sets them, each in
+    ``stamp_graph`` launched once; then the lanes' flags all true,
+    launched ``STAMP_RING`` + 3 times, the ring never read.  The card's
+    block is read after every launch, and the plain versions, fed the
+    clock readings the card wrote, must give it cell for cell: the trip
+    counters, the last stamp, the launch counter, the overwritten count
+    (3 at the end), the stamp nodes' own count (two a launch), the ring
+    and the accumulators, whose sum must equal the launches' spans.
+    Timed: a graph of 32 (start, end) pairs, 20 launches back to back
+    (``loop_ms``), a 64th of a launch a stamp; the plain version on a
+    host tensor."""
+    from eicos_tpu_torch.ops.graph_loop import (END, LAUNCHES, LoopGraph,
+                                                OVERWRITTEN, RING,
+                                                STAMP_CELLS, STAMP_RING,
+                                                STAMPS, START,
+                                                loop_stamp_plain)
+
+    dev = torch.device("cuda", torch.cuda.current_device())
+    rng = np.random.default_rng(19)
+    block, cases = 2, []
+    for shape in ((LANES,), (LANES, 2), (LANES, 1)):
+        for pattern in ("all", "one", "random"):
+            f = np.ones(shape, bool)
+            if pattern == "one":
+                f.flat[int(rng.integers(f.size))] = False
+            elif pattern == "random":
+                f = rng.random(shape) < 0.9
+            cases.append((f, 1))
+    cases.append((np.ones(LANES, bool), STAMP_RING + 3))
+    err = 0
+    for f, n in cases:
+        flags = torch.tensor(f, device=dev)
+        trips = torch.zeros(block + STAMP_CELLS + 3, dtype=torch.int64,
+                            device=dev)
+        lg, acc = stamp_graph(torch, flags, trips, fill_graph(torch, flags))
+        reads = [trips.tolist()]
+        try:
+            for _ in range(n):
+                lg.launch()
+                reads.append(trips.tolist())
+        finally:
+            lg.close()
+        got = reads[-1]
+        plain = stamp_replay(torch, f, reads, acc).tolist()
+        err = max(err, max(abs(a - b) for a, b in zip(got, plain)))
+        ends = [block + RING + 2 * ((r[block + LAUNCHES] - 1) % STAMP_RING)
+                for r in reads[1:]]
+        spans = sum(r[e + 1] - r[e] for r, e in zip(reads[1:], ends))
+        want = (n, max(0, n - STAMP_RING), 2 * n, spans)
+        have = (got[block + LAUNCHES], got[block + OVERWRITTEN],
+                got[block + STAMPS], sum(got[a] for a in acc))
+        if have != want:
+            fail(f"loop_stamp: (launches, overwritten, stamps, summed "
+                 f"accumulators) {have}, want {want}")
+    trips = torch.zeros(block + STAMP_CELLS + 1, dtype=torch.int64,
+                        device=dev)
+    lg = LoopGraph(dev)
+    try:
+        dep = None
+        for _ in range(32):
+            dep = lg.stamp(lg.root, dep, trips, block, START)
+            dep = lg.stamp(lg.root, dep, trips, block, END,
+                           block + STAMP_CELLS)
+        lg.instantiate()
+        launch_ms, _ = loop_ms(torch, lg.launch)
+    finally:
+        lg.close()
+    torch.cuda.synchronize()
+    ms = launch_ms / 64
+    host = torch.zeros(block + STAMP_CELLS + 1, dtype=torch.int64)
+    t0 = time.perf_counter()
+    for k in range(64):
+        loop_stamp_plain(host, block, (START, END)[k % 2], k,
+                         block + STAMP_CELLS)
+    plain_ms = (time.perf_counter() - t0) * 1e3 / 64
+    bound_ms, by = bound(6 * 8, 0)
+    print(f"loop_stamp: stamp blocks against the plain versions on "
+          f"{len(cases)} graphs ({STAMP_RING + 3} launches of the last), "
+          f"max abs error {err}; {ms * 1e3:.2f} us a stamp "
+          f"({launch_ms:.4f} ms a launch of 64), plain {plain_ms:.4f} ms "
+          f"on the host, bound {bound_ms:.2e} ms ({by})")
+    if err:
+        fail(f"loop_stamp disagrees with its plain versions by {err}")
+    return dict(name="loop_stamp", route="cuda",
+                source="eicos_tpu_torch/csrc/graph_loop.cu",
+                replaces="none (the JAX package times no segment on the "
+                "device)",
+                launches=None, max_abs_err=float(err), ms=ms,
+                plain_ms=plain_ms, bound_ms=bound_ms, bound_by=by,
+                library_ms=None)
+
+
 def perturbed_lanes(pt, st, base, lanes, nx, seed):
     """bench.py's lanes of one base problem: shared G/A/h, per-lane c and
     x0 (the first ``nx`` entries of b)."""
@@ -1523,14 +1674,13 @@ def trace_solve(torch, bs, batch, acts):
     return wall, rows, runtime, port_eager, graphs.STATS["replays"]
 
 
-HOST_LOOP = [False]               # inside ``host_loop()``
-
-
 def composes(bs):
     """The solver's next solve is one composed launch: a program of it
-    has composed and no ``host_loop()`` is open."""
-    return not HOST_LOOP[0] and any(p.loop is not None
-                                    for p in programs_of(bs))
+    has composed and no ``graphs.host_driven()`` is open."""
+    from eicos_tpu_torch import graphs
+
+    return not graphs.is_host_driven() and any(p.loop is not None
+                                               for p in programs_of(bs))
 
 
 def profile_solve(torch, bs, batch, cuda_only=False, label="profile"):
@@ -1613,7 +1763,9 @@ def profile_composed(torch, bs, batch, cuda_only, label):
     _, _, runtime, port_eager, replays = trace_solve(
         torch, bs, batch, [ProfilerActivity.CPU])
     host = sum(runtime.values()) + port_eager
-    with host_loop():
+    from eicos_tpu_torch import graphs
+
+    with graphs.host_driven():
         out = profile_solve(torch, bs, batch, cuda_only,
                             f"{label}, its host-driven replay traced")
     if out["busy"] is None:
@@ -1640,25 +1792,10 @@ def eager_segments():
     graphs.Segment.__call__ = lambda self, *args: self.fn(*args)
     graphs.Program.compose = lambda self, steps: None
     try:
-        with host_loop():
+        with graphs.host_driven():
             yield
     finally:
         graphs.Segment.__call__, graphs.Program.compose = real
-
-
-@contextlib.contextmanager
-def host_loop():
-    """Inside the block a kept program's solve is driven from the host
-    (segment replays, one flag read a loop test) even where it has
-    composed: the A/B's other arm."""
-    from eicos_tpu_torch import graphs
-
-    real, prev = graphs.Program.launch, HOST_LOOP[0]
-    graphs.Program.launch, HOST_LOOP[0] = (lambda self: None), True
-    try:
-        yield
-    finally:
-        graphs.Program.launch, HOST_LOOP[0] = real, prev
 
 
 def count_factors(kernels, kkt):
@@ -1778,7 +1915,9 @@ def loop_line(bs, label):
 
 def composed_only(label, syncs):
     """The last ``drive`` was one composed launch a program solve: no
-    capture, no eager call, no host sync."""
+    capture, no eager call, no host sync; the stamp nodes counted on the
+    card two launches a traced composed launch.  Returns the composed
+    launches."""
     g = LAST["graphs"]
     print(f"{label}: {g['loops']} composed launches of {g['solves']} program"
           f" solves, {g['replays']} segment runs (settled), {syncs} host "
@@ -1788,12 +1927,23 @@ def composed_only(label, syncs):
         fail(f"{label}: a kept program's solve was not one composed launch "
              f"with no host sync ({g['loops']} launches, {g['solves']} "
              f"solves, {syncs} syncs)")
+    from eicos_tpu_torch.utils import timing
+
+    stamps = g["graph_counts"].get("loop_stamp", 0)
+    if stamps != 2 * g["loops"] * timing.tracing():
+        fail(f"{label}: {stamps} stamp launches for {g['loops']} composed "
+             f"launches")
+    return g["loops"]
 
 
-def as_composed(counts, syncs):
+def as_composed(counts, syncs, loops):
     """A host-driven solve's counts as a composed solve of the same data
-    shows them, settled: each of its loop tests an S2 launch."""
-    return dict(counts, loop_cond=counts.get("loop_cond", 0) + syncs)
+    in ``loops`` composed launches shows them, settled: each of its loop
+    tests an S2 launch, and two stamp launches a traced launch."""
+    from eicos_tpu_torch.utils import timing
+
+    return dict(counts, loop_cond=counts.get("loop_cond", 0) + syncs,
+                loop_stamp=2 * loops * timing.tracing())
 
 
 def same_composed(torch, kernels, kkt, bs, batch, first, launches, syncs,
@@ -1804,12 +1954,12 @@ def same_composed(torch, kernels, kkt, bs, batch, first, launches, syncs,
     settled, each loop test an S2 launch.  Prints the composition's cost;
     returns the composed solve's counts."""
     sol, c_launches, c_syncs, wall = drive(torch, kernels, kkt, bs, batch)
-    composed_only(f"{label}, composed", c_syncs)
+    loops = composed_only(f"{label}, composed", c_syncs)
     loop_line(bs, label)
     same = all(torch.equal(a, b) for a, b in (
         (first.exit_code, sol.exit_code), (first.info.iter, sol.info.iter),
         (first.x, sol.x), (first.y, sol.y), (first.z, sol.z)))
-    want = as_composed(launches, syncs)
+    want = as_composed(launches, syncs, loops)
     print(f"{label}: the composed solve ({wall:.3f} s) gives the host-driven "
           f"solve's bits: {same}; settled counts equal: {c_launches == want}"
           f"; S2 launches {c_launches['loop_cond']}, host syncs {syncs} "
@@ -1832,10 +1982,12 @@ def ab_graphs(torch, bs, batch, lanes, label):
     (the device traced alone: the runtime's launch rows come with it) and
     the host launch calls of each, with the composition's instantiate
     time and memory.  Returns the readings."""
+    from eicos_tpu_torch import graphs
+
     out = []
     composed = loop_line(bs, f"{label}, A/B")
     for mode in AB_MODES:
-        ctx = {"eager": eager_segments, "host-driven": host_loop}.get(
+        ctx = {"eager": eager_segments, "host-driven": graphs.host_driven}.get(
             mode, contextlib.nullcontext)()
         with ctx:
             bs.solve(batch)
@@ -2500,19 +2652,22 @@ def rescaled(pt, st, batch, seed):
         b=ra * np.asarray(batch.b), c=c + 0.01 * rng.standard_normal(c.shape))
 
 
-def same_solve(torch, got, want, label, counts=None, syncs=None):
+def same_solve(torch, got, want, label, counts=None, syncs=None,
+               loops=None):
     """``got`` must have ``want``'s bits (exit codes, iterations, x, y, z)
     and, where given the (got, want) launch counts and host syncs of a
-    composed solve ``got`` and a fresh host-driven ``want``, 0 host syncs
-    and ``want``'s counts with each of its loop tests an S2 launch."""
+    composed solve ``got`` in ``loops`` composed launches and a fresh
+    host-driven ``want``, 0 host syncs and ``want``'s counts with each of
+    its loop tests an S2 launch and two stamps a traced launch."""
     same = all(torch.equal(a, b) for a, b in (
         (got.exit_code, want.exit_code), (got.info.iter, want.info.iter),
         (got.x, want.x), (got.y, want.y), (got.z, want.z)))
-    ok = counts is None or (syncs[0] == 0 and counts[0] == as_composed(
-        counts[1], syncs[1]))
+    equal = counts is not None and counts[0] == as_composed(
+        counts[1], syncs[1], loops)
+    ok = counts is None or (syncs[0] == 0 and equal)
     print(f"{label}: a fresh solve's bits: {same}"
-          + ("" if counts is None else f"; settled counts equal: "
-             f"{counts[0] == as_composed(counts[1], syncs[1])}; host syncs "
+          + ("" if counts is None else f"; settled counts equal: {equal}; "
+             f"host syncs "
              f"{syncs[0]} (the fresh solve {syncs[1]}); S2 launches "
              f"{counts[0].get('loop_cond')}"))
     if not same or not ok:
@@ -2566,22 +2721,22 @@ def repeat_batched(torch, pt, kernels, kkt, label, st, batch, shared,
     y = rescaled(pt, st, batch, seed=23)
     bs.update_data(**{f: getattr(y, f) for f in ("G", "A", "c", "h", "b")})
     ysol, y_counts, y_syncs, _ = drive(torch, kernels, kkt, bs, None)
-    composed_only(f"{label}, Y after update_data", y_syncs)
+    y_loops = composed_only(f"{label}, Y after update_data", y_syncs)
     outcome(ysol, f"{label}, Y")
     fresh = make()
     want, w_counts, w_syncs, _ = drive(torch, kernels, kkt, fresh, y)
     fresh.close()
     del fresh
     same_solve(torch, ysol, want, f"{label}, Y", (y_counts, w_counts),
-               (y_syncs, w_syncs))
+               (y_syncs, w_syncs), y_loops)
     del ysol, want
     gc.collect()
     walls, peaks = [], []
     for i in range(5):
         sol, counts, syncs, wall = drive(torch, kernels, kkt, bs, batch)
-        composed_only(f"{label}, X again ({i + 1})", syncs)
+        loops = composed_only(f"{label}, X again ({i + 1})", syncs)
         same_solve(torch, sol, first, f"{label}, X again ({i + 1})",
-                   (counts, f_counts), (syncs, f_syncs))
+                   (counts, f_counts), (syncs, f_syncs), loops)
         walls.append(wall)
         peaks.append((LAST["peak"], LAST["reserved"]))
     same_solve(torch, first, kept, f"{label}, the first result at the end")
@@ -2670,11 +2825,11 @@ def phase_repeat(torch, pt, corpus, kernels, kkt, make_band_plan, make_mesh,
         fail("repeat, forced rescue of 7: the rescue's kept program did not "
              "launch its composed graph")
     rsol, r_counts, r_syncs, _ = drive(torch, kernels, kkt, fs, seven)
-    composed_only("repeat, forced rescue of 7 again", r_syncs)
+    r_loops = composed_only("repeat, forced rescue of 7 again", r_syncs)
     fresh = pt.BatchedSolver(st, forced, shared=shared, rescue=rescue)
     want, w_counts, w_syncs, _ = drive(torch, kernels, kkt, fresh, seven)
     same_solve(torch, rsol, want, "repeat, forced rescue of 7",
-               (r_counts, w_counts), (r_syncs, w_syncs))
+               (r_counts, w_counts), (r_syncs, w_syncs), r_loops)
     fresh.close()
     fs.close()
     del fresh, fs, rsol, want
@@ -2690,14 +2845,14 @@ def phase_repeat(torch, pt, corpus, kernels, kkt, make_band_plan, make_mesh,
     new = dict(G=y.G, A=y.A, c=y.c[0], h=y.h, b=y.b[0])
     one.update_data(**new)
     code, counts, syncs, wall = drive(torch, kernels, kkt, one, False)
-    composed_only("repeat, Solver (full) after update_data", syncs)
+    loops = composed_only("repeat, Solver (full) after update_data", syncs)
     other = pt.Solver(**new)
     _, w_counts, w_syncs, w_wall = drive(torch, kernels, kkt, other, False)
     print(f"repeat, Solver (full): code {int(code)}; re-solve {wall:.3f} s, "
           f"a new Solver's first solve {w_wall:.3f} s")
     same_solve(torch, one.last_solution, other.last_solution,
                "repeat, Solver (full)", (counts, w_counts),
-               (syncs, w_syncs))
+               (syncs, w_syncs), loops)
     one.close()
     other.close()
     del one, other
@@ -2712,9 +2867,9 @@ def phase_repeat(torch, pt, corpus, kernels, kkt, make_band_plan, make_mesh,
     s_caps = LAST["graphs"]["captures"]
     s_cap_s = LAST["graphs"]["capture_s"]
     ssol, counts, syncs, _ = drive(torch, kernels, kkt, ss, sbatch)
-    composed_only("repeat, scan", syncs)
+    loops = composed_only("repeat, scan", syncs)
     same_solve(torch, ssol, sfirst, "repeat, scan", (counts, s_counts),
-               (syncs, s_syncs))
+               (syncs, s_syncs), loops)
     del ssol
     _, s_rate = timed(torch, ss, sbatch, SCAN_LANES, reps=3)
     prof_rep = profile_solve(torch, ss, sbatch, cuda_only=True,
@@ -2744,9 +2899,9 @@ def phase_repeat(torch, pt, corpus, kernels, kkt, make_band_plan, make_mesh,
                            mesh=make_mesh())
     mfirst, m_counts, m_syncs, _ = drive(torch, kernels, kkt, ms_, batch)
     msol, counts, syncs, _ = drive(torch, kernels, kkt, ms_, batch)
-    composed_only("repeat, mesh", syncs)
+    loops = composed_only("repeat, mesh", syncs)
     same_solve(torch, msol, mfirst, "repeat, mesh", (counts, m_counts),
-               (syncs, m_syncs))
+               (syncs, m_syncs), loops)
     ms_.close()
     del ms_, msol, mfirst
     print(f"repeat, mesh: {time.perf_counter() - t0:.1f} s; graphs.STATS "
@@ -2798,6 +2953,7 @@ def main():
     spmv_record = check_spmv_kernel(torch, corpus, kkt, spmv)
     k12_record = check_wide_operands(torch, corpus, kkt, gemm, kernels)
     s2_record = check_loop_cond(torch)
+    stamp_record = check_loop_stamp(torch)
     print(f"kernel checks: {time.perf_counter() - t0:.1f} s")
     band_names = [r["name"] for r in band_records]
     wide_names = [r["name"] for r in wide_records]
@@ -2828,6 +2984,7 @@ def main():
                                launches, syncs, "main path")
     need_launched(composed, ["loop_cond"], "main path, composed")
     s2_record["launches"] = composed["loop_cond"]
+    stamp_record["launches"] = composed["loop_stamp"]
     ab_graphs(torch, bs, batch, LANES, "main path")
     sol, _ = timed(torch, bs, batch, LANES)
     spmv_record["solve_ms_a_launch"] = profile_solve(
@@ -3201,7 +3358,7 @@ def main():
         | ({"fused": {k: r[k] for k in SPMV_EXTRA}}
            if r["name"] == "spmv" else {})
         for r in band_records + dense_records + subst_records
-        + [spmv_record, s2_record]]}))
+        + [spmv_record, s2_record, stamp_record]]}))
     print(smi)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

@@ -13,6 +13,12 @@ JAX package's cached executable.  A program holds device memory (its
 graphs' pool, its input buffers, the loop state) until the object is
 collected, ``close()`` is called, or a solve of another key (a batch of
 another lane count, a rescue of another padded size) replaces it.
+
+Each ``solve`` is one request of ``utils/timing``'s spans: "api.solve"
+around it, and "api.update_data" around the ``update_data`` that prepares
+it, with the same request number; inside them "api.place" (the values put
+on the device), "api.codes" (the exit codes read back for the rescue),
+"api.rescue" and "api.merge", and the solver's own spans.
 """
 
 from __future__ import annotations
@@ -30,6 +36,7 @@ from .parallel.sharding import shard_batch, solve_shards
 from .solver import (LiveTable, Solution, program_for, resolve_device,
                      solve_batch, squeeze_lane, to_device)
 from .structure import ProblemStructure
+from .utils import timing
 
 _FIELDS = ("G", "A", "c", "h", "b")
 
@@ -93,6 +100,7 @@ class Solver:
         self._solution: Optional[Solution] = None
         self._dev: Optional[ProblemData] = None
         self._programs: dict = {}   # rescue? -> its kept program
+        self._request: Optional[int] = None     # the next solve's
 
     @classmethod
     def from_csc(cls, n, m, p, l, ncones, q, Gpr, Gjc, Gir, Apr, Ajc, Air,
@@ -125,15 +133,20 @@ class Solver:
         stay: the next solve replays them on the new values."""
         st = self.structure
         d = self._data
-        self._data = ProblemData(
-            G=d.G if G is None else make_problem(st, G, None, None, None,
-                                                 None).G,
-            A=d.A if A is None else make_problem(st, None, A, None, None,
-                                                 None).A,
-            c=d.c if c is None else np.asarray(c, np.float64).reshape(st.n),
-            h=d.h if h is None else np.asarray(h, np.float64).reshape(st.m),
-            b=d.b if b is None else np.asarray(b, np.float64).reshape(st.p),
-        )
+        self._request = self._request or timing.new_request()
+        with timing.span("api.update_data", request=self._request):
+            self._data = ProblemData(
+                G=d.G if G is None else make_problem(st, G, None, None, None,
+                                                     None).G,
+                A=d.A if A is None else make_problem(st, None, A, None, None,
+                                                     None).A,
+                c=(d.c if c is None
+                   else np.asarray(c, np.float64).reshape(st.n)),
+                h=(d.h if h is None
+                   else np.asarray(h, np.float64).reshape(st.m)),
+                b=(d.b if b is None
+                   else np.asarray(b, np.float64).reshape(st.p)),
+            )
         self._solution = None
         self._dev = None
 
@@ -141,12 +154,16 @@ class Solver:
         """Solve (and, under ``rescue``, re-solve once); with ``verbose``
         print the reference's iteration table and summary afterwards, from
         one host copy of the solution."""
-        sol = self._solve(self.settings)
-        code = int(sol.exit_code)
-        if self.rescue is not None and _code_rank(code) < 2:
-            rsol = self._solve(self.rescue, rescue=True)
-            if _code_rank(int(rsol.exit_code)) > _code_rank(code):
-                sol = rsol
+        request, self._request = self._request or timing.new_request(), None
+        with timing.span("api.solve", request=request):
+            sol = self._solve(self.settings)
+            with timing.span("api.codes"):
+                code = int(sol.exit_code)
+            if self.rescue is not None and _code_rank(code) < 2:
+                with timing.span("api.rescue"):
+                    rsol = self._solve(self.rescue, rescue=True)
+                    if _code_rank(int(rsol.exit_code)) > _code_rank(code):
+                        sol = rsol
         self._solution = sol
         if verbose:
             from .utils.printing import (host_copy, print_iteration_table,
@@ -174,7 +191,8 @@ class Solver:
         them (the rescue's with ``rescue``)."""
         # device-resident values, cached until update_data
         if self._dev is None:
-            self._dev = to_device(self._data, self.device)
+            with timing.span("api.place"):
+                self._dev = to_device(self._data, self.device)
         program = program_for(self._programs.get(rescue), self.structure,
                               self._dev, settings, owner=self)
         self._programs[rescue] = program
@@ -248,6 +266,7 @@ class BatchedSolver:
         self._programs: list = [None] * (len(self.mesh) if self.mesh
                                          else 1)
         self._rescue_program = None
+        self._request: Optional[int] = None     # the next solve's
 
     def update_data(self, **fields) -> None:
         """Replace fields of the last batch (per-lane fields with their lane
@@ -257,38 +276,46 @@ class BatchedSolver:
         bad = set(fields) - set(_FIELDS)
         if bad:
             raise ValueError(f"unknown fields {sorted(bad)}")
-        self._last_in = ProblemData(**{
-            f: fields.get(f, getattr(self._last_in, f)) for f in _FIELDS})
-        self._last_dev = self._place(self._last_in)
+        self._request = self._request or timing.new_request()
+        with timing.span("api.update_data", request=self._request):
+            self._last_in = ProblemData(**{
+                f: fields.get(f, getattr(self._last_in, f))
+                for f in _FIELDS})
+            self._last_dev = self._place(self._last_in)
 
     def _place(self, batch: ProblemData):
         """The device copy of ``batch``: one batch, or its shards over the
         mesh."""
-        if self.mesh is None:
-            return to_device(batch, self.device, self.shared)
-        return shard_batch(batch, self.mesh, self.shared)
+        with timing.span("api.place"):
+            if self.mesh is None:
+                return to_device(batch, self.device, self.shared)
+            return shard_batch(batch, self.mesh, self.shared)
 
     def solve(self, batch: Optional[ProblemData] = None) -> Solution:
         """Solve ``batch`` (or the last one, after ``update_data``); the
         device copy of a batch is kept across repeated solves of it."""
-        if batch is not None and batch is not self._last_in:
-            self._last_in = batch
-            self._last_dev = self._place(batch)
-        if self._last_dev is None:
-            raise ValueError("no batch to solve")
-        shards = [self._last_dev] if self.mesh is None else self._last_dev
-        self._programs = [
-            program_for(prog, self.structure, shard, self.settings, self)
-            for prog, shard in zip(self._programs, shards)]
-        if self.mesh is None:
-            sols = solve_batch(self.structure, self._last_dev, self.settings,
-                               program=self._programs[0])
-        else:
-            sols = solve_shards(self.structure, self._last_dev, self.mesh,
-                                self.settings, programs=self._programs)
-        if self.rescue is not None:
-            sols = self._apply_rescue(sols)
-        return sols
+        request, self._request = self._request or timing.new_request(), None
+        with timing.span("api.solve", request=request):
+            if batch is not None and batch is not self._last_in:
+                self._last_in = batch
+                self._last_dev = self._place(batch)
+            if self._last_dev is None:
+                raise ValueError("no batch to solve")
+            shards = ([self._last_dev] if self.mesh is None
+                      else self._last_dev)
+            self._programs = [
+                program_for(prog, self.structure, shard, self.settings, self)
+                for prog, shard in zip(self._programs, shards)]
+            if self.mesh is None:
+                sols = solve_batch(self.structure, self._last_dev,
+                                   self.settings, program=self._programs[0])
+            else:
+                sols = solve_shards(self.structure, self._last_dev,
+                                    self.mesh, self.settings,
+                                    programs=self._programs)
+            if self.rescue is not None:
+                sols = self._apply_rescue(sols)
+            return sols
 
     def close(self) -> None:
         """Release the device memory of the solver's programs; a later
@@ -321,28 +348,29 @@ class BatchedSolver:
         Fields whose per-lane shape differs between the two
         configurations (the history, iter_max + 1 long) keep the
         primary's values."""
-        codes = sols.exit_code.cpu().numpy()
+        with timing.span("api.codes"):
+            codes = sols.exit_code.cpu().numpy()
         lanes = np.flatnonzero([_code_rank(int(cd)) < 2 for cd in codes])
         self.last_rescued = ()
         if lanes.size == 0:
             return sols
-        nsub = 1 << int(lanes.size - 1).bit_length()
-        padded = np.concatenate([lanes, np.repeat(lanes[:1],
-                                                  nsub - lanes.size)])
-        sub = self._gather_lanes(torch.as_tensor(
-            padded, device=sols.exit_code.device))
-        self._rescue_program = program_for(self._rescue_program,
-                                           self.structure, sub, self.rescue,
-                                           self)
-        rsols = solve_batch(self.structure, sub, self.rescue,
-                            program=self._rescue_program)
-        rcodes = rsols.exit_code.cpu().numpy()[:lanes.size]
+        dev = sols.exit_code.device
+        with timing.span("api.rescue"):
+            nsub = 1 << int(lanes.size - 1).bit_length()
+            padded = np.concatenate([lanes, np.repeat(lanes[:1],
+                                                      nsub - lanes.size)])
+            sub = self._gather_lanes(torch.as_tensor(padded, device=dev))
+            self._rescue_program = program_for(self._rescue_program,
+                                               self.structure, sub,
+                                               self.rescue, self)
+            rsols = solve_batch(self.structure, sub, self.rescue,
+                                program=self._rescue_program)
+            rcodes = rsols.exit_code.cpu().numpy()[:lanes.size]
         take = np.array([j for j in range(lanes.size)
                          if _code_rank(int(rcodes[j]))
                          > _code_rank(int(codes[lanes[j]]))], dtype=np.int64)
         if take.size == 0:
             return sols
-        dev = sols.exit_code.device
         dest = torch.as_tensor(lanes[take], device=dev)
         src = torch.as_tensor(take, device=dev)
 
@@ -356,7 +384,8 @@ class BatchedSolver:
             return out
 
         self.last_rescued = tuple(int(v) for v in lanes[take])
-        return merge(sols, rsols)
+        with timing.span("api.merge"):
+            return merge(sols, rsols)
 
     @staticmethod
     def stack(problems, shared: tuple = ()) -> ProblemData:

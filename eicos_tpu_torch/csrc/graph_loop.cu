@@ -26,6 +26,23 @@
 // __syncthreads_and combines them (an AND is exact in any order), thread 0
 // sets the handle and counts.
 //
+// Device stamps.  A traced program graph also times its segments on the
+// card's own clock (%globaltimer, ns), in int64 cells of the program's
+// trip-counter tensor: a stamp block [last, launches, overwritten, stamps,
+// ring of (start, end) a launch] and one accumulator a segment.  A one-thread
+// kernel, loop_stamp, is the first and the last node of the root graph: the
+// first writes the launch's start into the ring and sets `last`; the last
+// adds now - last to the finish's accumulator and writes the end.  Between
+// them every S2 node closes the segment placed just before it: thread 0
+// adds now - last to that segment's accumulator and sets last = now.  The
+// intervals telescope, so the segments' sums equal the launches' spans.
+// Event-record nodes would do the same at segment boundaries, but a
+// conditional body may not hold one (check_graph), and every segment
+// but the finish is followed by an S2 node already.  A ring entry whose
+// start is not zero has not been read yet (the host zeroes the ring when
+// it reads it): overwriting it counts in `overwritten`.  Each stamp node
+// counts its own launches in `stamps`, as S2 counts its trips.
+//
 // The host functions build the program graph node by node (each node
 // depends on the one before it in its graph: the segments share one
 // memory pool's temporaries, so nothing runs in parallel), instantiate it,
@@ -131,17 +148,57 @@ int deps(void* dep, cudaGraphNode_t* d) {
 
 }  // namespace
 
-// S2.  flags: n bools; trips: this node's counter.
+__device__ __forceinline__ long long global_ns() {
+  unsigned long long t;
+  asm volatile("mov.u64 %0, %%globaltimer;" : "=l"(t));
+  return (long long)t;
+}
+
+// S2.  flags: n bools; trips: this node's counter; last, acc: the stamp
+// block's `last` cell and the accumulator of the segment before the node
+// (both null: no stamp).
 __global__ void __launch_bounds__(kThreads)
     loop_cond(cudaGraphConditionalHandle handle, const bool* flags, int n,
-              long long* trips) {
+              long long* trips, long long* last, long long* acc) {
   int all = 1;
   for (int i = threadIdx.x; i < n; i += kThreads) all &= flags[i] ? 1 : 0;
   all = __syncthreads_and(all);
   if (threadIdx.x == 0) {
     cudaGraphSetConditional(handle, all ? 0u : 1u);
     *trips += 1;
+    if (acc != nullptr) {
+      long long now = global_ns();
+      *acc += now - *last;
+      *last = now;
+    }
   }
+}
+
+enum { kLast = 0, kLaunches = 1, kOverwritten = 2, kStamps = 3, kRing = 4 };
+enum { kStart = 0, kEnd = 1, kNow = 2 };
+
+// The stamp kernel, one thread.  kStart: a launch's start into the ring;
+// kEnd: the finish's time into `acc`, the launch's end into the ring, one
+// launch more; both count one stamp.  kNow: the clock into block[0] alone
+// (the host's calibration, launched outside any graph, counted nowhere).
+__global__ void loop_stamp(long long* block, int ring, long long* acc,
+                           int phase) {
+  long long now = global_ns();
+  if (phase != kNow) {
+    long long i = block[kLaunches];
+    long long* e = block + kRing + 2 * (i % ring);
+    if (phase == kStart) {
+      if (e[0] != 0) block[kOverwritten] += 1;
+      e[0] = now;
+      e[1] = 0;
+    } else {
+      *acc += now - block[kLast];
+      e[1] = now;
+      block[kLaunches] = i + 1;
+    }
+    block[kStamps] += 1;
+  }
+  block[kLast] = now;
 }
 
 extern "C" {
@@ -197,14 +254,17 @@ const char* eicos_loop_child(void* graph, void* dep, void* child,
   return nullptr;
 }
 
-// A kernel node of loop_cond: set `handle` to "not all of flags[0:n]".
+// A kernel node of loop_cond: set `handle` to "not all of flags[0:n]";
+// with `acc`, stamp into it from `last`.
 const char* eicos_loop_cond(void* graph, void* dep, unsigned long long handle,
                             const void* flags, int n, void* trips,
-                            void** node) {
+                            void* last, void* acc, void** node) {
   cudaGraphConditionalHandle h = handle;
   const bool* f = (const bool*)flags;
   long long* t = (long long*)trips;
-  void* args[] = {&h, &f, &n, &t};
+  long long* l = (long long*)last;
+  long long* a = (long long*)acc;
+  void* args[] = {&h, &f, &n, &t, &l, &a};
   cudaKernelNodeParams k = {};
   k.func = (void*)loop_cond;
   k.gridDim = dim3(1);
@@ -215,6 +275,40 @@ const char* eicos_loop_cond(void* graph, void* dep, unsigned long long handle,
                                          deps(dep, &d), &k);
   if (e != cudaSuccess) return failed("cudaGraphAddKernelNode (loop_cond)", e);
   *node = out;
+  return nullptr;
+}
+
+// A kernel node of loop_stamp: `phase` kStart or kEnd on the stamp block
+// `block` with a ring of `ring` launches (`acc`: the finish's accumulator,
+// for kEnd).
+const char* eicos_loop_stamp(void* graph, void* dep, void* block, int ring,
+                             void* acc, int phase, void** node) {
+  long long* b = (long long*)block;
+  long long* a = (long long*)acc;
+  void* args[] = {&b, &ring, &a, &phase};
+  cudaKernelNodeParams k = {};
+  k.func = (void*)loop_stamp;
+  k.gridDim = dim3(1);
+  k.blockDim = dim3(1);
+  k.kernelParams = args;
+  cudaGraphNode_t d, out;
+  cudaError_t e = cudaGraphAddKernelNode(&out, (cudaGraph_t)graph, &d,
+                                         deps(dep, &d), &k);
+  if (e != cudaSuccess)
+    return failed("cudaGraphAddKernelNode (loop_stamp)", e);
+  *node = out;
+  return nullptr;
+}
+
+// One loop_stamp launch on `stream`, outside any graph: the card's clock
+// into the int64 at `cell`.
+const char* eicos_loop_stamp_now(int device, void* cell, void* stream) {
+  cudaError_t e = cudaSetDevice(device);
+  if (e != cudaSuccess) return failed("cudaSetDevice", e);
+  loop_stamp<<<1, 1, 0, (cudaStream_t)stream>>>((long long*)cell, 1, nullptr,
+                                                kNow);
+  e = cudaGetLastError();
+  if (e != cudaSuccess) return failed("loop_stamp launch", e);
   return nullptr;
 }
 

@@ -76,7 +76,28 @@ captures, replays, input copies, eager calls (warm-ups included), capture
 time, composed launches (``loops``), composing time, the port's kernel
 launches made by replays (``graph_counts``) and those of the warm-ups,
 which ``COUNTS`` leaves out (``warm_counts``), over every program;
-``reset_stats`` drops composed launches not settled yet.
+``reset_stats`` drops composed launches not settled yet.  ``STATS``
+"upload_bytes" counts the bytes ``solver.to_device`` placed on a device.
+
+Tracing (``utils/timing``: on unless ``EICOS_TORCH_TRACE=0``, read as a
+program composes).  A traced composed graph stamps the card's clock
+(``ops/graph_loop.py``): its first and last nodes mark each launch's start
+and end in a ring, and each S2 node closes the segment placed just before
+it, so every segment's device time sums in a cell of its own, inside every
+loop, with no node more than the two stamps a launch.  ``settle()`` reads
+them with the trip counters, in the same one read: ``STATS``
+"segments_ns" sums each segment's device time by its name, "launches"
+lists each launch's device span ("device_ns") and its start and end on the
+host's ``perf_counter_ns`` ("start_ns", "end_ns"), its index in its
+program and its request; "stamps_overwritten" counts the launches whose
+ring entry was overwritten before a settle read it.  The card's clock is
+mapped onto the host's by two points, one taken at ``reset_stats`` and
+one at ``settle`` (a stamp kernel launched outside any graph between two
+synchronizes; "clock_err_ns" is the larger half-width).  ``settle()`` also copies the
+host spans of ``utils/timing`` into ``STATS`` "spans" (dicts of
+``timing.Span``'s fields) and "spans_dropped"; ``reset_stats`` empties
+them.  ``host_driven()`` makes this thread's solves drive their segments
+from the host even where a program has composed.
 
 Failures raise: a capture, replay, composition or composed launch that
 fails raises ``RuntimeError`` naming the segment (or the CUDA call), and
@@ -89,29 +110,41 @@ import contextlib
 import threading
 import time
 import weakref
-from typing import NamedTuple
+from typing import NamedTuple, Optional
 
 import torch
 
 from .ops import kernels
+from .ops.graph_loop import (END, LAST, OVERWRITTEN, RING, STAMP_CELLS,
+                             STAMP_RING, STAMPS, START)
+from .utils import timing
 
 STATS: dict = {}
 _LOCK = threading.Lock()
-_TLS = threading.local()    # ``streams``: this thread's capture stream a device
+# ``streams``: this thread's capture stream a device; ``host_driven``
+_TLS = threading.local()
 _SCALARS = (bool, int, float, str, type(None), torch.dtype, torch.device)
 _PENDING: "weakref.WeakSet" = weakref.WeakSet()   # programs to settle
+_STAMPED: "weakref.WeakSet" = weakref.WeakSet()   # traced composed programs
 
 
 def reset_stats() -> None:
-    """Zero ``STATS``; composed launches not settled yet are dropped
-    (their trip counters read as the new start)."""
+    """Zero ``STATS`` and empty the span ring; composed launches not
+    settled yet are dropped (their counters read as the new start), and
+    every traced program on the card takes its clock's first point."""
     for program in _take_pending():
         program.settle(add=False)
     with _LOCK:
         STATS.clear()
         STATS.update(solves=0, captures=0, replays=0, copies=0, eager=0,
                      capture_s=0.0, loops=0, compose_s=0.0, graph_counts={},
-                     warm_counts={})
+                     warm_counts={}, upload_bytes=0, segments_ns={},
+                     launches=[], stamps_overwritten=0, clock_err_ns=0,
+                     spans=[], spans_dropped=0)
+        stamped = list(_STAMPED)
+    timing.clear_spans()
+    for program in stamped:
+        program.start_clock()
 
 
 def _take_pending() -> list:
@@ -124,21 +157,53 @@ def _take_pending() -> list:
 def settle() -> None:
     """Add the segment replays and kernel launches of every composed
     launch since the last settle to ``kernels.COUNTS`` and ``STATS``,
-    from the device's trip counters: one host read a program."""
+    from the device's trip counters, with the stamps of a traced program:
+    one host read a program.  Then copy the span ring into ``STATS``."""
     for program in _take_pending():
         program.settle()
+    out = [s._asdict() for s in timing.spans()]
+    with _LOCK:
+        STATS["spans"] = out
+        STATS["spans_dropped"] = timing.dropped()
+
+
+@contextlib.contextmanager
+def host_driven():
+    """Inside the block this thread's solves, and the shard threads a
+    sharded solve starts from it, drive their segments from the host
+    (replays and one flag read a loop test) even where the program has
+    composed: ``Program.launch`` returns None.  A profiler
+    then sees a kept solver's warm solve kernel by kernel, which it does
+    not inside a composed launch's conditional nodes."""
+    prev = is_host_driven()
+    _TLS.host_driven = True
+    try:
+        yield
+    finally:
+        _TLS.host_driven = prev
+
+
+def is_host_driven() -> bool:
+    """Whether this thread is inside ``host_driven()``."""
+    return getattr(_TLS, "host_driven", False)
 
 
 reset_stats()
 
 
-def _stat(counts=None, warm=None, **kw) -> None:
+def _stat(counts=None, warm=None, segments=None, **kw) -> None:
     with _LOCK:
         for k, v in kw.items():
             STATS[k] += v
-        for key, add in (("graph_counts", counts), ("warm_counts", warm)):
+        for key, add in (("graph_counts", counts), ("warm_counts", warm),
+                         ("segments_ns", segments)):
             for k, v in (add or {}).items():
                 STATS[key][k] = STATS[key].get(k, 0) + v
+
+
+def count_upload(nbytes: int) -> None:
+    """``nbytes`` placed on a device from the host (``solver.to_device``)."""
+    _stat(upload_bytes=nbytes)
 
 
 def _is_node(tree) -> bool:
@@ -236,19 +301,43 @@ class Loop(NamedTuple):
     """A loop of a composed plan: ``body`` (segments and loops) runs while
     not every entry of ``flag`` is true, tested before the first trip and
     after each; ``pre`` and ``trip`` are the trip counter slots of the two
-    tests (``Program.compose``)."""
+    tests (``Program.compose``), ``pre_seg`` and ``trip_seg`` the segments
+    called last before each test (None: none), whose device time a traced
+    program's test closes."""
 
     flag: torch.Tensor
     body: tuple
     pre: int
     trip: int
+    pre_seg: Optional["Segment"]
+    trip_seg: Optional["Segment"]
+
+
+class Stamps(NamedTuple):
+    """Where a traced program's stamps live in its ``trips``: the stamp
+    block's first cell (``ops/graph_loop.py``), each segment's accumulator
+    by ``id`` of the segment, the plan's segments in the order of their
+    first call, and the segment the launch's end stamp closes."""
+
+    block: int
+    acc: dict
+    segments: tuple
+    last: "Segment"
+
+    def cells(self, seg) -> tuple:
+        """The (block, accumulator) cells of a test that closes ``seg``;
+        (None, None) where there is none, and the time runs on to the
+        next test's segment."""
+        return (None, None) if seg is None else (self.block,
+                                                 self.acc[id(seg)])
 
 
 def _new_loop(program: "Program", plan: tuple):
     """``plan`` as one CUDA graph (``ops/graph_loop.LoopGraph``), built and
     instantiated: a segment is a child graph node of its captured graph,
     a ``Loop`` an S2 node and a WHILE node whose body ends with another S2
-    node.  The nodes in a loop's body must be of the types a conditional
+    node; a traced program's plan between a start and an end stamp node.
+    The nodes in a loop's body must be of the types a conditional
     body may hold (checked first, naming the segment).  The graph's
     ``instantiate_s`` and ``held_bytes`` (the device memory that
     instantiation took, by ``cudaMemGetInfo``) are what composing cost."""
@@ -257,8 +346,14 @@ def _new_loop(program: "Program", plan: tuple):
     free0 = torch.cuda.mem_get_info(program.device)[0]
     t0 = time.perf_counter()
     g = LoopGraph(program.device)
+    st, trips = program.stamps, program.trips
     try:
-        _emit(g, g.root, plan, program.trips, False)
+        dep = None
+        if st is not None:
+            dep = g.stamp(g.root, None, trips, st.block, START)
+        dep = _emit(g, g.root, plan, program, False, dep)
+        if st is not None:
+            g.stamp(g.root, dep, trips, st.block, END, st.acc[id(st.last)])
         g.instantiate()
     except BaseException:
         g.close()
@@ -268,17 +363,22 @@ def _new_loop(program: "Program", plan: tuple):
     return g
 
 
-def _emit(g, root, items, trips, in_body: bool):
-    """Add ``items`` to ``root``, a graph of ``g``, one after another;
-    returns the last node."""
-    dep = None
+def _emit(g, root, items, program: "Program", in_body: bool, dep=None):
+    """Add ``items`` to ``root``, a graph of ``g``, one after another,
+    the first after ``dep``; returns the last node."""
+    trips, st = program.trips, program.stamps
+
+    def cond(graph, after, h, flag, slot, seg):
+        cells = (None, None) if st is None else st.cells(seg)
+        return g.cond(graph, after, h, flag, trips, slot, *cells)
+
     for it in items:
         if isinstance(it, Loop):
             h = g.handle(root)
-            dep = g.cond(root, dep, h, it.flag, trips, it.pre)
+            dep = cond(root, dep, h, it.flag, it.pre, it.pre_seg)
             node, body = g.while_(root, dep, h)
-            last = _emit(g, body, it.body, trips, True)
-            g.cond(body, last, h, it.flag, trips, it.trip)
+            last = _emit(g, body, it.body, program, True)
+            cond(body, last, h, it.flag, it.trip, it.trip_seg)
             dep = node
             continue
         raw = it._graph.raw()
@@ -444,8 +544,12 @@ class Program:
     def _init_loop(self) -> None:
         self.loop = None            # the composed graph (``compose``)
         self.plan = self.result = self.trips = None
+        self.stamps: Optional[Stamps] = None    # where traced
+        self._counters = 0          # trip counter cells of ``trips``
         self._launches = 0          # composed launches made
-        self._settled = (0, None)   # (launches, trip counters) settled
+        self._settled = (0, None)   # (launches, ``trips`` values) settled
+        self._requests: list = []   # a launch's request, by ring entry
+        self._clock: list = []      # (card ns, host ns, error ns) points
 
     def _keep(self, t: torch.Tensor) -> torch.Tensor:
         self._held[id(t)] = t
@@ -538,41 +642,65 @@ class Program:
         t0 = time.perf_counter()
         slots = [0]
         stack: list = [[]]
+        order: dict = {}            # id -> segment, by first call
+        last = [None]               # the segment called last
 
         def call(seg: Segment, *args):
             seg.compose(args)
             stack[-1].append(seg)
+            order.setdefault(id(seg), seg)
+            last[0] = seg
             return seg.out
 
         def loop(flag, body) -> None:
             if id(flag) not in self._held:
                 raise RuntimeError("a composed loop's flag must be a tensor "
                                    "that the program holds")
+            before = last[0]
             stack.append([])
             body()
             items = tuple(stack.pop())
-            stack[-1].append(Loop(flag, items, slots[0], slots[0] + 1))
+            stack[-1].append(Loop(flag, items, slots[0], slots[0] + 1,
+                                  before, last[0]))
             slots[0] += 2
 
         result = steps(call, loop)
-        self.trips = self._keep(torch.zeros(slots[0], dtype=torch.int64,
+        n = self._counters = slots[0]
+        if timing.tracing() and last[0] is not None:
+            segs = tuple(order.values())
+            self.stamps = Stamps(n, {id(seg): n + STAMP_CELLS + k
+                                     for k, seg in enumerate(segs)},
+                                 segs, last[0])
+            n += STAMP_CELLS + len(segs)
+            self._requests = [0] * STAMP_RING
+        self.trips = self._keep(torch.zeros(n, dtype=torch.int64,
                                             device=self.device))
         self.plan, self.result = tuple(stack[0]), result
         self.loop = _new_loop(self, self.plan)
-        self._settled = (0, [0] * slots[0])
+        self._settled = (0, [0] * n)
+        if self.stamps is not None:
+            with _LOCK:
+                _STAMPED.add(self)
+            self.start_clock()
         _stat(compose_s=time.perf_counter() - t0)
 
     def launch(self):
         """The solve as one launch of the composed graph; returns the
         result, which the launch rewrites, or None where the program has
-        not composed (the caller then drives the segments itself)."""
-        if self.loop is None:
+        not composed or ``host_driven()`` is open (the caller then drives
+        the segments itself).  Spanned as "program.launch" with its index,
+        by which ``settle`` joins the launch's stamps to its request."""
+        if self.loop is None or is_host_driven():
             return None
-        try:
-            self.loop.launch()
-        except Exception as e:
-            raise RuntimeError(f"launching the composed solve failed: "
-                               f"{e}") from e
+        with timing.span("program.launch", launch=self._launches):
+            try:
+                self.loop.launch()
+            except Exception as e:
+                raise RuntimeError(f"launching the composed solve failed: "
+                                   f"{e}") from e
+            if self.stamps is not None:
+                self._requests[self._launches % STAMP_RING] = \
+                    timing.request()
         self._launches += 1
         _stat(loops=1)
         with _LOCK:
@@ -580,19 +708,33 @@ class Program:
         return self.result
 
     def settle(self, add: bool = True) -> None:
-        """Read the trip counters (one host read) and, with ``add``, add
-        what the composed launches since the last settle ran to
-        ``kernels.COUNTS`` and ``STATS``: each segment's captured counts
-        once a run, S2's launches under ``loop_cond``."""
-        launches = self._launches - self._settled[0]
+        """Read the trip counters and the stamps (one host read, after a
+        traced program's clock point) and, with ``add``, add what the
+        composed launches since the last settle ran to ``kernels.COUNTS``
+        and ``STATS``: each segment's captured counts once a run, S2's
+        launches under ``loop_cond``, the stamp nodes' under
+        ``loop_stamp`` (each counts its own launches on the card), and the
+        stamps (module doc)."""
+        first = self._settled[0]
+        launches = self._launches - first
         if not launches:
             return
-        trips = self.trips.tolist()
-        delta = [t - s for t, s in zip(trips, self._settled[1])]
-        self._settled = (self._launches, trips)
+        st = self.stamps
+        point = self._calibrate() if st is not None else None
+        vals = self.trips.tolist()
+        delta = [t - s for t, s in zip(vals, self._settled[1])]
+        self._settled = (self._launches, vals)
+        if st is not None:
+            # read: the ring's entries may be written again
+            self.trips[st.block + RING:st.block + STAMP_CELLS].zero_()
+            if point is not None:
+                self._clock[1:] = [(vals[st.block + LAST],) + point]
         if not add:
             return
-        counts = {"loop_cond": sum(delta)}
+        counts = {"loop_cond": sum(delta[:self._counters])}
+        if st is not None:
+            counts["loop_stamp"] = delta[st.block + STAMPS]
+            self._add_stamps(st, vals, delta, first)
         replays = 0
 
         def run(items, n: int) -> None:
@@ -609,6 +751,59 @@ class Program:
         kernels.add_counts(counts)
         _stat(counts, replays=replays)
 
+    def _add_stamps(self, st: Stamps, vals: list, delta: list,
+                    first: int) -> None:
+        """The stamps of launches ``first`` on, read as ``vals``, into
+        ``STATS`` (module doc)."""
+        out = []
+        for i in range(max(first, self._launches - STAMP_RING),
+                       self._launches):
+            e = st.block + RING + 2 * (i % STAMP_RING)
+            start, end = vals[e], vals[e + 1]
+            if start and end:
+                out.append(dict(index=i,
+                                request=self._requests[i % STAMP_RING],
+                                device_ns=end - start,
+                                start_ns=self._on_host(start),
+                                end_ns=self._on_host(end)))
+        err = max((p[2] for p in self._clock), default=0)
+        _stat(segments={seg.name: delta[st.acc[id(seg)]]
+                        for seg in st.segments},
+              stamps_overwritten=delta[st.block + OVERWRITTEN])
+        with _LOCK:
+            STATS["launches"].extend(out)
+            STATS["clock_err_ns"] = max(STATS["clock_err_ns"], err)
+
+    def _calibrate(self) -> Optional[tuple]:
+        """(host ns, error ns) of one reading of the card's clock, which
+        the stamp kernel writes into the stamp block's last cell, launched
+        outside any graph between two synchronizes: the host time is their
+        middle, the error half their distance.  None off the card."""
+        if self.device.type != "cuda":
+            return None
+        torch.cuda.synchronize(self.device)
+        t0 = time.perf_counter_ns()
+        self.loop.stamp_now(self.trips, self.stamps.block + LAST)
+        torch.cuda.synchronize(self.device)
+        t1 = time.perf_counter_ns()
+        return (t0 + t1) // 2, (t1 - t0) // 2
+
+    def start_clock(self) -> None:
+        """The clock's first point (``reset_stats``, ``compose``)."""
+        point = self._calibrate()
+        self._clock = [] if point is None else [
+            (int(self.trips[self.stamps.block + LAST]),) + point]
+
+    def _on_host(self, ns: int) -> int:
+        """A reading of the card's clock on the host's ``perf_counter_ns``,
+        through the clock's first and last points (the same clock where
+        there are none: a CPU program's stamps are the host's)."""
+        if not self._clock:
+            return ns
+        (g0, h0, _), (g1, h1, _) = self._clock[0], self._clock[-1]
+        rate = (h1 - h0) / (g1 - g0) if g1 != g0 else 1.0
+        return h0 + round((ns - g0) * rate)
+
     def close(self) -> None:
         """Release the graphs, their pool, the buffers and the held
         tensors; a later solve builds the program anew.  Composed
@@ -617,6 +812,7 @@ class Program:
             self._finalizer.detach()
         with _LOCK:
             _PENDING.discard(self)
+            _STAMPED.discard(self)
         if self.loop is not None:
             self.loop.close()
         self._init_loop()

@@ -13,6 +13,17 @@ composed solve made can be counted later with one read
 (``graphs.settle``).  ``loop_cond_plain`` is S2's plain version: the CPU
 interprets a plan with it (``tests/test_torch_loop.py``).
 
+A traced program graph also stamps the card's clock (``csrc/graph_loop.cu``
+says how): ``stamp`` adds the first and the last node of the root graph,
+S2 given a stamp block closes the segment before it, and ``stamp_now``
+reads the clock outside any graph, for the host's calibration.  The block
+is ``STAMP_CELLS`` int64 cells of the program's trip-counter tensor: the
+last stamp, the launches made, the ring entries overwritten before the
+host read them, the stamp nodes' own launches, then a ring of
+``STAMP_RING`` (start, end) pairs.
+``loop_stamp_plain`` and the stamped ``loop_cond_plain`` are the plain
+versions, on a clock the caller passes.
+
 Only a CUDA tensor reaches ``LoopGraph``; every failure raises
 ``RuntimeError`` with the CUDA call's message.
 """
@@ -26,12 +37,43 @@ import torch
 from . import kernels
 
 
-def loop_cond_plain(flags: torch.Tensor, trips: torch.Tensor,
-                    slot: int) -> torch.Tensor:
+STAMP_RING = 1024          # launches a program's ring of stamps holds
+LAST, LAUNCHES, OVERWRITTEN, STAMPS, RING = range(5)  # a stamp block's cells
+STAMP_CELLS = RING + 2 * STAMP_RING
+START, END, NOW = 0, 1, 2    # the stamp kernel's phases
+
+
+def loop_cond_plain(flags: torch.Tensor, trips: torch.Tensor, slot: int,
+                    block=None, acc=None, now: int = 0) -> torch.Tensor:
     """S2's plain version: ``~flags.all()`` (the next trip runs) with one
-    added to ``trips[slot]``."""
+    added to ``trips[slot]``; with a stamp block (the index of its first
+    cell in ``trips``), ``now`` minus the last stamp added to
+    ``trips[acc]`` and ``now`` the last stamp."""
     trips[slot] += 1
+    if block is not None:
+        trips[acc] += now - trips[block + LAST]
+        trips[block + LAST] = now
     return ~flags.all()
+
+
+def loop_stamp_plain(trips: torch.Tensor, block: int, phase: int, now: int,
+                     acc=None, ring: int = STAMP_RING) -> None:
+    """The stamp kernel's plain version on the block at ``trips[block]``:
+    ``START`` and ``END`` of a launch (``acc``: the finish's accumulator),
+    or ``NOW``."""
+    if phase != NOW:
+        i = int(trips[block + LAUNCHES])
+        e = block + RING + 2 * (i % ring)
+        if phase == START:
+            if int(trips[e]) != 0:
+                trips[block + OVERWRITTEN] += 1
+            trips[e], trips[e + 1] = now, 0
+        else:
+            trips[acc] += now - trips[block + LAST]
+            trips[e + 1] = now
+            trips[block + LAUNCHES] = i + 1
+        trips[block + STAMPS] += 1
+    trips[block + LAST] = now
 
 
 class LoopGraph:
@@ -76,19 +118,46 @@ class LoopGraph:
         return self._out("eicos_loop_child", graph, dep, raw)
 
     def cond(self, graph, dep, handle: int, flags: torch.Tensor,
-             trips: torch.Tensor, slot: int) -> int:
+             trips: torch.Tensor, slot: int, block=None, acc=None) -> int:
         """An S2 node: set ``handle`` to "not all of ``flags``" and add one
-        to ``trips[slot]``.  The node reads both tensors in place at every
-        launch: the caller holds them as long as the graph."""
+        to ``trips[slot]``; with ``block`` and ``acc`` (cells of ``trips``),
+        the time since the block's last stamp added to ``trips[acc]``.
+        The node reads both tensors in place at every launch: the caller
+        holds them as long as the graph."""
         kernels.check("flags", flags, tuple(flags.shape), self.device,
                       dtype=torch.bool)
-        kernels.check("trips", trips, tuple(trips.shape), self.device,
-                      dtype=torch.int64)
-        if trips.dim() != 1 or not 0 <= slot < trips.shape[0]:
-            raise ValueError(f"trips: slot {slot} of {tuple(trips.shape)}")
+        last = ptr = None
+        if block is not None:
+            last = self._cells(trips, block + LAST)
+            ptr = self._cells(trips, acc)
         return self._out("eicos_loop_cond", graph, dep, handle,
                          flags.data_ptr(), flags.numel(),
-                         trips.data_ptr() + 8 * slot)
+                         self._cells(trips, slot), last, ptr)
+
+    def stamp(self, graph, dep, trips: torch.Tensor, block: int, phase: int,
+              acc=None) -> int:
+        """A stamp kernel node (``START`` or ``END``, which adds the time
+        since the last stamp to ``trips[acc]``) on the stamp block at
+        ``trips[block]``."""
+        self._cells(trips, block + STAMP_CELLS - 1)     # the block fits
+        return self._out("eicos_loop_stamp", graph, dep,
+                         self._cells(trips, block), STAMP_RING,
+                         None if acc is None else self._cells(trips, acc),
+                         phase)
+
+    def stamp_now(self, trips: torch.Tensor, cell: int) -> None:
+        """The card's clock into ``trips[cell]``, by one launch on the
+        current stream outside any graph; counted nowhere."""
+        self._call("eicos_loop_stamp_now", self._index,
+                   self._cells(trips, cell), self._stream())
+
+    def _cells(self, trips: torch.Tensor, cell: int) -> int:
+        """The address of ``trips[cell]``, an int64 vector on the card."""
+        kernels.check("trips", trips, tuple(trips.shape), self.device,
+                      dtype=torch.int64)
+        if trips.dim() != 1 or not 0 <= cell < trips.shape[0]:
+            raise ValueError(f"trips: slot {cell} of {tuple(trips.shape)}")
+        return trips.data_ptr() + 8 * cell
 
     def check(self, raw: int) -> None:
         """Raise ``RuntimeError`` naming the first node of ``raw`` that a

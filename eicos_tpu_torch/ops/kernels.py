@@ -12,8 +12,10 @@ are bound with ``ctypes``: pointers and the stream pass as ``c_void_p``.
 that the main path went through the kernels.  ``loop_cond`` (S2,
 ``graph_loop.py``) launches only on the card, as nodes of a composed
 program graph: each node counts its launches on the device, and
-``graphs.settle`` adds them here.  ``count`` and ``lib`` hold a
-lock: a sharded solve launches from one host thread per device.  Inside
+``graphs.settle`` adds them here, with ``loop_stamp``'s two a traced
+composed launch, counted on the device likewise (its calibration
+launches are not counted).  ``count`` and ``lib`` hold a lock: a sharded
+solve launches from one host thread per device.  Inside
 ``recording()`` a thread's counts go to a dict of their own instead:
 ``graphs`` records what a captured segment launches and adds it to
 ``COUNTS`` with ``add_counts`` at every replay, so the counts of a graphed
@@ -76,7 +78,10 @@ LIBS = {
                     "eicos_loop_handle": [_P, ctypes.POINTER(_ULL)],
                     "eicos_loop_while": [_P, _P, _ULL, _PP, _PP],
                     "eicos_loop_child": [_P, _P, _P, _PP],
-                    "eicos_loop_cond": [_P, _P, _ULL, _P, _I, _P, _PP],
+                    "eicos_loop_cond": [_P, _P, _ULL, _P, _I, _P, _P, _P,
+                                        _PP],
+                    "eicos_loop_stamp": [_P, _P, _P, _I, _P, _I, _PP],
+                    "eicos_loop_stamp_now": [_I, _P, _P],
                     "eicos_loop_check": [_P],
                     "eicos_loop_instantiate": [_I, _P, _P, _PP],
                     "eicos_loop_launch": [_I, _P, _P],
@@ -87,7 +92,7 @@ LIBS = {
 COUNTS = {"band_factor_bw": 0, "band_fwd_bw": 0, "band_bwd_bw": 0,
           "leaf_ldl": 0, "dgemm": 0, "linv_fwd": 0, "linv_bwd": 0,
           "leaf_ldl_f32": 0, "dense_pack": 0, "dense_fwd": 0, "dense_bwd": 0,
-          "spmv": 0, "loop_cond": 0}
+          "spmv": 0, "loop_cond": 0, "loop_stamp": 0}
 BUILD_LOG: dict = {}      # library name -> nvcc's output (ptxas -v report)
 
 _loaded: dict = {}

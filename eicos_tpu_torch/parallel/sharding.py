@@ -20,10 +20,12 @@ from typing import Optional, Sequence
 import numpy as np
 import torch
 
+from .. import graphs
 from ..problem import ProblemData
 from ..settings import Settings
 from ..solver import Solution, solve_batch, to_device
 from ..structure import ProblemStructure
+from ..utils import timing
 
 _FIELDS = ("G", "A", "c", "h", "b")
 
@@ -80,16 +82,21 @@ def solve_shards(structure: ProblemStructure, shards: list,
     one ``graphs.Program`` a shard (``solver.program_for``), which the
     shard's thread captures, composes and launches with its device
     current; without them each shard's solve makes its own for the
-    call."""
+    call.  A shard's spans nest in the caller's open span, and a caller
+    inside ``graphs.host_driven()`` drives every shard from the host."""
     results: list = [None] * len(shards)
     errors: list = []
+    spans = timing.current()
+    hosted = graphs.is_host_driven()
 
     def run(i: int) -> None:
         dev = mesh[i]
         ctx = (torch.cuda.device(dev) if dev.type == "cuda"
                else contextlib.nullcontext())
         try:
-            with ctx:
+            with ctx, timing.within(spans), (
+                    graphs.host_driven() if hosted
+                    else contextlib.nullcontext()):
                 results[i] = solve_batch(
                     structure, shards[i], settings,
                     program=None if programs is None else programs[i])

@@ -52,6 +52,7 @@ from .exitcodes import ExitCode
 from .problem import ProblemData
 from .settings import Settings
 from .structure import ProblemStructure
+from .utils import timing
 from .utils.printing import _HEADER, format_iteration_row
 
 _OPT = int(ExitCode.OPTIMAL)
@@ -699,23 +700,27 @@ def _run(program: graphs.Program, st: ProblemStructure, settings: Settings,
     """One solve through ``program``: one launch of its composed graph
     where it has one and no live table reads the loop, else the segments
     driven from the host (one flag read an init trip, an iteration and a
-    refinement trip), after which a kept program composes."""
-    inputs = program.load(_fields(data), adopt=adopt)
+    refinement trip), after which a kept program composes.  Spanned:
+    "program.load", "program.launch" or "program.host_driven", and
+    "solver.clone"."""
+    with timing.span("program.load"):
+        inputs = program.load(_fields(data), adopt=adopt)
     if program.parts is None:
         program.parts = _parts(program, st, settings, data.c.shape[0],
                                data.c.dtype, data.c.device)
     parts = program.parts
+    out = program.launch() if live is None else None
+    if out is None:
+        with timing.span("program.host_driven"):
+            out = _steps(program, parts, inputs, _host_call, _host_loop,
+                         live)
+        if program.composes and program.loop is None:
+            program.compose(lambda call, loop: _steps(program, parts,
+                                                      inputs, call, loop))
     # the result's tensors are the program's (a graph's outputs, the loop
     # state): the caller gets copies
-    if live is None:
-        out = program.launch()
-        if out is not None:
-            return graphs.clone(out)
-    out = _steps(program, parts, inputs, _host_call, _host_loop, live)
-    if program.composes and program.loop is None:
-        program.compose(lambda call, loop: _steps(program, parts, inputs,
-                                                  call, loop))
-    return graphs.clone(out)
+    with timing.span("solver.clone"):
+        return graphs.clone(out)
 
 
 def _host_call(segment: graphs.Segment, *args):
@@ -819,9 +824,14 @@ def to_device(data: ProblemData, device, shared=None) -> ProblemData:
     """Move problem values to ``device`` as float64 tensors.  With
     ``shared=None`` ``data`` is one problem and gains a lane axis of 1;
     otherwise the fields not in ``shared`` carry a leading lane axis and
-    the shared c/h/b are broadcast over the lanes (G and A stay shared)."""
+    the shared c/h/b are broadcast over the lanes (G and A stay shared).
+    The bytes that come from the host, or from another device, count in
+    ``graphs.STATS`` "upload_bytes"."""
     def t(v):
-        return torch.as_tensor(v, dtype=torch.float64, device=device)
+        out = torch.as_tensor(v, dtype=torch.float64, device=device)
+        if not (isinstance(v, torch.Tensor) and v.device == out.device):
+            graphs.count_upload(out.nbytes)
+        return out
 
     if shared is None:
         return ProblemData(G=t(data.G), A=t(data.A), c=t(data.c)[None],

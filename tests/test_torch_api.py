@@ -3,7 +3,10 @@
 (the iteration table and summary), ``save_problem``/``load_problem`` (the
 npz round trip, cross-loaded between the packages) and
 ``Settings(verbose_live=True)``, which streams the table on every entry
-point.  Inputs come from a numpy seed."""
+point; and the API's host spans and upload counter (``utils/timing``,
+``graphs.STATS``).  Inputs come from a numpy seed."""
+
+import torch_threads  # noqa: F401  (one torch thread a worker)
 
 import numpy as np
 import pytest
@@ -13,6 +16,9 @@ import eicos_tpu as jt
 
 import eicos_tpu_torch as pt
 from eicos_tpu_torch import problem
+
+SHARED = ("G", "A", "h")
+SMALL = pt.Settings(block=16)      # a small leaf: quick on the CPU
 
 
 def _problem(soc: bool, seed: int = 5):
@@ -188,3 +194,112 @@ def test_verbose_live_raises_on_every_entry_point(capsys):
     assert [r[:-12] for r in got] == [r[:-12] for r in rows]
     assert torch.equal(sols.exit_code, torch.zeros(2, dtype=torch.int32))
     pt.Solver(G, A, c, h, b, rescue=live, device="cpu")
+
+
+def _lanes(lanes: int = 2, seed: int = 3):
+    """``_problem``'s LP as a structure and a batch of ``lanes`` lanes of
+    c, with G, A and h shared."""
+    G, A, c, h, b, _ = _problem(soc=False, seed=seed)
+    st = pt.ProblemStructure.create(G.shape[1], A.shape[0], G.shape[0],
+                                    G.shape[0], ())
+    rng = np.random.default_rng(seed)
+    return st, pt.ProblemData(
+        G=G, A=A, c=c + 0.01 * rng.standard_normal((lanes, c.size)), h=h,
+        b=np.tile(b, (lanes, 1)))
+
+
+def _paths(spans) -> dict:
+    """Each span's names from its root down, by id."""
+    by_id = {s["id"]: s for s in spans}
+
+    def path(s):
+        return (path(by_id[s["parent"]]) if s["parent"] else ()) + (
+            s["name"],)
+
+    return {s["id"]: path(s) for s in spans}
+
+
+def test_spans_name_each_layer_by_request():
+    """A ``BatchedSolver`` with a rescue, solved, then ``update_data`` and
+    solved again: the spans nest as the API calls them, every span lies
+    inside its parent and carries its request, the ``update_data`` the
+    number of the solve it prepares; the counter counts the bytes placed
+    from the host (G, A and h once a placement, c and b a lane), nothing
+    for a tensor already on the device; ``reset_stats`` empties both."""
+    import torch
+
+    from eicos_tpu_torch import graphs
+
+    st, X = _lanes()
+    graphs.reset_stats()
+    bs = pt.BatchedSolver(st, pt.Settings(iter_max=2, block=16),
+                          shared=SHARED, rescue=SMALL, device="cpu")
+    assert bs.solve(X).exit_code.tolist() == [0, 0]
+    assert bs.last_rescued == (0, 1)
+    placed = 8 * sum(np.size(getattr(X, f)) for f in "GAchb")
+    assert graphs.STATS["upload_bytes"] == placed
+    bs.update_data(c=torch.as_tensor(X.c * 1.01))
+    assert graphs.STATS["upload_bytes"] == 2 * placed - 8 * X.c.size
+    bs.solve()
+    graphs.settle()
+    spans = graphs.STATS["spans"]
+    paths = _paths(spans)
+    solve = ("api.solve",)
+    rescue = solve + ("api.rescue",)
+    assert set(paths.values()) == {
+        solve, solve + ("api.place",), solve + ("program.load",),
+        solve + ("program.host_driven",), solve + ("solver.clone",),
+        solve + ("api.codes",), rescue, rescue + ("program.load",),
+        rescue + ("program.host_driven",), rescue + ("solver.clone",),
+        solve + ("api.merge",), ("api.update_data",),
+        ("api.update_data", "api.place")}
+    by_id = {s["id"]: s for s in spans}
+    for s in spans:
+        up = by_id.get(s["parent"], s)
+        assert up["start"] <= s["start"] <= s["end"] <= up["end"], s
+        assert s["request"] == up["request"] > 0, s
+    first, second = [s["request"] for s in spans if s["name"] == "api.solve"]
+    (update,) = [s for s in spans if s["name"] == "api.update_data"]
+    assert 0 < first < second == update["request"]
+    graphs.reset_stats()
+    graphs.settle()
+    assert graphs.STATS["spans"] == [] and graphs.STATS["upload_bytes"] == 0
+
+
+def test_spans_from_threads_share_one_ring():
+    """Two threads, each solving its own batch, and a solve sharded over
+    a mesh of two CPU devices (a host thread a shard): every span lands
+    in the one ring, each thread's under its own request, and the shards'
+    spans nest in the solve that started them."""
+    import threading
+
+    import torch
+
+    from eicos_tpu_torch import graphs
+
+    st, X = _lanes()
+    graphs.reset_stats()
+
+    def run():
+        pt.BatchedSolver(st, SMALL, shared=SHARED, device="cpu").solve(X)
+
+    threads = [threading.Thread(target=run) for _ in range(2)]
+    for t in threads:
+        t.start()
+    for t in threads:
+        t.join(timeout=120)
+    assert not any(t.is_alive() for t in threads)
+    mesh = pt.BatchedSolver(st, SMALL, shared=SHARED,
+                            mesh=[torch.device("cpu")] * 2)
+    mesh.solve(X)
+    graphs.settle()
+    spans = graphs.STATS["spans"]
+    paths = _paths(spans)
+    roots = [s for s in spans if s["name"] == "api.solve"]
+    assert len(roots) == 3 and len({s["request"] for s in roots}) == 3
+    for root in roots:
+        mine = [s for s in spans if s["request"] == root["request"]]
+        assert all(paths[s["id"]][0] == "api.solve" for s in mine)
+    sharded = [s for s in spans if s["request"] == roots[-1]["request"]
+               and s["name"] == "program.host_driven"]
+    assert len(sharded) == 2 and graphs.STATS["spans_dropped"] == 0

@@ -3,6 +3,8 @@ through the ops/band.py wrappers on CPU tensors) against the JAX package:
 its f64 banded factor (ops/band_ldl.py, XLA on the CPU) and its Pallas
 double-single kernels in interpret mode (ops/pallas_band_ds.py)."""
 
+import torch_threads  # noqa: F401  (one torch thread a worker)
+
 import numpy as np
 import pytest
 import torch

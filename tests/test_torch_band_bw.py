@@ -6,6 +6,8 @@ the Pallas kernels ``band_factor_ds_bw`` / ``band_solve_ds_bw`` in interpret
 mode, the dense H assembly behind the gathered band blocks, and whole
 solves."""
 
+import torch_threads  # noqa: F401  (one torch thread a worker)
+
 import dataclasses
 
 import jax.numpy as jnp

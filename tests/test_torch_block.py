@@ -3,6 +3,8 @@ runs every strategy at any block size and reaches no Pallas leaf there:
 the dense recursion and the banded scan on blocks of 64, the plain leaf,
 and the inverse solves on a factor padded to 128."""
 
+import torch_threads  # noqa: F401  (one torch thread a worker)
+
 import numpy as np
 import pytest
 import torch

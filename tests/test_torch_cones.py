@@ -1,6 +1,8 @@
 """The port's batched cone algebra against eicos_tpu.cones (vmapped over
 lanes) on a mixed LP + SOC cone: every function within 1e-13 relative."""
 
+import torch_threads  # noqa: F401  (one torch thread a worker)
+
 import jax
 import jax.numpy as jnp
 import numpy as np

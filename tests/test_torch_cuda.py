@@ -5,6 +5,8 @@ elsewhere; run them on a GPU machine with
     python -m pytest tests/test_torch_cuda.py -q -m cuda
 """
 
+import torch_threads  # noqa: F401  (one torch thread a worker)
+
 import numpy as np
 import pytest
 import torch
@@ -1353,7 +1355,7 @@ def test_repeated_solves_replay_a_kept_program(cuda, case):
         for f in ("exit_code", "x", "y", "z", "s"):
             assert torch.equal(getattr(got, f), getattr(want, f)), f
         assert torch.equal(got.info.iter, want.info.iter)
-        assert counts == dict(wcounts, loop_cond=wsyncs)
+        assert counts == dict(wcounts, loop_cond=wsyncs, loop_stamp=2)
         assert got.exit_code.tolist() == [0] * got.exit_code.shape[0]
     for a, b in zip(graphs.tensors(first), graphs.tensors(kept)):
         assert torch.equal(a.nan_to_num(7.0), b.nan_to_num(7.0))
@@ -1477,7 +1479,8 @@ def test_composed_solve_equals_host_replay(cuda, monkeypatch, case):
     the same program's host-driven replay (exit codes, iterations, x, y,
     z, s, the refinement counts), 0 host syncs against the replay's one a
     loop test, and, settled, the replay's launch counts with each loop
-    test an S2 launch."""
+    test an S2 launch (and the two stamps of a traced launch); the
+    replay is ``graphs.host_driven()``'s."""
     import eicos_tpu_torch as pt
     from eicos_tpu_torch import corpus, graphs
 
@@ -1490,8 +1493,7 @@ def test_composed_solve_equals_host_replay(cuda, monkeypatch, case):
           f"{program.loop.held_bytes} bytes on the card")
     got, counts, syncs, stats = _stats_solve(torch, bs, batch)
     assert stats["loops"] == 1 and syncs == 0 and stats["replays"] > 0
-    with monkeypatch.context() as mp:
-        mp.setattr(graphs.Program, "launch", lambda self: None)
+    with graphs.host_driven():
         want, wcounts, wsyncs, wstats = _stats_solve(torch, bs, batch)
     assert wstats["loops"] == 0 and wsyncs > 0
     assert wstats["replays"] == stats["replays"]
@@ -1499,7 +1501,7 @@ def test_composed_solve_equals_host_replay(cuda, monkeypatch, case):
         assert torch.equal(getattr(got, f), getattr(want, f)), f
     for f in ("iter", "nitref1", "nitref2", "nitref3", "pcost"):
         assert torch.equal(getattr(got.info, f), getattr(want.info, f)), f
-    assert counts == dict(wcounts, loop_cond=wsyncs)
+    assert counts == dict(wcounts, loop_cond=wsyncs, loop_stamp=2)
 
 
 def test_disallowed_node_in_a_loop_raises(cuda):
@@ -1524,3 +1526,136 @@ def test_disallowed_node_in_a_loop_raises(cuda):
                            "copy' failed: "):
             program.compose(lambda call, loop: loop(
                 done, lambda: call(seg, x)))
+
+
+# ------------------------------------- spans and device stamps (tracing)
+
+def test_host_driven_warm_solve_replays_its_segments(cuda):
+    """Inside ``graphs.host_driven()`` a kept solver's warm solve is
+    driven from the host: no composed launch, one host sync a loop test,
+    the composed solve's bits; after the block the next solve is composed
+    again."""
+    import eicos_tpu_torch as pt
+    from eicos_tpu_torch import corpus, graphs
+
+    st, batch, kw = _graph_case(pt, corpus, "banded-lp")
+    bs = pt.BatchedSolver(st, **kw)
+    bs.solve(batch)
+    got, _, syncs, stats = _stats_solve(torch, bs, batch)
+    assert stats["loops"] == 1 and syncs == 0
+    with graphs.host_driven():
+        assert graphs.is_host_driven()
+        want, _, wsyncs, wstats = _stats_solve(torch, bs, batch)
+    assert not graphs.is_host_driven()
+    assert wstats["loops"] == 0 and wsyncs > 0 and wstats["captures"] == 0
+    for f in ("exit_code", "x", "y", "z", "s"):
+        assert torch.equal(getattr(got, f), getattr(want, f)), f
+    assert _stats_solve(torch, bs, batch)[3]["loops"] == 1
+
+
+def test_stamps_time_each_segment_of_composed_solves(cuda):
+    """Three composed solves of a kept solver, settled once: the nine
+    segments' sums on the card's clock equal the three launches' spans,
+    each launch's counts are one composed solve's (two of them the stamp
+    kernel's), no host sync, each launch joined to its solve's request
+    and lying, on the host's clock, between the solve's call and the
+    synchronize after it (within the calibration's error), no ring entry
+    overwritten."""
+    import time
+
+    import eicos_tpu_torch as pt
+    from eicos_tpu_torch import corpus, graphs, kkt
+    from eicos_tpu_torch.ops import kernels
+
+    st, batch, kw = _graph_case(pt, corpus, "banded-lp")
+    bs = pt.BatchedSolver(st, **kw)
+    bs.solve(batch)
+    want = _stats_solve(torch, bs, batch)[1]
+    assert want["loop_stamp"] == 2
+    graphs.reset_stats()
+    kernels.reset_counts()
+    syncs0 = kkt.host_syncs
+    marks = []
+    for _ in range(3):
+        t0 = time.perf_counter_ns()
+        bs.solve(batch)
+        torch.cuda.synchronize()
+        marks.append((t0, time.perf_counter_ns()))
+    graphs.settle()
+    stats, counts = dict(graphs.STATS), dict(kernels.COUNTS)
+    assert kkt.host_syncs == syncs0
+    assert counts == {k: 3 * v for k, v in want.items()}
+    launches, segs = stats["launches"], stats["segments_ns"]
+    assert len(launches) == 3 and len(segs) == 9
+    assert sum(segs.values()) == sum(e["device_ns"] for e in launches)
+    for name in ("prologue", "iteration A", "iteration B", "iteration C",
+                 "finish"):
+        assert segs[name] > 0, name
+    assert stats["stamps_overwritten"] == 0
+    err = stats["clock_err_ns"]
+    assert 0 < err < 1_000_000
+    solves = [s for s in stats["spans"] if s["name"] == "api.solve"]
+    assert [e["request"] for e in launches] == [s["request"] for s in solves]
+    for e, (t0, t1) in zip(launches, marks):
+        assert t0 - err <= e["start_ns"] < e["end_ns"] <= t1 + err
+        assert e["end_ns"] - e["start_ns"] == pytest.approx(
+            e["device_ns"], rel=1e-3)
+
+
+def test_trace_off_gives_the_same_bits(cuda, monkeypatch):
+    """The same composed solve with tracing on and off
+    (``EICOS_TORCH_TRACE=0`` as the program composes): the same answer
+    bits, and launch counts that differ by the two stamps alone."""
+    import eicos_tpu_torch as pt
+    from eicos_tpu_torch import corpus
+
+    st, batch, kw = _graph_case(pt, corpus, "banded-socp")
+    out = {}
+    for trace in ("0", "1"):
+        monkeypatch.setenv("EICOS_TORCH_TRACE", trace)
+        bs = pt.BatchedSolver(st, **kw)
+        bs.solve(batch)
+        out[trace] = _stats_solve(torch, bs, batch)
+        assert (bs._programs[0].stamps is None) == (trace == "0")
+        bs.close()
+    (off, coff, _, soff), (on, con, _, son) = out["0"], out["1"]
+    for f in ("exit_code", "x", "y", "z", "s"):
+        assert torch.equal(getattr(on, f), getattr(off, f)), f
+    assert torch.equal(on.info.iter, off.info.iter)
+    assert con == dict(coff, loop_stamp=2) and coff["loop_stamp"] == 0
+    assert soff["spans"] == [] and soff["launches"] == []
+    assert len(son["launches"]) == 1
+
+
+def test_stamp_ring_overflow_is_reported_on_card(cuda):
+    """1,030 launches of a one-segment program with one settle: the card
+    counts the 6 ring entries it overwrote, and the ring keeps the last
+    1,024 launches; the stamp nodes counted two launches each."""
+    from eicos_tpu_torch import graphs
+    from eicos_tpu_torch.ops import kernels
+    from eicos_tpu_torch.ops.graph_loop import LAUNCHES, STAMP_RING
+
+    class Owner:
+        pass
+
+    owner = Owner()
+    graphs.reset_stats()
+    kernels.reset_counts()
+    with graphs.Program(cuda, owner=owner) as program:
+        x = program.buffers(torch.zeros(4, dtype=torch.float64, device=cuda))
+        done = program.buffers(torch.ones(1, dtype=torch.bool, device=cuda))
+        seg = program.segment("double", lambda v: v * 2.0)
+        seg(x)
+        program.compose(lambda call, loop: (loop(done, lambda: None),
+                                            call(seg, x))[1])
+        for _ in range(STAMP_RING + 6):
+            program.launch()
+        torch.cuda.synchronize()
+        assert int(program.trips[program.stamps.block + LAUNCHES]) == \
+            STAMP_RING + 6
+        graphs.settle()
+    stats = graphs.STATS
+    assert stats["stamps_overwritten"] == 6
+    assert [e["index"] for e in stats["launches"]] == list(
+        range(6, STAMP_RING + 6))
+    assert kernels.COUNTS["loop_stamp"] == 2 * (STAMP_RING + 6)

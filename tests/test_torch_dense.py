@@ -7,6 +7,8 @@ stops at 1e-14 residuals); whole solves lane by lane, equal exit codes and
 iteration counts and the objective within 1e-8 relative (the exit
 tolerance)."""
 
+import torch_threads  # noqa: F401  (one torch thread a worker)
+
 import jax.numpy as jnp
 import numpy as np
 import pytest

@@ -5,6 +5,8 @@ the live iteration table (``solve_live``, ``Settings(verbose_live=True)``),
 come from a numpy seed or from files the tests write; a test of a real
 corpus problem skips where the reference's test headers are absent."""
 
+import torch_threads  # noqa: F401  (one torch thread a worker)
+
 import io
 import os
 import runpy

@@ -10,6 +10,8 @@ eliminates the cones, which squares their conditioning: both packages end
 those lanes at CLOSE_TO_OPTIMAL, an iteration apart, so they are held to
 the JAX package's exit tier and its objective at 1e-6."""
 
+import torch_threads  # noqa: F401  (one torch thread a worker)
+
 import jax.numpy as jnp
 import numpy as np
 import pytest

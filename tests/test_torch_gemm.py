@@ -4,6 +4,8 @@ the triangular-operand flags change no value, and the dense recursion,
 which passes the flags at its six products, keeps the bits it had without
 them (held against an inline copy of the unflagged recursion)."""
 
+import torch_threads  # noqa: F401  (one torch thread a worker)
+
 import numpy as np
 import pytest
 import torch

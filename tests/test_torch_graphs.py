@@ -8,6 +8,8 @@ program makes its graphs: a whole solve through it gives the bits, the
 counts and the host syncs of the direct solve.  The card's own graphs are
 held in ``tests/test_torch_cuda.py``."""
 
+import torch_threads  # noqa: F401  (one torch thread a worker)
+
 import numpy as np
 import pytest
 import torch

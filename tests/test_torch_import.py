@@ -3,6 +3,8 @@ sources import neither, and its entry points run on CUDA unless asked for
 the CPU.  The configurations that once raised solve as the JAX package
 solves them."""
 
+import torch_threads  # noqa: F401  (one torch thread a worker)
+
 import os
 import pathlib
 import re

@@ -3,6 +3,8 @@ the JAX package assembles the dense K and factors K[perm][:, perm] with
 band_ldl_factor: the band blocks from the port's direct scatter, and one
 refined solve from the same factor state."""
 
+import torch_threads  # noqa: F401  (one torch thread a worker)
+
 import jax
 import jax.numpy as jnp
 import numpy as np

@@ -15,6 +15,8 @@ and 5e-9 (Linv).  Against the JAX package's own f64 path, which differs
 only in summation order: 1e-12 (factor, compounded over the recursion)
 and 1e-13 (one solve)."""
 
+import torch_threads  # noqa: F401  (one torch thread a worker)
+
 import jax.numpy as jnp
 import numpy as np
 import pytest

@@ -12,7 +12,13 @@ before the first trip and after each, with no host sync counted.  A kept
 solver's solves after its first are held to a fresh solver's host-driven
 solve bit for bit, with 0 host syncs and, once settled
 (``graphs.settle``), the same launch counts; the card's own composed
-graphs are held in ``tests/test_torch_cuda.py``."""
+graphs are held in ``tests/test_torch_cuda.py``.  The fake launch also
+stamps as a traced graph does, with the stamp kernel's and S2's plain
+versions, on a clock that only a segment's replay moves, by an amount of
+its own: each segment's stamped sum must be that amount times its
+replays."""
+
+import torch_threads  # noqa: F401  (one torch thread a worker)
 
 import io
 
@@ -27,32 +33,58 @@ from test_torch_program import SHARED, lanes_of, rescaled
 import eicos_tpu_torch as pt
 from eicos_tpu_torch import graphs, kkt
 from eicos_tpu_torch.ops import kernels
-from eicos_tpu_torch.ops.graph_loop import loop_cond_plain
+from eicos_tpu_torch.utils import timing
+from eicos_tpu_torch.ops.graph_loop import (END, START, loop_cond_plain,
+                                            loop_stamp_plain)
 
 
 class FakeLoopGraph:
     """A composed graph's contract, kept on the CPU: ``launch`` runs the
-    plan as the card does (module doc); the trip counters are the
-    program's, a CPU tensor."""
+    plan as the card does (module doc); the trip counters and stamps are
+    the program's, a CPU tensor.  ``ticks``: each segment's time, in ns
+    of the fake clock; ``last``: each segment's replays in the last
+    launch."""
 
     def __init__(self, program, plan):
         self.program, self.plan = program, plan
         self.launches = 0
+        self.now = 10 ** 12
+        segs = () if program.stamps is None else program.stamps.segments
+        self.ticks = {seg.name: 1000 * (k + 1) for k, seg in enumerate(segs)}
+        self.last = dict.fromkeys(self.ticks, 0)
+
+    def replay(self, seg) -> None:
+        seg._graph.replay()
+        if self.ticks:
+            self.now += self.ticks[seg.name]
+            self.last[seg.name] += 1
+
+    def _cond(self, flag, slot, seg):
+        st = self.program.stamps
+        cells = (None, None) if st is None else st.cells(seg)
+        return loop_cond_plain(flag, self.program.trips, slot, *cells,
+                               now=self.now)
 
     def _run(self, items) -> None:
-        trips = self.program.trips
         for it in items:
             if isinstance(it, graphs.Loop):
-                go = loop_cond_plain(it.flag, trips, it.pre)
+                go = self._cond(it.flag, it.pre, it.pre_seg)
                 while go:
                     self._run(it.body)
-                    go = loop_cond_plain(it.flag, trips, it.trip)
+                    go = self._cond(it.flag, it.trip, it.trip_seg)
             else:
-                it._graph.replay()
+                self.replay(it)
 
     def launch(self) -> None:
         self.launches += 1
+        self.last = dict.fromkeys(self.ticks, 0)
+        st, trips = self.program.stamps, self.program.trips
+        if st is not None:
+            loop_stamp_plain(trips, st.block, START, self.now)
         self._run(self.plan)
+        if st is not None:
+            loop_stamp_plain(trips, st.block, END, self.now,
+                             st.acc[id(st.last)])
 
     def close(self) -> None:
         self.plan = None
@@ -92,12 +124,17 @@ def fresh(st, settings, batch, monkeypatch):
 
 def as_composed(want):
     """A host-driven solve's counts and syncs as a composed solve of the
-    same data shows them: every loop test an S2 launch, no host sync."""
+    same data shows them: every loop test an S2 launch, the two stamps of
+    a traced launch, no host sync."""
     counts, syncs = want[1:]
-    return dict(counts, loop_cond=counts["loop_cond"] + syncs), 0
+    return dict(counts, loop_cond=counts["loop_cond"] + syncs,
+                loop_stamp=2), 0
 
 
-def check_composed(got, want, label):
+def check_composed(got, want, label, loop):
+    """``got``, one composed solve through ``loop`` (counted), against a
+    fresh host-driven solve ``want``; its stamps: each of the nine
+    segments' sums its own time, together the launch's span."""
     sol, counts, syncs, stats = got
     assert stats["loops"] == 1, (label, stats)
     assert stats["captures"] == 0 and stats["eager"] == 0, (label, stats)
@@ -106,6 +143,12 @@ def check_composed(got, want, label):
     for f in ("exit_code", "x", "y", "z"):
         assert torch.equal(getattr(sol, f), getattr(want[0], f)), (label, f)
     assert (counts, syncs) == as_composed(want), label
+    assert len(loop.ticks) == 9, label
+    assert stats["segments_ns"] == {n: loop.ticks[n] * loop.last[n]
+                                    for n in loop.ticks}, label
+    (launch,) = stats["launches"]
+    assert launch["device_ns"] == sum(stats["segments_ns"].values()), label
+    assert stats["stamps_overwritten"] == 0, label
 
 
 @pytest.mark.parametrize("case", ["lp", "socp"])
@@ -129,11 +172,42 @@ def test_composed_solves_give_fresh_bits(fake, monkeypatch, case):
     kept = graphs.clone(first)
     program = bs._programs[0]
     assert program.loop is not None and program.loop.launches == 0
+    graphs.reset_stats()
     bs.update_data(**{f: getattr(Y, f) for f in ("G", "A", "c", "h", "b")})
-    check_composed(counted(lambda: bs.solve()), want["Y"], "Y")
-    check_composed(counted(lambda: bs.solve(X)), want["X"], "X")
+    (update,) = [s for s in timing.spans() if s.name == "api.update_data"]
+    got = counted(lambda: bs.solve())
+    check_composed(got, want["Y"], "Y", program.loop)
+    # the launch joins the solve's request, which update_data carried
+    (solve,) = [s for s in got[3]["spans"] if s["name"] == "api.solve"]
+    assert got[3]["launches"][0]["request"] == solve["request"] \
+        == update.request > 0
+    (call,) = [s for s in got[3]["spans"] if s["name"] == "program.launch"]
+    assert call["launch"] == got[3]["launches"][0]["index"] == 0
+    check_composed(counted(lambda: bs.solve(X)), want["X"], "X",
+                   program.loop)
     assert program.loop.launches == 2 and bs._programs[0] is program
     assert same_solution(first, kept)
+
+
+def test_host_driven_reaches_the_shard_threads(fake):
+    """``graphs.host_driven()`` reaches the threads of a sharded solve: a
+    kept solver over a CPU mesh of two, composed after its first solve,
+    solves inside the block from the host on both shards (no composed
+    launch, host syncs) with the composed solve's bits, and composes
+    again after it."""
+    st, d = lp_banded()
+    X = lanes_of(st, d, 2, seed=7)
+    bs = pt.BatchedSolver(st, pt.Settings(kkt_strategy="banded"),
+                          shared=SHARED, mesh=[torch.device("cpu")] * 2)
+    bs.solve(X)
+    got, _, syncs, stats = counted(lambda: bs.solve(X))
+    assert stats["loops"] == 2 and syncs == 0
+    with graphs.host_driven():
+        want, _, wsyncs, wstats = counted(lambda: bs.solve(X))
+    assert wstats["loops"] == 0 and wsyncs > 0
+    for f in ("exit_code", "x", "y", "z"):
+        assert torch.equal(getattr(got, f), getattr(want, f)), f
+    assert counted(lambda: bs.solve(X))[3]["loops"] == 2
 
 
 def test_zero_trip_loops_capture_without_launch(fake, monkeypatch):
@@ -163,7 +237,8 @@ def test_zero_trip_loops_capture_without_launch(fake, monkeypatch):
     assert stats["captures"] == 9 and stats["eager"] == 9
     assert stats["replays"] == 3 + 3 * (iters + 1)
     for _ in range(2):
-        check_composed(counted(lambda: bs.solve(X)), want, "nitref 0")
+        check_composed(counted(lambda: bs.solve(X)), want, "nitref 0",
+                       program.loop)
     assert int(program.trips[program.plan[1].trip]) == 0
 
 
@@ -178,10 +253,11 @@ def test_iter_max_ends_at_maxit_through_the_loop(fake, monkeypatch):
     assert want[0].exit_code.tolist() == [int(pt.ExitCode.MAXIT)] * 2
     bs = pt.BatchedSolver(st, settings, shared=SHARED, device="cpu")
     bs.solve(X)
-    check_composed(counted(lambda: bs.solve(X)), want, "iter_max 3")
     program = bs._programs[0]
+    check_composed(counted(lambda: bs.solve(X)), want, "iter_max 3",
+                   program.loop)
     outer = program.plan[3]
-    assert [int(program.trips[i]) for i in outer[2:]] == [1, 4]
+    assert [int(program.trips[i]) for i in (outer.pre, outer.trip)] == [1, 4]
 
 
 def test_live_table_keeps_its_host_reads(fake, monkeypatch):
@@ -303,4 +379,61 @@ def test_compose_raises_on_a_copied_argument(fake):
         program.compose(lambda call, loop: (loop(done, lambda: call(ok, x)),
                                             call(ok, x))[1])
         out = program.launch()
-        assert torch.equal(out, x * 2.0) and program.trips.tolist() == [1, 0]
+        assert torch.equal(out, x * 2.0)
+        assert program.trips[:2].tolist() == [1, 0]
+
+
+def test_stamp_ring_overflow_is_reported(fake):
+    """1,030 launches of a one-segment program, then one settle: the
+    ring keeps the last 1,024 launches' stamps, and the 6 it overwrote
+    count in ``stamps_overwritten``; the sums still equal the spans, and
+    the stamp nodes counted two launches each."""
+    from eicos_tpu_torch.ops.graph_loop import STAMP_RING
+
+    owner = object.__new__(type("Owner", (), {}))
+    graphs.reset_stats()
+    kernels.reset_counts()
+    with graphs.Program("cpu", owner=owner) as program:
+        x = program.buffers(torch.zeros(2))
+        done = program.buffers(torch.ones(2, dtype=torch.bool))
+        seg = program.segment("double", lambda s: s * 2.0)
+        seg(x)
+        program.compose(lambda call, loop: (loop(done, lambda: None),
+                                            call(seg, x))[1])
+        for _ in range(STAMP_RING + 6):
+            program.launch()
+        graphs.settle()
+    stats = graphs.STATS
+    assert stats["stamps_overwritten"] == 6
+    assert len(stats["launches"]) == STAMP_RING
+    assert stats["launches"][0]["index"] == 6
+    assert stats["segments_ns"]["double"] >= sum(
+        e["device_ns"] for e in stats["launches"])
+    assert kernels.COUNTS["loop_stamp"] == 2 * (STAMP_RING + 6)
+
+
+def test_trace_off_records_nothing(fake, monkeypatch):
+    """``EICOS_TORCH_TRACE=0``: no span, and a composed graph without
+    stamps (its trip counters alone, S2 without a stamp cell): no stamp
+    counted or launched, nothing in ``STATS`` from them."""
+    monkeypatch.setenv("EICOS_TORCH_TRACE", "0")
+    owner = object.__new__(type("Owner", (), {}))
+    graphs.reset_stats()
+    kernels.reset_counts()
+    with graphs.Program("cpu", owner=owner) as program, \
+            timing.span("api.solve"):
+        x = program.buffers(torch.zeros(2))
+        done = program.buffers(torch.ones(2, dtype=torch.bool))
+        seg = program.segment("double", lambda s: s * 2.0)
+        seg(x)
+        program.compose(lambda call, loop: (loop(done, lambda: None),
+                                            call(seg, x))[1])
+        program.launch()
+        assert program.stamps is None and program.loop.ticks == {}
+        assert program.trips.tolist() == [1, 0]
+        graphs.settle()
+    stats = graphs.STATS
+    assert stats["loops"] == 1 and kernels.COUNTS["loop_cond"] == 1
+    assert kernels.COUNTS["loop_stamp"] == 0 and stats["segments_ns"] == {}
+    assert stats["spans"] == [] and stats["launches"] == []
+    assert timing.spans() == []

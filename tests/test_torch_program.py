@@ -13,6 +13,8 @@ solve is held to a fresh solver's solve of the same data, bit for bit,
 with the same launch counts and host syncs.  The padded rescue is held to
 the unpadded one and to the JAX package's ``BatchedSolver`` on the CPU."""
 
+import torch_threads  # noqa: F401  (one torch thread a worker)
+
 import gc
 import io
 import weakref

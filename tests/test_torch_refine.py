@@ -6,6 +6,8 @@ rotated TPU loop.  Held against the JAX package with its own TPU gate
 and counted: one corrective solve and one host sync fewer per refined
 solve."""
 
+import torch_threads  # noqa: F401  (one torch thread a worker)
+
 import numpy as np
 import pytest
 import torch

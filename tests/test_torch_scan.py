@@ -7,6 +7,8 @@ On the CPU the JAX package takes its scan for every banded plan (its band
 kernels are TPU-only); the port takes it where the reference's TPU path
 does, so the factors here are the same function on both sides."""
 
+import torch_threads  # noqa: F401  (one torch thread a worker)
+
 import jax.numpy as jnp
 import numpy as np
 import pytest

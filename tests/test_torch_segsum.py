@@ -3,6 +3,8 @@
 contributions to a target (the same sequential order), and within 1e-14
 relative beyond it (a fixed but different order)."""
 
+import torch_threads  # noqa: F401  (one torch thread a worker)
+
 import numpy as np
 import pytest
 import torch

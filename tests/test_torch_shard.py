@@ -4,6 +4,8 @@ each device, each shard is solved as its own batch (at once, one thread a
 device) and the solution is gathered on the first device.  The rescue is
 not sharded."""
 
+import torch_threads  # noqa: F401  (one torch thread a worker)
+
 import numpy as np
 import pytest
 import torch

@@ -10,6 +10,8 @@ exact factorizations of the same regularized system, so refined directions
 agree, while whole solves may differ in their endgame (see the last test).
 """
 
+import torch_threads  # noqa: F401  (one torch thread a worker)
+
 import jax
 import jax.numpy as jnp
 import numpy as np

@@ -3,6 +3,8 @@ twins of the kernels) against the JAX package's on the CPU, lane by lane:
 the same exit code and iteration count, the objective within 1e-8
 relative and x, y, z within 1e-6 absolute."""
 
+import torch_threads  # noqa: F401  (one torch thread a worker)
+
 import numpy as np
 import pytest
 import torch

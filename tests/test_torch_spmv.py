@@ -5,6 +5,8 @@ products (width groups included), and ``make_sliced`` the same kind of
 operand per key as ``eicos_tpu.kkt._make_sliced`` with its TPU gate forced
 on (that only builds operands; no kernel runs)."""
 
+import torch_threads  # noqa: F401  (one torch thread a worker)
+
 import contextlib
 
 import jax.numpy as jnp

@@ -2,6 +2,8 @@
 the structure's symbolic plans (GSplit, SOCSplit, MatvecPattern, BandPlan)
 and equilibration."""
 
+import torch_threads  # noqa: F401  (one torch thread a worker)
+
 import numpy as np
 import pytest
 import torch

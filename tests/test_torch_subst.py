@@ -20,6 +20,8 @@ scatter both ways across problems; the directions after refinement are
 compared instead (1e-9), and whole solves on problems where both end in
 the same tier (objective 1e-6)."""
 
+import torch_threads  # noqa: F401  (one torch thread a worker)
+
 import types
 
 import jax
