@@ -17,7 +17,8 @@ another lane count, a rescue of another padded size) replaces it.
 Each ``solve`` is one request of ``utils/timing``'s spans: "api.solve"
 around it, and "api.update_data" around the ``update_data`` that prepares
 it, with the same request number; inside them "api.place" (the values put
-on the device), "api.codes" (the exit codes read back for the rescue),
+on the device: a new batch's every field, an ``update_data``'s fields
+given), "api.codes" (the exit codes read back for the rescue),
 "api.rescue" and "api.merge", and the solver's own spans.
 """
 
@@ -130,25 +131,31 @@ class Solver:
 
     def update_data(self, G=None, A=None, c=None, h=None, b=None):
         """Replace problem values; dimensions must match.  The programs
-        stay: the next solve replays them on the new values."""
+        stay: the next solve replays them on the new values.  Only the
+        fields given are placed on the device; the others keep their
+        device copy, so a field changed in place must be passed again."""
         st = self.structure
-        d = self._data
         self._request = self._request or timing.new_request()
         with timing.span("api.update_data", request=self._request):
-            self._data = ProblemData(
-                G=d.G if G is None else make_problem(st, G, None, None, None,
-                                                     None).G,
-                A=d.A if A is None else make_problem(st, None, A, None, None,
-                                                     None).A,
-                c=(d.c if c is None
+            given = ProblemData(
+                G=None if G is None else make_problem(st, G, None, None, None,
+                                                      None).G,
+                A=None if A is None else make_problem(st, None, A, None, None,
+                                                      None).A,
+                c=(None if c is None
                    else np.asarray(c, np.float64).reshape(st.n)),
-                h=(d.h if h is None
+                h=(None if h is None
                    else np.asarray(h, np.float64).reshape(st.m)),
-                b=(d.b if b is None
+                b=(None if b is None
                    else np.asarray(b, np.float64).reshape(st.p)),
             )
+            self._data = dataclasses.replace(self._data, **{
+                f: getattr(given, f) for f in _FIELDS
+                if getattr(given, f) is not None})
+            if self._dev is not None:
+                with timing.span("api.place"):
+                    self._dev = to_device(given, self.device, kept=self._dev)
         self._solution = None
-        self._dev = None
 
     def solve(self, verbose: bool = False) -> ExitCode:
         """Solve (and, under ``rescue``, re-solve once); with ``verbose``
@@ -189,7 +196,7 @@ class Solver:
     def _solve(self, settings: Settings, live=None, rescue: bool = False):
         """One solve under ``settings`` through the object's program for
         them (the rescue's with ``rescue``)."""
-        # device-resident values, cached until update_data
+        # device-resident values, kept field by field by update_data
         if self._dev is None:
             with timing.span("api.place"):
                 self._dev = to_device(self._data, self.device)
@@ -270,26 +277,31 @@ class BatchedSolver:
 
     def update_data(self, **fields) -> None:
         """Replace fields of the last batch (per-lane fields with their lane
-        axis, shared ones without); the next ``solve()`` uses them."""
+        axis, shared ones without); the next ``solve()`` uses them.  Only
+        the fields given are placed on the device; the others keep their
+        device copy, so a field changed in place must be passed again.  A
+        per-lane field must carry the batch's lanes (``ValueError``
+        otherwise): another lane count is a new batch for ``solve``."""
         if self._last_in is None:
             raise ValueError("update_data needs a batch from solve() first")
         bad = set(fields) - set(_FIELDS)
         if bad:
             raise ValueError(f"unknown fields {sorted(bad)}")
+        given = {f: v for f, v in fields.items() if v is not None}
         self._request = self._request or timing.new_request()
         with timing.span("api.update_data", request=self._request):
+            self._last_dev = self._place(ProblemData(**{
+                f: given.get(f) for f in _FIELDS}), kept=self._last_dev)
             self._last_in = ProblemData(**{
-                f: fields.get(f, getattr(self._last_in, f))
-                for f in _FIELDS})
-            self._last_dev = self._place(self._last_in)
+                f: given.get(f, getattr(self._last_in, f)) for f in _FIELDS})
 
-    def _place(self, batch: ProblemData):
+    def _place(self, batch: ProblemData, kept=None):
         """The device copy of ``batch``: one batch, or its shards over the
-        mesh."""
+        mesh; with ``kept``, the fields ``batch`` leaves None keep it."""
         with timing.span("api.place"):
             if self.mesh is None:
-                return to_device(batch, self.device, self.shared)
-            return shard_batch(batch, self.mesh, self.shared)
+                return to_device(batch, self.device, self.shared, kept)
+            return shard_batch(batch, self.mesh, self.shared, kept)
 
     def solve(self, batch: Optional[ProblemData] = None) -> Solution:
         """Solve ``batch`` (or the last one, after ``update_data``); the

@@ -77,7 +77,10 @@ time, composed launches (``loops``), composing time, the port's kernel
 launches made by replays (``graph_counts``) and those of the warm-ups,
 which ``COUNTS`` leaves out (``warm_counts``), over every program;
 ``reset_stats`` drops composed launches not settled yet.  ``STATS``
-"upload_bytes" counts the bytes ``solver.to_device`` placed on a device.
+"upload_bytes" counts the bytes ``solver.to_device`` placed on a device;
+"kept_bytes" those of the device copies that an ``update_data`` kept for
+the fields it was not given instead of placing them again (a broadcast
+field's once), counted once an ``update_data``.
 
 Tracing (``utils/timing``: on unless ``EICOS_TORCH_TRACE=0``, read as a
 program composes).  A traced composed graph stamps the card's clock
@@ -138,9 +141,9 @@ def reset_stats() -> None:
         STATS.clear()
         STATS.update(solves=0, captures=0, replays=0, copies=0, eager=0,
                      capture_s=0.0, loops=0, compose_s=0.0, graph_counts={},
-                     warm_counts={}, upload_bytes=0, segments_ns={},
-                     launches=[], stamps_overwritten=0, clock_err_ns=0,
-                     spans=[], spans_dropped=0)
+                     warm_counts={}, upload_bytes=0, kept_bytes=0,
+                     segments_ns={}, launches=[], stamps_overwritten=0,
+                     clock_err_ns=0, spans=[], spans_dropped=0)
         stamped = list(_STAMPED)
     timing.clear_spans()
     for program in stamped:
@@ -204,6 +207,12 @@ def _stat(counts=None, warm=None, segments=None, **kw) -> None:
 def count_upload(nbytes: int) -> None:
     """``nbytes`` placed on a device from the host (``solver.to_device``)."""
     _stat(upload_bytes=nbytes)
+
+
+def count_kept(nbytes: int) -> None:
+    """``nbytes`` of device copies kept instead of placed again
+    (``solver.to_device`` under ``update_data``)."""
+    _stat(kept_bytes=nbytes)
 
 
 def _is_node(tree) -> bool:

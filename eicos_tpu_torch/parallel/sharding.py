@@ -23,7 +23,7 @@ import torch
 from .. import graphs
 from ..problem import ProblemData
 from ..settings import Settings
-from ..solver import Solution, solve_batch, to_device
+from ..solver import Solution, lane_count, solve_batch, to_device
 from ..structure import ProblemStructure
 from ..utils import timing
 
@@ -42,25 +42,36 @@ def make_mesh(n_devices: int | None = None) -> tuple:
 
 
 def shard_batch(batch: ProblemData, mesh: Sequence[torch.device],
-                shared: tuple = ()) -> list:
+                shared: tuple = (), kept: Optional[list] = None) -> list:
     """``batch`` (host arrays; the fields in ``shared`` without a lane
     axis) split into ``len(mesh)`` even shards along the lane axis, each
     moved to its device as ``solver.to_device`` moves a batch.  Raises
-    ``ValueError`` unless the mesh size divides the lanes."""
+    ``ValueError`` unless the mesh size divides the lanes.
+
+    ``kept``: the shards placed before (``update_data``).  A field that
+    ``batch`` leaves None keeps each shard's tensor; a per-lane field
+    given is split and placed shard by shard, a shared one copied to
+    each device; a per-lane field must carry the kept shards' lanes."""
     shared = tuple(shared)
-    per_lane = [f for f in _FIELDS if f not in shared]
-    if not per_lane:
+    lanes = lane_count(batch, shared, None if kept is None
+                       else sum(k.c.shape[0] for k in kept))
+    if lanes is None:
         raise ValueError("a batch needs at least one per-lane field")
-    lanes = np.shape(getattr(batch, per_lane[0]))[0]
     size = len(mesh)
     if size < 1 or lanes % size:
         raise ValueError(f"{lanes} lanes do not split evenly over a mesh "
                          f"of {size} devices")
     step = lanes // size
-    return [to_device(ProblemData(**{
-        f: (getattr(batch, f) if f in shared
-            else np.asarray(getattr(batch, f))[i * step:(i + 1) * step])
-        for f in _FIELDS}), dev, shared) for i, dev in enumerate(mesh)]
+
+    def part(f, i):
+        v = getattr(batch, f)
+        if v is None or f in shared:
+            return v
+        return np.asarray(v)[i * step:(i + 1) * step]
+
+    return [to_device(ProblemData(**{f: part(f, i) for f in _FIELDS}), dev,
+                      shared, None if kept is None else kept[i])
+            for i, dev in enumerate(mesh)]
 
 
 def _gather(parts: list, device: torch.device):

@@ -44,6 +44,7 @@ from __future__ import annotations
 import sys
 from typing import NamedTuple, Optional
 
+import numpy as np
 import torch
 
 from . import cones, graphs, kkt
@@ -820,31 +821,64 @@ def resolve_device(device=None) -> torch.device:
     return torch.device(device)
 
 
-def to_device(data: ProblemData, device, shared=None) -> ProblemData:
+_FIELDS = ("G", "A", "c", "h", "b")
+
+
+def lane_count(data: ProblemData, shared, lanes=None):
+    """The lanes of the per-lane fields that ``data`` gives (those not in
+    ``shared`` and not None), each of which must carry ``lanes`` where
+    that is given: ``ValueError`` naming the first that differs.  None
+    where ``data`` gives no per-lane field and ``lanes`` is None."""
+    for f in _FIELDS:
+        v = getattr(data, f)
+        if v is None or f in shared:
+            continue
+        got = np.shape(v)[:1]
+        if lanes is None and got:
+            lanes = got[0]
+        elif got != (lanes,):
+            raise ValueError(f"{f} carries {got[0] if got else 'no'} lanes, "
+                             f"the batch {lanes}")
+    return lanes
+
+
+def to_device(data: ProblemData, device, shared=None,
+              kept: Optional[ProblemData] = None) -> ProblemData:
     """Move problem values to ``device`` as float64 tensors.  With
     ``shared=None`` ``data`` is one problem and gains a lane axis of 1;
     otherwise the fields not in ``shared`` carry a leading lane axis and
     the shared c/h/b are broadcast over the lanes (G and A stay shared).
-    The bytes that come from the host, or from another device, count in
-    ``graphs.STATS`` "upload_bytes"."""
-    def t(v):
+
+    ``kept``: the device copy placed before (``update_data``).  A field
+    that ``data`` leaves None keeps ``kept``'s tensor, neither converted
+    nor copied; a per-lane field given must carry ``kept``'s lanes
+    (``ValueError`` otherwise, before anything is placed).  The bytes
+    that come from the host, or from another device, count in
+    ``graphs.STATS`` "upload_bytes"; those that ``kept`` spared the
+    placing (a broadcast field once) in "kept_bytes"."""
+    lanes = None
+    if shared is not None:
+        shared = tuple(shared)
+        lanes = lane_count(data, shared,
+                           None if kept is None else kept.c.shape[0])
+        if lanes is None:
+            raise ValueError("a batch needs at least one per-lane field")
+    vals, spared = {}, 0
+    for f in _FIELDS:
+        v = getattr(data, f)
+        broadcast = f in ("c", "h", "b") and (shared is None or f in shared)
+        if v is None:
+            vals[f] = getattr(kept, f)
+            spared += (vals[f][0] if broadcast else vals[f]).nbytes
+            continue
         out = torch.as_tensor(v, dtype=torch.float64, device=device)
         if not (isinstance(v, torch.Tensor) and v.device == out.device):
             graphs.count_upload(out.nbytes)
-        return out
-
-    if shared is None:
-        return ProblemData(G=t(data.G), A=t(data.A), c=t(data.c)[None],
-                           h=t(data.h)[None], b=t(data.b)[None])
-    shared = tuple(shared)
-    vals = {f: t(getattr(data, f)) for f in ("G", "A", "c", "h", "b")}
-    batched = [f for f in vals if f not in shared]
-    if not batched:
-        raise ValueError("a batch needs at least one per-lane field")
-    lanes = vals[batched[0]].shape[0]
-    for f in ("c", "h", "b"):
-        if f in shared:
-            vals[f] = vals[f].expand(lanes, -1)
+        if broadcast:
+            out = out[None] if shared is None else out.expand(lanes, -1)
+        vals[f] = out
+    if spared:
+        graphs.count_kept(spared)
     return ProblemData(**vals)
 
 

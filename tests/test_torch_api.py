@@ -225,7 +225,9 @@ def test_spans_name_each_layer_by_request():
     inside its parent and carries its request, the ``update_data`` the
     number of the solve it prepares; the counter counts the bytes placed
     from the host (G, A and h once a placement, c and b a lane), nothing
-    for a tensor already on the device; ``reset_stats`` empties both."""
+    for a tensor already on the device nor for a field ``update_data``
+    was not given, whose device copy it keeps ("kept_bytes");
+    ``reset_stats`` empties them."""
     import torch
 
     from eicos_tpu_torch import graphs
@@ -239,7 +241,9 @@ def test_spans_name_each_layer_by_request():
     placed = 8 * sum(np.size(getattr(X, f)) for f in "GAchb")
     assert graphs.STATS["upload_bytes"] == placed
     bs.update_data(c=torch.as_tensor(X.c * 1.01))
-    assert graphs.STATS["upload_bytes"] == 2 * placed - 8 * X.c.size
+    assert graphs.STATS["upload_bytes"] == placed
+    assert graphs.STATS["kept_bytes"] == 8 * sum(
+        np.size(getattr(X, f)) for f in "GAhb")
     bs.solve()
     graphs.settle()
     spans = graphs.STATS["spans"]
@@ -264,6 +268,59 @@ def test_spans_name_each_layer_by_request():
     graphs.reset_stats()
     graphs.settle()
     assert graphs.STATS["spans"] == [] and graphs.STATS["upload_bytes"] == 0
+    assert graphs.STATS["kept_bytes"] == 0
+
+
+@pytest.mark.parametrize("given", ["c", "cb", "G", "GAchb"])
+def test_update_data_places_only_the_fields_given(given):
+    """``BatchedSolver.update_data`` of some fields: each field given is
+    placed anew (its host bytes in "upload_bytes"), each other keeps its
+    device tensor, the same object (its bytes in "kept_bytes", a shared
+    h once), and the next solve equals a fresh solver's of the merged
+    values.  A per-lane field of another lane count raises, naming it,
+    and leaves the solver as it was."""
+    import torch
+
+    from eicos_tpu_torch import graphs
+
+    st, X = _lanes(lanes=3)
+    settings = pt.Settings(iter_max=2, block=16)
+    rng = np.random.default_rng(11)
+    new = {f: np.asarray(getattr(X, f)) * (1 + 0.01 * rng.random())
+           for f in given}
+    bs = pt.BatchedSolver(st, settings, shared=SHARED, device="cpu")
+    bs.solve(X)
+    before = bs._last_dev
+    graphs.reset_stats()
+    bs.update_data(**new)
+
+    def host_bytes(fields):
+        return 8 * sum(np.size(getattr(X, f)) for f in fields)
+
+    assert graphs.STATS["upload_bytes"] == host_bytes(given)
+    assert graphs.STATS["kept_bytes"] == host_bytes(
+        f for f in "GAchb" if f not in given)
+    after = bs._last_dev
+    for f in "GAchb":
+        if f not in given:
+            assert getattr(after, f) is getattr(before, f), f
+        else:
+            assert torch.equal(getattr(after, f), torch.as_tensor(
+                new[f]).expand_as(getattr(before, f))), f
+    merged = pt.ProblemData(**{f: new.get(f, getattr(X, f))
+                               for f in "GAchb"})
+    want = pt.BatchedSolver(st, settings, shared=SHARED,
+                            device="cpu").solve(merged)
+    got = bs.solve()
+    for f in ("exit_code", "x", "y", "z", "s"):
+        assert torch.equal(getattr(got, f), getattr(want, f)), f
+    lane_field = [f for f in given if f not in SHARED][-1:] or ["c"]
+    wrong = dict(new)
+    wrong.update({f: np.asarray(getattr(merged, f))[:2] for f in lane_field})
+    graphs.reset_stats()
+    with pytest.raises(ValueError, match=f"^{lane_field[0]} carries 2 lanes"):
+        bs.update_data(**wrong)
+    assert bs._last_dev is after and graphs.STATS["upload_bytes"] == 0
 
 
 def test_spans_from_threads_share_one_ring():

@@ -1385,6 +1385,46 @@ def test_solver_update_data_replays_on_card(cuda):
                            getattr(other.last_solution, f)), f
 
 
+def test_update_data_places_only_the_fields_given_on_card(cuda):
+    """``BatchedSolver.update_data(c=, b=)`` and ``Solver.update_data(c=)``
+    on the card: only the fields given are placed ("upload_bytes" is
+    their bytes alone), the re-solve captures nothing, and it gives a
+    fresh solver's bits."""
+    import eicos_tpu_torch as pt
+    from eicos_tpu_torch import corpus, graphs
+
+    st, X, kw = _graph_case(pt, corpus, "banded-lp")
+    rng = np.random.default_rng(9)
+    c = X.c + 0.01 * rng.standard_normal(X.c.shape)
+    b = np.array(X.b)
+    b[:, :2] += 0.05 * rng.standard_normal((b.shape[0], 2))
+    bs = pt.BatchedSolver(st, **kw)
+    bs.solve(X)
+    graphs.reset_stats()
+    bs.update_data(c=c, b=b)
+    assert graphs.STATS["upload_bytes"] == c.nbytes + b.nbytes
+    got, _, _, stats = _stats_solve(torch, bs)
+    assert stats["captures"] == 0 and stats["eager"] == 0, stats
+    want = pt.BatchedSolver(st, **kw).solve(pt.ProblemData(
+        G=X.G, A=X.A, c=c, h=X.h, b=b))
+    for f in ("exit_code", "x", "y", "z"):
+        assert torch.equal(getattr(got, f), getattr(want, f)), f
+    assert got.exit_code.tolist() == [0] * c.shape[0]
+
+    s = pt.Solver(X.G, X.A, X.c[0], X.h, X.b[0], settings=kw["settings"])
+    assert s.solve() == pt.ExitCode.OPTIMAL
+    graphs.reset_stats()
+    s.update_data(c=c[0])
+    assert graphs.STATS["upload_bytes"] == c[0].nbytes
+    assert s.solve() == pt.ExitCode.OPTIMAL
+    assert graphs.STATS["captures"] == 0 and graphs.STATS["eager"] == 0
+    other = pt.Solver(X.G, X.A, c[0], X.h, X.b[0], settings=kw["settings"])
+    other.solve()
+    for f in ("exit_code", "x", "y", "z"):
+        assert torch.equal(getattr(s.last_solution, f),
+                           getattr(other.last_solution, f)), f
+
+
 def test_reserved_memory_flat_over_repeated_solves(cuda):
     """Five repeated solves of a kept program: the reserved device memory,
     and its peak within each solve, do not move after the first solve."""

@@ -161,6 +161,34 @@ def test_solver_update_data_replays(fake, monkeypatch):
     assert same_solution(got, other.last_solution)
 
 
+def test_solver_update_data_of_c_replays(fake, monkeypatch):
+    """``Solver.update_data(c=)``: only c is placed, G, A, h and b keep
+    their device tensors, and the re-solve captures nothing and gives a
+    fresh ``Solver``'s bits."""
+    st, d = lp_banded()
+    settings = pt.Settings(kkt_strategy="banded")
+    c = lanes_of(st, d, 1, seed=4).c[0]
+    s = pt.Solver(d.G, d.A, d.c, d.h, d.b, settings=settings, device="cpu")
+    assert s.solve() == pt.ExitCode.OPTIMAL
+    first = s.last_solution
+    kept = s._dev
+    graphs.reset_stats()
+    s.update_data(c=c)
+    assert graphs.STATS["upload_bytes"] == 8 * st.n
+    assert graphs.STATS["kept_bytes"] == 8 * (st.m * st.n + st.p * st.n
+                                              + st.m + st.p)
+    assert all(getattr(s._dev, f) is getattr(kept, f) for f in "GAhb")
+    assert s.solve() == pt.ExitCode.OPTIMAL
+    assert graphs.STATS["captures"] == 0 and graphs.STATS["eager"] == 0
+    with monkeypatch.context() as mp:
+        mp.setattr(graphs, "_captures", lambda device: False)
+        other = pt.Solver(d.G, d.A, c, d.h, d.b, settings=settings,
+                          device="cpu")
+        other.solve()
+    assert same_solution(s.last_solution, other.last_solution)
+    assert not same_solution(s.last_solution, first)
+
+
 def test_batched_update_data_replays(fake, monkeypatch):
     """``BatchedSolver.update_data`` of every field, then ``solve()``: no
     capture, no eager segment call, a fresh solver's bits."""
@@ -175,6 +203,27 @@ def test_batched_update_data_replays(fake, monkeypatch):
     assert stats["captures"] == 0 and stats["eager"] == 0
     want = fresh(st, settings, Y, monkeypatch)
     assert same_solution(sol, want[0]) and (counts, syncs) == want[1:]
+
+
+def test_batched_update_data_of_c_and_b_replays(fake, monkeypatch):
+    """``BatchedSolver.update_data(c=, b=)``, the sweep's own call, then
+    ``solve()``: G, A and h keep their device tensors, and the solve
+    captures nothing, calls no segment eagerly and gives a fresh solver's
+    bits, launch counts and host syncs."""
+    st, d = lp_banded()
+    settings = pt.Settings(kkt_strategy="banded")
+    X = lanes_of(st, d, 2, seed=7)
+    Z = lanes_of(st, d, 2, seed=9)
+    bs = pt.BatchedSolver(st, settings, shared=SHARED, device="cpu")
+    first = bs.solve(X)
+    kept = {f: getattr(bs._last_dev, f) for f in SHARED}
+    bs.update_data(c=Z.c, b=Z.b)
+    assert all(getattr(bs._last_dev, f) is kept[f] for f in SHARED)
+    sol, counts, syncs, stats = counted(bs)
+    assert stats["captures"] == 0 and stats["eager"] == 0
+    want = fresh(st, settings, Z, monkeypatch)
+    assert same_solution(sol, want[0]) and (counts, syncs) == want[1:]
+    assert not same_solution(sol, first)
 
 
 @pytest.fixture(scope="module")

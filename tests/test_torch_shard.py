@@ -103,6 +103,34 @@ def test_sharded_rescue_is_unsharded(lanes):
     assert same_bits(sol.x, want.x) and same_bits(sol.info, want.info)
 
 
+def test_update_data_keeps_each_shards_shared_copies(lanes):
+    """``update_data(c=, b=)`` under a mesh of two: each shard keeps its
+    own G, A and h (the same tensors, their bytes counted as kept once a
+    shard), c and b are split and placed shard by shard, and the solve
+    equals each new half solved unsharded; c of another lane count
+    raises."""
+    from eicos_tpu_torch import graphs
+
+    st, probs = lanes
+    cfg = pt.Settings(kkt_strategy="banded")
+    bs = pt.BatchedSolver(st, cfg, shared=SHARED, mesh=CPU2)
+    bs.solve(pt.BatchedSolver.stack(probs, shared=SHARED))
+    before = bs._last_dev
+    new = pt.BatchedSolver.stack(probs[::-1], shared=SHARED)
+    graphs.reset_stats()
+    bs.update_data(c=new.c, b=new.b)
+    assert graphs.STATS["upload_bytes"] == 8 * (new.c.size + new.b.size)
+    assert graphs.STATS["kept_bytes"] == 2 * 8 * sum(
+        np.size(getattr(new, f)) for f in SHARED)
+    for i, (old, shard) in enumerate(zip(before, bs._last_dev)):
+        assert all(getattr(shard, f) is getattr(old, f) for f in SHARED)
+        assert torch.equal(shard.c, torch.as_tensor(new.c[2 * i:2 * i + 2]))
+        assert torch.equal(shard.b, torch.as_tensor(new.b[2 * i:2 * i + 2]))
+    assert same_bits(bs.solve(), unsharded_halves(st, probs[::-1], cfg))
+    with pytest.raises(ValueError, match="^c carries 2 lanes"):
+        bs.update_data(c=new.c[:2])
+
+
 def test_uneven_split_raises(lanes):
     st, probs = lanes
     batch = pt.BatchedSolver.stack(probs[:3], shared=SHARED)
