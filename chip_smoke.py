@@ -1570,6 +1570,7 @@ def check_loop_stamp(torch):
                          block + STAMP_CELLS)
     plain_ms = (time.perf_counter() - t0) * 1e3 / 64
     bound_ms, by = bound(6 * 8, 0)
+    err = max(err, check_stamp_on(torch))
     print(f"loop_stamp: stamp blocks against the plain versions on "
           f"{len(cases)} graphs ({STAMP_RING + 3} launches of the last), "
           f"max abs error {err}; {ms * 1e3:.2f} us a stamp "
@@ -1584,6 +1585,71 @@ def check_loop_stamp(torch):
                 launches=None, max_abs_err=float(err), ms=ms,
                 plain_ms=plain_ms, bound_ms=bound_ms, bound_by=by,
                 library_ms=None)
+
+
+def check_stamp_on(torch) -> int:
+    """``graph_loop.stamp_on``, the region stamps of a traced program with
+    cones, against ``loop_stamp_plain(..., ring=1, acc=...)``: a segment
+    captured with ``torch.cuda.graph`` on a ``graphs.Probes``-shaped
+    tensor holds three regions, the first entered twice (as the factor
+    enters "cones.kept_blocks"), each around a little work, and a copy of
+    the first region's (start, end) after its first run into spare cells.
+    Replayed 5 times, the card's cells are read after each replay, and the
+    plain version, fed the clock readings the card wrote, must give every
+    cell: the last stamp, the runs, the overwritten count, the stamp
+    count, the ring entry and the accumulator.  Returns the largest
+    difference."""
+    from eicos_tpu_torch.graphs import REGION_CELLS
+    from eicos_tpu_torch.ops.graph_loop import (END, RING, START,
+                                                loop_stamp_plain, stamp_on)
+
+    dev = torch.device("cuda", torch.cuda.current_device())
+    nreg = 3
+    spare = 1 + REGION_CELLS * nreg
+    cells = torch.zeros(spare + 2, dtype=torch.int64, device=dev)
+    x = torch.ones(1 << 16, dtype=torch.float64, device=dev)
+    blocks = [1 + REGION_CELLS * r for r in range(nreg)]
+    order = [0, 1, 0, 2]            # region 0 entered twice
+    graph = torch.cuda.CUDAGraph()
+    stream = torch.cuda.Stream(dev)
+    stream.wait_stream(torch.cuda.current_stream(dev))
+    with torch.cuda.stream(stream):
+        x.mul_(1.0)                 # warm the elementwise kernel
+        torch.cuda.synchronize(dev)
+        with torch.cuda.graph(graph, stream=stream):
+            for k, r in enumerate(order):
+                b = blocks[r]
+                stamp_on(cells, b, START)
+                x.mul_(1.0 + 1e-9 * (k + 1))
+                stamp_on(cells, b, END, acc=b + REGION_CELLS - 1)
+                if k == 0:
+                    cells[spare:spare + 2].copy_(cells[b + RING:b + RING + 2])
+    torch.cuda.current_stream(dev).wait_stream(stream)
+    cells.zero_()
+    torch.cuda.synchronize(dev)
+    host = torch.zeros_like(cells, device="cpu")
+    err = 0
+    for _ in range(5):
+        graph.replay()
+        got = cells.cpu()
+        for k, r in enumerate(order):
+            b = blocks[r]
+            at = spare if (r == 0 and k == 0) else b + RING
+            t0, t1 = int(got[at]), int(got[at + 1])
+            loop_stamp_plain(host, b, START, t0, ring=1)
+            loop_stamp_plain(host, b, END, t1, acc=b + REGION_CELLS - 1,
+                             ring=1)
+        host[spare:spare + 2] = got[spare:spare + 2]
+        err = max(err, int((got - host).abs().max()))
+    runs = [int(got[b + 1]) for b in blocks]
+    if runs != [10, 5, 5]:
+        fail(f"stamp_on: runs {runs}, want [10, 5, 5]")
+    del graph
+    print(f"stamp_on: 3 regions (one entered twice) in a captured segment, "
+          f"5 replays against loop_stamp_plain(ring=1), max abs error "
+          f"{err}; runs {runs}, accumulated ns "
+          f"{[int(got[b + REGION_CELLS - 1]) for b in blocks]}")
+    return err
 
 
 def perturbed_lanes(pt, st, base, lanes, nx, seed):

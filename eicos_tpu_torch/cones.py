@@ -160,22 +160,6 @@ def scale(st: ConeStructure, scal: Scaling, z):
     return torch.cat([lam_lp, lam_s], -1)
 
 
-def scale_winv_soc(st: ConeStructure, scal: Scaling, x_s):
-    """y = W^{-1} x on the (..., ms) SOC segment only: ``scale``'s SOC
-    branch with q -> -q and eta -> 1/eta (J-symmetry of the NT point)."""
-    if not st.n_sc:
-        return x_s
-    a, q = _bc(scal.a, x_s), _bc(scal.q_flat, x_s)
-    x0 = _heads(st, x_s)
-    zeta = seg_sum(st, q * x_s)
-    factor = x0 - zeta / (1.0 + a)
-    inv_eta = 1.0 / _bc(scal.eta, x_s)
-    head_val = inv_eta * (a * x0 - zeta)
-    return torch.where(
-        _k(st, x_s).is_head, _expand(st, head_val),
-        _expand(st, inv_eta) * (x_s - _expand(st, factor) * q))
-
-
 def scale2(st: ConeStructure, scal: Scaling, x):
     """y = W^2 x in the unexpanded closed form (EiCOS scale2add without the
     u/v expansion).  x is (L, m) or (L, k, m)."""

@@ -42,6 +42,11 @@
 // start is not zero has not been read yet (the host zeroes the ring when
 // it reads it): overwriting it counts in `overwritten`.  Each stamp node
 // counts its own launches in `stamps`, as S2 counts its trips.
+// A region inside a segment (the cone work of a program with cones) is
+// timed by the same kernel on a stamp block of its own with a ring of one
+// run: launched on the capturing stream at the region's start (kStart)
+// and end (kEnd, into the region's accumulator), the two launches become
+// kernel nodes of the segment's graph; `launches` counts the region's runs.
 //
 // The host functions build the program graph node by node (each node
 // depends on the one before it in its graph: the segments share one
@@ -307,6 +312,20 @@ const char* eicos_loop_stamp_now(int device, void* cell, void* stream) {
   if (e != cudaSuccess) return failed("cudaSetDevice", e);
   loop_stamp<<<1, 1, 0, (cudaStream_t)stream>>>((long long*)cell, 1, nullptr,
                                                 kNow);
+  e = cudaGetLastError();
+  if (e != cudaSuccess) return failed("loop_stamp launch", e);
+  return nullptr;
+}
+
+// One loop_stamp launch on `stream`: `phase` kStart or kEnd on the stamp
+// block `block` with a ring of `ring` runs (`acc`: the accumulator, for
+// kEnd).  Inside a segment's capture it becomes a node of that graph.
+const char* eicos_loop_stamp_on(int device, void* block, int ring, void* acc,
+                                int phase, void* stream) {
+  cudaError_t e = cudaSetDevice(device);
+  if (e != cudaSuccess) return failed("cudaSetDevice", e);
+  loop_stamp<<<1, 1, 0, (cudaStream_t)stream>>>((long long*)block, ring,
+                                                (long long*)acc, phase);
   e = cudaGetLastError();
   if (e != cudaSuccess) return failed("loop_stamp launch", e);
   return nullptr;

@@ -102,6 +102,16 @@ host spans of ``utils/timing`` into ``STATS`` "spans" (dicts of
 them.  ``host_driven()`` makes this thread's solves drive their segments
 from the host even where a program has composed.
 
+Probes (``Probes``, which the solver makes for a traced program of a
+structure with cones before its first capture, so that its segments'
+graphs hold them): the refinement steps of its solves (the finish adds
+each solve's, summed over the lanes) and, on the card, the device time of
+the cone regions inside its segments (``region(name)``: a stamp kernel at
+a region's start and end, on a stamp block of the region's own).  An LP
+program has none, so its graphs keep their nodes.  ``settle()`` reads them
+with the trip counters: ``STATS`` "refine_steps", "regions_ns" and
+"regions_runs" by region, keys that only a probed program adds.
+
 Failures raise: a capture, replay, composition or composed launch that
 fails raises ``RuntimeError`` naming the segment (or the CUDA call), and
 nothing runs the segment eagerly or the solve from the host instead.
@@ -110,6 +120,7 @@ nothing runs the segment eagerly or the solve from the host instead.
 from __future__ import annotations
 
 import contextlib
+import gc
 import threading
 import time
 import weakref
@@ -118,8 +129,9 @@ from typing import NamedTuple, Optional
 import torch
 
 from .ops import kernels
-from .ops.graph_loop import (END, LAST, OVERWRITTEN, RING, STAMP_CELLS,
-                             STAMP_RING, STAMPS, START)
+from .ops.graph_loop import (END, LAST, LAUNCHES, OVERWRITTEN, RING,
+                             STAMP_CELLS, STAMP_RING, STAMPS, START,
+                             stamp_on)
 from .utils import timing
 
 STATS: dict = {}
@@ -129,12 +141,63 @@ _TLS = threading.local()
 _SCALARS = (bool, int, float, str, type(None), torch.dtype, torch.device)
 _PENDING: "weakref.WeakSet" = weakref.WeakSet()   # programs to settle
 _STAMPED: "weakref.WeakSet" = weakref.WeakSet()   # traced composed programs
+_PROBED: "weakref.WeakSet" = weakref.WeakSet()    # programs with probes
+
+
+REGIONS = ("cones.scalings", "cones.kept_blocks", "cones.line_search")
+REGION_CELLS = RING + 2 + 1     # a region's stamp block (a ring of one run)
+#                                 and its accumulator
+
+
+class Probes:
+    """A traced program's probes on its device (module doc): ``cells`` is
+    int64, cell 0 the refinement steps, then ``REGION_CELLS`` a region of
+    ``regions`` (none off the card)."""
+
+    def __init__(self, device: torch.device):
+        self.regions = REGIONS if device.type == "cuda" else ()
+        self.cells = torch.zeros(1 + REGION_CELLS * len(self.regions),
+                                 dtype=torch.int64, device=device)
+
+    def block(self, name: str) -> int:
+        return 1 + REGION_CELLS * self.regions.index(name)
+
+    def count_steps(self, steps: torch.Tensor) -> None:
+        """Add ``steps`` (an integer tensor, summed) to the step count."""
+        self.cells[:1].add_(steps.sum())
+
+
+@contextlib.contextmanager
+def region(name: str):
+    """Time the block as the region ``name`` of the segment that runs it,
+    where that segment's program probes the region (module doc); else
+    nothing."""
+    pr = getattr(_TLS, "probes", None)
+    if pr is None or name not in pr.regions:
+        yield
+        return
+    b = pr.block(name)
+    stamp_on(pr.cells, b, START)
+    yield
+    stamp_on(pr.cells, b, END, acc=b + REGION_CELLS - 1)
+
+
+@contextlib.contextmanager
+def _probing(probes: Optional[Probes]):
+    prev = getattr(_TLS, "probes", None)
+    _TLS.probes = probes
+    try:
+        yield
+    finally:
+        _TLS.probes = prev
 
 
 def reset_stats() -> None:
     """Zero ``STATS`` and empty the span ring; composed launches not
-    settled yet are dropped (their counters read as the new start), and
-    every traced program on the card takes its clock's first point."""
+    settled yet are dropped (their counters read as the new start), every
+    program's probes read as their new start (what its first, host-driven
+    solve counted included), and every traced program on the card takes
+    its clock's first point."""
     for program in _take_pending():
         program.settle(add=False)
     with _LOCK:
@@ -145,7 +208,10 @@ def reset_stats() -> None:
                      segments_ns={}, launches=[], stamps_overwritten=0,
                      clock_err_ns=0, spans=[], spans_dropped=0)
         stamped = list(_STAMPED)
+        probed = list(_PROBED)
     timing.clear_spans()
+    for program in probed:
+        program.rebase_probes()
     for program in stamped:
         program.start_clock()
 
@@ -280,17 +346,26 @@ class _CudaGraph:
     def capture(self, fn, args):
         cur = torch.cuda.current_stream(self.stream.device)
         self.stream.wait_stream(cur)
-        with torch.cuda.device(self.stream.device), \
-                torch.cuda.stream(self.stream):
-            self.graph.capture_begin(pool=self.pool,
-                                     capture_error_mode="thread_local")
-            try:
-                out = fn(*args)
-            except BaseException:
-                with contextlib.suppress(Exception):
-                    self.graph.capture_end()
-                raise
-            self.graph.capture_end()
+        # no cyclic collection inside the capture: a collected solver's
+        # finalizer closes its program, and destroying a graph there
+        # invalidates this capture
+        collecting = gc.isenabled()
+        gc.disable()
+        try:
+            with torch.cuda.device(self.stream.device), \
+                    torch.cuda.stream(self.stream):
+                self.graph.capture_begin(pool=self.pool,
+                                         capture_error_mode="thread_local")
+                try:
+                    out = fn(*args)
+                except BaseException:
+                    with contextlib.suppress(Exception):
+                        self.graph.capture_end()
+                    raise
+                self.graph.capture_end()
+        finally:
+            if collecting:
+                gc.enable()
         cur.wait_stream(self.stream)
         return out
 
@@ -422,11 +497,16 @@ class Segment:
             return self._replay(args)
         if not self.program.graphed:
             _stat(eager=1)
-            return self.fn(*args)
+            return self._run(*args)
         self._warm_up(args)
         out = self._capture(args)
         self._launch(0)
         return out
+
+    def _run(self, *args):
+        """The function, with its program's probes on."""
+        with _probing(self.program.probes):
+            return self.fn(*args)
 
     @property
     def out(self):
@@ -460,8 +540,8 @@ class Segment:
         capture then finds every kernel built, cache filled and handle
         made."""
         with kernels.recording() as launched:
-            self.fn(*[clone(x) if i in self.writes else x
-                      for i, x in enumerate(args)])
+            self._run(*[clone(x) if i in self.writes else x
+                        for i, x in enumerate(args)])
         _stat(eager=1, warm=launched)
 
     def _capture(self, args):
@@ -478,7 +558,7 @@ class Segment:
         t0 = time.perf_counter()
         try:
             with kernels.recording() as delta:
-                out = graph.capture(self.fn,
+                out = graph.capture(self._run,
                                     _unflatten(self._spec, iter(self._static)))
         except Exception as e:
             raise RuntimeError(f"capturing segment {self.name!r} failed: "
@@ -541,6 +621,8 @@ class Program:
         self.composes = owner is not None and _composes(self.device)
         self.key = key
         self.inputs = self.state = self.parts = None
+        self.probes: Optional[Probes] = None    # where traced (``probe``)
+        self._probed: Optional[list] = None     # its cells at the settle
         self.captures = 0           # graphs captured by this program
         self._held: dict = {}       # id -> tensor, kept alive until close
         self._opaque: dict = {}     # id -> constant held as one argument
@@ -610,6 +692,23 @@ class Program:
         for t in tensors(out):
             self._keep(t)
         return out
+
+    def probe(self) -> Optional[Probes]:
+        """The program's probes, made once, before any capture, where
+        tracing is on (module doc); None where it is off."""
+        if self.probes is None and timing.tracing():
+            self.probes = Probes(self.device)
+            self._keep(self.probes.cells)
+            self._probed = [0] * self.probes.cells.shape[0]
+            with _LOCK:
+                _PROBED.add(self)
+        return self.probes
+
+    def rebase_probes(self) -> None:
+        """Read the probes' cells as the start of the next settle's count
+        (one host read)."""
+        if self.probes is not None:
+            self._probed = self.probes.cells.tolist()
 
     def segment(self, name: str, fn, writes=()) -> Segment:
         seg = Segment(self, name, fn, writes)
@@ -738,8 +837,15 @@ class Program:
             self.trips[st.block + RING:st.block + STAMP_CELLS].zero_()
             if point is not None:
                 self._clock[1:] = [(vals[st.block + LAST],) + point]
+        probed = None
+        if self.probes is not None:
+            pv = self.probes.cells.tolist()
+            probed = [v - s for v, s in zip(pv, self._probed)]
+            self._probed = pv
         if not add:
             return
+        if probed is not None:
+            self._add_probes(probed)
         counts = {"loop_cond": sum(delta[:self._counters])}
         if st is not None:
             counts["loop_stamp"] = delta[st.block + STAMPS]
@@ -759,6 +865,18 @@ class Program:
         run(self.plan, launches)
         kernels.add_counts(counts)
         _stat(counts, replays=replays)
+
+    def _add_probes(self, delta: list) -> None:
+        """What the probes counted since the last settle into ``STATS``."""
+        pr = self.probes
+        with _LOCK:
+            STATS["refine_steps"] = STATS.get("refine_steps", 0) + delta[0]
+            for name in pr.regions:
+                b = pr.block(name)
+                for key, v in (("regions_ns", delta[b + REGION_CELLS - 1]),
+                               ("regions_runs", delta[b + LAUNCHES])):
+                    cell = STATS.setdefault(key, {})
+                    cell[name] = cell.get(name, 0) + v
 
     def _add_stamps(self, st: Stamps, vals: list, delta: list,
                     first: int) -> None:
@@ -822,6 +940,7 @@ class Program:
         with _LOCK:
             _PENDING.discard(self)
             _STAMPED.discard(self)
+            _PROBED.discard(self)
         if self.loop is not None:
             self.loop.close()
         self._init_loop()
@@ -832,6 +951,7 @@ class Program:
         self._opaque.clear()
         self._pool = None
         self.inputs = self.state = self.parts = None
+        self.probes = self._probed = None
 
     def __enter__(self):
         return self

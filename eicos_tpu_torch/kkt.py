@@ -32,14 +32,17 @@ banded   K is RCM-permuted by the structure's ``BandPlan`` into blocks of
          H is never formed; its contributions (one per singleton row on
          the diagonal, a w x w outer product per scatter row, dI, and per
          cone either the eliminating closed form or, on a ``keep_soc``
-         plan, the NT-scaled kept block and coupling) are summed straight
-         into the diagonal and sub-diagonal blocks, on top of a
-         lane-invariant base of A, -dI and identity padding pivots.
-         Contributions that land above the band or on a padding column,
-         which the reference sends to a dump slot the band factor never
-         reads, are dropped.  With kept cones the factor holds S K S,
-         S = diag(W_s^-1, I, I): kept block -(I + d W^-2), coupling
-         W^-1 G_s, and ``solve_exact`` scales the kept rows in and out.
+         plan, the kept block and its coupling) are summed straight into
+         the diagonal and sub-diagonal blocks, on top of a lane-invariant
+         base of A, -dI and identity padding pivots.  Contributions that
+         land above the band or on a padding column, which the reference
+         sends to a dump slot the band factor never reads, are dropped.
+         The kept rows are in each cone's eigenbasis of W_s^2: the factor
+         holds R K R', R = diag(rot, I, I), a diagonal kept block
+         -(diag(lam) + dI) and the coupling rot G_s, and ``solve_exact``
+         rotates the kept rows in and out (``_soc_kept_vals``; the JAX
+         package factors the NT-scaled S K S, S = diag(W_s^-1, I, I), on
+         its TPU path and the unscaled K on its CPU).
 
          gathered from H (any bwb, no kept cones): the dense per-lane
          H (n, n) is assembled as for "reduced" and the blocks Kd (L, nb,
@@ -109,7 +112,7 @@ from typing import NamedTuple, Optional
 import numpy as np
 import torch
 
-from . import cones
+from . import cones, graphs
 from .ops.band import band_factor, band_solve
 from .ops.band_ldl import B, KP
 from .ops.gemm import matmul
@@ -194,7 +197,7 @@ def _band_gather_split(n: int, p: int, Dp: int, perm: np.ndarray,
     [A.ravel() | (-delta, 0, 1)].  Returns (diag maps, sub maps).
 
     ms == 0: K = [[H, A'], [A, -delta I]] over [x | y].  ms > 0 (kept
-    cones): K over [z_soc | x | y]; the per-lane NT-scaled blocks at the
+    cones): K over [z_soc | x | y]; the per-lane kept blocks at the
     z_soc coordinates map to the shared zero, and the direct scatter adds
     them.  Padding rows get identity pivots.  B is ``block``."""
     D = ms + n + p
@@ -258,7 +261,7 @@ def _band_scatter_idx(n: int, Dp: int, perm: np.ndarray, split,
 
     The soc part is either the H contributions on the ``SOCSplit`` column
     supports (eliminating layout, (n_sc, w, w)) or, with ``keep_q`` (the
-    cone dimensions of a ``keep_soc`` plan), the NT-scaled kept layout:
+    cone dimensions of a ``keep_soc`` plan), the kept layout:
     the per-cone blocks (n_sc, dmax, dmax) at the z_soc coordinates and
     the coupling (n_sc, dmax, w) in both orientations, of which the one
     inside the stored band survives; x coordinates shift by
@@ -449,6 +452,7 @@ class SocMaps(NamedTuple):
     valid: torch.Tensor   # (n_sc, dmax) bool
     head: torch.Tensor    # (n_sc, dmax) bool, the cone's first slot
     cols: torch.Tensor    # (n_sc, w) column support, pad n
+    flat: torch.Tensor    # (ms,) each SOC entry's place in (n_sc * dmax)
 
 
 @functools.lru_cache(maxsize=16)
@@ -457,6 +461,7 @@ def soc_maps(st: ProblemStructure, device: str) -> SocMaps:
     head = (np.arange(qidx.shape[1])[None, :] == 0) & valid
     return SocMaps(qidx=_t(qidx, device), valid=_t(valid, device, torch.bool),
                    head=_t(head, device, torch.bool),
+                   flat=_t(np.flatnonzero(valid), device),
                    cols=_t(np.asarray(st.socsplit.cols, np.int64).reshape(
                        st.n_sc, st.socsplit.width), device))
 
@@ -732,54 +737,95 @@ def _soc_pad(ctx: KKTContext, x_s):
         :, ctx.soc.qidx]
 
 
-def _soc_scaled_kept_vals(st, ctx: KKTContext, scal, delta, lanes: int):
-    """The per-cone NT-scaled kept blocks -(I + delta W^-2) as (L, n_sc,
-    dmax, dmax) padded values (``eicos_tpu.kkt._soc_scaled_kept_vals``),
-    with W^-2 = eta^-2 [a^2+w, -c q'; -c q, I + d q q'] per cone.  The
-    factor then holds S K S with S = diag(W^-1, I, I): its kept pivot
-    block is O(1) and solidly negative, which bounds the growth of the
-    unpivoted elimination by ~1/(2 sqrt(delta)).  Pad rows and columns
-    are zero and their targets are dropped."""
+def _soc_eig(ctx: KKTContext, scal):
+    """Each cone's W^2 in its eigenbasis, in closed form: (rot (L, n_sc,
+    dmax, dmax), lam (L, n_sc, dmax)) with W^2 = rot' diag(lam) rot on a
+    cone's slots.  With W = eta [a, q'; q, I + qq'/(1+a)], a^2 - q'q = 1,
+    and qh = q/|q|: rows (1, qh)/sqrt2 and (1, -qh)/sqrt2 with eigenvalues
+    eta^2 (a+|q|)^2 and eta^2 / (a+|q|)^2, then (0, u) for u an orthonormal
+    basis of qh's complement (the columns after the first of a Householder
+    reflector that maps e1 to -+qh), eigenvalue eta^2.  Pad rows and
+    columns are zero, pad eigenvalues 0."""
+    sm = ctx.soc
+    dmax = sm.qidx.shape[1]
+    if dmax == 1:                       # every cone is its head alone
+        return (scal.eta2.new_ones(*scal.eta2.shape, 1, 1),
+                scal.eta2[..., None])
+    dt, dev = scal.a.dtype, scal.a.device
+    valid = sm.valid.to(dt)
+    t = _soc_pad(ctx, scal.q_flat)[..., 1:]             # (L, n_sc, dmax-1)
+    nq = torch.linalg.vector_norm(t, dim=-1, keepdim=True)
+    e0 = torch.eye(dmax - 1, dtype=dt, device=dev)[0]
+    t = torch.where(nq > 0, t / torch.where(nq > 0, nq, 1.0), e0)
+    sgn = torch.where(t[..., :1] >= 0, 1.0, -1.0).to(dt)
+    h = t + sgn * e0
+    H = (torch.eye(dmax - 1, dtype=dt, device=dev)
+         - (2.0 / (h * h).sum(-1, keepdim=True))[..., None]
+         * h[..., :, None] * h[..., None, :])
+    r = 0.5 ** 0.5
+    one = torch.ones_like(t[..., :1])
+    rows = [torch.cat([one, t], -1) * r, torch.cat([one, -t], -1) * r]
+    if dmax > 2:
+        tails = H[..., :, 1:].transpose(-1, -2)         # (.., dmax-2, dmax-1)
+        rows.append(torch.cat([torch.zeros_like(tails[..., :1]), tails], -1))
+    rot = torch.cat([rows[0][..., None, :], rows[1][..., None, :]]
+                    + rows[2:], -2)
+    # a cone of dimension one is its head alone
+    e = torch.eye(dmax, dtype=dt, device=dev)[0]
+    rot = torch.where(sm.valid[:, 1, None, None], rot,
+                      torch.where(sm.head[:, :, None], e, 0.0))
+    rot = rot * valid[:, :, None] * valid[:, None, :]
+    big = (scal.a + nq[..., 0]) ** 2
+    lam = torch.cat([(scal.eta2 * big)[..., None],
+                     (scal.eta2 / big)[..., None],
+                     scal.eta2[..., None].expand(*scal.eta2.shape,
+                                                 dmax - 2)], -1)
+    lam = torch.where(sm.valid[:, 1, None], lam,
+                      torch.where(sm.head, scal.eta2[..., None], 0.0))
+    return rot, lam * valid
+
+
+def _soc_rotate(rot, x_s, ctx: KKTContext, transpose: bool = False):
+    """rot x (or rot' x) cone by cone over the SOC segment, x_s (L, k,
+    ms)."""
+    sm = ctx.soc
+    xp = torch.cat([x_s, x_s.new_zeros(*x_s.shape[:-1], 1)], -1)[
+        ..., sm.qidx]                                   # (L, k, n_sc, dmax)
+    R = rot.transpose(-1, -2) if transpose else rot
+    y = (R[:, None] @ xp[..., None])[..., 0]
+    return y.flatten(-2)[..., sm.flat]
+
+
+def _soc_kept_vals(st, ctx: KKTContext, scal, delta, lanes: int,
+                   eig=None):
+    """The per-cone kept blocks as (L, n_sc, dmax, dmax) padded values:
+    -(1 + delta) I at the identity scaling, else -(diag(lam) + delta I),
+    W^2 + delta I in each cone's eigenbasis (``_soc_eig``; ``eig`` is its
+    result, computed here when None).  The factor then holds R K R' with
+    R = diag(rot, I, I): its kept block is diagonal and the coupling is
+    rot G_soc, of the order of G.  A dense -(W^2 + delta I), whose
+    eigenvalues span (a + |q|)^4 ~ mu^-2 near an optimum, loses its small
+    eigenvalue to cancellation in the unpivoted elimination once that
+    span passes 1/eps, and the band factor's direction with it; the
+    NT-scaled S K S, S = diag(W^-1, I, I), moves the span into the
+    coupling W^-1 G_soc.  Pad rows and columns are zero and their targets
+    are dropped."""
     sm = ctx.soc
     dmax = sm.qidx.shape[1]
     eye = torch.eye(dmax, dtype=ctx.G.dtype, device=ctx.G.device)
     eye_v = eye * (sm.valid[:, :, None] & sm.valid[:, None, :])
     if scal is None:
         return (-(1.0 + delta) * eye_v).expand(lanes, -1, -1, -1)
-    cone = st.cone
-    inv_eta2 = 1.0 / scal.eta2
-    diag_flat = torch.where(
-        cones._k(cone, scal.a).is_head, cones._expand(cone, inv_eta2 * (scal.a * scal.a + scal.w)),
-        cones._expand(cone, inv_eta2))
-    dpad = _soc_pad(ctx, diag_flat)                     # (L, n_sc, dmax)
-    qpad = _soc_pad(ctx, scal.q_flat)
-    e = sm.head.to(qpad.dtype)
-    ec = (-inv_eta2 * scal.cc)[:, :, None, None]
-    ed = (inv_eta2 * scal.dd)[:, :, None, None]
-    W2i = (dpad[..., :, None] * eye
-           + ec * (e[:, :, None] * qpad[..., None, :]
-                   + qpad[..., :, None] * e[:, None, :])
-           + ed * qpad[..., :, None] * qpad[..., None, :])
-    return -(eye_v + delta * W2i)
+    lam = (eig if eig is not None else _soc_eig(ctx, scal))[1]
+    return -(lam[..., None] * eye + delta * eye_v)
 
 
-def _soc_coupling_vals(st, ctx: KKTContext, scal, lanes: int):
-    """The per-cone W^-1 G_soc coupling blocks (L, n_sc, dmax, w) on the
-    ``SOCSplit`` column supports (``eicos_tpu.kkt._soc_coupling_vals``).
-    W^-1 = eta^-1 [a, -q'; -q, I + qq'/(1+a)] per cone:
-    head row  = eta^-1 (a g0 - q'G1),
-    tail rows = eta^-1 (G1 - q (g0 - q'G1/(1+a)))."""
-    Gsub = ctx.soc_gsub
-    if scal is None:
-        return Gsub.expand(lanes, *Gsub.shape[-3:])
-    qpad = _soc_pad(ctx, scal.q_flat)
-    qG = (qpad[..., None] * Gsub).sum(-2)               # q'G1, (L, n_sc, w)
-    g0 = Gsub[..., 0, :]
-    head = scal.a[..., None] * g0 - qG
-    t = -(g0 - qG / (1.0 + scal.a)[..., None])
-    tails = Gsub + qpad[..., None] * t[..., None, :]
-    out = torch.where(ctx.soc.head[:, :, None], head[..., None, :], tails)
-    return out * (1.0 / scal.eta)[..., None, None]
+def _soc_coupling_vals(ctx: KKTContext, eig, lanes: int):
+    """The kept rows' coupling on the ``SOCSplit`` column supports, (L,
+    n_sc, dmax, w): G_soc at the identity scaling (``eig`` None), else rot
+    G_soc in each cone's eigenbasis (``_soc_eig``)."""
+    g = ctx.soc_gsub if eig is None else eig[0] @ ctx.soc_gsub
+    return g.expand(lanes, *g.shape[-3:])
 
 
 def _soc_band_vals(st, ctx: KKTContext, scal, delta, lanes: int):
@@ -816,11 +862,14 @@ def _soc_band_vals(st, ctx: KKTContext, scal, delta, lanes: int):
     return b1 * gram - b1 * b1 * corr
 
 
-def _band_scatter_vals(st, ctx: KKTContext, winv_lp, delta, scal=None):
+def _band_scatter_vals(st, ctx: KKTContext, winv_lp, delta, scal=None,
+                       eig=None):
     """Per-lane contributions ordered as the scatter targets: [spr | sing
     | dI | soc], the soc part being the eliminating closed form or, on a
     ``keep_soc`` plan, the kept blocks and then the coupling twice (once
-    per orientation)."""
+    per orientation): G_soc at the identity scaling, else rot G_soc in
+    each cone's eigenbasis (``_soc_kept_vals``; ``eig`` is ``_soc_eig``'s
+    result, computed here when None)."""
     lanes = winv_lp.shape[0]
     vals = []
     if ctx.spr_outer is not None:
@@ -829,25 +878,30 @@ def _band_scatter_vals(st, ctx: KKTContext, winv_lp, delta, scal=None):
         vals.append(_sing_vals(ctx, winv_lp))
     vals.append(winv_lp.new_full((lanes, st.n), delta))
     if st.n_sc and ctx.keep_soc:
-        vals.append(_soc_scaled_kept_vals(st, ctx, scal, delta,
-                                          lanes).reshape(lanes, -1))
-        coup = _soc_coupling_vals(st, ctx, scal, lanes).reshape(lanes, -1)
-        vals += [coup, coup]
+        with graphs.region("cones.kept_blocks"):
+            if scal is not None and eig is None:
+                eig = _soc_eig(ctx, scal)
+            vals.append(_soc_kept_vals(st, ctx, scal, delta, lanes,
+                                       eig).reshape(lanes, -1))
+            coup = _soc_coupling_vals(ctx, eig, lanes).reshape(lanes, -1)
+        vals += [coup] * 2
     elif st.n_sc:
         vals.append(_soc_band_vals(st, ctx, scal, delta,
                                    lanes).reshape(lanes, -1))
     return torch.cat(vals, -1)
 
 
-def band_blocks(st, ctx: KKTContext, winv_lp, delta, scal=None):
+def band_blocks(st, ctx: KKTContext, winv_lp, delta, scal=None, eig=None):
     """The per-lane band blocks (Kd, Ks), each (L, nb, B, B), of the
-    direct scatter: the base plus the scattered contributions."""
+    direct scatter: the base plus the scattered contributions (with kept
+    cones, their rows in each cone's eigenbasis, ``_soc_kept_vals``)."""
     lanes = winv_lp.shape[0]
     Dp = ctx.band.Dp
     nbb = (Dp // B) * B * B
     buf = winv_lp.new_zeros(lanes, 2 * nbb)
     buf[:, ctx.band.scatter.targets] = segment_sum(
-        ctx.band.scatter, _band_scatter_vals(st, ctx, winv_lp, delta, scal))
+        ctx.band.scatter,
+        _band_scatter_vals(st, ctx, winv_lp, delta, scal, eig))
     bufb = buf.view(lanes, 2, Dp // B, B, B)
     return ctx.Kd0 + bufb[:, 0], ctx.Ks0[..., 0, :, :] + bufb[:, 1]
 
@@ -1000,7 +1054,8 @@ class ExactSolve(NamedTuple):
     winv_lp: Optional[torch.Tensor]  # (L, l) (W_lp^2 + dI)^{-1}
     delta: float
     gemm_dtype: Optional[torch.dtype] = None  # the scan's product type
-    scaled_kept: bool = False        # the factor holds S K S (kept cones)
+    rot: Optional[torch.Tensor] = None  # (L, n_sc, dmax, dmax): the kept
+    #                                     rows' eigenbases (``_soc_eig``)
 
     def __call__(self, rhs):
         return solve_exact(self, rhs)
@@ -1045,14 +1100,15 @@ def solve_exact(es: ExactSolve, rhs):
     rhs = rhs.to(fdtype)
     bx, by, bz = rhs[..., :n], rhs[..., n:n + p], rhs[..., n + p:]
     bz_e, bz_s = bz[..., :me], bz[..., me:]
-    if es.scaled_kept:
-        bz_s = cones.scale_winv_soc(st.cone, es.scal, bz_s)
     if not me:
         r1 = bx
     elif oz:
         r1 = ctx.sGe.rmatmul_fused(_welim(es, bz_e), base=bx)
     else:
         r1 = bx + _welim(es, bz_e) @ Ge
+    if es.rot is not None:
+        with graphs.region("cones.kept_blocks"):
+            bz_s = _soc_rotate(es.rot, bz_s, ctx)
     rr = torch.cat([bz_s, r1, by,
                     rhs.new_zeros(*rhs.shape[:-1], Dp - D)], -1)
     if es.kind == "dense":
@@ -1062,8 +1118,9 @@ def solve_exact(es: ExactSolve, rhs):
         x = band_solve(es.fac, rr[..., maps.perm],
                        gemm_dtype=es.gemm_dtype)[..., maps.iperm]
     dzs = x[..., :ms]
-    if es.scaled_kept:
-        dzs = cones.scale_winv_soc(st.cone, es.scal, dzs)
+    if es.rot is not None:
+        with graphs.region("cones.kept_blocks"):
+            dzs = _soc_rotate(es.rot, dzs, ctx, transpose=True)
     dx, dy = x[..., ms:ms + n], x[..., ms + n:D]
     if not me:
         dz_e = bz_e
@@ -1085,10 +1142,7 @@ def factor(st: ProblemStructure, ctx: KKTContext,
     Except under "full", the factored system runs over [z_soc | x | y]
     with the ``ms`` kept SOC rows first (none when the cones are
     eliminated), and the ``me`` eliminated rows of G enter through the
-    exact Schur complement.  On the banded direct scatter with kept cones
-    the factor holds S K S with S = diag(W^-1, I, I), and the kept rows of
-    the right-hand side and of the solution pass through
-    ``cones.scale_winv_soc``.  Under ``factor_dtype="float32"`` the
+    exact Schur complement.  Under ``factor_dtype="float32"`` the
     assembly, the factor and ``solve_exact`` compute in f32 and the
     directions are cast back."""
     if settings.kkt_strategy == "full":
@@ -1114,10 +1168,13 @@ def factor(st: ProblemStructure, ctx: KKTContext,
     # the scan's product type (``ops/band.py`` reads it only there)
     gdt = torch.float32 if settings.band_gemm == "float32" else None
     if maps.scatter is not None:
-        fac = band_factor(*band_blocks(st, ctx, winv_lp, delta, scal))
+        eig = None
+        if ctx.keep_soc and scal is not None:
+            with graphs.region("cones.kept_blocks"):
+                eig = _soc_eig(ctx, scal)
+        fac = band_factor(*band_blocks(st, ctx, winv_lp, delta, scal, eig))
         return ExactSolve(kind="band", fac=fac, gemm_dtype=gdt,
-                          scaled_kept=ctx.keep_soc and scal is not None,
-                          **common)
+                          rot=None if eig is None else eig[0], **common)
     if ctx.keep_soc:
         # a keep_soc plan off the scatter path: the unscaled dense K
         src = dense_matrix(st, ctx, scal, winv_lp, delta)
@@ -1156,14 +1213,31 @@ class RefineState(NamedTuple):
     thresh: torch.Tensor     # (L, k), read only
 
 
+def _ecos_z(ctx: KKTContext) -> bool:
+    """True where refinement targets the unregularized z block, as ECOS's
+    kkt_solve does (ez = bz - G dx + W^2 dz): the banded kept-cone layout
+    in f64.  Refined against the regularized operator, a direction keeps
+    d dz in the primal cone rows, and where a degenerate cone program's
+    duals still move near its optimum that d dz slows the primal residual
+    (the powered-descent SOCP at 20 steps, 128 lanes on the CPU: 32.7
+    iterations a lane against 36.5).  The other layouts, and an f32
+    factor, keep the reference's regularized z block, so that their
+    refined directions stay the JAX package's; on the LP cells ECOS's rule
+    leaves every lane's iterations as they are."""
+    return (ctx.keep_soc and ctx.band is not None
+            and ctx.Gf.dtype == torch.float64)
+
+
 def residual(st: ProblemStructure, ctx: KKTContext, scal, rhs, settings,
              dx, dy, dz):
-    """The residual of (dx, dy, dz) against the exact regularized operator
-    and its largest entry per column:
+    """The residual of (dx, dy, dz) against the operator that refinement
+    targets, and its largest entry per column:
     ex = bx - G'dz - d dx - A'dy;  ey = by - A dx + d dy;
-    ez = bz - G dx + W^2 dz + d dz.  On the operands each product and its
-    tail is one fused call (``spmv.fused_tail``: y - d * x as y + (-d) * x,
-    the same bits)."""
+    ez = bz - G dx + W^2 dz + d dz, the exact regularized operator, as in
+    the reference; on the banded kept-cone layout (``_ecos_z``) ez = bz -
+    G dx + W^2 dz, the unregularized z block of ECOS's kkt_solve.  On the
+    operands each product and its tail is one fused call
+    (``spmv.fused_tail``: y - d * x as y + (-d) * x, the same bits)."""
     n, p, m = st.n, st.p, st.m
     delta = settings.deltastat
     G, A = ctx.G, ctx.A
@@ -1171,12 +1245,13 @@ def residual(st: ProblemStructure, ctx: KKTContext, scal, rhs, settings,
     bx, by, bz = rhs[..., :n], rhs[..., n:n + p], rhs[..., n + p:]
     Wdz = (dz if scal is None or not m
            else cones.scale2(st.cone, scal, dz))
+    dz_reg = None if _ecos_z(ctx) else dz     # the d dz term, or none
     if m and p and ctx.sGA is not None:
         ex = ctx.sGA.rmatmul_fused(dz, dy, base=bx, op="sub",
                                    gamma=-delta, x=dx)
         eyz = ctx.sAGT.rmatmul_fused(dx, base=(by, bz), op="sub",
                                      w=(None, Wdz), gamma=delta,
-                                     x=(dy, dz), split=p)
+                                     x=(dy, dz_reg), split=p)
         ey, ez = eyz[..., :p], eyz[..., p:]
     elif ctx.sG is not None:
         ex = (ctx.sG.rmatmul_fused(dz, base=bx, op="sub", gamma=-delta,
@@ -1186,14 +1261,16 @@ def residual(st: ProblemStructure, ctx: KKTContext, scal, rhs, settings,
         ey = (ctx.sAT.rmatmul_fused(dx, base=by, op="sub", gamma=delta,
                                     x=dy) if p else by)
         ez = (ctx.sGT.rmatmul_fused(dx, base=bz, op="sub", w=Wdz,
-                                    gamma=delta, x=dz) if m else bz)
+                                    gamma=delta, x=dz_reg) if m else bz)
     else:
         Gt, At = G.transpose(-1, -2), A.transpose(-1, -2)
         ex = bx - (dz @ G if m else 0.0) - delta * dx
         if p:
             ex = ex - dy @ A
         ey = (by - dx @ At + delta * dy) if p else by
-        ez = (bz - dx @ Gt + Wdz + delta * dz) if m else bz
+        ez = bz - dx @ Gt + Wdz if m else bz
+        if m and dz_reg is not None:
+            ez = ez + delta * dz_reg
     nerr = ex.abs().amax(-1) if n else rhs.new_zeros(lanes, K)
     if m:
         nerr = torch.maximum(nerr, ez.abs().amax(-1))

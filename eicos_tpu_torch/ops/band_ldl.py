@@ -19,10 +19,11 @@ its arithmetic, bound the scan on the card.
 The ``*_plain`` functions are the plain twins of the CUDA kernels in
 ``ops/band.py``: the same function, in f64, with the plain leaf of
 ``eicos_tpu.ops.ldl`` (``_unblocked_ldl``: unpivoted rank-1 elimination,
-pivots clamped at +-1e-150; ``_unit_lower_inv``: Newton-Schulz doubling)
-on every device.  They run wherever a tensor lies on the CPU (the tests,
-and the solver on ``device="cpu"``), and ``chip_smoke.py`` holds the
-kernels against them on the card.
+pivots clamped at +-1e-150) and the unit-lower inverse by substitution, as
+the leaf kernel computes it (``_unit_lower_inv``; the reference doubles by
+Newton-Schulz), on every device.  They run wherever a tensor lies on the
+CPU (the tests, and the solver on ``device="cpu"``), and ``chip_smoke.py``
+holds the kernels against them on the card.
 
 Factor of one lane, block rows k = 0..nb-1 (Ks[0] is never read):
 
@@ -104,16 +105,17 @@ def _unblocked_ldl(M: torch.Tensor):
 
 
 def _unit_lower_inv(L: torch.Tensor) -> torch.Tensor:
-    """Inverse of unit lower-triangular (lanes, B, B) blocks by Newton-Schulz
-    doubling: X <- X (2I - L X) from X = 2I - L, exact after ceil(log2 B)
-    steps up to rounding."""
-    Bn = L.shape[-1]
-    steps = max(1, int(np.ceil(np.log2(Bn))))
-    eye2 = 2.0 * torch.eye(Bn, dtype=L.dtype, device=L.device)
-    X = eye2 - L
-    for _ in range(steps):
-        X = X @ (eye2 - L @ X)
-    return X
+    """Inverse of unit lower-triangular (lanes, B, B) blocks by
+    substitution (a triangular solve against I), as the leaf kernel
+    inverts (``csrc/leaf.cuh``).  The reference's Newton-Schulz doubling,
+    X <- X (2I - L X), forms products of L's and X's largest entries: once
+    an ill-conditioned KKT block puts entries of 1e8 and more in L, their
+    rounding swamps X's small entries and a band solve loses every digit,
+    where substitution keeps the solve's error at the matrix's condition
+    number (a second-order cone program near its optimum)."""
+    eye = torch.eye(L.shape[-1], dtype=L.dtype, device=L.device)
+    return torch.linalg.solve_triangular(L, eye.expand_as(L), upper=False,
+                                         unitriangular=True)
 
 
 def band_factor_plain(Kd: torch.Tensor, Ks: torch.Tensor) -> BandFactors:

@@ -21,6 +21,8 @@ is ``STAMP_CELLS`` int64 cells of the program's trip-counter tensor: the
 last stamp, the launches made, the ring entries overwritten before the
 host read them, the stamp nodes' own launches, then a ring of
 ``STAMP_RING`` (start, end) pairs.
+``stamp_on`` launches the stamp kernel on a stream, so that a segment's
+capture holds it: a region inside the segment, on a block of its own.
 ``loop_stamp_plain`` and the stamped ``loop_cond_plain`` are the plain
 versions, on a clock the caller passes.
 
@@ -74,6 +76,30 @@ def loop_stamp_plain(trips: torch.Tensor, block: int, phase: int, now: int,
             trips[block + LAUNCHES] = i + 1
         trips[block + STAMPS] += 1
     trips[block + LAST] = now
+
+
+def stamp_on(cells: torch.Tensor, block: int, phase: int,
+             acc=None) -> None:
+    """One stamp kernel launch on the current stream (a node of the
+    segment's graph where that stream captures): ``START`` or ``END``
+    (which adds the time since the start to ``cells[acc]``) on the stamp
+    block at ``cells[block]``, a ring of one run (a region's block,
+    ``graphs.Probes``).  Counted under ``loop_stamp``."""
+    dev = cells.device
+    if not (cells.dtype == torch.int64 and cells.dim() == 1
+            and 0 <= block and block + RING + 2 <= cells.shape[0]
+            and (acc is None or 0 <= acc < cells.shape[0])):
+        raise ValueError(f"stamp_on: block {block}, acc {acc} of "
+                         f"{cells.dtype} {tuple(cells.shape)}")
+    base = cells.data_ptr()
+    err = kernels.lib("graph_loop").eicos_loop_stamp_on(
+        dev.index if dev.index is not None else torch.cuda.current_device(),
+        base + 8 * block, 1, None if acc is None else base + 8 * acc, phase,
+        torch.cuda.current_stream(dev).cuda_stream)
+    if err is not None:
+        raise RuntimeError(f"eicos_loop_stamp_on: "
+                           f"{err.decode(errors='replace')}")
+    kernels.count("loop_stamp")
 
 
 class LoopGraph:

@@ -82,6 +82,7 @@ LIBS = {
                                         _PP],
                     "eicos_loop_stamp": [_P, _P, _P, _I, _P, _I, _PP],
                     "eicos_loop_stamp_now": [_I, _P, _P],
+                    "eicos_loop_stamp_on": [_I, _P, _I, _P, _I, _P],
                     "eicos_loop_check": [_P],
                     "eicos_loop_instantiate": [_I, _P, _P, _PP],
                     "eicos_loop_launch": [_I, _P, _P],

@@ -10,12 +10,13 @@ unit-lower inverse Linv = L^{-1} and d.  Only the lower triangle of M is
 read.  For a CUDA tensor the wrapper launches the kernel of the tensor's
 type and counts the launch in ``kernels.COUNTS`` (``leaf_ldl`` or
 ``leaf_ldl_f32``); for a CPU tensor it runs the plain version, the
-reference's ``_unblocked_ldl`` + ``_unit_lower_inv`` (``ops/band_ldl.py``).
+reference's ``_unblocked_ldl`` and the inverse by substitution
+(``ops/band_ldl.py``).
 
 Of the reference's two f32 leaves the XLA one clamps its pivots at 1e-20
 and the Pallas one does not; the port clamps in the kernel and in the
 plain version.  Both f32 kernels and the plain version compute in f32
-throughout; the kernel inverts L by substitution, the plain version and
+throughout; the kernel and the plain version invert L by substitution,
 the TPU kernel by Newton-Schulz doubling.
 """
 

@@ -24,11 +24,9 @@ class BandPlan:
     """RCM permutation (over the padded reduced dimension) + block band.
 
     ``keep_soc``: the plan covers [z_soc | x | y] (ms + n + p) with the
-    per-cone SOC blocks kept in the factor in NT-scaled form (kept block
-    -(I + delta W^-2), coupling W^-1 G_soc; ``kkt._soc_scaled_kept_vals``):
-    eliminating the cones squares their conditioning, and keeping them
-    unscaled lets the unpivoted elimination grow like 1/delta once cone
-    eigenvalues fall below delta.  False: [x | y] (n + p) with every G row
+    per-cone SOC blocks kept in the factor (in each cone's eigenbasis of
+    W^2, ``kkt._soc_kept_vals``): eliminating the cones squares their
+    conditioning.  False: [x | y] (n + p) with every G row
     eliminated."""
 
     perm: tuple   # (Dp,) new->old index map; identity on padding rows
@@ -48,9 +46,9 @@ def make_band_plan(st: ProblemStructure, G, A, block: int = 128,
     ``keep_soc=False``: the fully eliminated KKT, H = G'G (plus diag) and
     the A blocks over [x | y].  ``keep_soc=True`` (needs cones): the
     partially eliminated KKT over [z_soc | x | y], per-cone dense blocks,
-    the coupling on each cone's union column support (W^-1 mixes the rows
-    within a cone), H_lp = G_lp'G_lp and the A blocks.  The permutation
-    covers the padded dimension (identity on padding)."""
+    the coupling on each cone's union column support (the eigenbasis
+    mixes the rows within a cone), H_lp = G_lp'G_lp and the A blocks.  The
+    permutation covers the padded dimension (identity on padding)."""
     import scipy.sparse as sp
 
     n, p = st.n, st.p

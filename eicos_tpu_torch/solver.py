@@ -443,6 +443,9 @@ def _parts(program: graphs.Program, st: ProblemStructure,
     sel_rows = torch.arange(nh, device=device)
     false = fill(False, torch.bool)
     program.hold((consts, e_vec, sel_rows, false))
+    # a traced program's refinement count and cone regions (``graphs``),
+    # where the structure has cones: an LP program's graphs keep their nodes
+    probes = program.probe() if st.n_sc else None
 
     def prologue(G, A, c, h, b) -> _Prologue:
         """Equilibration, the KKT context, the init factor (identity
@@ -549,7 +552,8 @@ def _parts(program: graphs.Program, st: ProblemStructure,
 
         # ---- step computation; lanes exiting now need no step
         stepping = ~stt.done & ~exit_now
-        scal, lam = cones.update_scalings(cone, w.s, w.z)
+        with graphs.region("cones.scalings"):
+            scal, lam = cones.update_scalings(cone, w.s, w.z)
         solve = kkt.factor(st, ctx, scal, settings, lanes)
         rhs_aff = torch.cat([rx, -ry, w.s - rz], -1)
         rhs = torch.stack([stt.rhs1, rhs_aff], 1)
@@ -578,9 +582,10 @@ def _parts(program: graphs.Program, st: ProblemStructure,
         W_dzaff = cones.scale(cone, scal, dzaff)
         dsaff_by_W = -W_dzaff - lam
         dkapaff = -w.kap - w.kap / w.tau * dtauaff
-        step_aff = cones.line_search(cone, lam, dsaff_by_W, W_dzaff,
-                                     w.tau, dtauaff, w.kap, dkapaff,
-                                     settings.stepmin, settings.stepmax)
+        with graphs.region("cones.line_search"):
+            step_aff = cones.line_search(cone, lam, dsaff_by_W, W_dzaff,
+                                         w.tau, dtauaff, w.kap, dkapaff,
+                                         settings.stepmin, settings.stepmax)
         oms_aff = 1.0 - step_aff
         sigma = torch.clamp(oms_aff * (oms_aff * oms_aff),
                             settings.sigmamin, settings.sigmamax)
@@ -620,9 +625,10 @@ def _parts(program: graphs.Program, st: ProblemStructure,
         W_dz = cones.scale(cone, scal, dz)
         ds_by_W = -(b_.lam_ds + W_dz)
         dkap = -(bkap + w.kap * dtau) / w.tau
-        step = settings.gamma * cones.line_search(
-            cone, lam, ds_by_W, W_dz, w.tau, dtau, w.kap, dkap,
-            settings.stepmin, settings.stepmax)
+        with graphs.region("cones.line_search"):
+            step = settings.gamma * cones.line_search(
+                cone, lam, ds_by_W, W_dz, w.tau, dtau, w.kap, dkap,
+                settings.stepmin, settings.stepmax)
         ds_final = cones.scale(cone, scal, ds_by_W)
         sc = step[:, None]
         stepped = w._replace(
@@ -646,6 +652,11 @@ def _parts(program: graphs.Program, st: ProblemStructure,
 
     def finish(stt: LoopState, pro: _Prologue) -> Solution:
         eq = pro.eq
+        if probes is not None:
+            # every refined solve's steps: the init systems' in row 0, each
+            # iteration's three in its row, zeros past a lane's last
+            h = stt.hist
+            probes.count_steps(h.nitref1 + h.nitref2 + h.nitref3)
         return _finish_solution(st, settings, eq, stt, pro.ctx,
                                 (eq.c, eq.h, eq.b), pro.res0s)
 

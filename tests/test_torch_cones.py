@@ -82,9 +82,6 @@ test_scale2_inv = _vec("scale2_inv", jc.scale2_inv, pc.scale2_inv)
 test_scale2reg_inv = _vec(
     "scale2reg_inv", lambda st, sc, x: jc.scale2reg_inv(st, sc, 7e-8, x),
     lambda st, sc, x: pc.scale2reg_inv(st, sc, 7e-8, x))
-test_scale_winv_soc = _vec(
-    "scale_winv_soc", lambda st, sc, x: jc.scale_winv_soc(st, sc, x[L:]),
-    lambda st, sc, x: pc.scale_winv_soc(st, sc, x[:, L:]))
 
 
 def test_scale2_takes_stacked_columns(data):

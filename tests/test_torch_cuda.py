@@ -1222,9 +1222,11 @@ GRAPH_CASES = ["banded-lp", "banded-socp", "wide", "scan", "block64",
 @pytest.mark.parametrize("case", GRAPH_CASES)
 def test_graphed_solve_equals_eager(cuda, monkeypatch, case):
     """A solve whose loop runs as captured graphs against the same solve
-    with every segment called eagerly: exit codes, iterations, x, y, z,
-    s and the refinement counts bit for bit, the same kernel launch
-    counts and host syncs; the graphed one captured and replayed."""
+    with every segment called eagerly (with its program's probes, as an
+    eager segment runs): exit codes, iterations, x, y, z, s and the
+    refinement counts bit for bit, the same kernel launch counts (a
+    structure with cones: its region stamps too) and host syncs; the
+    graphed one captured and replayed."""
     import eicos_tpu_torch as pt
     from eicos_tpu_torch import corpus, graphs
 
@@ -1233,7 +1235,7 @@ def test_graphed_solve_equals_eager(cuda, monkeypatch, case):
     assert stats["captures"] >= 3 and stats["replays"] > stats["captures"]
     with monkeypatch.context() as mp:
         mp.setattr(graphs.Segment, "__call__",
-                   lambda self, *args: self.fn(*args))
+                   lambda self, *args: self._run(*args))
         mp.setattr(graphs.Program, "compose", lambda self, steps: None)
         want, wcounts, wsyncs, wstats, wrescued = _counted(torch, st, batch,
                                                            kw)
@@ -1292,6 +1294,45 @@ def test_host_read_inside_a_capture_raises(cuda, monkeypatch):
     torch.cuda.synchronize()
 
 
+def test_a_collected_solver_closes_outside_a_capture(cuda, monkeypatch):
+    """A kept solver, its program composed, becomes cyclic garbage inside
+    another solver's capture: the cyclic collector is off there (a
+    collected solver's finalizer closes its program, and destroying a
+    graph inside a capture invalidates the capture), on again after it,
+    the solve ends OPTIMAL, and the old program closes at the next
+    collection."""
+    import gc
+
+    import eicos_tpu_torch as pt
+    from eicos_tpu_torch import cones, corpus
+
+    st, batch, kw = _graph_case(pt, corpus, "banded-lp")
+    old = pt.BatchedSolver(st, **kw)
+    old.solve(batch)
+    old.solve(batch)
+    program = old._programs[0]
+    assert program.loop is not None
+    old.cycle = old
+    holder = [old]
+    del old
+    real = cones.update_scalings
+    seen = []
+
+    def dropping(*args, **kwargs):
+        if torch.cuda.is_current_stream_capturing():
+            holder.clear()              # the old solver is garbage now
+            seen.append(gc.isenabled())
+        return real(*args, **kwargs)
+
+    monkeypatch.setattr(cones, "update_scalings", dropping)
+    assert gc.isenabled()
+    sol = pt.BatchedSolver(st, **kw).solve(batch)
+    assert seen and not any(seen) and gc.isenabled()
+    assert sol.exit_code.tolist() == [0] * sol.exit_code.shape[0]
+    gc.collect()
+    assert program.loop is None
+
+
 def test_graphed_solves_release_their_pools(cuda):
     """Repeated graphed solves of the dense path (cuBLAS inside the
     captured factor) leave no graph pool behind: after the cache is
@@ -1335,8 +1376,9 @@ def test_repeated_solves_replay_a_kept_program(cuda, case):
     new: rows rescaled), then X: the later solves capture nothing, call
     no segment eagerly and are one composed launch with 0 host syncs, and
     each gives a fresh solver's bits and, settled, its launch counts (its
-    loop tests as S2 launches); the first result is unchanged at the
-    end."""
+    loop tests as S2 launches, and the launch's two stamps beside the
+    region stamps that a structure with cones has in both); the first
+    result is unchanged at the end."""
     import eicos_tpu_torch as pt
     from eicos_tpu_torch import corpus, graphs
     from test_torch_program import rescaled
@@ -1355,7 +1397,8 @@ def test_repeated_solves_replay_a_kept_program(cuda, case):
         for f in ("exit_code", "x", "y", "z", "s"):
             assert torch.equal(getattr(got, f), getattr(want, f)), f
         assert torch.equal(got.info.iter, want.info.iter)
-        assert counts == dict(wcounts, loop_cond=wsyncs, loop_stamp=2)
+        assert counts == dict(wcounts, loop_cond=wsyncs,
+                              loop_stamp=wcounts.get("loop_stamp", 0) + 2)
         assert got.exit_code.tolist() == [0] * got.exit_code.shape[0]
     for a, b in zip(graphs.tensors(first), graphs.tensors(kept)):
         assert torch.equal(a.nan_to_num(7.0), b.nan_to_num(7.0))
@@ -1519,8 +1562,9 @@ def test_composed_solve_equals_host_replay(cuda, monkeypatch, case):
     the same program's host-driven replay (exit codes, iterations, x, y,
     z, s, the refinement counts), 0 host syncs against the replay's one a
     loop test, and, settled, the replay's launch counts with each loop
-    test an S2 launch (and the two stamps of a traced launch); the
-    replay is ``graphs.host_driven()``'s."""
+    test an S2 launch (and the two stamps of a traced launch beside the
+    region stamps that a structure with cones has in both); the replay is
+    ``graphs.host_driven()``'s."""
     import eicos_tpu_torch as pt
     from eicos_tpu_torch import corpus, graphs
 
@@ -1541,7 +1585,9 @@ def test_composed_solve_equals_host_replay(cuda, monkeypatch, case):
         assert torch.equal(getattr(got, f), getattr(want, f)), f
     for f in ("iter", "nitref1", "nitref2", "nitref3", "pcost"):
         assert torch.equal(getattr(got.info, f), getattr(want.info, f)), f
-    assert counts == dict(wcounts, loop_cond=wsyncs, loop_stamp=2)
+    assert counts == dict(wcounts, loop_cond=wsyncs,
+                          loop_stamp=wcounts.get("loop_stamp", 0) + 2)
+    assert (wcounts.get("loop_stamp", 0) > 0) == (case == "banded-socp")
 
 
 def test_disallowed_node_in_a_loop_raises(cuda):
@@ -1645,7 +1691,9 @@ def test_stamps_time_each_segment_of_composed_solves(cuda):
 def test_trace_off_gives_the_same_bits(cuda, monkeypatch):
     """The same composed solve with tracing on and off
     (``EICOS_TORCH_TRACE=0`` as the program composes): the same answer
-    bits, and launch counts that differ by the two stamps alone."""
+    bits, and launch counts that differ by the stamp kernel alone: the
+    launch's two and two a run of each cone region (``graphs.Probes``;
+    the structure has cones)."""
     import eicos_tpu_torch as pt
     from eicos_tpu_torch import corpus
 
@@ -1662,7 +1710,10 @@ def test_trace_off_gives_the_same_bits(cuda, monkeypatch):
     for f in ("exit_code", "x", "y", "z", "s"):
         assert torch.equal(getattr(on, f), getattr(off, f)), f
     assert torch.equal(on.info.iter, off.info.iter)
-    assert con == dict(coff, loop_stamp=2) and coff["loop_stamp"] == 0
+    regions = 2 * sum(son["regions_runs"].values())
+    assert regions > 0 and "regions_runs" not in soff
+    assert con == dict(coff, loop_stamp=2 + regions)
+    assert coff["loop_stamp"] == 0
     assert soff["spans"] == [] and soff["launches"] == []
     assert len(son["launches"]) == 1
 

@@ -359,6 +359,27 @@ def test_settle_reset_and_close(fake):
     assert kernels.COUNTS["loop_cond"] == 0
 
 
+def test_probes_count_the_solves_after_a_reset(fake):
+    """A kept program of a structure with cones counts its refinement
+    steps in its probes: after ``reset_stats`` the settled count is the
+    composed solve's own steps (every lane's history), not the first,
+    host-driven solve's before it."""
+    st, d = socp_keep_soc()
+    bs = pt.BatchedSolver(st, pt.Settings(kkt_strategy="banded"),
+                          shared=SHARED, device="cpu")
+    X = lanes_of(st, d, 2, seed=7)
+    first = bs.solve(X)
+    probes = bs._programs[0].probes
+    assert probes is not None and int(probes.cells[0]) > 0
+    graphs.reset_stats()
+    sol = bs.solve(X)
+    graphs.settle()
+    h = sol.history
+    want = int((h.nitref1 + h.nitref2 + h.nitref3).sum())
+    assert graphs.STATS["refine_steps"] == want > 0
+    assert same_solution(sol, first)
+
+
 def test_compose_raises_on_a_copied_argument(fake):
     """A composed graph copies nothing: a segment that copies an argument
     into its static buffer, or a loop on a flag the program does not

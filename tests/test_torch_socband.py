@@ -3,16 +3,22 @@ the JAX package on the CPU: the ``keep_soc`` plan, the static maps and the
 per-lane values of the NT-scaled kept layout and of the eliminating layout,
 the assembled band blocks, one refined solve, and whole solves.
 
-On the CPU the JAX package leaves the scaled kept layout (it lives on its
-TPU kernel path) and factors the unscaled dense K[perm][:, perm] with
-``band_ldl_factor``; the port runs the scaled layout everywhere.  Both are
-exact factorizations of the same regularized system, so refined directions
-agree, while whole solves may differ in their endgame (see the last test).
+On the CPU the JAX package leaves the NT-scaled kept layout (it lives on
+its TPU kernel path) and factors the unscaled dense K[perm][:, perm] with
+``band_ldl_factor``; the port factors the kept rows in each cone's
+eigenbasis of W^2 (``kkt._soc_eig``, ``kkt._soc_kept_vals``): a diagonal
+kept block and the coupling rot G_soc, held here, rotated back, to the
+JAX package's W^2 and G_soc.  The port departs on the banded kept-cone
+layout (the SOCP that the powered-descent cell solves ended there at
+NUMERICS): its refinement targets ECOS's unregularized z block
+(``kkt._ecos_z``), so its refined directions are held to that operator
+built from the JAX package's equilibrated G, A and its W^2, solved
+densely, and to the JAX package's own refined solve only where the cones
+are eliminated.
 """
 
 import torch_threads  # noqa: F401  (one torch thread a worker)
 
-import jax
 import jax.numpy as jnp
 import numpy as np
 import pytest
@@ -132,21 +138,17 @@ def test_scaling_carries_over():
 # ------------------------------------------------------------------ cones
 
 def test_cone_closed_forms_match_batched():
-    """``scale_winv_soc`` and ``scale2reg_inv_soc`` on (L, k, ms) stacks
-    against the JAX functions lane by lane and column by column, within
-    1e-13 relative."""
+    """``scale2reg_inv_soc`` on (L, k, ms) stacks against the JAX function
+    lane by lane and column by column, within 1e-13 relative."""
     jst, _, st, _ = socp("kept")
     js, ps = scalings(jst, 8)
     rng = np.random.default_rng(2)
     x = rng.standard_normal((LANES, 3, st.cone.ms))
     delta = Settings().deltastat
-    got_w = cones.scale_winv_soc(st.cone, ps, torch.tensor(x))
     got_r = cones.scale2reg_inv_soc(st.cone, ps, delta, torch.tensor(x))
     for i in range(LANES):
         for k in range(3):
             v = jnp.asarray(x[i, k])
-            assert rel(got_w[i, k], jcones.scale_winv_soc(
-                jst.cone, js[i], v)) < 1e-13
             assert rel(got_r[i, k], jcones.scale2reg_inv_soc(
                 jst.cone, js[i], delta, v)) < 1e-13
 
@@ -191,13 +193,28 @@ def test_band_gather_with_kept_rows_matches():
         np.testing.assert_array_equal(got, np.asarray(want))
 
 
+def jax_kept_blocks(jst, scal, delta, qidx, valid):
+    """-(W^2 + delta I) per cone, (n_sc, dmax, dmax) padded with zeros,
+    from the JAX package's dense W^2 of the SOC segment."""
+    W2 = np.asarray(jcones.w2_soc_dense(jst.cone, scal, jnp.float64))
+    ms = W2.shape[0]
+    K = np.zeros((ms + 1, ms + 1))
+    K[:ms, :ms] = -(W2 + delta * np.eye(ms))
+    out = K[qidx[:, :, None], qidx[:, None, :]]
+    return out * (valid[:, :, None] & valid[:, None, :])
+
+
 @pytest.mark.parametrize("scaled", [False, True])
 @pytest.mark.parametrize("name", ["kept", "coupling", "elim"])
 def test_soc_values_match(name, scaled):
-    """``_soc_scaled_kept_vals``, ``_soc_coupling_vals`` and
-    ``_soc_band_vals``, batched over two lanes, against the per-lane JAX
-    functions within 1e-13 relative, at the identity scaling and at
-    scalings from interior points."""
+    """``_soc_kept_vals``, ``_soc_coupling_vals`` and ``_soc_band_vals``,
+    batched over two lanes, against the per-lane JAX functions within
+    1e-13 relative, at the identity scaling and at scalings from interior
+    points.  Scaled, the port's kept rows are in each cone's eigenbasis
+    (``_soc_eig``: rot orthogonal on the cone's slots): rotated back, its
+    kept blocks must give the JAX package's -(W^2 + delta I) and its
+    coupling the JAX package's G_soc; at the identity scaling they are
+    the JAX package's scaled values, -(1 + delta) I and G_soc."""
     layout = "elim" if name == "elim" else "kept"
     jst, d, st, pd = socp(layout)
     pset = Settings(**BANDED)
@@ -205,29 +222,129 @@ def test_soc_values_match(name, scaled):
     G = torch.tensor(pd.G)
     ctx = kkt.make_context(st, G, torch.tensor(pd.A), pset)
     js, ps = scalings(jst, 9) if scaled else ([None] * LANES, None)
+    eig = kkt._soc_eig(ctx, ps) if scaled and name != "elim" else None
     if name == "kept":
-        got = kkt._soc_scaled_kept_vals(st, ctx, ps, delta, LANES)
+        got = kkt._soc_kept_vals(st, ctx, ps, delta, LANES, eig)
     elif name == "coupling":
-        got = kkt._soc_coupling_vals(st, ctx, ps, LANES)
+        got = kkt._soc_coupling_vals(ctx, eig, LANES)
     else:
         got = kkt._soc_band_vals(st, ctx, ps, delta, LANES)
-    Gj = jnp.asarray(np.asarray(d.G))
-    for i in range(LANES):
+    if eig is not None:
+        rot = eig[0]
+        valid = ctx.soc.valid
+        eye_v = (torch.eye(valid.shape[1], dtype=torch.float64)
+                 * (valid[:, :, None] & valid[:, None, :]))
+        assert (rot @ rot.transpose(-1, -2) - eye_v).abs().max() < 1e-14
+        got = rot.transpose(-1, -2) @ got
         if name == "kept":
-            want = jkkt._soc_scaled_kept_vals(jst, js[i], delta, jnp.float64)
+            got = got @ rot
+    Gj = jnp.asarray(np.asarray(d.G))
+    qidx, valid = (t.numpy() for t in (ctx.soc.qidx, ctx.soc.valid))
+    for i in range(LANES):
+        if name == "kept" and scaled:
+            want = jax_kept_blocks(jst, js[i], delta, qidx, valid)
+        elif name == "kept":
+            want = jkkt._soc_scaled_kept_vals(jst, None, delta, jnp.float64)
         elif name == "coupling":
-            want = jkkt._soc_coupling_vals(jst, Gj, js[i], jnp.float64)
+            want = jkkt._soc_coupling_vals(jst, Gj, None, jnp.float64)
         else:
             want = jkkt._soc_band_vals(jst, Gj, js[i], delta, jnp.float64)
         assert got[i].shape == want.shape
         assert rel(got[i], want) < 1e-13
 
 
+def near_boundary(rng, cone, gap):
+    """(s, z) whose SOC parts lie ``gap`` (relative) inside the cone's
+    boundary on opposite rays, as at a strictly complementary optimum;
+    the LP parts interior."""
+    s, z = interior(rng, cone), interior(rng, cone)
+    for c, off in enumerate(cone.head_offsets):
+        a = cone.l + int(off)
+        b = a + cone.q[c]
+        t = rng.standard_normal(cone.q[c] - 1)
+        s[a + 1:b], z[a + 1:b] = t, -(0.5 + rng.random()) * t
+        s[a] = np.linalg.norm(s[a + 1:b]) * (1.0 + gap)
+        z[a] = np.linalg.norm(z[a + 1:b]) * (1.0 + gap)
+    return s, z
+
+
+@pytest.mark.parametrize("gap", [1e-3, 1e-9])
+def test_soc_eig_holds_both_ends_of_the_spectrum(gap):
+    """``kkt._soc_eig`` at the NT scalings of points near the cones'
+    boundary on opposite rays, where W^2's eigenvalues span (a + |q|)^4:
+    rot' diag(lam) rot gives the JAX package's W^2 and rot' diag(1/lam)
+    rot its W^-2 (``scale2_inv``), each within 1e-12 relative to its
+    largest entry, so the small eigenvalue, which a dense W^2 holds only
+    as a difference of its large entries, is right as well."""
+    jst, d, st, pd = socp("kept")
+    ctx = kkt.make_context(st, torch.tensor(pd.G), torch.tensor(pd.A),
+                           Settings(**BANDED))
+    rng = np.random.default_rng(11)
+    js = [jcones.update_scalings(jst.cone, *map(
+        jnp.asarray, near_boundary(rng, jst.cone, gap)))[0]
+        for _ in range(LANES)]
+    ps = problem.scaling_from_reference(js)
+    rot, lam = kkt._soc_eig(ctx, ps)
+    span = float((lam.amax(-1) / lam.amin(-1)).max())
+    assert span > 0.1 / gap ** 2
+    qidx, valid = ctx.soc.qidx.numpy(), ctx.soc.valid.numpy()
+    l, m, ms = st.l, st.m, st.cone.ms
+    inv = torch.where(lam > 0, 1.0 / lam.clamp_min(1e-300), 0.0)
+    for i in range(LANES):
+        W2 = np.asarray(jcones.w2_soc_dense(jst.cone, js[i], jnp.float64))
+        Wi = np.stack([np.asarray(jcones.scale2_inv(
+            jst.cone, js[i], jnp.asarray(np.eye(m)[k])))[l:]
+            for k in range(l, m)], -1)
+        for D, want in ((lam[i], W2), (inv[i], Wi)):
+            got = rot[i].transpose(-1, -2) @ (D[..., None] * rot[i])
+            full = np.zeros((ms + 1, ms + 1))
+            for c in range(qidx.shape[0]):
+                full[qidx[c][:, None], qidx[c][None, :]] += got[c].numpy()
+            assert rel(full[:ms, :ms], want) < 1e-12
+
+
+@pytest.mark.parametrize("gap", [1e-3, 1e-9])
+def test_kept_band_solve_is_backward_stable_near_the_boundary(gap):
+    """One unrefined solve of the banded kept layout (``kkt.factor``,
+    ``solve_exact``) at the NT scalings of points near the cones'
+    boundary, against the regularized operator built from the data and
+    the JAX package's W^2: its backward error, max|K d - r| over max|K|
+    max|d|, stays under 1e-14 however wide W^2's spectrum.  A dense kept
+    block -(W^2 + delta I) factored without pivoting read 5e-11 at a gap
+    of 1e-9, growing with the spectrum's span."""
+    jst, d, st, pd = socp("kept")
+    pset = Settings(**BANDED)
+    delta = pset.deltastat
+    ctx = kkt.make_context(st, torch.tensor(pd.G), torch.tensor(pd.A), pset)
+    n, p, m = st.n, st.p, st.m
+    rng = np.random.default_rng(11)
+    js = [jcones.update_scalings(jst.cone, *map(
+        jnp.asarray, near_boundary(rng, jst.cone, gap)))[0]
+        for _ in range(LANES)]
+    es = kkt.factor(st, ctx, problem.scaling_from_reference(js), pset,
+                    LANES)
+    rhs = torch.tensor(rng.standard_normal((LANES, 2, n + p + m)))
+    dx, dy, dz = es(rhs)
+    for i in range(LANES):
+        W2 = np.asarray(jcones.w2_dense(jst.cone, js[i], jnp.float64))
+        K = np.block([
+            [delta * np.eye(n), pd.A.T, pd.G.T],
+            [pd.A, -delta * np.eye(p), np.zeros((p, m))],
+            [pd.G, np.zeros((m, p)), -(W2 + delta * np.eye(m))]])
+        for k in range(2):
+            x = np.concatenate([dx[i, k], dy[i, k], dz[i, k]])
+            err = np.abs(K @ x - rhs[i, k].numpy()).max()
+            assert err < 1e-14 * np.abs(K).max() * np.abs(x).max()
+
+
 @pytest.mark.parametrize("scaled", [False, True])
 def test_keep_soc_blocks_match_dense_scaled_kkt(scaled):
-    """The band blocks of a keep_soc plan against the dense S K S with
-    S = diag(W^-1, I, I) in [z_soc | x | y], permuted: within 1e-10 of its
-    scale, and every nonzero of the dense matrix inside the band."""
+    """The band blocks of a keep_soc plan against the dense R K R' in
+    [z_soc | x | y], permuted: K's kept block -(W^2 + delta I) from the
+    JAX package's W^2, its coupling G_soc, and R = diag(rot, I, I) with
+    the port's per-cone eigenbases (``kkt._soc_eig``; I at the identity
+    scaling), within 1e-10 of its scale, and every nonzero of the dense
+    matrix inside the band."""
     jst, d, st, pd = socp("kept")
     pset = Settings(**BANDED)
     delta = pset.deltastat
@@ -244,16 +361,21 @@ def test_keep_soc_blocks_match_dense_scaled_kkt(scaled):
     G, A = np.asarray(d.G), np.asarray(d.A)
     perm = np.asarray(st.band.perm)
     nb = Dp // B
+    qidx, valid = ctx.soc.qidx.numpy(), ctx.soc.valid.numpy()
+    rot = kkt._soc_eig(ctx, ps)[0].numpy() if scaled else None
     for i in range(LANES):
+        W2 = (np.asarray(jcones.w2_soc_dense(jst.cone, js[i], jnp.float64))
+              if scaled else np.eye(ms))
+        R = np.eye(ms)
         if scaled:
-            Winv = np.asarray(jax.vmap(lambda e: jcones.scale_winv_soc(
-                jst.cone, js[i], e))(jnp.eye(ms))).T
-        else:
-            Winv = np.eye(ms)
+            R = np.zeros((ms + 1, ms + 1))
+            for c in range(qidx.shape[0]):
+                R[qidx[c][:, None], qidx[c][None, :]] += rot[i, c]
+            R = R[:ms, :ms]
         wl = winv[i].numpy()
         M = np.zeros((Dp, Dp))
-        M[:ms, :ms] = -(np.eye(ms) + delta * (Winv @ Winv))
-        M[:ms, ms:ms + n] = Winv @ G[l:]
+        M[:ms, :ms] = -R @ (W2 + delta * np.eye(ms)) @ R.T
+        M[:ms, ms:ms + n] = R @ G[l:]
         M[ms:ms + n, :ms] = M[:ms, ms:ms + n].T
         M[ms:ms + n, ms:ms + n] = (G[:l].T @ (G[:l] * wl[:, None])
                                    + delta * np.eye(n))
@@ -279,10 +401,14 @@ def test_keep_soc_blocks_match_dense_scaled_kkt(scaled):
 @pytest.mark.parametrize("layout", ["kept", "elim", "kept_dense"])
 def test_banded_socp_refined_solve_matches(layout, scaled):
     """``factor`` and one ``solve_refined`` of the SOCP under "banded" in
-    the kept (scaled), the eliminating and the off-scatter kept layouts,
-    against ``eicos_tpu.kkt.factor`` on the CPU: dx, dy, dz within 1e-9
-    relative to their size (two exact factorizations of one regularized
-    system, refined to 1e-14 residuals)."""
+    the kept, the eliminating and the off-scatter kept layouts: dx, dy, dz
+    within 1e-9 relative to their size.  Where the cones are eliminated,
+    against ``eicos_tpu.kkt.factor`` on the CPU (two exact factorizations
+    of one regularized system, refined to 1e-14 residuals); where they are
+    kept, the port refines against ECOS's operator, the z block
+    unregularized (``kkt._ecos_z``), and is held to that operator's dense
+    solve, built from the JAX package's equilibrated G and A and its
+    W^2."""
     jst, d, st, pd = socp(layout)
     jset, pset = JSettings(**BANDED), Settings(**BANDED)
     jeq = jequil(jst, *[jnp.asarray(getattr(d, f)) for f in "GAchb"])
@@ -305,6 +431,22 @@ def test_banded_socp_refined_solve_matches(layout, scaled):
     ref = jkkt.solve_refined(jst, jctx, jsolve, jscal, jnp.asarray(rhs), jset)
     psolve = kkt.factor(st, pctx, pscal, pset, 1)
     got = kkt.solve_refined(st, pctx, psolve, pscal, t(rhs)[None], pset)
+    if layout != "elim":
+        # the dense operator the kept layout refines against
+        assert kkt._ecos_z(pctx)
+        delta = pset.deltastat
+        Ge, Ae = np.asarray(jeq.G), np.asarray(jeq.A)
+        W2 = (np.eye(m) if jscal is None
+              else np.asarray(jcones.w2_dense(jst.cone, jscal, jnp.float64)))
+        K = np.block([
+            [delta * np.eye(n), Ae.T, Ge.T],
+            [Ae, -delta * np.eye(p), np.zeros((p, m))],
+            [Ge, np.zeros((m, p)), -W2]])
+        sol = np.linalg.solve(K, rhs.T).T
+        ref = dict(dx=sol[:, :n], dy=sol[:, n:n + p], dz=sol[:, n + p:])
+        for f in ("dx", "dy", "dz"):
+            assert rel(getattr(got, f)[0], ref[f]) < 1e-9, f
+        return
     for f in ("dx", "dy", "dz"):
         assert rel(getattr(got, f)[0], getattr(ref, f)) < 1e-9, f
 
