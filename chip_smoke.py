@@ -222,6 +222,73 @@ def bound(nbytes, ops):
     return (max(tb, to), "bytes" if tb >= to else "operations")
 
 
+def factor_name(band, lanes, bw):
+    """The ``kernels.COUNTS`` name of the band factor kernel that
+    ``band.band_factor_bw`` launches on this card for ``lanes`` lanes at
+    block bandwidth ``bw`` (``band.clusters``)."""
+    return ("band_factor_cluster" if band.clusters(lanes, bw, "cuda") > 1
+            else "band_factor_bw")
+
+
+def check_cluster_factor(torch, band, plain, kernels):
+    """The bw-1 factor on a cluster of CTAs a lane (``band_factor_cluster``,
+    which ``ops/band.py`` takes where the lanes leave SMs idle) against its
+    twin, the one-CTA kernel, at the main path's block count: the first 16
+    of 128 lanes, factored alone, give the bits of the 128-lane call, and
+    agree with the plain twin; timed beside the one-CTA call at the same 16
+    lanes.  Returns the kernel's record (launches filled in from phase 3's
+    16 lanes)."""
+    nb = (HORIZON * (NX + NU) + HORIZON * NX + B - 1) // B   # 16
+    tick = RESCUE_LANES
+    Kd_np, Ks_np = random_band(LANES, nb, seed=3)
+    Kd = torch.tensor(Kd_np, device="cuda")
+    Ks = torch.tensor(Ks_np, device="cuda")
+    del Kd_np, Ks_np
+    c = band.clusters(tick, 1, Kd.device)
+    whole = band.band_factor(Kd, Ks)
+    Kt, Kst = Kd[:tick].contiguous(), Ks[:tick].contiguous()
+    before = kernels.COUNTS["band_factor_cluster"]
+    part = band.band_factor(Kt, Kst)
+    torch.cuda.synchronize()
+    counted = kernels.COUNTS["band_factor_cluster"] - before
+    same = all(torch.equal(a, b[:tick]) for a, b in zip(part, whole))
+    fp = plain.band_factor_plain(Kt, Kst)
+    err = max(rel_err(a, b) for a, b in zip(part, fp))
+    abs_err = max(float((a - b).abs().max()) for a, b in zip(part, fp))
+    print(f"band_factor_cluster at bw 1 ({tick} lanes, nb {nb}): {c} CTAs a "
+          f"lane, the one-CTA kernel's bits {same}, launches {counted}, max "
+          f"rel err vs plain {err:.3e}")
+    if c < 2 or counted != 1 or not same or not err <= KERNEL_TOL:
+        fail(f"band_factor_cluster: {c} CTAs a lane, {counted} launches, "
+             f"same bits {same}, rel err {err}")
+    lib = kernels.lib("band_factor_bw").eicos_band_factor_bw
+
+    def one_cta():
+        L, Dinv = torch.empty_like(Kst), torch.empty_like(Kt)
+        d = torch.empty(tick, nb, B, dtype=torch.float64, device="cuda")
+        kernels.launch(lib, Kt.data_ptr(), Kst.data_ptr(), L.data_ptr(),
+                       Dinv.data_ptr(), d.data_ptr(), tick, nb, 1,
+                       kernels.stream(Kt))
+
+    ms = cuda_ms(lambda: band.band_factor(Kt, Kst))
+    one_ms = cuda_ms(one_cta)
+    pms = cuda_ms(lambda: plain.band_factor_plain(Kt, Kst), reps=3)
+    blk = B * B * 8
+    b_ms, b_by = bound(tick * nb * (4 * blk + B * 8),
+                       tick * ((nb - 1) * 2 * B ** 3
+                               + nb * (B ** 3 // 2 + B ** 3 // 3)))
+    print(f"band_factor_cluster ({tick} lanes, nb {nb}): {ms:.4f} ms, one CTA "
+          f"a lane {one_ms:.4f} ms (plain {pms:.3f} ms), bound {b_ms:.4f} ms "
+          f"by {b_by}")
+    del Kd, Ks, whole, part, fp
+    torch.cuda.empty_cache()
+    return dict(name="band_factor_cluster", route="cuda",
+                source="eicos_tpu_torch/csrc/band_factor_cluster.cu",
+                replaces="eicos_tpu/ops/pallas_band_ds.py:1689",
+                max_abs_err=abs_err, ms=ms, plain_ms=pms, bound_ms=b_ms,
+                bound_by=b_by, library_ms=None)
+
+
 def check_kernels(torch, band, plain):
     """The band kernels at block bandwidth 1 (the wide kernels, through the
     4-d layout of ``ops/band.py``) against the bandwidth-1 plain twins at
@@ -399,14 +466,15 @@ def check_wide_kernels(torch, band, plain, kernels):
     x4 = band.band_solve(narrow, r)
     x5 = band.band_solve(wide, r)
     torch.cuda.synchronize()
+    factor = factor_name(band, 8, 1)
     counted = {n: kernels.COUNTS[n] - before[n] for n in
-               ("band_factor_bw", "band_fwd_bw", "band_bwd_bw")}
+               (factor, "band_fwd_bw", "band_bwd_bw")}
     same = (torch.equal(narrow.L, wide.L[:, :, 0])
             and torch.equal(narrow.Dinv, wide.Dinv)
             and torch.equal(narrow.d, wide.d) and torch.equal(x4, x5))
     print(f"bw = 1 in the 4-d layout: the wide kernels' bits {same}, "
           f"launches {counted}")
-    if not same or counted != {"band_factor_bw": 2, "band_fwd_bw": 2,
+    if not same or counted != {factor: 2, "band_fwd_bw": 2,
                                "band_bwd_bw": 2}:
         fail("the 4-d layout does not run the wide kernels")
     del narrow, wide, x4, x5
@@ -1851,11 +1919,12 @@ def profile_composed(torch, bs, batch, cuda_only, label):
 @contextlib.contextmanager
 def eager_segments():
     """Inside the block every segment of a solve calls its function
-    eagerly: no graph is captured, replayed, composed or launched."""
+    eagerly, with its program's probes (``Segment._run``, as an eager
+    segment runs): no graph is captured, replayed, composed or launched."""
     from eicos_tpu_torch import graphs
 
     real = graphs.Segment.__call__, graphs.Program.compose
-    graphs.Segment.__call__ = lambda self, *args: self.fn(*args)
+    graphs.Segment.__call__ = lambda self, *args: self._run(*args)
     graphs.Program.compose = lambda self, steps: None
     try:
         with graphs.host_driven():
@@ -1982,7 +2051,8 @@ def loop_line(bs, label):
 def composed_only(label, syncs):
     """The last ``drive`` was one composed launch a program solve: no
     capture, no eager call, no host sync; the stamp nodes counted on the
-    card two launches a traced composed launch.  Returns the composed
+    card two launches a traced composed launch, beside two a run of each
+    region a structure with cones stamps.  Returns the composed
     launches."""
     g = LAST["graphs"]
     print(f"{label}: {g['loops']} composed launches of {g['solves']} program"
@@ -1996,7 +2066,8 @@ def composed_only(label, syncs):
     from eicos_tpu_torch.utils import timing
 
     stamps = g["graph_counts"].get("loop_stamp", 0)
-    if stamps != 2 * g["loops"] * timing.tracing():
+    regions = 2 * sum(g.get("regions_runs", {}).values())
+    if stamps != 2 * g["loops"] * timing.tracing() + regions:
         fail(f"{label}: {stamps} stamp launches for {g['loops']} composed "
              f"launches")
     return g["loops"]
@@ -2005,11 +2076,13 @@ def composed_only(label, syncs):
 def as_composed(counts, syncs, loops):
     """A host-driven solve's counts as a composed solve of the same data
     in ``loops`` composed launches shows them, settled: each of its loop
-    tests an S2 launch, and two stamp launches a traced launch."""
+    tests an S2 launch, and two stamp launches a traced launch beside the
+    region stamps that a structure with cones has in both."""
     from eicos_tpu_torch.utils import timing
 
     return dict(counts, loop_cond=counts.get("loop_cond", 0) + syncs,
-                loop_stamp=2 * loops * timing.tracing())
+                loop_stamp=counts.get("loop_stamp", 0)
+                + 2 * loops * timing.tracing())
 
 
 def same_composed(torch, kernels, kkt, bs, batch, first, launches, syncs,
@@ -2337,8 +2410,8 @@ def scan_launches(launches, name, nb, label):
     if launches[name] != want:
         fail(f"{label}: {name} launched {launches[name]} times, expected "
              f"{want}")
-    if any(launches[n] for n in ("band_factor_bw", "band_fwd_bw",
-                                 "band_bwd_bw")):
+    if any(launches[n] for n in ("band_factor_bw", "band_factor_cluster",
+                                 "band_fwd_bw", "band_bwd_bw")):
         fail(f"{label}: the scan launched a band kernel: {launches}")
 
 
@@ -2662,7 +2735,8 @@ def phase_block64(torch, pt, kernels, kkt, make_band_plan, st, probs,
         need_launched(launches, must, label)
         same_bits_eager(torch, kernels, kkt, bs, batch, sol, launches, syncs,
                         label)
-        if launches["leaf_ldl"] or launches["band_factor_bw"]:
+        if (launches["leaf_ldl"] or launches["band_factor_bw"]
+                or launches["band_factor_cluster"]):
             fail(f"{label}: a leaf or band kernel ran off 128: {launches}")
         _, _, hist = outcome(sol, label)
         if hist != {0: BLOCK64_LANES}:
@@ -3013,6 +3087,7 @@ def main():
 
     t0 = time.perf_counter()
     band_records = check_kernels(torch, band, plain)
+    cluster_record = check_cluster_factor(torch, band, plain, kernels)
     wide_records = check_wide_kernels(torch, band, plain, kernels)
     dense_records = check_dense_kernels(torch, band, leaf, gemm, ldl)
     subst_records = check_subst_kernels(torch, leaf, ldl, dense, kernels)
@@ -3102,7 +3177,10 @@ def main():
              f"{RESCUE_LANES}")
     if hist != {0: RESCUE_LANES}:
         fail(f"forced rescue: not every lane OPTIMAL: {hist}")
-    need_launched(launches, band_names + dense_names, "forced rescue")
+    rescue_names = [factor_name(band, RESCUE_LANES, 1) if n == "band_factor_bw"
+                    else n for n in band_names]
+    need_launched(launches, rescue_names + dense_names, "forced rescue")
+    cluster_record["launches"] = launches["band_factor_cluster"]
     fs.close()
     del fs
     print(f"phase 3: {time.perf_counter() - t_phase:.1f} s")
@@ -3423,8 +3501,8 @@ def main():
         | ({"k12": k12_record} if r["name"] == "dgemm" else {})
         | ({"fused": {k: r[k] for k in SPMV_EXTRA}}
            if r["name"] == "spmv" else {})
-        for r in band_records + dense_records + subst_records
-        + [spmv_record, s2_record, stamp_record]]}))
+        for r in band_records + [cluster_record] + dense_records
+        + subst_records + [spmv_record, s2_record, stamp_record]]}))
     print(smi)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

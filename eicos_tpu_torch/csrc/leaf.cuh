@@ -30,7 +30,10 @@
 //      use).
 // Steps 1 and 2 repeat the rank-1 loop's arithmetic for the panel's own
 // columns; step 3 sums the trailing updates in another order.  Three block barriers a panel, against the
-// rank-1 loop's 256 for the block.
+// rank-1 loop's 256 for the block.  eliminate<T, true> is the same
+// arithmetic in a lookahead schedule (band_factor_cluster.cu): warp 0
+// updates the next panel's diagonal block first and factors it while the
+// other warps finish step 3, two barriers a panel.
 // The inverse by blocks: the eight 16x16 unit-lower diagonal blocks are
 // inverted at once, one warp each (X_ii, by substitution), then block rows
 // i = 1..7 in turn: X_ij = -X_ii sum_{j<=s<i} L_is X_sj, 16x8 tiles on
@@ -178,47 +181,93 @@ __device__ __forceinline__ void stage_lower(T* S, const T* M, long long row,
   }
 }
 
-// dvec: 2 B values of T, d and then 1 / d
-template <typename T>
-__device__ __forceinline__ void eliminate(T* S, T* W, T* dvec, int tid) {
+// 1. the diagonal block of the panel at column c0 in registers, by one
+// warp: lane r (and r + 16) holds row r.  With OWN, the lane that holds the
+// next pivot updates it from its own multiplier before the shuffles that
+// pass the multipliers, so the next pivot's shuffle does not wait for
+// them; the value is the same (the shuffle to that lane returns its own).
+template <typename T, bool OWN>
+__device__ __forceinline__ void factor_diag(T* S, T* dvec, int c0, int lane) {
   constexpr int LD = ld<T>();
   constexpr T TINY = tiny<T>();
   T* rvec = dvec + B;
+  const int r = lane & (P - 1);
+  T a[P];
+#pragma unroll
+  for (int c = 0; c < P; ++c)
+    a[c] = c <= r ? S[(c0 + r) * LD + c0 + c] : T(0);
+  T next = a[0];
+#pragma unroll
+  for (int j = 0; j < P; ++j) {
+    T dj = __shfl_sync(0xffffffffu, OWN ? next : a[j], j);
+    if (fabs(dj) < TINY) dj = dj < T(0) ? -TINY : TINY;
+    const T rinv = recip(dj);
+    const T l = r > j ? quot(a[j], dj, rinv) : T(0);
+    const T w = dj * l;
+    if (OWN && j + 1 < P) next = a[j + 1 < P ? j + 1 : j] - w * l;
+#pragma unroll
+    for (int c = j + 1; c < P; ++c) {
+      const T lc = __shfl_sync(0xffffffffu, l, c);
+      if (c <= r) a[c] -= w * lc;
+    }
+    if (r > j) a[j] = l;
+    if (lane == j) {
+      dvec[c0 + j] = dj;
+      rvec[c0 + j] = rinv;
+    }
+  }
+  if (lane < P)
+#pragma unroll
+    for (int c = 0; c < P; ++c)
+      if (c < r) S[(c0 + r) * LD + c0 + c] = a[c];
+}
+
+// 3. trailing tile q of the panel at column c0: A22 += W L21^T on the lower
+// 16x8 tiles, row block a (16 rows) holding tiles b = 0 .. 2a + 1, a (a + 1)
+// tiles before it
+template <typename T>
+__device__ __forceinline__ void trailing_tile(T* S, const T* W, int c0, int q,
+                                              int g, int t) {
+  constexpr int LD = ld<T>();
+  int a = 0;
+  while ((a + 1) * (a + 2) <= q) ++a;
+  const int r0 = c0 + P + 16 * a, n0 = c0 + P + 8 * (q - a * (a + 1));
+  T acc[4];
+#pragma unroll
+  for (int h = 0; h < 2; ++h) {
+    const Pair<T> v = load2(S + (r0 + g + 8 * h) * LD + n0 + 2 * t);
+    acc[2 * h] = v.x;
+    acc[2 * h + 1] = v.y;
+  }
+  mac16<T>(
+      acc, [&](int r, int k) { return load2(W + (r0 + r) * WLD + k); },
+      [&](int n, int k) { return load2(S + (n0 + n) * LD + c0 + k); }, g, t);
+#pragma unroll
+  for (int h = 0; h < 2; ++h)
+    store2(S + (r0 + g + 8 * h) * LD + n0 + 2 * t, acc[2 * h], acc[2 * h + 1]);
+}
+
+// dvec: 2 B values of T, d and then 1 / d.  LOOKAHEAD (the same values,
+// another schedule): warp 0 takes the two trailing tiles that hold the next
+// panel's diagonal block and factors that block at once (OWN), while the
+// other warps update the rest of the trailing triangle; one block barrier a
+// panel fewer.
+template <typename T, bool LOOKAHEAD = false>
+__device__ __forceinline__ void eliminate(T* S, T* W, T* dvec, int tid) {
+  constexpr int LD = ld<T>();
+  T* rvec = dvec + B;
   const int lane = tid & 31, warp = tid >> 5;
   const int g = lane >> 2, t = lane & 3;
+  if (LOOKAHEAD) {
+    if (warp == 0) factor_diag<T, true>(S, dvec, 0, lane);
+    __syncthreads();
+  }
   for (int p = 0; p < NP; ++p) {
     const int c0 = p * P;
-    // 1. the diagonal block in registers: lane r (and r + 16) holds row r
-    if (warp == 0) {
-      const int r = lane & (P - 1);
-      T a[P];
-#pragma unroll
-      for (int c = 0; c < P; ++c)
-        a[c] = c <= r ? S[(c0 + r) * LD + c0 + c] : T(0);
-#pragma unroll
-      for (int j = 0; j < P; ++j) {
-        T dj = __shfl_sync(0xffffffffu, a[j], j);
-        if (fabs(dj) < TINY) dj = dj < T(0) ? -TINY : TINY;
-        const T rinv = recip(dj);
-        const T l = r > j ? quot(a[j], dj, rinv) : T(0);
-        const T w = dj * l;
-#pragma unroll
-        for (int c = j + 1; c < P; ++c) {
-          const T lc = __shfl_sync(0xffffffffu, l, c);
-          if (c <= r) a[c] -= w * lc;
-        }
-        if (r > j) a[j] = l;
-        if (lane == j) {
-          dvec[c0 + j] = dj;
-          rvec[c0 + j] = rinv;
-        }
-      }
-      if (lane < P)
-#pragma unroll
-        for (int c = 0; c < P; ++c)
-          if (c < r) S[(c0 + r) * LD + c0 + c] = a[c];
+    if (!LOOKAHEAD) {
+      if (warp == 0) factor_diag<T, false>(S, dvec, c0, lane);
+      __syncthreads();
     }
-    __syncthreads();
     // 2. the rows below: l_ij = a_ij / d_j, a_ic -= (d_j l_ij) l_cj
     const int below = B - c0 - P;
     if (tid < below) {
@@ -240,30 +289,24 @@ __device__ __forceinline__ void eliminate(T* S, T* W, T* dvec, int tid) {
       }
     }
     __syncthreads();
-    // 3. A22 += W L21^T on the lower 16x8 tiles: row block a (16 rows)
-    // holds tiles b = 0 .. 2a + 1, a (a + 1) tiles before it
+    // 3. the trailing lower triangle
     const int m = below / 16;
+    if (LOOKAHEAD) {
+      if (warp == 0) {
+        if (m > 0) {
+          trailing_tile(S, W, c0, 0, g, t);
+          trailing_tile(S, W, c0, 1, g, t);
+          factor_diag<T, true>(S, dvec, c0 + P, lane);
+        }
+      } else {
 #pragma unroll 1
-    for (int q = warp; q < m * (m + 1); q += NW) {
-      int a = 0;
-      while ((a + 1) * (a + 2) <= q) ++a;
-      const int r0 = c0 + P + 16 * a, n0 = c0 + P + 8 * (q - a * (a + 1));
-      T acc[4];
-#pragma unroll
-      for (int h = 0; h < 2; ++h) {
-        const Pair<T> v = load2(S + (r0 + g + 8 * h) * LD + n0 + 2 * t);
-        acc[2 * h] = v.x;
-        acc[2 * h + 1] = v.y;
+        for (int q = 1 + warp; q < m * (m + 1); q += NW - 1)
+          trailing_tile(S, W, c0, q, g, t);
       }
-      mac16<T>(
-          acc,
-          [&](int r, int k) { return load2(W + (r0 + r) * WLD + k); },
-          [&](int n, int k) { return load2(S + (n0 + n) * LD + c0 + k); }, g,
-          t);
-#pragma unroll
-      for (int h = 0; h < 2; ++h)
-        store2(S + (r0 + g + 8 * h) * LD + n0 + 2 * t, acc[2 * h],
-               acc[2 * h + 1]);
+    } else {
+#pragma unroll 1
+      for (int q = warp; q < m * (m + 1); q += NW)
+        trailing_tile(S, W, c0, q, g, t);
     }
     __syncthreads();
   }
@@ -271,7 +314,9 @@ __device__ __forceinline__ void eliminate(T* S, T* W, T* dvec, int tid) {
 
 // X = L^{-1} by blocks, stored as X^T in S's strict upper triangle: X[r][c]
 // at S[c][r].  Ends with a block barrier.
-template <typename T>
+// UNROLL (the same values): the diagonal blocks' sums unrolled, their loads
+// issued together.
+template <typename T, bool UNROLL = false>
 __device__ __forceinline__ void unit_lower_inv(T* S, T* W, int tid) {
   constexpr int LD = ld<T>();
   const int lane = tid & 31, warp = tid >> 5;
@@ -283,7 +328,15 @@ __device__ __forceinline__ void unit_lower_inv(T* S, T* W, int tid) {
 #pragma unroll 1
     for (int i = 1; i < P; ++i) {
       T part = T(0);
-      if (i > c)
+      if (UNROLL) {
+#pragma unroll
+        for (int u = 0; u < P / 2; ++u) {
+          const int s = c + 1 + h + 2 * u;
+          if (s < i)
+            part = fma(S[(c0 + i) * LD + c0 + s], S[(c0 + c) * LD + c0 + s],
+                       part);
+        }
+      } else if (i > c)
         for (int s = c + 1 + h; s < i; s += 2)
           part = fma(S[(c0 + i) * LD + c0 + s], S[(c0 + c) * LD + c0 + s],
                      part);

@@ -19,6 +19,10 @@ read (the kernels compute in f64, as the reference's do); the factor's
 
 The kernel wrappers ``band_factor_bw``, ``band_fwd_bw`` and ``band_bwd_bw``
 take block bandwidths 1..6 (the reference's own bound) and raise outside.
+At bw 1, where the lanes leave SMs idle, ``band_factor_bw`` launches the
+same factor on a cluster of CTAs a lane (``csrc/band_factor_cluster.cu``,
+counted as ``band_factor_cluster``; the same bits): ``cluster_size`` is the
+rule, fed by the lane count, the bandwidth and what the card reports.
 For a CUDA tensor each checks its inputs, allocates its outputs with
 ``torch.empty``, launches its kernel on the current stream and counts the
 launch in ``kernels.COUNTS``; a launch error raises.  For a CPU tensor it
@@ -27,6 +31,9 @@ runs the plain twin of ``ops/band_ldl.py`` (the bandwidth-1 twins for the
 """
 
 from __future__ import annotations
+
+import ctypes
+import functools
 
 import torch
 
@@ -37,6 +44,7 @@ from .band_ldl import (B, KP, BandFactors, band_bwd_bw_plain, band_bwd_plain,
                        band_ldl_factor, band_ldl_fwd)
 
 BW_MAX = 6    # widest block band of the wide kernels
+CLUSTERS = (8, 4, 2)    # CTAs a lane of the cluster factor, widest first
 
 
 def scan(Ks: torch.Tensor, dtype: torch.dtype) -> bool:
@@ -76,6 +84,45 @@ def _check_bw(bw: int) -> None:
                          f"1..{BW_MAX}")
 
 
+def cluster_size(lanes: int, bw: int, sms: int, active) -> int:
+    """CTAs a lane for the band factor: the widest c of ``CLUSTERS`` such
+    that bw is 1, ``lanes * c`` CTAs fit on the ``sms`` SMs (so each takes
+    an SM that one CTA a lane leaves idle) and the card holds ``active[c]``
+    >= ``lanes`` clusters of c at once (every lane in one wave); else 1,
+    one CTA a lane (``band_factor_bw.cu``)."""
+    if bw != 1:
+        return 1
+    for c in CLUSTERS:
+        if lanes * c <= sms and active[c] >= lanes:
+            return c
+    return 1
+
+
+def clusters(lanes: int, bw: int, device) -> int:
+    """``cluster_size`` on CUDA ``device``: the CTAs a lane that
+    ``band_factor_bw`` launches there for ``lanes`` lanes at bandwidth
+    ``bw``."""
+    index = torch.device(device).index
+    if index is None:
+        index = torch.cuda.current_device()
+    return cluster_size(lanes, bw, *_card(index))
+
+
+@functools.lru_cache(maxsize=None)
+def _card(index: int) -> tuple:
+    """(SMs, {c: clusters of c the card holds at once}) of CUDA device
+    ``index``, asked once."""
+    fn = kernels.lib("band_factor_cluster").eicos_band_factor_clusters
+    active = {}
+    with torch.cuda.device(index):
+        for c in CLUSTERS:
+            n = ctypes.c_int(0)
+            kernels.launch(fn, c, ctypes.byref(n))
+            active[c] = n.value
+        sms = torch.cuda.get_device_properties(index).multi_processor_count
+    return sms, active
+
+
 def band_factor_bw(Kd: torch.Tensor, Ksubs: torch.Tensor) -> BandFactors:
     """The wide band factor: ``Kd`` (lanes, nb, 128, 128), ``Ksubs``
     (lanes, nb, bw, 128, 128) f64 with ``Ksubs[:, k, j-1] = K[k, k-j]``,
@@ -93,12 +140,16 @@ def band_factor_bw(Kd: torch.Tensor, Ksubs: torch.Tensor) -> BandFactors:
     L = torch.empty_like(Ksubs)
     Dinv = torch.empty_like(Kd)
     d = torch.empty((lanes, nb, B), dtype=Kd.dtype, device=Kd.device)
+    # the cluster kernel's last argument is its CTAs a lane, the one-CTA
+    # kernel's the bandwidth
+    c = clusters(lanes, bw, Kd.device)
+    name = "band_factor_cluster" if c > 1 else "band_factor_bw"
     with torch.cuda.device(Kd.device):
-        kernels.launch(kernels.lib("band_factor_bw").eicos_band_factor_bw,
+        kernels.launch(getattr(kernels.lib(name), "eicos_" + name),
                        Kd.data_ptr(), Ksubs.data_ptr(), L.data_ptr(),
-                       Dinv.data_ptr(), d.data_ptr(), lanes, nb, bw,
-                       kernels.stream(Kd))
-    kernels.count("band_factor_bw")
+                       Dinv.data_ptr(), d.data_ptr(), lanes, nb,
+                       c if c > 1 else bw, kernels.stream(Kd))
+    kernels.count(name)
     return BandFactors(L=L, Dinv=Dinv, d=d)
 
 

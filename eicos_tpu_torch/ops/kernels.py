@@ -48,6 +48,11 @@ _ULL, _PP = ctypes.c_ulonglong, ctypes.POINTER(ctypes.c_void_p)
 LIBS = {
     "band_factor_bw": ("band_factor_bw.cu",
                        {"eicos_band_factor_bw": [_P] * 5 + [_I, _I, _I, _P]}),
+    "band_factor_cluster": ("band_factor_cluster.cu",
+                            {"eicos_band_factor_cluster": [_P] * 5
+                             + [_I, _I, _I, _P],
+                             "eicos_band_factor_clusters":
+                                 [_I, ctypes.POINTER(_I)]}),
     "band_solve_bw": ("band_solve_bw.cu",
                       {"eicos_band_fwd_bw": [_P] * 5 + [_I] * 4 + [_P],
                        "eicos_band_bwd_bw": [_P] * 4 + [_I] * 4 + [_P]}),
@@ -90,7 +95,8 @@ LIBS = {
                    ctypes.c_char_p),
 }
 
-COUNTS = {"band_factor_bw": 0, "band_fwd_bw": 0, "band_bwd_bw": 0,
+COUNTS = {"band_factor_bw": 0, "band_factor_cluster": 0, "band_fwd_bw": 0,
+          "band_bwd_bw": 0,
           "leaf_ldl": 0, "dgemm": 0, "linv_fwd": 0, "linv_bwd": 0,
           "leaf_ldl_f32": 0, "dense_pack": 0, "dense_fwd": 0, "dense_bwd": 0,
           "spmv": 0, "loop_cond": 0, "loop_stamp": 0}

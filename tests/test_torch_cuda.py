@@ -40,6 +40,18 @@ def rel(a, b):
     return float((a - b).abs().max() / b.abs().max())
 
 
+def factor_name(lanes, bw=1):
+    """The ``kernels.COUNTS`` name of the band factor kernel that
+    ``ops/band.band_factor_bw`` launches on this card for ``lanes`` lanes
+    at block bandwidth ``bw``: one CTA a lane, or a cluster of them where
+    the lanes leave SMs idle (``band.clusters``)."""
+    from eicos_tpu_torch.ops import band
+
+    if band.clusters(lanes, bw, torch.device("cuda")) > 1:
+        return "band_factor_cluster"
+    return "band_factor_bw"
+
+
 def test_band_kernels_match_plain(cuda):
     """The 4-d (block bandwidth 1) layout on the card runs the wide kernels
     and matches the bandwidth-1 plain twins within 1e-10 relative (the two
@@ -60,7 +72,8 @@ def test_band_kernels_match_plain(cuda):
         assert rel(band.band_fwd(fk, r), plain.band_fwd_plain(fk, r)) < 1e-10
         assert rel(band.band_bwd(fk, r), plain.band_bwd_plain(fk, r)) < 1e-10
     torch.cuda.synchronize()
-    assert kernels.COUNTS["band_factor_bw"] == before["band_factor_bw"] + 1
+    name = factor_name(3)
+    assert kernels.COUNTS[name] == before[name] + 1
     assert kernels.COUNTS["band_fwd_bw"] == before["band_fwd_bw"] + 3
     assert kernels.COUNTS["band_bwd_bw"] == before["band_bwd_bw"] + 3
 
@@ -98,7 +111,7 @@ def test_solver_on_card_matches_cpu(cuda):
     kernels.reset_counts()
     gpu = pt.BatchedSolver(st, settings, shared=("G", "A", "h")).solve(batch)
     assert all(kernels.COUNTS[n] > 0
-               for n in ("band_factor_bw", "band_fwd_bw", "band_bwd_bw"))
+               for n in (factor_name(2), "band_fwd_bw", "band_bwd_bw"))
     cpu = pt.BatchedSolver(st, settings, shared=("G", "A", "h"),
                            device="cpu").solve(batch)
     assert torch.equal(gpu.exit_code.cpu(), cpu.exit_code)
@@ -435,7 +448,7 @@ def test_wide_band_kernel_at_bw1_matches_band_factor(cuda):
     narrow = band.band_factor(Kd, Ks[:, :, 0].contiguous())
     x4 = band.band_solve(narrow, r)
     torch.cuda.synchronize()
-    for name in ("band_factor_bw", "band_fwd_bw", "band_bwd_bw"):
+    for name in (factor_name(3), "band_fwd_bw", "band_bwd_bw"):
         assert kernels.COUNTS[name] == before[name] + 1, name
     assert narrow.L.shape == (3, 5, B, B)
     wide = band.band_factor_bw(Kd, Ks)
@@ -487,8 +500,8 @@ def test_keep_soc_solver_on_card_matches_cpu(cuda, gsplit):
     settings = pt.Settings(kkt_strategy="banded")
     kernels.reset_counts()
     gpu = pt.BatchedSolver(st, settings, shared=("G", "A", "h")).solve(batch)
-    assert all(kernels.COUNTS[n] > 0
-               for n in ("band_factor_bw", "band_fwd_bw", "band_bwd_bw"))
+    assert all(kernels.COUNTS[n] > 0 for n in
+               (factor_name(4, st.band.bwb), "band_fwd_bw", "band_bwd_bw"))
     cpu = pt.BatchedSolver(st, settings, shared=("G", "A", "h"),
                            device="cpu").solve(batch)
     if gsplit:
@@ -786,11 +799,12 @@ def test_band_factor_bw_lanes_match_plain(cuda, bw):
     for lanes in (1, 3, 64, 130):
         Kd, Ks = (torch.tensor(a, device=cuda)
                   for a in wide_band_case(lanes, nb, bw, 7 * bw + lanes))
-        before = kernels.COUNTS["band_factor_bw"]
+        name = factor_name(lanes, bw)
+        before = kernels.COUNTS[name]
         fk = band.band_factor_bw(Kd, Ks)
         fp = plain.band_factor_bw_plain(Kd, Ks)
         torch.cuda.synchronize()
-        assert kernels.COUNTS["band_factor_bw"] == before + 1
+        assert kernels.COUNTS[name] == before + 1
         for a, b in zip(fk, fp):
             assert rel(a, b) < 1e-12, lanes
         r = torch.tensor(np.random.default_rng(lanes).standard_normal(
@@ -802,6 +816,98 @@ def test_band_factor_bw_lanes_match_plain(cuda, bw):
         assert all(torch.equal(a, b) for a, b in zip(again, fk))
         del Kd, Ks, fk, fp, again
         torch.cuda.empty_cache()
+
+
+def device_band(lanes, nb, seed, device):
+    """``band_case``'s recipe made on the card from a ``torch.Generator``
+    (128 lanes at nb 23 would take seconds in numpy)."""
+    g = torch.Generator(device=device)
+    g.manual_seed(seed)
+    f64 = dict(dtype=torch.float64, device=device, generator=g)
+    Kd = 0.3 * torch.randn(lanes, nb, B, B, **f64) / B ** 0.5
+    Kd = Kd + Kd.transpose(-1, -2)
+    Ks = 0.3 * torch.randn(lanes, nb, B, B, **f64) / B ** 0.5
+    Ks[:, 0] = 0.0
+    rows = Kd.abs().sum(-1) + Ks.abs().sum(-1)
+    rows[:, :-1] += Ks[:, 1:].abs().sum(-2)
+    sign = torch.where(torch.rand(lanes, nb, B, generator=g, device=device)
+                       < 0.6, 1.0, -1.0).to(torch.float64)
+    Kd.diagonal(dim1=-2, dim2=-1).copy_(sign * (1.0 + rows))
+    return Kd, Ks
+
+
+@pytest.mark.parametrize("nb", [16, 23])
+def test_cluster_factor_has_the_one_cta_bits(cuda, nb):
+    """The bw-1 factor of 1, 3, 16 and 32 lanes, which takes a cluster of
+    CTAs a lane on this card, gives the bits of the same lanes factored
+    inside a 128-lane call, which takes one CTA a lane: L, Dinv and d equal
+    (``torch.equal``); each call counts once, under the name the dispatch
+    takes; Ks[:, 0] is never read."""
+    from eicos_tpu_torch.ops import band, kernels
+
+    Kd, Ks = device_band(128, nb, 100 + nb, cuda)
+    Ks[:, 0] = 1e300
+    assert factor_name(128) == "band_factor_bw"
+    before = dict(kernels.COUNTS)
+    whole = band.band_factor(Kd, Ks)
+    torch.cuda.synchronize()
+    assert kernels.COUNTS["band_factor_bw"] == before["band_factor_bw"] + 1
+    assert not whole.L[:, 0].any()
+    for lanes in (1, 3, 16, 32):
+        name = factor_name(lanes)
+        assert name == "band_factor_cluster", lanes
+        before = dict(kernels.COUNTS)
+        part = band.band_factor(Kd[:lanes].contiguous(),
+                                Ks[:lanes].contiguous())
+        torch.cuda.synchronize()
+        assert kernels.COUNTS[name] == before[name] + 1
+        assert kernels.COUNTS["band_factor_bw"] == before["band_factor_bw"]
+        for a, b in zip(part, whole):
+            assert torch.equal(a, b[:lanes]), lanes
+    del Kd, Ks, whole, part
+    torch.cuda.empty_cache()
+
+
+def test_cluster_factor_matches_plain(cuda):
+    """The cluster factor (16 lanes) against ``band_factor_bw_plain`` within
+    the one-CTA kernel's 1e-12 relative, factor and solve; a repeated call
+    gives the same bits."""
+    from eicos_tpu_torch.ops import band, kernels
+    from eicos_tpu_torch.ops import band_ldl as plain
+
+    Kd, Ks = (torch.tensor(a, device=cuda)
+              for a in wide_band_case(16, 5, 1, 29))
+    assert factor_name(16) == "band_factor_cluster"
+    before = kernels.COUNTS["band_factor_cluster"]
+    fk = band.band_factor_bw(Kd, Ks)
+    fp = plain.band_factor_bw_plain(Kd, Ks)
+    torch.cuda.synchronize()
+    assert kernels.COUNTS["band_factor_cluster"] == before + 1
+    for a, b in zip(fk, fp):
+        assert rel(a, b) < 1e-12
+    r = torch.tensor(np.random.default_rng(5).standard_normal(
+        (16, 2, 5 * B)), device=cuda)
+    xk = band.band_solve(fk, r)
+    xp = plain.band_bwd_bw_plain(fp, plain.band_fwd_bw_plain(fp, r))
+    assert rel(xk, xp) < 1e-12
+    again = band.band_factor_bw(Kd, Ks)
+    assert all(torch.equal(a, b) for a, b in zip(again, fk))
+
+
+def test_cluster_dispatch_reads_the_card(cuda):
+    """``band.clusters`` on this card: bw 1 at few lanes takes a cluster
+    that fits both the SM count and the clusters the card holds at once;
+    bw 3 and 128 lanes take one CTA a lane."""
+    from eicos_tpu_torch.ops import band
+
+    sms, active = band._card(torch.cuda.current_device())
+    assert sms == torch.cuda.get_device_properties(0).multi_processor_count
+    for lanes in (1, 16, 33, 66):
+        c = band.clusters(lanes, 1, cuda)
+        assert c in band.CLUSTERS and lanes * c <= sms
+        assert active[c] >= lanes
+    assert band.clusters(16, 3, cuda) == 1
+    assert band.clusters(128, 1, cuda) == 1
 
 
 # ------------------------------------------------ the banded scan (bw > 6)
@@ -831,7 +937,8 @@ def test_scan_on_card_matches_cpu(cuda, bw, nb, dtype):
     leaf = "leaf_ldl_f32" if dtype == torch.float32 else "leaf_ldl"
     assert kernels.COUNTS[leaf] == nb
     assert not any(kernels.COUNTS[n] for n in
-                   ("band_factor_bw", "band_fwd_bw", "band_bwd_bw"))
+                   ("band_factor_bw", "band_factor_cluster", "band_fwd_bw",
+                    "band_bwd_bw"))
     fp = band_ldl_factor(Kd, Ks)
     tol = 1e-12 if dtype == torch.float64 else 2e-4
     for a, b in zip(fk, fp):
@@ -865,7 +972,8 @@ def test_scan_solver_on_card_matches_cpu(cuda):
     launches = dict(kernels.COUNTS)
     assert launches["leaf_ldl"] > 0 and launches["leaf_ldl"] % 15 == 0
     assert not any(launches[n] for n in
-                   ("band_factor_bw", "band_fwd_bw", "band_bwd_bw"))
+                   ("band_factor_bw", "band_factor_cluster", "band_fwd_bw",
+                    "band_bwd_bw"))
     cpu = pt.BatchedSolver(st, settings, shared=("G", "A", "h"),
                            device="cpu").solve(batch)
     assert torch.equal(gpu.exit_code.cpu(), cpu.exit_code)
@@ -1182,8 +1290,11 @@ def _graph_case(pt, corpus, case):
         st, base = corpus.make_mpc_like(horizon=30, nx=2, nu=4, seed=3)
         st = st.with_gsplit(base.G, base.A)
         st = st.with_band_plan(make_band_plan(st, base.G, base.A))
+        if case == "banded-lp16":     # a tick: a cluster of CTAs a lane
+            lanes = 16
         settings = {
             "banded-lp": pt.Settings(kkt_strategy="banded"),
+            "banded-lp16": pt.Settings(kkt_strategy="banded"),
             "reduced": pt.Settings(kkt_strategy="reduced"),
             "full": pt.Settings(),
             "rescue": pt.Settings(kkt_strategy="banded", iter_max=3),
@@ -1556,7 +1667,7 @@ def test_loop_cond_runs_a_while_body_n_times(cuda, N):
     assert n == N and plain.tolist() == [1, N]
 
 
-@pytest.mark.parametrize("case", ["banded-lp", "banded-socp"])
+@pytest.mark.parametrize("case", ["banded-lp", "banded-socp", "banded-lp16"])
 def test_composed_solve_equals_host_replay(cuda, monkeypatch, case):
     """A kept solver's second solve is one composed launch: the bits of
     the same program's host-driven replay (exit codes, iterations, x, y,
@@ -1588,6 +1699,8 @@ def test_composed_solve_equals_host_replay(cuda, monkeypatch, case):
     assert counts == dict(wcounts, loop_cond=wsyncs,
                           loop_stamp=wcounts.get("loop_stamp", 0) + 2)
     assert (wcounts.get("loop_stamp", 0) > 0) == (case == "banded-socp")
+    lanes = batch.c.shape[0]
+    assert counts[factor_name(lanes, st.band.bwb)] > 0
 
 
 def test_disallowed_node_in_a_loop_raises(cuda):
