@@ -489,7 +489,7 @@ class KKTContext(NamedTuple):
     keep_soc: bool = False              # SOC rows stay in the factor
     band: Optional[BandMaps] = None
     Kd0: Optional[torch.Tensor] = None  # ([L,] nb, B, B) A, -dI, padding
-    Ks0: Optional[torch.Tensor] = None  # ([L,] nb, [bwb,] B, B)
+    Ks0: Optional[torch.Tensor] = None  # ([L,] nb, bwb, B, B)
     dense: Optional[DenseMaps] = None
     K0: Optional[torch.Tensor] = None   # ([L,] Dp, Dp)
     soc: Optional[SocMaps] = None
@@ -892,9 +892,10 @@ def _band_scatter_vals(st, ctx: KKTContext, winv_lp, delta, scal=None,
 
 
 def band_blocks(st, ctx: KKTContext, winv_lp, delta, scal=None, eig=None):
-    """The per-lane band blocks (Kd, Ks), each (L, nb, B, B), of the
-    direct scatter: the base plus the scattered contributions (with kept
-    cones, their rows in each cone's eigenbasis, ``_soc_kept_vals``)."""
+    """The per-lane band blocks (Kd (L, nb, B, B), Ks (L, nb, 1, B, B)) of
+    the direct scatter, which runs at block bandwidth 1: the base plus the
+    scattered contributions (with kept cones, their rows in each cone's
+    eigenbasis, ``_soc_kept_vals``)."""
     lanes = winv_lp.shape[0]
     Dp = ctx.band.Dp
     nbb = (Dp // B) * B * B
@@ -903,7 +904,7 @@ def band_blocks(st, ctx: KKTContext, winv_lp, delta, scal=None, eig=None):
         ctx.band.scatter,
         _band_scatter_vals(st, ctx, winv_lp, delta, scal, eig))
     bufb = buf.view(lanes, 2, Dp // B, B, B)
-    return ctx.Kd0 + bufb[:, 0], ctx.Ks0[..., 0, :, :] + bufb[:, 1]
+    return ctx.Kd0 + bufb[:, 0], ctx.Ks0 + bufb[:, 1, :, None]
 
 
 def _gathered_blocks(ctx: KKTContext, flat):

@@ -3,19 +3,17 @@
 (``csrc/band_factor_bw.cu``, ``csrc/band_solve_bw.cu``), and the dispatch
 between them and the scan of ``ops/band_ldl.py``.
 
+Every band has one layout: diagonal blocks ``Kd`` (lanes, nb, 128, 128)
+and sub-diagonal blocks ``Ks`` (lanes, nb, bw, 128, 128) with
+``Ks[:, k, j-1] = K[k, k-j]``; a factor's ``L`` has the layout of ``Ks``.
 ``band_factor``, ``band_fwd``, ``band_bwd`` and ``band_solve`` dispatch on
-the layout and the type: sub-diagonal blocks ``Ks`` (lanes, nb, 128, 128)
-are block bandwidth 1; (lanes, nb, bw, 128, 128) with ``Ks[:, k, j-1] =
-K[k, k-j]`` is block bandwidth bw.  Where the reference's band kernels do
-not run, a band wider than 6 or an f32 factor (both in the 5-d layout,
-which ``kkt`` gathers for them), these four run the scan
+the bandwidth and the type.  Where the reference's band kernels do not
+run, a band wider than 6 or an f32 factor, these four run the scan
 (``band_ldl_factor`` / ``band_ldl_solve``: batched ``torch.matmul``
 products, in ``gemm_dtype`` when it is given, and the leaf kernel
 ``ops/leaf.leaf_ldl`` on a CUDA tensor), as the reference runs its XLA
-scan there.  Otherwise, on the card every bandwidth runs the wide kernels,
-the 4-d layout as its ``[:, :, None]`` view, and ``gemm_dtype`` is not
-read (the kernels compute in f64, as the reference's do); the factor's
-``L`` has the layout of the ``Ks`` it came from.
+scan there.  Otherwise they call the kernel wrappers, and ``gemm_dtype``
+is not read (the kernels compute in f64, as the reference's do).
 
 The kernel wrappers ``band_factor_bw``, ``band_fwd_bw`` and ``band_bwd_bw``
 take block bandwidths 1..6 (the reference's own bound) and raise outside.
@@ -26,8 +24,8 @@ rule, fed by the lane count, the bandwidth and what the card reports.
 For a CUDA tensor each checks its inputs, allocates its outputs with
 ``torch.empty``, launches its kernel on the current stream and counts the
 launch in ``kernels.COUNTS``; a launch error raises.  For a CPU tensor it
-runs the plain twin of ``ops/band_ldl.py`` (the bandwidth-1 twins for the
-4-d layout).  Nothing falls back from a kernel to a twin or to the scan.
+runs the plain twin of ``ops/band_ldl.py``.  Nothing falls back from a
+kernel to a twin or to the scan.
 """
 
 from __future__ import annotations
@@ -38,9 +36,8 @@ import functools
 import torch
 
 from . import kernels
-from .band_ldl import (B, KP, BandFactors, band_bwd_bw_plain, band_bwd_plain,
-                       band_factor_bw_plain, band_factor_plain,
-                       band_fwd_bw_plain, band_fwd_plain, band_ldl_bwd,
+from .band_ldl import (B, KP, BandFactors, band_bwd_bw_plain,
+                       band_factor_bw_plain, band_fwd_bw_plain, band_ldl_bwd,
                        band_ldl_factor, band_ldl_fwd)
 
 BW_MAX = 6    # widest block band of the wide kernels
@@ -48,34 +45,27 @@ CLUSTERS = (8, 4, 2)    # CTAs a lane of the cluster factor, widest first
 
 
 def scan(Ks: torch.Tensor, dtype: torch.dtype) -> bool:
-    """True where the scan runs instead of the kernels: 5-d sub-diagonal
+    """True where the scan runs instead of the kernels: sub-diagonal
     blocks (or a factor's ``L``) ``Ks`` wider than ``BW_MAX``, in another
     type than f64, or of another block size than 128 (the JAX package's
     band kernels take 128-blocks only)."""
-    return Ks.dim() == 5 and (dtype != torch.float64 or Ks.shape[2] > BW_MAX
-                              or Ks.shape[-1] != B)
-
-
-def _wide(fac: BandFactors) -> BandFactors:
-    """The factor in the 5-d layout (a view of the 4-d one)."""
-    return fac if fac.L.dim() == 5 else fac._replace(L=fac.L[:, :, None])
+    return (dtype != torch.float64 or Ks.shape[2] > BW_MAX
+            or Ks.shape[-1] != B)
 
 
 def band_factor(Kd: torch.Tensor, Ks: torch.Tensor,
                 gemm_dtype=None) -> BandFactors:
     """Block-banded LDL^T of (lanes, nb, 128, 128) diagonal blocks and the
-    sub-diagonal blocks ``Ks`` in either layout (f32 in the 5-d one) -> L
-    (as ``Ks``), Dinv (lanes, nb, 128, 128) and d (lanes, nb, 128), in the
-    type of ``Kd``.  ``Ks[:, 0]`` (``Ks[:, k, j-1]`` for k < j) is ignored.
-    ``gemm_dtype`` is the scan's product type (module doc)."""
+    (lanes, nb, bw, 128, 128) sub-diagonal blocks ``Ks`` -> L (as ``Ks``),
+    Dinv (lanes, nb, 128, 128) and d (lanes, nb, 128), in the type of
+    ``Kd``.  ``Ks[:, k, j-1]`` for k < j is ignored.  A 4-d ``Ks``
+    (lanes, nb, 128, 128) is read as bandwidth 1, as ``benchmark/`` times
+    it.  ``gemm_dtype`` is the scan's product type (module doc)."""
+    if Ks.dim() == 4:
+        Ks = Ks[:, :, None]
     if scan(Ks, Kd.dtype):
         return band_ldl_factor(Kd, Ks, gemm_dtype)
-    if Ks.dim() == 5:
-        return band_factor_bw(Kd, Ks)
-    if kernels.on_cpu(Kd):
-        return band_factor_plain(Kd, Ks)
-    fac = band_factor_bw(Kd, Ks[:, :, None])
-    return fac._replace(L=fac.L[:, :, 0])
+    return band_factor_bw(Kd, Ks)
 
 
 def _check_bw(bw: int) -> None:
@@ -158,7 +148,7 @@ def _check_fac(fac: BandFactors, rhs: torch.Tensor):
     k = rhs.shape[1]
     if not 1 <= k <= KP:
         raise ValueError(f"band solve takes 1..{KP} right-hand sides, got {k}")
-    kernels.check("L", fac.L, (lanes, nb, *fac.L.shape[2:-2], B, B),
+    kernels.check("L", fac.L, (lanes, nb, fac.L.shape[2], B, B),
                   rhs.device)
     kernels.check("Dinv", fac.Dinv, (lanes, nb, B, B), rhs.device)
     kernels.check("d", fac.d, (lanes, nb, B), rhs.device)
@@ -172,11 +162,7 @@ def band_fwd(fac: BandFactors, rhs: torch.Tensor,
     y_k = Dinv_k (x_k - sum_j L[k,k-j] y_{k-j}), w = y / d."""
     if scan(fac.L, fac.d.dtype):
         return band_ldl_fwd(fac, rhs, gemm_dtype)
-    if fac.L.dim() == 5:
-        return band_fwd_bw(fac, rhs)
-    if kernels.on_cpu(rhs):
-        return band_fwd_plain(fac, rhs)
-    return band_fwd_bw(_wide(fac), rhs)
+    return band_fwd_bw(fac, rhs)
 
 
 def band_bwd(fac: BandFactors, w: torch.Tensor,
@@ -185,11 +171,7 @@ def band_bwd(fac: BandFactors, w: torch.Tensor,
     z_k = Dinv_k^T (w_k - sum_j L[k+j,k]^T z_{k+j})."""
     if scan(fac.L, fac.d.dtype):
         return band_ldl_bwd(fac, w, gemm_dtype)
-    if fac.L.dim() == 5:
-        return band_bwd_bw(fac, w)
-    if kernels.on_cpu(w):
-        return band_bwd_plain(fac, w)
-    return band_bwd_bw(_wide(fac), w)
+    return band_bwd_bw(fac, w)
 
 
 def band_fwd_bw(fac: BandFactors, rhs: torch.Tensor) -> torch.Tensor:

@@ -1,7 +1,6 @@
-"""Block-banded LDL^T factor and solves as loops of torch products:
-block bandwidth 1 (``band_factor_plain`` ...) and any block bandwidth
-(the scan, ``band_ldl_factor`` / ``band_ldl_solve``, and its f64 twins
-``band_factor_bw_plain`` ...).
+"""Block-banded LDL^T factor and solves as loops of torch products at any
+block bandwidth: the scan, ``band_ldl_factor`` / ``band_ldl_solve``, and
+its f64 twins of the band kernels, ``band_factor_bw_plain`` ...
 
 The scan is the port of ``eicos_tpu.ops.band_ldl.band_ldl_factor`` /
 ``band_ldl_solve``, the path the reference takes where its band kernels do
@@ -22,27 +21,19 @@ The ``*_plain`` functions are the plain twins of the CUDA kernels in
 pivots clamped at +-1e-150) and the unit-lower inverse by substitution, as
 the leaf kernel computes it (``_unit_lower_inv``; the reference doubles by
 Newton-Schulz), on every device.  They run wherever a tensor lies on the
-CPU (the tests, and the solver on ``device="cpu"``), and ``chip_smoke.py``
-holds the kernels against them on the card.
+CPU (the tests, and the solver on ``device="cpu"``), and the card tests
+(``tests/test_torch_cuda.py``) hold the kernels against them.
 
-Factor of one lane, block rows k = 0..nb-1 (Ks[0] is never read):
-
-    L_k    = Ks_k Dinv_{k-1}^T / d_{k-1}        (L_0 = 0)
-    M      = Kd_k - (L_k d_{k-1}) L_k^T
-    M      = Lkk diag(d_k) Lkk^T                 (unpivoted leaf)
-    Dinv_k = Lkk^{-1}
-
-Solve: forward  y_k = Dinv_k (x_k - L_k y_{k-1}),  w = y / d;
-       backward z_k = Dinv_k^T (w_k - L_{k+1}^T z_{k+1}).
-
-At block bandwidth bw, with L[k, k-j] stored at ``L[:, k, j-1]`` and terms
-that reach above block row 0 left out (the reference's ring starts them at
-L = 0, Dinv = I, d = 1, which contributes exact zeros):
+Factor of one lane at block bandwidth bw, block rows k = 0..nb-1, with
+L[k, k-j] stored at ``L[:, k, j-1]`` and terms that reach above block row
+0 left out (the reference's ring starts them at L = 0, Dinv = I, d = 1,
+which contributes exact zeros):
 
     for j = bw..1:  S = Ksubs[k, j-1]
                         - sum_{q=j+1..bw} (L[k,k-q] d_{k-q}) L[k-j,k-q]^T
                     L[k,k-j] = S Dinv_{k-j}^T / d_{k-j}
-    M = Kd_k - sum_{q=1..bw} (L[k,k-q] d_{k-q}) L[k,k-q]^T, then the leaf
+    M = Kd_k - sum_{q=1..bw} (L[k,k-q] d_{k-q}) L[k,k-q]^T
+    M = Lkk diag(d_k) Lkk^T  (unpivoted leaf),  Dinv_k = Lkk^{-1}
 
     forward  y_k = Dinv_k (x_k - sum_j L[k,k-j] y_{k-j}),  w = y / d
     backward z_k = Dinv_k^T (w_k - sum_j L[k+j,k]^T z_{k+j})
@@ -60,9 +51,7 @@ KP = 16       # most right-hand sides one band solve takes
 
 
 class BandFactors(NamedTuple):
-    # (lanes, nb, B, B) sub-diagonal blocks L[k, k-1] at block bandwidth 1;
-    # (lanes, nb, bw, B, B) with L[:, k, j-1] = L[k, k-j] from the bw forms
-    L: torch.Tensor
+    L: torch.Tensor      # (lanes, nb, bw, B, B), L[:, k, j-1] = L[k, k-j]
     Dinv: torch.Tensor   # (lanes, nb, B, B) inverses of the unit-lower leaves
     d: torch.Tensor      # (lanes, nb, B) pivots
 
@@ -116,64 +105,6 @@ def _unit_lower_inv(L: torch.Tensor) -> torch.Tensor:
     eye = torch.eye(L.shape[-1], dtype=L.dtype, device=L.device)
     return torch.linalg.solve_triangular(L, eye.expand_as(L), upper=False,
                                          unitriangular=True)
-
-
-def band_factor_plain(Kd: torch.Tensor, Ks: torch.Tensor) -> BandFactors:
-    """Plain twin of the ``band_factor`` kernel: (lanes, nb, B, B) f64
-    diagonal and sub-diagonal blocks -> ``BandFactors``."""
-    lanes, nb = Kd.shape[0], Kd.shape[1]
-    Ls, Dinvs, ds = [], [], []
-    for k in range(nb):
-        if k == 0:
-            Lk = torch.zeros_like(Kd[:, 0])
-            M = Kd[:, 0]
-        else:
-            Lk = (Ks[:, k] @ Dinvs[-1].transpose(-1, -2)
-                  ) / ds[-1][:, None, :]
-            M = Kd[:, k] - (Lk * ds[-1][:, None, :]) @ Lk.transpose(-1, -2)
-        Lkk, dk = _unblocked_ldl(M)
-        Ls.append(Lk)
-        Dinvs.append(_unit_lower_inv(Lkk))
-        ds.append(dk)
-    return BandFactors(L=torch.stack(Ls, 1), Dinv=torch.stack(Dinvs, 1),
-                       d=torch.stack(ds, 1))
-
-
-def band_fwd_plain(fac: BandFactors, rhs: torch.Tensor) -> torch.Tensor:
-    """Plain twin of ``band_fwd``: rhs (lanes, k, Dp) -> w (lanes, k, Dp)
-    with y_k = Dinv_k (x_k - L_k y_{k-1}) and w = y / d."""
-    nb = fac.L.shape[1]
-    out = torch.empty_like(rhs)
-    y = None
-    for b in range(nb):
-        acc = rhs[:, :, b * B:(b + 1) * B].transpose(-1, -2)
-        if b:
-            acc = acc - fac.L[:, b] @ y
-        y = fac.Dinv[:, b] @ acc
-        out[:, :, b * B:(b + 1) * B] = (y / fac.d[:, b, :, None]
-                                        ).transpose(-1, -2)
-    return out
-
-
-def band_bwd_plain(fac: BandFactors, w: torch.Tensor) -> torch.Tensor:
-    """Plain twin of ``band_bwd``: w (lanes, k, Dp) -> z (lanes, k, Dp)
-    with z_k = Dinv_k^T (w_k - L_{k+1}^T z_{k+1}), bottom block first."""
-    nb = fac.L.shape[1]
-    out = torch.empty_like(w)
-    z = None
-    for b in range(nb - 1, -1, -1):
-        acc = w[:, :, b * B:(b + 1) * B].transpose(-1, -2)
-        if b < nb - 1:
-            acc = acc - fac.L[:, b + 1].transpose(-1, -2) @ z
-        z = fac.Dinv[:, b].transpose(-1, -2) @ acc
-        out[:, :, b * B:(b + 1) * B] = z.transpose(-1, -2)
-    return out
-
-
-def band_solve_plain(fac: BandFactors, rhs: torch.Tensor) -> torch.Tensor:
-    """Plain twin of ``band_solve``: K x = rhs for rhs (lanes, k, Dp), the
-    layout of ``eicos_tpu``'s ``band_solve_ds`` (KP, D) per lane."""
-    return band_bwd_plain(fac, band_fwd_plain(fac, rhs))
 
 
 def _product(dtype, gemm_dtype):

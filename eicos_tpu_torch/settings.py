@@ -19,7 +19,7 @@ above 6, or an f32 factor) in float32, as the reference does on its scan
 path and nowhere else; the band kernels at block bandwidths 1..6 compute
 in f64 whatever it says.  The products are ``torch.matmul`` with TF32 off
 (``torch.backends.cuda.matmul.allow_tf32`` False, torch's default, which
-``chip_smoke.py`` checks), the reference's "highest" precision.
+the card suite checks), the reference's "highest" precision.
 
 ``kkt_strategy``: all four run.  "full" (the default) factors the dense K
 over [z | x | y]; "reduced" eliminates the LP rows and keeps the SOC rows;

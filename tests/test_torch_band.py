@@ -1,7 +1,9 @@
-"""The band LDL^T module of the port (ops/band_ldl.py plain twins, reached
-through the ops/band.py wrappers on CPU tensors) against the JAX package:
-its f64 banded factor (ops/band_ldl.py, XLA on the CPU) and its Pallas
-double-single kernels in interpret mode (ops/pallas_band_ds.py)."""
+"""The band LDL^T module of the port at block bandwidth 1 (ops/band_ldl.py
+plain twins, reached through the ops/band.py wrappers on CPU tensors, the
+sub-diagonal blocks in the one band layout (lanes, nb, 1, 128, 128))
+against the JAX package: its f64 banded factor (ops/band_ldl.py, XLA on
+the CPU) and its Pallas double-single kernels in interpret mode
+(ops/pallas_band_ds.py)."""
 
 import torch_threads  # noqa: F401  (one torch thread a worker)
 
@@ -16,8 +18,9 @@ from eicos_tpu.ops import band_ldl as jband
 from eicos_tpu.ops import pallas_band_ds as jds
 
 from eicos_tpu_torch.ops import band, kernels
-from eicos_tpu_torch.ops.band_ldl import (KP, band_factor_plain,
-                                          band_solve_plain)
+from eicos_tpu_torch.ops.band_ldl import (KP, band_bwd_bw_plain,
+                                          band_factor_bw_plain,
+                                          band_fwd_bw_plain)
 
 B = 128
 
@@ -56,13 +59,18 @@ def rel(a, b):
     return np.abs(a - b).max() / np.abs(b).max()
 
 
+def bw1(Ks):
+    """(lanes, nb, B, B) sub-diagonal blocks in the band layout, bw 1."""
+    return torch.tensor(Ks[:, :, None])
+
+
 @pytest.fixture(scope="module")
 def case():
     nb, lanes = 3, 2
     blocks = [band_quasidefinite(nb, seed) for seed in range(lanes)]
     Kd = np.stack([b[0] for b in blocks])
     Ks = np.stack([b[1] for b in blocks])
-    fac = band.band_factor(torch.tensor(Kd), torch.tensor(Ks))
+    fac = band.band_factor(torch.tensor(Kd), bw1(Ks))
     return Kd, Ks, fac
 
 
@@ -75,7 +83,7 @@ def test_factor_matches_f64_reference(case):
         ref = jband.band_ldl_factor(
             jnp.asarray(dense_from_blocks(Kd[lane], Ks[lane])), 1,
             use_pallas="off")
-        assert rel(fac.L[lane], np.asarray(ref.Lband)[:, 0]) < 1e-11
+        assert rel(fac.L[lane, :, 0], np.asarray(ref.Lband)[:, 0]) < 1e-11
         assert rel(fac.Dinv[lane], ref.Dinv) < 1e-11
         assert rel(fac.d[lane].reshape(-1), ref.d) < 1e-11
 
@@ -88,7 +96,8 @@ def test_factor_matches_pallas_interpret(case):
     Lh, Ll, Dh, Dl, dh, dl = jds._band_factor_ds_impl(
         jnp.asarray(Kd[0]), jnp.asarray(Ks[0]), interpret=True)
     f64 = np.float64
-    assert rel(fac.L[0], np.asarray(Lh, f64) + np.asarray(Ll, f64)) < 1e-9
+    assert rel(fac.L[0, :, 0], np.asarray(Lh, f64) + np.asarray(Ll, f64)) \
+        < 1e-9
     assert rel(fac.Dinv[0], np.asarray(Dh, f64) + np.asarray(Dl, f64)) < 1e-9
     d = np.asarray(dh, f64)[:, 0] + np.asarray(dl, f64)[:, 0]
     assert rel(fac.d[0], d) < 1e-9
@@ -99,11 +108,12 @@ def test_factor_serves_lane_tiled_kernel():
     tests and tools) computes the same function: one port kernel serves
     the single-lane and the lane-tiled Pallas kernels.  Within 1e-9."""
     Kd, Ks = (a[None] for a in band_quasidefinite(2, 7))
-    fac = band.band_factor(torch.tensor(Kd), torch.tensor(Ks))
+    fac = band.band_factor(torch.tensor(Kd), bw1(Ks))
     Lh, Ll, Dh, Dl, dh, dl = jds._band_factor_ds_batch(
         jnp.asarray(Kd), jnp.asarray(Ks), T=1, interpret=True)
     f64 = np.float64
-    assert rel(fac.L, np.asarray(Lh, f64) + np.asarray(Ll, f64)) < 1e-9
+    assert rel(fac.L[:, :, 0], np.asarray(Lh, f64) + np.asarray(Ll, f64)) \
+        < 1e-9
     assert rel(fac.Dinv, np.asarray(Dh, f64) + np.asarray(Dl, f64)) < 1e-9
     assert rel(fac.d, np.asarray(dh, f64)[:, :, 0]
                + np.asarray(dl, f64)[:, :, 0]) < 1e-9
@@ -152,7 +162,7 @@ def test_dump_slot_is_never_read(case):
     Ks2 = Ks.copy()
     Ks2[:, 0, 0, 0] = 1e300
     Ks2[:, 0, 5, 7] = -3.0
-    fac2 = band.band_factor(torch.tensor(Kd), torch.tensor(Ks2))
+    fac2 = band.band_factor(torch.tensor(Kd), bw1(Ks2))
     for a, b in zip(fac, fac2):
         assert torch.equal(a, b)
 
@@ -165,8 +175,9 @@ def test_fwd_bwd_compose_to_solve(case):
         (Kd.shape[0], 3, Kd.shape[1] * B)))
     before = dict(kernels.COUNTS)
     x = band.band_bwd(fac, band.band_fwd(fac, rhs))
-    assert torch.equal(x, band_solve_plain(fac, rhs))
-    fac_p = band_factor_plain(torch.tensor(Kd), torch.tensor(Ks))
+    assert torch.equal(x, band.band_solve(fac, rhs))
+    assert torch.equal(x, band_bwd_bw_plain(fac, band_fwd_bw_plain(fac, rhs)))
+    fac_p = band_factor_bw_plain(torch.tensor(Kd), bw1(Ks))
     assert all(torch.equal(a, b) for a, b in zip(fac, fac_p))
     assert kernels.COUNTS == before
 
@@ -175,4 +186,4 @@ def test_wrapper_takes_only_cuda_or_cpu():
     """A tensor on any other device neither launches nor runs the twin."""
     t = torch.empty(1, 1, B, B, dtype=torch.float64, device="meta")
     with pytest.raises(RuntimeError):
-        band.band_factor(t, t)
+        band.band_factor(t, t[:, :, None])

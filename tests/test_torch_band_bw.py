@@ -173,11 +173,11 @@ def test_bw_twins_match_pallas_interpret():
 
 
 def test_bw1_layouts_agree():
-    """Block bandwidth 1 in the 5-d layout runs the bandwidth-1 twins and
-    the wide twins to the same factor (within 1e-13: the same elimination,
-    the Schur product summed in one order) and the same solution; rows
-    left of block column 0 are never read and come back as zeros; no
-    kernel launch is counted on CPU tensors."""
+    """Block bandwidth 1 given as 4-d sub-diagonal blocks (read as the
+    band layout's bandwidth 1) gives the bits of the 5-d factor, an ``L``
+    of the band layout and the same solution; ``band_factor`` and the wide
+    twins agree within 1e-13; rows left of block column 0 are never read
+    and come back as zeros; no kernel launch is counted on CPU tensors."""
     Kd, Ks = wide_band(2, 3, 1, seed=5)
     Ks[:, 0, 0] = 1e300          # K[0, -1]: never read
     Kd, Ks = torch.tensor(Kd), torch.tensor(Ks)
@@ -185,7 +185,8 @@ def test_bw1_layouts_agree():
     narrow = band.band_factor(Kd, Ks[:, :, 0].contiguous())
     five = band.band_factor(Kd, Ks)
     wide = band.band_factor_bw(Kd, Ks)
-    assert torch.equal(five.L[:, :, 0], narrow.L) and five.L.dim() == 5
+    assert all(torch.equal(a, b) for a, b in zip(narrow, five))
+    assert narrow.L.dim() == 5
     assert not wide.L[:, 0].any()
     for a, b in zip(wide, five):
         assert rel(a, b) < 1e-13

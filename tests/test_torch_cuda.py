@@ -1,8 +1,11 @@
-"""The port's CUDA kernels against their plain twins, on the card.  These
-tests need an NVIDIA GPU and nvcc (a CUDA kernel has no CPU mode) and skip
-elsewhere; run them on a GPU machine with
+"""The port on the card: its CUDA kernels against their plain twins, at
+small shapes and at the shapes of the paths, and each path of the solver
+at full size (``test_path_at_full_size``) against the CPU plain path, its
+eager segments and its own repeats.  These tests need an NVIDIA GPU and
+nvcc (a CUDA kernel has no CPU mode) and skip elsewhere; run them on a GPU
+machine (which has no JAX: ``--noconftest``) with
 
-    python -m pytest tests/test_torch_cuda.py -q -m cuda
+    python3 -m pytest tests/test_torch_cuda.py -q -m cuda --noconftest
 """
 
 import torch_threads  # noqa: F401  (one torch thread a worker)
@@ -53,24 +56,27 @@ def factor_name(lanes, bw=1):
 
 
 def test_band_kernels_match_plain(cuda):
-    """The 4-d (block bandwidth 1) layout on the card runs the wide kernels
-    and matches the bandwidth-1 plain twins within 1e-10 relative (the two
-    differ in summation order and in how the leaf inverse is formed, by
-    blocks against Newton-Schulz)."""
+    """Block bandwidth 1 on the card runs the band kernels and matches the
+    plain twins within 1e-10 relative (the two differ in summation order
+    and in how the leaf inverse is formed, by blocks against
+    Newton-Schulz)."""
     from eicos_tpu_torch.ops import band, kernels
     from eicos_tpu_torch.ops import band_ldl as plain
 
     Kd, Ks = (torch.tensor(a, device=cuda) for a in band_case(3, 4, 0))
+    Ks = Ks[:, :, None]
     before = dict(kernels.COUNTS)
     fk = band.band_factor(Kd, Ks)
-    fp = plain.band_factor_plain(Kd, Ks)
+    fp = plain.band_factor_bw_plain(Kd, Ks)
     for a, b in zip(fk, fp):
         assert rel(a, b) < 1e-10
     rng = np.random.default_rng(1)
     for k in (1, 2, 16):
         r = torch.tensor(rng.standard_normal((3, k, 4 * B)), device=cuda)
-        assert rel(band.band_fwd(fk, r), plain.band_fwd_plain(fk, r)) < 1e-10
-        assert rel(band.band_bwd(fk, r), plain.band_bwd_plain(fk, r)) < 1e-10
+        assert rel(band.band_fwd(fk, r), plain.band_fwd_bw_plain(fk, r)) \
+            < 1e-10
+        assert rel(band.band_bwd(fk, r), plain.band_bwd_bw_plain(fk, r)) \
+            < 1e-10
     torch.cuda.synchronize()
     name = factor_name(3)
     assert kernels.COUNTS[name] == before[name] + 1
@@ -83,7 +89,7 @@ def test_band_wrappers_check_inputs(cuda):
 
     Kd, Ks = (torch.tensor(a, device=cuda) for a in band_case(1, 2, 2))
     with pytest.raises(ValueError):
-        band.band_factor(Kd.float(), Ks.float())
+        band.band_factor_bw(Kd.float(), Ks[:, :, None].float())
     fac = band.band_factor(Kd, Ks)
     with pytest.raises(ValueError):
         band.band_solve(fac, torch.zeros(1, 17, 2 * B, dtype=torch.float64,
@@ -135,8 +141,9 @@ def quasidefinite(lanes, D, pos, seed):
 def test_leaf_kernel_matches_plain_and_band_leaf(cuda):
     """leaf_ldl against its plain version within 1e-10 relative (summation
     order, and a substitution inverse against Newton-Schulz), read from and
-    written to strided views; and bit for bit the band factor's first leaf,
-    which runs the same device code."""
+    written to strided views, ||Linv M Linv' - diag(d)|| within 1e-9 of
+    ||diag(d)||; and bit for bit the band factor's first leaf, which runs
+    the same device code."""
     from eicos_tpu_torch.ops import band, kernels, leaf
 
     M = torch.tensor(quasidefinite(3, 2 * B, 150, 3), device=cuda)
@@ -150,6 +157,9 @@ def test_leaf_kernel_matches_plain_and_band_leaf(cuda):
     assert kernels.COUNTS["leaf_ldl"] == before + 1
     assert rel(Linv[:, :B, B:], Lp) < 1e-10 and rel(d[:, B:], dp) < 1e-10
     assert not Linv[:, B:].any() and not Linv[:, :B, :B].any()
+    Li = Linv[:, :B, B:]
+    assert rel(Li @ blk @ Li.transpose(-1, -2), torch.diag_embed(d[:, B:])) \
+        < 1e-9
     Kd, Ks = (torch.tensor(a, device=cuda) for a in band_case(3, 2, 5))
     fac = band.band_factor(Kd, Ks)
     Lk, dk = leaf.leaf_ldl(Kd[:, 0])
@@ -434,12 +444,11 @@ def test_wide_band_sweeps_match_plain(cuda, bw, nb):
 
 
 def test_wide_band_kernel_at_bw1_matches_band_factor(cuda):
-    """At block bandwidth 1 the 4-d layout of ``ops/band.py`` (the
-    ``band_factor`` the scatter path calls) is a view onto the wide
-    kernels: the same launches (``COUNTS``) and the same bits as the 5-d
-    layout, and both within 1e-10 of the bandwidth-1 plain twins."""
+    """A 4-d ``Ks`` (lanes, nb, 128, 128), which ``band_factor`` reads as
+    block bandwidth 1 (``benchmark/`` times it so), launches the band
+    kernels once each and gives the bits of the band layout's factor and
+    solve."""
     from eicos_tpu_torch.ops import band, kernels
-    from eicos_tpu_torch.ops import band_ldl as plain
 
     Kd, Ks = (torch.tensor(a, device=cuda) for a in wide_band_case(3, 5, 1, 3))
     r = torch.tensor(np.random.default_rng(2).standard_normal((3, 2, 5 * B)),
@@ -450,16 +459,10 @@ def test_wide_band_kernel_at_bw1_matches_band_factor(cuda):
     torch.cuda.synchronize()
     for name in (factor_name(3), "band_fwd_bw", "band_bwd_bw"):
         assert kernels.COUNTS[name] == before[name] + 1, name
-    assert narrow.L.shape == (3, 5, B, B)
+    assert narrow.L.shape == (3, 5, 1, B, B)
     wide = band.band_factor_bw(Kd, Ks)
-    assert torch.equal(wide.L[:, :, 0], narrow.L)
-    assert torch.equal(wide.Dinv, narrow.Dinv)
-    assert torch.equal(wide.d, narrow.d)
+    assert all(torch.equal(a, b) for a, b in zip(wide, narrow))
     assert torch.equal(band.band_bwd_bw(wide, band.band_fwd_bw(wide, r)), x4)
-    fp = plain.band_factor_plain(Kd, Ks[:, :, 0].contiguous())
-    for a, b in zip(narrow, fp):
-        assert rel(a, b) < 1e-10
-    assert rel(x4, plain.band_solve_plain(fp, r)) < 1e-10
 
 
 def test_wide_band_wrappers_check_inputs(cuda):
@@ -589,7 +592,8 @@ def test_dense_pack_and_sweeps_match_plain(cuda, D):
 
 def test_leaf_f32_kernel_matches_plain(cuda):
     """leaf_ldl at f32 against its plain version and the f64 leaf within
-    2e-4 relative (f32 over 128 dependent steps), into strided views."""
+    2e-4 relative (f32 over 128 dependent steps), into strided views, and
+    ||Linv M Linv' - diag(d)|| within 2e-4 of ||diag(d)||."""
     from eicos_tpu_torch.ops import kernels, leaf
 
     M = torch.tensor(quasidefinite(3, 2 * B, 150, 3), device=cuda)
@@ -606,6 +610,9 @@ def test_leaf_f32_kernel_matches_plain(cuda):
     assert rel(Linv[:, :B, B:].double(), L64) < 2e-4
     assert rel(d[:, B:].double(), d64) < 2e-4
     assert not Linv[:, B:].any() and not Linv[:, :B, :B].any()
+    Li = Linv[:, :B, B:].double()
+    assert rel(Li @ blk.double() @ Li.transpose(-1, -2),
+               torch.diag_embed(d[:, B:].double())) < 2e-4
 
 
 def test_subst_wrappers_check_inputs(cuda):
@@ -787,15 +794,16 @@ def test_blocked_leaf_matches_plain(cuda, lanes, dtype):
     assert torch.equal(blk, again[0]) and torch.equal(dd, again[1])
 
 
-@pytest.mark.parametrize("bw", [1, 2, 3, 4, 5, 6])
-def test_band_factor_bw_lanes_match_plain(cuda, bw):
+@pytest.mark.parametrize("bw,nb", [(bw, bw + 2) for bw in range(1, 7)]
+                         + [(1, 5)],
+                         ids=["1", "2", "3", "4", "5", "6", "1-nb5"])
+def test_band_factor_bw_lanes_match_plain(cuda, bw, nb):
     """The DMMA band factor at 1, 3, 64 and 130 lanes against
     ``band_factor_bw_plain`` within 1e-12 relative, factor and solve (the
     wide sweeps on both factors); a repeated factor gives the same bits."""
     from eicos_tpu_torch.ops import band, kernels
     from eicos_tpu_torch.ops import band_ldl as plain
 
-    nb = bw + 2
     for lanes in (1, 3, 64, 130):
         Kd, Ks = (torch.tensor(a, device=cuda)
                   for a in wide_band_case(lanes, nb, bw, 7 * bw + lanes))
@@ -818,22 +826,25 @@ def test_band_factor_bw_lanes_match_plain(cuda, bw):
         torch.cuda.empty_cache()
 
 
-def device_band(lanes, nb, seed, device):
-    """``band_case``'s recipe made on the card from a ``torch.Generator``
-    (128 lanes at nb 23 would take seconds in numpy)."""
+def device_wide_band(lanes, nb, bw, seed, device):
+    """``wide_band_case``'s recipe made on the card from a
+    ``torch.Generator`` (128 lanes at nb 23 would take seconds in
+    numpy)."""
     g = torch.Generator(device=device)
     g.manual_seed(seed)
     f64 = dict(dtype=torch.float64, device=device, generator=g)
     Kd = 0.3 * torch.randn(lanes, nb, B, B, **f64) / B ** 0.5
     Kd = Kd + Kd.transpose(-1, -2)
-    Ks = 0.3 * torch.randn(lanes, nb, B, B, **f64) / B ** 0.5
-    Ks[:, 0] = 0.0
-    rows = Kd.abs().sum(-1) + Ks.abs().sum(-1)
-    rows[:, :-1] += Ks[:, 1:].abs().sum(-2)
+    Ks = 0.3 * torch.randn(lanes, nb, bw, B, B, **f64) / B ** 0.5
+    rows = Kd.abs().sum(-1)
+    for j in range(1, bw + 1):
+        Ks[:, :j, j - 1] = 0.0
+        rows += Ks[:, :, j - 1].abs().sum(-1)
+        rows[:, :-j] += Ks[:, j:, j - 1].abs().sum(-2)
     sign = torch.where(torch.rand(lanes, nb, B, generator=g, device=device)
                        < 0.6, 1.0, -1.0).to(torch.float64)
     Kd.diagonal(dim1=-2, dim2=-1).copy_(sign * (1.0 + rows))
-    return Kd, Ks
+    return Kd, Ks.contiguous()
 
 
 @pytest.mark.parametrize("nb", [16, 23])
@@ -845,7 +856,7 @@ def test_cluster_factor_has_the_one_cta_bits(cuda, nb):
     takes; Ks[:, 0] is never read."""
     from eicos_tpu_torch.ops import band, kernels
 
-    Kd, Ks = device_band(128, nb, 100 + nb, cuda)
+    Kd, Ks = device_wide_band(128, nb, 1, 100 + nb, cuda)
     Ks[:, 0] = 1e300
     assert factor_name(128) == "band_factor_bw"
     before = dict(kernels.COUNTS)
@@ -1046,18 +1057,61 @@ def bits(t):
     return t.view(torch.int64)
 
 
+SPMV_FORMS = ("product", "rx", "elim", "elim_t", "ex", "eyz", "ryz")
+
+
+def spmv_form(form, a, nm, km0, split, rnd, delta=3e-8):
+    """One epilogue form of the fused call, as a product site calls it,
+    on the input ``a`` (L, k, km) (two-segment forms take its two views
+    split at ``km0``, as [z | y]; split forms split the output at
+    ``split``, as [y | z]): the fused call's keywords (``a`` the first
+    segment) and the sequence it replaces, given ``K``, the kernel with no
+    epilogue on the concatenation: K, then the site's torch ops as they
+    ran before the fusion.  Bases and x are strided views of one
+    right-hand side, as at the sites; ``rnd(cols)`` draws (L, k, cols)."""
+    a0, a1 = a[..., :km0], a[..., km0:]
+    rhs = rnd(3 * nm + 7)
+    base, x = rhs[..., 3:3 + nm], rhs[..., nm + 5:2 * nm + 5]
+    b0, b1 = base[..., :split], base[..., split:]
+    x0, x1 = x[..., :split], x[..., split:]
+    w = rnd(nm - split)
+    if form == "product":
+        return dict(a=a), lambda K: K(a)
+    if form == "rx":                    # -[G; A]'[z | y]
+        return (dict(a=a0, a2=a1, op="sub"),
+                lambda K: -K(torch.cat([a0, a1], -1)))
+    if form == "elim":                  # bx + G' welim(bz)
+        return dict(a=a, base=base), lambda K: base + K(a)
+    if form == "elim_t":                # G dx - bz
+        return dict(a=a, base=base, op="rsub"), lambda K: K(a) - base
+    if form == "ex":                    # bx - [G; A]'[dz | dy] - d dx
+        return (dict(a=a0, a2=a1, base=base, op="sub", gamma=-delta, x=x),
+                lambda K: base - K(torch.cat([a0, a1], -1)) - delta * x)
+    if form == "eyz":                   # [by - A dx + d dy | bz - G dx + Wdz + d dz]
+        def seq(K):
+            t = K(a)
+            return torch.cat([b0 - t[..., :split] + delta * x0,
+                              b1 - t[..., split:] + w + delta * x1], -1)
+        return (dict(a=a, base=(b0, b1), op="sub", w=(None, w), gamma=delta,
+                     x=(x0, x1), split=split), seq)
+    assert form == "ryz"                # [A x | s + G x]
+
+    def seq(K):
+        t = K(a)
+        return torch.cat([t[..., :split], b1 + t[..., split:]], -1)
+    return dict(a=a, base=(None, b1), split=split), seq
+
+
 def fused_forms(a, nm, km0, split, rng):
     """The product sites' forms of the fused call on ``a`` (L, k, km), as
-    ``chip_smoke.spmv_form`` writes them (the call's keywords and the
-    sequence it replaces), on inputs drawn from ``rng``."""
-    import chip_smoke
-
+    ``spmv_form`` writes them (the call's keywords and the sequence it
+    replaces), on inputs drawn from ``rng``."""
     def rnd(cols):
         return torch.tensor(rng.standard_normal(tuple(a.shape[:-1]) + (cols,)),
                             device=a.device)
 
-    return {form: chip_smoke.spmv_form(torch, form, a, nm, km0, split, rnd)
-            for form in chip_smoke.SPMV_FORMS if form != "product"}
+    return {form: spmv_form(form, a, nm, km0, split, rnd)
+            for form in SPMV_FORMS if form != "product"}
 
 
 @pytest.mark.parametrize("per_lane", [False, True], ids=["shared", "lanes"])
@@ -1863,3 +1917,1423 @@ def test_stamp_ring_overflow_is_reported_on_card(cuda):
     assert [e["index"] for e in stats["launches"]] == list(
         range(6, STAMP_RING + 6))
     assert kernels.COUNTS["loop_stamp"] == 2 * (STAMP_RING + 6)
+
+
+# ------------------------------------------- the card's build and settings
+
+def test_tf32_is_off(cuda):
+    """The f32 products of ``factor_dtype="float32"`` and ``band_gemm``
+    run in full f32: TF32 is off once the package is imported."""
+    import eicos_tpu_torch  # noqa: F401
+
+    assert not torch.backends.cuda.matmul.allow_tf32
+
+
+def test_dgemm_machine_code_holds_dmma(cuda):
+    """dgemm's machine code runs its products on the f64 tensor cores:
+    ``cuobjdump -sass`` of the built library shows DMMA instructions."""
+    import shutil
+    import subprocess
+
+    from eicos_tpu_torch.ops import kernels
+
+    kernels.build()
+    tool = shutil.which("cuobjdump") or "/usr/local/cuda/bin/cuobjdump"
+    sass = subprocess.run([tool, "-sass", kernels.lib_path("dgemm")],
+                          capture_output=True, text=True, check=True).stdout
+    assert any("DMMA" in line for line in sass.splitlines())
+
+
+# ------------------------------------------- the kernels at the paths' shapes
+#
+# The sizes of the paths below: the 128-lane horizon-249 LP of the
+# mpc_lp cells (band nb 16, "reduced" Dp 2048, "full" Dp 7040), the wide
+# band of make_mpc_like(30, 64, 32) (bwb 3, Dp 4864) and the scan's LP
+# make_mpc_like(12, 256, 128) (bwb 9, Dp 7680).
+
+HORIZON, NX, NU = 249, 2, 4
+LANES = 128
+RESCUE_LANES = 16
+SOC_LANES = 8
+WIDE = dict(horizon=30, nx=64, nu=32, seed=3)
+WIDE_LANES, WIDE_BWB, WIDE_DP = 64, 3, 4864
+SCAN = dict(horizon=12, nx=256, nu=128, seed=3)
+SCAN_LANES, SCAN_BWB, SCAN_DP = 32, 9, 7680
+FULL_LANES, FULL_DP = 8, 7040    # "full": 8 lanes, cut from 128 for memory
+DENSE_DP = 2048                  # "reduced" on the LP
+CPU_LANES = 4                    # lanes solved again on the CPU
+BLOCK64_LANES = 4
+KP = 16
+KERNEL_TOL = 1e-10               # kernel vs plain twin, max relative error
+RESID_TOL = 1e-9                 # ||K x - b||_inf / ||b||_inf
+WIDE_TOL = 1e-12                 # wide band kernels vs plain twins
+SUBST_TOL = 1e-12                # substitution sweeps vs plain
+F32_LEAF_TOL = 2e-4              # f32 leaf and solve vs plain and vs f64
+SPMV_TOL = 1e-14                 # gather kernel vs plain
+LANE_TOL = 1e-8                  # lane 0: card vs CPU objective, relative
+STRATEGY_TOL = 1e-7              # one strategy's objective vs another's
+INACC_TOL = 1e-4                 # objective of a reduced-accuracy exit
+F32_TOL = 1e-6                   # an f32 factor's definitive objective
+F32_SCAN_TOL = 1e-4              # f32 scan (or f32 products): card vs CPU
+
+
+def wide_matvec(Kd, Ks, x):
+    """K x for the block-banded K of (Kd, Ks) in the band layout; x (L, k,
+    Dp)."""
+    lanes, k, Dp = x.shape
+    nb, bw = Ks.shape[1], Ks.shape[2]
+    xb = x.reshape(lanes, k, nb, B).permute(0, 2, 3, 1)    # (L, nb, B, k)
+    y = Kd @ xb
+    for j in range(1, min(bw, nb - 1) + 1):
+        y[:, j:] += Ks[:, j:, j - 1] @ xb[:, :-j]
+        y[:, :-j] += Ks[:, j:, j - 1].transpose(-1, -2) @ xb[:, j:]
+    return y.permute(0, 3, 1, 2).reshape(lanes, k, Dp)
+
+
+@pytest.mark.parametrize("bw,lanes,nb,tol", [
+    (1, LANES, 16, KERNEL_TOL),              # the LP's band
+    (2, 8, 7, WIDE_TOL), (6, 8, 9, WIDE_TOL),
+    (WIDE_BWB, WIDE_LANES, WIDE_DP // B, WIDE_TOL)],
+    ids=["bw1-lp", "bw2", "bw6", "bw3-wide"])
+def test_band_kernels_at_path_shapes(cuda, bw, lanes, nb, tol):
+    """The band factor and sweeps at the paths' shapes against their
+    plain twins (``tol`` relative), the solve's residual ||K x - b|| /
+    ||b|| within 1e-9, at k = 16, 2, 1; garbage left of block column 0 is
+    never read and L is zero there."""
+    from eicos_tpu_torch.ops import band
+    from eicos_tpu_torch.ops import band_ldl as plain
+
+    Kd, Ks = device_wide_band(lanes, nb, bw, 30 + bw, cuda)
+    for j in range(1, bw + 1):
+        Ks[:, :j, j - 1] = 1e300
+    fk = band.band_factor(Kd, Ks)
+    fp = plain.band_factor_bw_plain(Kd, Ks)
+    for j in range(1, bw + 1):
+        Ks[:, :j, j - 1] = 0.0
+        assert not fk.L[:, :j, j - 1].any()
+    for a, b in zip(fk, fp):
+        assert rel(a, b) <= tol
+    del fp
+    g = torch.Generator(device=cuda).manual_seed(40 + bw)
+    rhs = torch.randn(lanes, KP, nb * B, generator=g, dtype=torch.float64,
+                      device=cuda)
+    for k in (KP, 2, 1):
+        r = rhs[:, :k].contiguous()
+        w = band.band_fwd(fk, r)
+        z = band.band_bwd(fk, w)
+        assert rel(w, plain.band_fwd_bw_plain(fk, r)) <= tol, k
+        assert rel(z, plain.band_bwd_bw_plain(fk, w)) <= tol, k
+        assert rel(wide_matvec(Kd, Ks, z), r) <= RESID_TOL, k
+    del Kd, Ks, fk, rhs
+    torch.cuda.empty_cache()
+
+
+def device_quasidefinite(lanes, D, pos, seed, device):
+    """``quasidefinite``'s recipe made on the card."""
+    g = torch.Generator(device=device)
+    g.manual_seed(seed)
+    M = torch.randn(lanes, D, D, generator=g, dtype=torch.float64,
+                    device=device) / D ** 0.5
+    M = 0.5 * (M + M.transpose(-1, -2))
+    sign = torch.where(torch.arange(D, device=device) < pos, 1.0, -1.0)
+    M.diagonal(dim1=-2, dim2=-1).copy_(
+        sign.to(M.dtype) * (1.0 + M.abs().sum(-1)))
+    return M
+
+
+@pytest.mark.parametrize("case", ["inverse", "subst", "subst-full", "f32"])
+def test_dense_kernels_at_path_shapes(cuda, case):
+    """The dense path's kernels at the paths' shapes.  "inverse": the
+    inverse-solve passes on a factor of 128 lanes at Dp 2048 (the
+    "reduced" LP) against their plain versions within 1e-10, at k = 16
+    and 2, the solve's residual within 1e-9.  "subst": the substitution
+    factor of the same matrices packs bit for bit as ``pack_dense_plain``
+    and has the inverse factor's pivots and leaf inverses bit for bit, in
+    60 (inverse) and 52 (substitution) dgemm launches a factor; its sweeps
+    within 1e-12 of their plain versions, the residual within 1e-9.
+    "subst-full": the sweeps at 4 lanes of "full"'s Dp 7040.  "f32": the
+    f32 factor and solve (f32 leaf, ``torch.matmul`` products) within
+    2e-4 of the f64 ones at 8 lanes of Dp 512."""
+    from eicos_tpu_torch.ops import dense, gemm, kernels, ldl
+
+    g = torch.Generator(device=cuda).manual_seed(5)
+
+    def rnd(*shape):
+        return torch.randn(*shape, generator=g, dtype=torch.float64,
+                           device=cuda)
+
+    if case == "f32":
+        K = device_quasidefinite(8, 4 * B, 300, 17, cuda)
+        r = rnd(8, 2, 4 * B)
+        x64 = ldl.ldl_solve(ldl.ldl_factor(K.clone()), r)
+        x32 = ldl.ldl_solve(ldl.ldl_factor(K.to(torch.float32)),
+                            r.to(torch.float32))
+        assert x32.dtype == torch.float32
+        assert rel(x32.double(), x64) <= F32_LEAF_TOL
+        return
+    lanes, D = (4, FULL_DP) if case == "subst-full" else (LANES, DENSE_DP)
+    K = device_quasidefinite(lanes, D, 1500 if D == DENSE_DP else 5000,
+                             3 if D == DENSE_DP else 16, cuda)
+    if case == "inverse":
+        fac = ldl.ldl_factor(K.clone())
+        for k in (KP, 2):
+            r = rnd(lanes, k, D)
+            t = gemm.linv_fwd(fac.Linv, fac.d, r)
+            x = gemm.linv_bwd(fac.Linv, t)
+            assert rel(t, gemm.linv_fwd_plain(fac.Linv, fac.d, r)) \
+                <= KERNEL_TOL, k
+            assert rel(x, gemm.linv_bwd_plain(fac.Linv, t)) <= KERNEL_TOL, k
+            assert rel(torch.matmul(x, K), r) <= RESID_TOL, k
+        del K, fac
+        torch.cuda.empty_cache()
+        return
+    K2 = K.clone()
+    if case == "subst":
+        kernels.reset_counts()
+        inv = ldl.ldl_factor(K.clone())
+        n_inv = kernels.COUNTS["dgemm"]
+        kernels.reset_counts()
+        fs = ldl.ldl_factor_subst(K2)     # K2 now holds L below its diagonal
+        torch.cuda.synchronize()
+        assert (n_inv, kernels.COUNTS["dgemm"]) == (60, 52)
+        assert torch.equal(fs.pre.Lp, dense.pack_dense_plain(K2))
+        assert torch.equal(fs.d, inv.d)
+        for i in range(D // B):
+            assert torch.equal(
+                fs.pre.Xinv[:, i],
+                inv.Linv[:, i * B:(i + 1) * B, i * B:(i + 1) * B]), i
+        del inv
+    else:
+        fs = ldl.ldl_factor_subst(K2)
+    del K2
+    for k in ((KP, 2) if case == "subst" else (2,)):
+        r = rnd(lanes, k, D)
+        w = dense.dense_fwd(fs.pre, r)
+        z = dense.dense_bwd(fs.pre, w)
+        assert rel(w, dense.dense_fwd_plain(fs.pre, r)) <= SUBST_TOL, k
+        assert rel(z, dense.dense_bwd_plain(fs.pre, w)) <= SUBST_TOL, k
+        assert rel(torch.matmul(z, K), r) <= RESID_TOL, k
+    del K, fs
+    torch.cuda.empty_cache()
+
+
+def _path_operands(label):
+    """(structure, G, A on the card, the operands ``kkt.make_sliced``
+    builds) of the LP of the mpc_lp cells ("lp") or of the wide band
+    ("wide") or the scan ("scan") below."""
+    from eicos_tpu_torch import corpus, kkt
+
+    kw = {"lp": dict(horizon=HORIZON, nx=NX, nu=NU, seed=3), "wide": WIDE,
+          "scan": SCAN}[label]
+    st, base = corpus.make_mpc_like(**kw)
+    st = st.with_gsplit(base.G, base.A)
+    G = torch.tensor(base.G, device="cuda")
+    A = torch.tensor(base.A, device="cuda")
+    return st, G, A, kkt.make_sliced(st, G, A, st.m)
+
+
+@pytest.mark.parametrize("label,keys", [
+    ("lp", ("sG", "sGT", "sA", "sAT", "sGA", "sAGT")),
+    ("scan", ("sG", "sGT"))])
+def test_spmv_on_path_operands(cuda, label, keys):
+    """The gather kernel on the operands the paths give it at 128 lanes,
+    k = 1, 2, in every product site's form (``SPMV_FORMS``): within 1e-14
+    of its plain version, bit for bit the sequence it replaces and its
+    repeat; ``elim_t``'s zeros of acc - base come back."""
+    from eicos_tpu_torch.ops import spmv
+
+    st, G, A, ops = _path_operands(label)
+    gen = torch.Generator(device=cuda).manual_seed(11)
+    for key in keys:
+        op = ops[key]
+        assert isinstance(op, spmv.SparseOperand), key
+        km0 = st.m if key == "sGA" else op.km // 3
+        split = st.p if key == "sAGT" else op.nm // 3
+
+        def K(a):
+            return spmv.spmv(a.contiguous(), op.colptr, op.rows, op.vals,
+                             op.nm)
+
+        for k in (1, 2):
+            def rnd(cols):
+                return torch.randn(LANES, k, cols, generator=gen,
+                                   device=cuda, dtype=torch.float64)
+
+            a = rnd(op.km)
+            for form in SPMV_FORMS:
+                kw, seq = spmv_form(form, a, op.nm, km0, split, rnd)
+                if form == "elim_t":
+                    kw["base"][..., ::10] = K(a)[..., ::10]
+                first = kw.pop("a")
+                tail = {n: v for n, v in kw.items() if n != "a2"}
+                want = spmv.fused_tail(op.rmatmul_plain(a), **tail)
+                got = op.rmatmul_fused(first, **kw)
+                assert rel(got, want) <= SPMV_TOL, (key, k, form)
+                assert torch.equal(bits(got), bits(seq(K))), (key, k, form)
+                assert torch.equal(bits(got),
+                                   bits(op.rmatmul_fused(first, **kw)))
+                if form == "elim_t":
+                    assert (got[..., ::10] == 0).all(), (key, k)
+    torch.cuda.empty_cache()
+
+
+@pytest.mark.parametrize("label,lanes", [("wide", WIDE_LANES),
+                                         ("scan", SCAN_LANES)])
+def test_dgemm_on_wide_path_operands(cuda, label, lanes):
+    """dgemm as ``kkt.WideOperand`` runs it on the operands of the wide
+    band's and the scan's paths (sA, sAT a strided transpose, the stacks
+    sGA and sAGT), at the path's lanes and at 128, k = 1, 2: one launch a
+    product, within 1e-10 of ``gemm.matmul_plain``."""
+    from eicos_tpu_torch import kkt
+    from eicos_tpu_torch.ops import gemm, kernels
+
+    _, G, A, ops = _path_operands(label)
+    gen = torch.Generator(device=cuda).manual_seed(12)
+    for key in ("sA", "sAT", "sGA", "sAGT"):
+        op = ops[key]
+        assert isinstance(op, kkt.WideOperand), key
+        km = op.bmat.shape[0]
+        for ln, k in ((lanes, 1), (lanes, 2), (LANES, 1), (LANES, 2)):
+            a = torch.randn(ln, k, km, generator=gen, device=cuda,
+                            dtype=torch.float64)
+            before = kernels.COUNTS["dgemm"]
+            got = op.rmatmul(a)
+            assert kernels.COUNTS["dgemm"] == before + 1, (key, ln, k)
+            assert rel(got, gemm.matmul_plain(a, op.bmat)) <= KERNEL_TOL
+    torch.cuda.empty_cache()
+
+
+def flag_cases(seed):
+    """The loop flags of the LP's path, (128,) the lanes' done and (128,
+    2), (128, 1) the refinement columns', each all true, with one entry
+    false and with random entries."""
+    rng = np.random.default_rng(seed)
+    out = []
+    for shape in ((LANES,), (LANES, 2), (LANES, 1)):
+        for pattern in ("all", "one", "random"):
+            f = np.ones(shape, bool)
+            if pattern == "one":
+                f.flat[int(rng.integers(f.size))] = False
+            elif pattern == "random":
+                f = rng.random(shape) < 0.9
+            out.append(f)
+    return out
+
+
+def fill_graph(flags):
+    """A captured graph, kept for composing, that sets every flag true."""
+    g = torch.cuda.CUDAGraph(keep_graph=True)
+    with torch.cuda.graph(g):
+        flags.fill_(True)
+    return g
+
+
+def test_loop_cond_counts_trips_on_path_flags(cuda):
+    """S2 on the path's flag shapes: a graph of S2, then WHILE { set every
+    flag true; S2 } counts the trips ``loop_cond_plain`` counts."""
+    from eicos_tpu_torch.ops.graph_loop import LoopGraph, loop_cond_plain
+
+    for f in flag_cases(17):
+        flags = torch.tensor(f, device=cuda)
+        trips = torch.zeros(2, dtype=torch.int64, device=cuda)
+        body = fill_graph(flags)
+        lg = LoopGraph(cuda)
+        try:
+            h = lg.handle(lg.root)
+            dep = lg.cond(lg.root, None, h, flags, trips, 0)
+            _, loop = lg.while_(lg.root, dep, h)
+            last = lg.child(loop, None, body.raw_cuda_graph())
+            lg.cond(loop, last, h, flags, trips, 1)
+            lg.instantiate()
+            lg.launch()
+            torch.cuda.synchronize()
+        finally:
+            lg.close()
+        plain = torch.zeros(2, dtype=torch.int64)
+        pf = torch.tensor(f)
+        if loop_cond_plain(pf, plain, 0):
+            pf.fill_(True)
+            loop_cond_plain(pf, plain, 1)
+        assert torch.equal(trips.cpu(), plain), f.shape
+
+
+def stamp_graph(flags, trips, body_graph):
+    """A traced program graph's shape on the stamp block at ``trips[2]``:
+    a start stamp, S2 on ``flags`` (counted at ``trips[0]``, closing the
+    first accumulator), a WHILE node whose body is ``body_graph`` and S2
+    again (``trips[1]``, closing the second), an end stamp closing the
+    third.  Instantiated; returns it and the accumulators' cells."""
+    from eicos_tpu_torch.ops.graph_loop import (END, STAMP_CELLS, START,
+                                                LoopGraph)
+
+    block = 2
+    acc = tuple(block + STAMP_CELLS + k for k in range(3))
+    lg = LoopGraph(flags.device)
+    try:
+        h = lg.handle(lg.root)
+        dep = lg.stamp(lg.root, None, trips, block, START)
+        dep = lg.cond(lg.root, dep, h, flags, trips, 0, block, acc[0])
+        node, body = lg.while_(lg.root, dep, h)
+        last = lg.child(body, None, body_graph.raw_cuda_graph())
+        lg.cond(body, last, h, flags, trips, 1, block, acc[1])
+        lg.stamp(lg.root, node, trips, block, END, acc[2])
+        lg.instantiate()
+    except BaseException:
+        lg.close()
+        raise
+    return lg, acc
+
+
+def stamp_replay(f, reads, acc):
+    """The block that ``loop_stamp_plain`` and the stamped
+    ``loop_cond_plain`` make of the launches of ``stamp_graph`` on flags
+    ``f``, fed the card's own clock readings: ``reads`` holds ``trips``
+    before the first launch and after each.  A launch's start and end are
+    its ring entry; its S2 stamps are the start plus the first
+    accumulator's growth, and that plus the second's."""
+    from eicos_tpu_torch.ops.graph_loop import (LAUNCHES, RING, STAMP_RING,
+                                                START, END, loop_cond_plain,
+                                                loop_stamp_plain)
+
+    block = 2
+    plain = torch.tensor(reads[0])
+    pf = torch.tensor(f)
+    for before, after in zip(reads, reads[1:]):
+        i = before[block + LAUNCHES]
+        e = block + RING + 2 * (i % STAMP_RING)
+        t0, t_end = after[e], after[e + 1]
+        t1 = t0 + after[acc[0]] - before[acc[0]]
+        loop_stamp_plain(plain, block, START, t0)
+        if loop_cond_plain(pf, plain, 0, block, acc[0], t1):
+            pf.fill_(True)
+            loop_cond_plain(pf, plain, 1, block, acc[1],
+                            t1 + after[acc[1]] - before[acc[1]])
+        loop_stamp_plain(plain, block, END, t_end, acc[2])
+    return plain
+
+
+def test_loop_stamp_against_plain_replay(cuda):
+    """The stamp kernel and S2's stamps on the path's flag shapes, each in
+    ``stamp_graph`` launched once, then the lanes' flags all true launched
+    ``STAMP_RING`` + 3 times: after every launch the card's block equals,
+    cell for cell, what the plain versions make of the clock readings the
+    card wrote (trip counters, last stamp, launch counter, the 3
+    overwritten ring entries, two stamp nodes a launch, ring and
+    accumulators), and the accumulators sum to the launches' spans."""
+    from eicos_tpu_torch.ops.graph_loop import (LAUNCHES, OVERWRITTEN, RING,
+                                                STAMP_CELLS, STAMP_RING,
+                                                STAMPS)
+
+    block = 2
+    cases = [(f, 1) for f in flag_cases(19)]
+    cases.append((np.ones(LANES, bool), STAMP_RING + 3))
+    for f, n in cases:
+        flags = torch.tensor(f, device=cuda)
+        trips = torch.zeros(block + STAMP_CELLS + 3, dtype=torch.int64,
+                            device=cuda)
+        lg, acc = stamp_graph(flags, trips, fill_graph(flags))
+        reads = [trips.tolist()]
+        try:
+            for _ in range(n):
+                lg.launch()
+                reads.append(trips.tolist())
+        finally:
+            lg.close()
+        got = reads[-1]
+        assert got == stamp_replay(f, reads, acc).tolist(), (f.shape, n)
+        ends = [block + RING + 2 * ((r[block + LAUNCHES] - 1) % STAMP_RING)
+                for r in reads[1:]]
+        spans = sum(r[e + 1] - r[e] for r, e in zip(reads[1:], ends))
+        assert (got[block + LAUNCHES], got[block + OVERWRITTEN],
+                got[block + STAMPS], sum(got[a] for a in acc)) == (
+            n, max(0, n - STAMP_RING), 2 * n, spans)
+
+
+def test_stamp_on_regions_against_plain(cuda):
+    """``graph_loop.stamp_on``, the region stamps of a traced program with
+    cones: a captured segment on a ``graphs.Probes``-shaped tensor holds
+    three regions, the first entered twice (as the factor enters
+    "cones.kept_blocks"), and a copy of the first region's (start, end)
+    after its first run.  Over 5 replays each cell the card writes equals
+    what ``loop_stamp_plain(..., ring=1, acc=...)`` makes of its clock
+    readings, and the regions count 10, 5 and 5 runs."""
+    from eicos_tpu_torch.graphs import REGION_CELLS
+    from eicos_tpu_torch.ops.graph_loop import (END, RING, START,
+                                                loop_stamp_plain, stamp_on)
+
+    nreg = 3
+    spare = 1 + REGION_CELLS * nreg
+    cells = torch.zeros(spare + 2, dtype=torch.int64, device=cuda)
+    x = torch.ones(1 << 16, dtype=torch.float64, device=cuda)
+    blocks = [1 + REGION_CELLS * r for r in range(nreg)]
+    order = [0, 1, 0, 2]            # region 0 entered twice
+    graph = torch.cuda.CUDAGraph()
+    stream = torch.cuda.Stream(cuda)
+    stream.wait_stream(torch.cuda.current_stream(cuda))
+    with torch.cuda.stream(stream):
+        x.mul_(1.0)                 # warm the elementwise kernel
+        torch.cuda.synchronize(cuda)
+        with torch.cuda.graph(graph, stream=stream):
+            for k, r in enumerate(order):
+                b = blocks[r]
+                stamp_on(cells, b, START)
+                x.mul_(1.0 + 1e-9 * (k + 1))
+                stamp_on(cells, b, END, acc=b + REGION_CELLS - 1)
+                if k == 0:
+                    cells[spare:spare + 2].copy_(cells[b + RING:b + RING + 2])
+    torch.cuda.current_stream(cuda).wait_stream(stream)
+    cells.zero_()
+    torch.cuda.synchronize(cuda)
+    host = torch.zeros_like(cells, device="cpu")
+    for _ in range(5):
+        graph.replay()
+        got = cells.cpu()
+        for k, r in enumerate(order):
+            b = blocks[r]
+            at = spare if (r == 0 and k == 0) else b + RING
+            t0, t1 = int(got[at]), int(got[at + 1])
+            loop_stamp_plain(host, b, START, t0, ring=1)
+            loop_stamp_plain(host, b, END, t1, acc=b + REGION_CELLS - 1,
+                             ring=1)
+        host[spare:spare + 2] = got[spare:spare + 2]
+        assert torch.equal(got, host)
+    assert [int(got[b + 1]) for b in blocks] == [10, 5, 5]
+
+
+# ------------------------------------------- the paths at full size
+
+def perturbed_lanes(pt, st, base, lanes, nx, seed):
+    """bench.py's lanes of one base problem: shared G/A/h, per-lane c and
+    x0 (the first ``nx`` entries of b): (structure, problems, batch,
+    shared)."""
+    rng = np.random.default_rng(seed)
+    probs = []
+    for _ in range(lanes):
+        c = np.asarray(base.c) + 0.02 * rng.standard_normal(st.n)
+        b = np.asarray(base.b).copy()
+        b[:nx] += 0.05 * rng.standard_normal(nx)
+        probs.append(pt.ProblemData(G=base.G, A=base.A, c=c, h=base.h, b=b))
+    shared = ("G", "A", "h")
+    return st, probs, pt.BatchedSolver.stack(probs, shared=shared), shared
+
+
+class FullSize:
+    """The batches of the full-size paths, each made once a module, and
+    the objectives one path holds another's to: a path stores its own,
+    and a case run alone solves the one it needs."""
+
+    def __init__(self):
+        self.made = {}
+        self.refs = {}
+
+    def batch(self, kind):
+        """(structure, problems, batch, shared) of ``kind``: "lp" the
+        horizon-249 LP with its band plan (128 lanes), "socp" the
+        horizon-249 SOC-constrained MPC without a plan (128 lanes; "socp8"
+        its first 8), "socp-band" with the keep_soc plan, "wide" the wide
+        band (64 lanes), "scan" the scan's LP (32 lanes)."""
+        if kind not in self.made:
+            import eicos_tpu_torch as pt
+            from eicos_tpu_torch import corpus
+            from eicos_tpu_torch.plan import make_band_plan
+
+            if kind.startswith("socp"):
+                st, base = corpus.make_mpc_soc(horizon=HORIZON, nx=NX, nu=NU,
+                                               seed=5)
+                lanes, nx, seed = (SOC_LANES if kind == "socp8" else LANES,
+                                   NX, 11)
+            else:
+                kw = {"lp": dict(horizon=HORIZON, nx=NX, nu=NU, seed=3),
+                      "wide": WIDE, "scan": SCAN}[kind]
+                st, base = corpus.make_mpc_like(**kw)
+                lanes, nx, seed = {"lp": LANES, "wide": WIDE_LANES,
+                                   "scan": SCAN_LANES}[kind], kw["nx"], 7
+            st = st.with_gsplit(base.G, base.A)
+            if kind in ("lp", "wide", "scan", "socp-band"):
+                st = st.with_band_plan(make_band_plan(
+                    st, base.G, base.A, keep_soc=kind == "socp-band"))
+            self.made[kind] = perturbed_lanes(pt, st, base, lanes, nx, seed)
+        return self.made[kind]
+
+    def ref(self, key):
+        """The objectives (and lane 0's exit) another path is held to:
+        "banded" the LP's under "banded" with the "reduced" rescue,
+        "reduced" its (exit code, iterations, objective) of lane 0 under
+        "reduced" (inverse), "soc-reduced" the 8 SOCP lanes' under
+        "reduced" (inverse), "soc-banded" the SOCP lanes' under "banded"
+        with the keep_soc plan and the rescue."""
+        if key not in self.refs:
+            import eicos_tpu_torch as pt
+
+            kind, cfg, rescue = {
+                "banded": ("lp", dict(kkt_strategy="banded"), True),
+                "reduced": ("lp", dict(kkt_strategy="reduced",
+                                       dense_solve="inverse"), False),
+                "soc-reduced": ("socp8", dict(kkt_strategy="reduced",
+                                              dense_solve="inverse"), False),
+                "soc-banded": ("socp-band", dict(kkt_strategy="banded"),
+                               True)}[key]
+            st, _, batch, shared = self.batch(kind)
+            bs = pt.BatchedSolver(
+                st, pt.Settings(**cfg), shared=shared,
+                rescue=pt.Settings(kkt_strategy="reduced") if rescue
+                else None)
+            self.keep(key, bs.solve(batch))
+            bs.close()
+        return self.refs[key]
+
+    def keep(self, key, sol):
+        """Store ``sol``'s objectives (lane 0's exit too, for
+        "reduced")."""
+        pc = sol.info.pcost.cpu().numpy()
+        self.refs[key] = pc if key != "reduced" else (
+            int(sol.exit_code[0]), int(sol.info.iter[0]), float(pc[0]))
+
+
+@pytest.fixture(scope="module")
+def full_size():
+    return FullSize()
+
+
+@pytest.fixture
+def counted_factors(monkeypatch):
+    """``kkt.factor`` counts its calls under "factors" in
+    ``kernels.COUNTS`` (through ``kernels.count``, so that a captured
+    factor counts at every replay)."""
+    from eicos_tpu_torch import kkt
+    from eicos_tpu_torch.ops import kernels
+
+    real = kkt.factor
+
+    def counted(*args, **kw):
+        kernels.count("factors")
+        return real(*args, **kw)
+
+    monkeypatch.setitem(kernels.COUNTS, "factors", 0)
+    monkeypatch.setattr(kkt, "factor", counted)
+
+
+def same_bits(a, b):
+    """Exit codes, iterations, x, y and z bit for bit."""
+    return all(torch.equal(u, v) for u, v in (
+        (a.exit_code, b.exit_code), (a.info.iter, b.info.iter), (a.x, b.x),
+        (a.y, b.y), (a.z, b.z)))
+
+
+def launched(counts, names):
+    """Every kernel of ``names`` launched."""
+    missing = [n for n in names if not counts[n] > 0]
+    assert not missing, (missing, counts)
+
+
+def not_launched(counts, names):
+    """No kernel of ``names`` launched."""
+    assert not any(counts[n] for n in names), (names, counts)
+
+
+def as_composed(counts, syncs, loops):
+    """A host-driven solve's counts as a composed solve of the same data
+    in ``loops`` composed launches shows them, settled: each of its loop
+    tests an S2 launch, and two stamp launches a traced launch beside the
+    region stamps that a structure with cones has in both."""
+    from eicos_tpu_torch.utils import timing
+
+    return dict(counts, loop_cond=counts.get("loop_cond", 0) + syncs,
+                loop_stamp=counts.get("loop_stamp", 0)
+                + 2 * loops * timing.tracing())
+
+
+def composed_only(syncs, stats):
+    """The solve was one composed launch a program solve: no capture, no
+    eager call, no host sync; the stamp nodes counted two launches a
+    traced composed launch, beside two a run of each region.  Returns
+    the composed launches."""
+    from eicos_tpu_torch.utils import timing
+
+    loops = stats["loops"]
+    assert loops and loops == stats["solves"], stats
+    assert syncs == 0 and not stats["captures"] and not stats["eager"], (
+        syncs, stats)
+    regions = 2 * sum(stats.get("regions_runs", {}).values())
+    assert stats["graph_counts"].get("loop_stamp", 0) == (
+        2 * loops * timing.tracing() + regions)
+    return loops
+
+
+def same_solve(got, want, counts=None, syncs=None, loops=None):
+    """``got`` has ``want``'s bits and, given the (got, want) counts and
+    syncs of a composed ``got`` in ``loops`` launches and a fresh
+    host-driven ``want``, 0 host syncs and ``want``'s counts as
+    composed."""
+    assert same_bits(got, want)
+    if counts is not None:
+        assert syncs[0] == 0
+        assert counts[0] == as_composed(counts[1], syncs[1], loops)
+
+
+def eager_then_composed(monkeypatch, bs, batch, first, counts, syncs, stats):
+    """The graphed first solve ``first`` (its counts, syncs and stats
+    from ``_stats_solve``) against the same solve with every segment called
+    eagerly: the same bits, counts and syncs, and a solve past iteration
+    1 captured; then the solver's next solve, one composed launch a
+    program with no host sync: the same bits and the first's counts once
+    settled.  Returns the composed solve's counts."""
+    from eicos_tpu_torch import graphs
+
+    with monkeypatch.context() as mp:
+        mp.setattr(graphs.Segment, "__call__",
+                   lambda self, *args: self._run(*args))
+        mp.setattr(graphs.Program, "compose", lambda self, steps: None)
+        with graphs.host_driven():
+            sol, e_counts, e_syncs, _ = _stats_solve(torch, bs, batch)
+    assert same_bits(first, sol)
+    assert counts == e_counts and syncs == e_syncs, (counts, e_counts)
+    if int(first.info.iter.max()) > 1:
+        assert stats["captures"]
+    sol, c_counts, c_syncs, c_stats = _stats_solve(torch, bs, batch)
+    loops = composed_only(c_syncs, c_stats)
+    same_solve(sol, first, (c_counts, counts), (c_syncs, syncs), loops)
+    return c_counts
+
+
+def same_bits_unfused(monkeypatch, bs, batch, first):
+    """A solve with every fused gather call run as the sequence it
+    replaces (the kernel with no epilogue on the concatenated input, then
+    ``spmv.fused_tail``'s torch ops) gives the bits of ``first``.  The
+    kept programs are released before and after: the solve captures the
+    patched calls."""
+    from eicos_tpu_torch.ops import spmv
+
+    real = spmv.SparseOperand.rmatmul_fused
+
+    def unfused(self, a, a2=None, base=None, op="add", w=None, gamma=0.0,
+                x=None, split=None):
+        ab = a if a2 is None else torch.cat([a, a2], -1)
+        return spmv.fused_tail(real(self, ab), base, op, w, gamma, x, split)
+
+    bs.close()
+    with monkeypatch.context() as mp:
+        mp.setattr(spmv.SparseOperand, "rmatmul_fused", unfused)
+        sol = bs.solve(batch)
+        torch.cuda.synchronize()
+    bs.close()
+    assert same_bits(first, sol)
+
+
+def optimal(sol, lanes):
+    assert sol.exit_code.tolist() == [0] * lanes, sol.exit_code.tolist()
+
+
+def all_optimal_or_as_cpu(pt, st, probs, shared, settings, rescue, sol):
+    """Every lane ends OPTIMAL, or, solved again on the CPU plain path,
+    with the CPU's code there."""
+    codes = sol.exit_code.cpu().numpy()
+    bad = [int(i) for i in np.flatnonzero(codes != 0)]
+    if bad:
+        cpu = pt.BatchedSolver(st, settings, shared=shared, rescue=rescue,
+                               device="cpu").solve(pt.BatchedSolver.stack(
+                                   [probs[i] for i in bad], shared=shared))
+        assert cpu.exit_code.tolist() == codes[bad].tolist(), bad
+
+
+def same_as_cpu(pt, st, prob, settings, sol):
+    """Lane 0 on the CPU plain path: the same exit code and iterations,
+    the objective within 1e-8."""
+    cpu = pt.solve(st, prob, settings, device="cpu")
+    assert int(cpu.exit_code) == int(sol.exit_code[0])
+    assert int(cpu.info.iter) == int(sol.info.iter[0])
+    c_pc = float(cpu.info.pcost)
+    assert abs(float(sol.info.pcost[0]) - c_pc) <= LANE_TOL * abs(c_pc)
+
+
+def tiers_as_cpu(pt, st, probs, shared, settings, sol, lanes):
+    """Paths whose endgame turns on the last bits ("normal" on a SOCP, an
+    f32 factor): on the CPU plain path the lanes ``lanes`` end with an
+    answer (definitive or reduced-accuracy) exactly where the card's do,
+    the objective within 1e-4."""
+    from eicos_tpu_torch.api import _code_rank
+
+    cpu = pt.BatchedSolver(st, settings, shared=shared, device="cpu").solve(
+        pt.BatchedSolver.stack([probs[i] for i in lanes], shared=shared))
+    codes = sol.exit_code.cpu().numpy()[lanes].tolist()
+    pc = sol.info.pcost.cpu().numpy()[lanes]
+    cpc = cpu.info.pcost.numpy()
+    for j, c in enumerate(cpu.exit_code.tolist()):
+        assert bool(_code_rank(codes[j])) == bool(_code_rank(c)), (
+            lanes[j], codes[j], c)
+        if _code_rank(codes[j]):
+            assert abs(pc[j] - cpc[j]) <= INACC_TOL * abs(cpc[j]), lanes[j]
+
+
+def objectives_close(sol, want, tol_by_tier):
+    """The first ``len(want)`` lanes that exit with an answer have the
+    objective ``want``, within ``tol_by_tier[tier]`` relative (tier 2
+    definitive, 1 reduced accuracy)."""
+    from eicos_tpu_torch.api import _code_rank
+
+    codes = sol.exit_code.cpu().numpy()[:len(want)]
+    pc = sol.info.pcost.cpu().numpy()[:len(want)]
+    for tier, tol in tol_by_tier.items():
+        sel = np.array([_code_rank(int(c)) == tier for c in codes])
+        if sel.any():
+            assert (np.abs(pc[sel] - want[sel]) / np.abs(want[sel])).max() \
+                <= tol, tier
+
+
+def run_path(monkeypatch, pt, st, probs, batch, shared, settings, rescue,
+             names):
+    """One path at full width: a first solve that launches ``names``, held
+    to its eager segments and its composed next solve, a repeat with its
+    bits, a solve through the unfused gather sequence where the path
+    launches the gather kernel, every lane OPTIMAL (or as on the CPU),
+    lane 0 as on the CPU.  Returns the first solve's counts, the
+    composed solve's counts, the repeat and the rescued lanes."""
+    bs = pt.BatchedSolver(st, settings, shared=shared, rescue=rescue)
+    first, counts, syncs, stats = _stats_solve(torch, bs, batch)
+    launched(counts, names)
+    composed = eager_then_composed(monkeypatch, bs, batch, first, counts,
+                                   syncs, stats)
+    again = bs.solve(batch)
+    rescued = bs.last_rescued
+    assert same_bits(first, again)
+    if "spmv" in names:
+        same_bits_unfused(monkeypatch, bs, batch, first)
+    all_optimal_or_as_cpu(pt, st, probs, shared, settings, rescue, again)
+    same_as_cpu(pt, st, probs[0], settings, again)
+    bs.close()
+    return counts, composed, again, rescued
+
+
+BAND = ("band_factor_bw", "band_fwd_bw", "band_bwd_bw")
+INVERSE = ("leaf_ldl", "dgemm", "linv_fwd", "linv_bwd")
+SUBST = ("leaf_ldl", "dgemm", "dense_pack", "dense_fwd", "dense_bwd")
+LINV = ("linv_fwd", "linv_bwd")
+
+
+def _p02_banded_lp(pt, fs, mp):
+    """The LP of the mpc_lp cells: 128 lanes under "banded" with the
+    "reduced" rescue, every lane OPTIMAL and none rescued; the composed
+    solve launches S2."""
+    st, probs, batch, shared = fs.batch("lp")
+    settings = pt.Settings(kkt_strategy="banded")
+    _, composed, sol, rescued = run_path(
+        mp, pt, st, probs, batch, shared, settings,
+        pt.Settings(kkt_strategy="reduced"), BAND + ("spmv",))
+    launched(composed, ["loop_cond"])
+    optimal(sol, LANES)
+    assert not rescued, rescued
+    fs.keep("banded", sol)
+
+
+def _p03_forced_rescue(pt, fs, mp):
+    """16 lanes with the primary cut at 3 iterations: every lane rescued
+    by "reduced" to OPTIMAL; the primary's factor is the cluster kernel's
+    at 16 lanes."""
+    st, probs, _, shared = fs.batch("lp")
+    sub = pt.BatchedSolver.stack(probs[:RESCUE_LANES], shared=shared)
+    bs = pt.BatchedSolver(st, pt.Settings(kkt_strategy="banded", iter_max=3),
+                          shared=shared,
+                          rescue=pt.Settings(kkt_strategy="reduced"))
+    sol, counts, syncs, stats = _stats_solve(torch, bs, sub)
+    eager_then_composed(mp, bs, sub, sol, counts, syncs, stats)
+    assert bs.last_rescued == tuple(range(RESCUE_LANES))
+    optimal(sol, RESCUE_LANES)
+    launched(counts, (factor_name(RESCUE_LANES),) + BAND[1:] + INVERSE)
+    bs.close()
+
+
+def _p04_reduced_inverse(pt, fs, mp):
+    """"reduced" on the inverse path on the 128 LP lanes: every lane
+    OPTIMAL, the objectives those of "banded" within 1e-7, lane 0 as on
+    the CPU."""
+    st, probs, batch, shared = fs.batch("lp")
+    red = pt.Settings(kkt_strategy="reduced", dense_solve="inverse")
+    bs = pt.BatchedSolver(st, red, shared=shared)
+    first, counts, syncs, stats = _stats_solve(torch, bs, batch)
+    launched(counts, INVERSE)
+    eager_then_composed(mp, bs, batch, first, counts, syncs, stats)
+    sol = bs.solve(batch)
+    assert same_bits(first, sol)
+    optimal(sol, LANES)
+    want = fs.ref("banded")
+    assert (np.abs(sol.info.pcost.cpu().numpy() - want)
+            / np.abs(want)).max() <= STRATEGY_TOL
+    same_as_cpu(pt, st, probs[0], red, sol)
+    fs.keep("reduced", sol)
+    bs.close()
+
+
+def _p05_socp_reduced(pt, fs, mp):
+    """The SOCP under "reduced" (its SOC rows kept) on 8 lanes: lane 0 as
+    on the CPU (lane 5 ends at CLOSE_TO_OPTIMAL there too)."""
+    st, probs, batch, shared = fs.batch("socp8")
+    red = pt.Settings(kkt_strategy="reduced", dense_solve="inverse")
+    bs = pt.BatchedSolver(st, red, shared=shared)
+    sol, counts, syncs, stats = _stats_solve(torch, bs, batch)
+    launched(counts, INVERSE)
+    eager_then_composed(mp, bs, batch, sol, counts, syncs, stats)
+    assert same_bits(sol, bs.solve(batch))
+    same_as_cpu(pt, st, probs[0], red, sol)
+    fs.keep("soc-reduced", sol)
+    bs.close()
+
+
+def _p06_socp_keep_soc(pt, fs, mp):
+    """The SOCP of the main path: 128 lanes under "banded" with the
+    keep_soc plan (bwb 1, NT-scaled kept cones) and the rescue."""
+    st, probs, batch, shared = fs.batch("socp-band")
+    assert st.band.bwb == 1 and st.band.keep_soc
+    _, _, sol, _ = run_path(mp, pt, st, probs, batch, shared,
+                            pt.Settings(kkt_strategy="banded"),
+                            pt.Settings(kkt_strategy="reduced"),
+                            BAND + ("spmv",))
+    fs.keep("soc-banded", sol)
+
+
+def _p07_wide_bw3(pt, fs, mp):
+    """The wide band at a real size: 64 lanes of bwb 3, Dp 4864, through
+    the gathered band blocks, the wide kernels and dgemm's operands."""
+    st, probs, batch, shared = fs.batch("wide")
+    assert (st.band.bwb, st.band.dim) == (WIDE_BWB, WIDE_DP)
+    run_path(mp, pt, st, probs, batch, shared,
+             pt.Settings(kkt_strategy="banded"), None,
+             BAND + ("spmv", "dgemm"))
+
+
+def _p08_reduced_subst(pt, fs, mp):
+    """"reduced" at ``dense_solve="auto"``: the substitution kernels on
+    the card and no inverse solve; every lane OPTIMAL, the objectives
+    those of "banded", lane 0 as on the CPU under "subst"."""
+    st, probs, batch, shared = fs.batch("lp")
+    bs = pt.BatchedSolver(st, pt.Settings(kkt_strategy="reduced"),
+                          shared=shared)
+    first, counts, syncs, stats = _stats_solve(torch, bs, batch)
+    launched(counts, SUBST)
+    not_launched(counts, LINV)
+    eager_then_composed(mp, bs, batch, first, counts, syncs, stats)
+    sol = bs.solve(batch)
+    assert same_bits(first, sol)
+    optimal(sol, LANES)
+    objectives_close(sol, fs.ref("banded"), {2: STRATEGY_TOL})
+    same_as_cpu(pt, st, probs[0],
+                pt.Settings(kkt_strategy="reduced", dense_solve="subst"), sol)
+    bs.close()
+
+
+def _p09_normal_socp(pt, fs, mp):
+    """"normal" on 128 SOCP lanes (every cone eliminated, Dp 2048): lanes
+    0-7 with the objectives of "reduced", the lanes short of OPTIMAL (at
+    most 4) with an answer where the CPU has one."""
+    st, probs, batch, shared = fs.batch("socp")
+    normal = pt.Settings(kkt_strategy="normal")
+    bs = pt.BatchedSolver(st, normal, shared=shared)
+    first, counts, syncs, stats = _stats_solve(torch, bs, batch)
+    launched(counts, SUBST)
+    eager_then_composed(mp, bs, batch, first, counts, syncs, stats)
+    sol = bs.solve(batch)
+    assert same_bits(first, sol)
+    objectives_close(sol, fs.ref("soc-reduced"),
+                     {2: STRATEGY_TOL, 1: INACC_TOL})
+    codes = sol.exit_code.cpu().numpy()
+    short = [int(i) for i in np.flatnonzero(codes != 0)][:CPU_LANES]
+    tiers_as_cpu(pt, st, probs, shared, normal, sol, short or [0])
+    bs.close()
+
+
+def _p10_full(pt, fs, mp):
+    """"full", the default ``Settings()``: ``Solver(G, A, c, h, b)`` on
+    lane 0 (Dp 7040) on the inverse path, OPTIMAL with "reduced"'s
+    objective (a CPU solve at that size takes minutes); then 8 lanes on
+    the inverse path and on the substitution sweeps, every lane OPTIMAL
+    with the objectives of "banded"."""
+    from eicos_tpu_torch.ops import kernels
+
+    st, probs, _, shared = fs.batch("lp")
+    assert -(-(st.n + st.p + st.m) // B) * B == FULL_DP
+    p0 = probs[0]
+    kernels.reset_counts()
+    one = pt.Solver(p0.G, p0.A, p0.c, p0.h, p0.b)
+    code = one.solve()
+    torch.cuda.synchronize()
+    counts = dict(kernels.COUNTS)
+    launched(counts, INVERSE)
+    not_launched(counts, ("dense_fwd", "dense_pack"))
+    red_code, _, red_pc = fs.ref("reduced")
+    assert int(code) == 0 and red_code == 0
+    assert abs(float(one.get_info().pcost) - red_pc) <= STRATEGY_TOL * abs(
+        red_pc)
+    one.close()
+    batch = pt.BatchedSolver.stack(probs[:FULL_LANES], shared=shared)
+    for cfg, must, never in (
+            (pt.Settings(), LINV, ("dense_pack", "dense_fwd", "dense_bwd")),
+            (pt.Settings(dense_solve="subst"),
+             ("dense_pack", "dense_fwd", "dense_bwd"), LINV)):
+        bs = pt.BatchedSolver(st, cfg, shared=shared)
+        first, counts, syncs, stats = _stats_solve(torch, bs, batch)
+        launched(counts, ("leaf_ldl", "dgemm") + must)
+        not_launched(counts, never)
+        eager_then_composed(mp, bs, batch, first, counts, syncs, stats)
+        sol = bs.solve(batch)
+        assert same_bits(first, sol)
+        optimal(sol, FULL_LANES)
+        objectives_close(sol, fs.ref("banded")[:FULL_LANES],
+                         {2: STRATEGY_TOL})
+        bs.close()
+        torch.cuda.empty_cache()
+
+
+def _p11_reduced_f32(pt, fs, mp):
+    """"reduced" with ``factor_dtype="float32"``: the f32 leaf and no f64
+    dense kernel; a lane that claims an answer has "banded"'s objective;
+    lanes 0-3 answer where the CPU does (every lane ends at NUMERICS at
+    iteration 0 on both: the f32 factor fails on this LP family)."""
+    st, probs, batch, shared = fs.batch("lp")
+    f32 = pt.Settings(kkt_strategy="reduced", factor_dtype="float32")
+    bs = pt.BatchedSolver(st, f32, shared=shared)
+    sol, counts, syncs, stats = _stats_solve(torch, bs, batch)
+    launched(counts, ["leaf_ldl_f32"])
+    not_launched(counts, ("leaf_ldl", "dgemm", "dense_fwd") + LINV)
+    eager_then_composed(mp, bs, batch, sol, counts, syncs, stats)
+    objectives_close(sol, fs.ref("banded"), {2: F32_TOL, 1: INACC_TOL})
+    tiers_as_cpu(pt, st, probs, shared, f32, sol, list(range(CPU_LANES)))
+    bs.close()
+
+
+def leaf_at_scan_shape(lanes, dtype, tol):
+    """The leaf kernel at the scan's shape, ``lanes`` Schur blocks a
+    launch, within ``tol`` of its plain version."""
+    from eicos_tpu_torch.ops import leaf
+
+    M = device_quasidefinite(lanes, B, 80, 5, torch.device("cuda")).to(dtype)
+    Lk, dk = leaf.leaf_ldl(M)
+    Lp, dp = leaf.leaf_ldl_plain(M)
+    assert max(rel(Lk, Lp), rel(dk, dp)) <= tol
+
+
+def scan_launches(counts, name, nb):
+    """The scan launches the leaf kernel ``name`` once a block row of
+    every factor, and no band kernel."""
+    assert counts[name] == nb * counts["factors"], (name, counts)
+    not_launched(counts, ("band_factor_bw", "band_factor_cluster",
+                          "band_fwd_bw", "band_bwd_bw"))
+
+
+def scan_as_cpu(Kd, Ks, gdt):
+    """The scan factor of (Kd, Ks) on the card against the CPU plain path:
+    the largest relative error of L, Dinv and the solve of two random
+    right-hand sides."""
+    from eicos_tpu_torch.ops.band_ldl import band_ldl_factor, band_ldl_solve
+
+    fk = band_ldl_factor(Kd, Ks, gemm_dtype=gdt)
+    fc = band_ldl_factor(Kd.cpu(), Ks.cpu(), gemm_dtype=gdt)
+    r = torch.randn(Kd.shape[0], 2, Kd.shape[1] * B,
+                    generator=torch.Generator().manual_seed(3),
+                    dtype=Kd.dtype)
+    xk = band_ldl_solve(fk, r.to(Kd.device), gdt).cpu()
+    return max(rel(fk.L.cpu(), fc.L), rel(fk.Dinv.cpu(), fc.Dinv),
+               rel(xk, band_ldl_solve(fc, r, gdt)))
+
+
+def _p12_scan_bw9(pt, fs, mp):
+    """The scan at a real size: 32 lanes of bwb 9, Dp 7680, nb 60 under
+    "banded": the leaf kernel once a block row of every factor and no
+    band kernel, every lane OPTIMAL, lane 0 as on the CPU; the scan with
+    f32 products held to the CPU at 1e-4 on a random band of the path's
+    shape (this LP's own blocks carry the 1/delta growth of its equality
+    pivots, which f32 products cannot), and the path under
+    ``band_gemm="float32"`` answering where the CPU does."""
+    from eicos_tpu_torch.ops.band_ldl import band_ldl_factor
+
+    st, probs, batch, shared = fs.batch("scan")
+    nb = st.band.dim // B
+    assert (st.band.bwb, st.band.dim) == (SCAN_BWB, SCAN_DP)
+    leaf_at_scan_shape(SCAN_LANES, torch.float64, KERNEL_TOL)
+    counts, _, _, _ = run_path(mp, pt, st, probs, batch, shared,
+                               pt.Settings(kkt_strategy="banded"), None,
+                               ("leaf_ldl", "spmv", "dgemm"))
+    scan_launches(counts, "leaf_ldl", nb)
+    torch.cuda.empty_cache()
+    Kd, Ks = device_wide_band(CPU_LANES, nb, SCAN_BWB, 17,
+                              torch.device("cuda"))
+    assert scan_as_cpu(Kd, Ks, torch.float32) <= F32_SCAN_TOL
+    assert rel(band_ldl_factor(Kd, Ks, gemm_dtype=torch.float32).L,
+               band_ldl_factor(Kd, Ks).L) > KERNEL_TOL
+    del Kd, Ks
+    g32 = pt.Settings(kkt_strategy="banded", band_gemm="float32")
+    bs = pt.BatchedSolver(st, g32, shared=shared)
+    sol, counts, syncs, stats = _stats_solve(torch, bs, batch)
+    eager_then_composed(mp, bs, batch, sol, counts, syncs, stats)
+    scan_launches(counts, "leaf_ldl", nb)
+    short = [int(i) for i in np.flatnonzero(sol.exit_code.cpu().numpy())]
+    tiers_as_cpu(pt, st, probs, shared, g32, sol, short[:1] or [0])
+    bs.close()
+
+
+def _p13_banded_f32(pt, fs, mp):
+    """"banded" with an f32 factor on the 128 SOCP lanes of the keep_soc
+    plan: the scan with the f32 leaf kernel and no f64 leaf or dgemm, the
+    f32 scan of the path's own first two factors held to the CPU at 1e-4,
+    a lane that claims an answer with the f64 path's objective, lanes 0-3
+    answering where the CPU does."""
+    from eicos_tpu_torch import kkt
+
+    st, probs, batch, shared = fs.batch("socp-band")
+    nb = st.band.dim // B
+    leaf_at_scan_shape(LANES, torch.float32, F32_LEAF_TOL)
+    f32 = pt.Settings(kkt_strategy="banded", factor_dtype="float32")
+    bs = pt.BatchedSolver(st, f32, shared=shared)
+    real = kkt.band_factor
+    own = []
+
+    def capture(Kd, Ks, gemm_dtype=None):
+        # a capture computes nothing: the first factors that compute are
+        # the prologue's warm-up (the init factor) and iteration 0's
+        if len(own) < 2 and not torch.cuda.is_current_stream_capturing():
+            own.append((Kd[:CPU_LANES].clone(), Ks[:CPU_LANES].clone()))
+        return real(Kd, Ks, gemm_dtype)
+
+    with mp.context() as m:
+        m.setattr(kkt, "band_factor", capture)
+        sol, counts, syncs, stats = _stats_solve(torch, bs, batch)
+    launched(counts, ["leaf_ldl_f32"])
+    eager_then_composed(mp, bs, batch, sol, counts, syncs, stats)
+    not_launched(counts, ("leaf_ldl", "dgemm"))
+    scan_launches(counts, "leaf_ldl_f32", nb)
+    assert len(own) == 2
+    for Kd, Ks in own:
+        assert scan_as_cpu(Kd, Ks, None) <= F32_SCAN_TOL
+    objectives_close(sol, fs.ref("soc-banded"), {2: F32_TOL, 1: INACC_TOL})
+    tiers_as_cpu(pt, st, probs, shared, f32, sol, list(range(CPU_LANES)))
+    bs.close()
+
+
+def _p15_block64(pt, fs, mp):
+    """``Settings(block=64)`` on 4 of the LP's lanes under "reduced"
+    (dgemm and the inverse solves on the factor padded to 128) and
+    "banded" (a plan of 64-blocks, the scan): the plain leaf by design, no
+    leaf or band kernel, every lane OPTIMAL, lane 0 as on the CPU."""
+    from eicos_tpu_torch.plan import make_band_plan
+
+    st, probs, _, shared = fs.batch("lp")
+    st64 = st.with_band_plan(make_band_plan(st, probs[0].G, probs[0].A,
+                                            block=64))
+    batch = pt.BatchedSolver.stack(probs[:BLOCK64_LANES], shared=shared)
+    for cfg, pst, must in (
+            (pt.Settings(kkt_strategy="reduced", block=64), st,
+             ("spmv", "dgemm") + LINV),
+            (pt.Settings(kkt_strategy="banded", block=64), st64, ("spmv",))):
+        bs = pt.BatchedSolver(pst, cfg, shared=shared)
+        sol, counts, syncs, stats = _stats_solve(torch, bs, batch)
+        launched(counts, must)
+        eager_then_composed(mp, bs, batch, sol, counts, syncs, stats)
+        not_launched(counts, ("leaf_ldl", "band_factor_bw",
+                              "band_factor_cluster"))
+        optimal(sol, BLOCK64_LANES)
+        same_as_cpu(pt, pst, probs[0], cfg, sol)
+        bs.close()
+
+
+def _p16_mesh(pt, fs, mp):
+    """``BatchedSolver(mesh=make_mesh())`` on the LP's batch over the
+    visible cards: the bits of the unsharded solve."""
+    from eicos_tpu_torch.parallel import make_mesh
+
+    st, _, batch, shared = fs.batch("lp")
+    settings = pt.Settings(kkt_strategy="banded")
+    rescue = pt.Settings(kkt_strategy="reduced")
+    ms = pt.BatchedSolver(st, settings, shared=shared, rescue=rescue,
+                          mesh=make_mesh())
+    sol, counts, syncs, stats = _stats_solve(torch, ms, batch)
+    launched(counts, ("band_factor_bw", "spmv"))
+    eager_then_composed(mp, ms, batch, sol, counts, syncs, stats)
+    ref = pt.BatchedSolver(st, settings, shared=shared, rescue=rescue)
+    assert same_bits(ref.solve(batch), sol)
+    ref.close()
+    ms.close()
+
+
+def repeat_batched(pt, st, batch, shared, settings, rescue):
+    """One kept ``BatchedSolver``: X, then Y after ``update_data`` with
+    every value new (``test_torch_program.rescaled``), then X five times;
+    every solve after the first is one composed launch with no host sync
+    and gives a fresh solver's bits and, settled, its counts; the first
+    result is unchanged at the end."""
+    from test_torch_program import rescaled
+
+    from eicos_tpu_torch import graphs
+
+    def make():
+        return pt.BatchedSolver(st, settings, shared=shared, rescue=rescue)
+
+    bs = make()
+    first, f_counts, f_syncs, _ = _stats_solve(torch, bs, batch)
+    kept = graphs.clone(first)
+    y = rescaled(st, batch, seed=23)
+    bs.update_data(**{f: getattr(y, f) for f in ("G", "A", "c", "h", "b")})
+    ysol, y_counts, y_syncs, y_stats = _stats_solve(torch, bs, None)
+    loops = composed_only(y_syncs, y_stats)
+    fresh = make()
+    want, w_counts, w_syncs, _ = _stats_solve(torch, fresh, y)
+    fresh.close()
+    same_solve(ysol, want, (y_counts, w_counts), (y_syncs, w_syncs), loops)
+    del ysol, want
+    for _ in range(5):
+        sol, counts, syncs, stats = _stats_solve(torch, bs, batch)
+        loops = composed_only(syncs, stats)
+        same_solve(sol, first, (counts, f_counts), (syncs, f_syncs), loops)
+    same_solve(first, kept)
+    bs.close()
+
+
+def _p17_repeat_lp(pt, fs, mp):
+    st, _, batch, shared = fs.batch("lp")
+    repeat_batched(pt, st, batch, shared, pt.Settings(kkt_strategy="banded"),
+                   pt.Settings(kkt_strategy="reduced"))
+
+
+def _p17_repeat_socp(pt, fs, mp):
+    st, _, batch, shared = fs.batch("socp-band")
+    repeat_batched(pt, st, batch, shared, pt.Settings(kkt_strategy="banded"),
+                   pt.Settings(kkt_strategy="reduced"))
+
+
+def _p17_repeat_rescue(pt, fs, mp):
+    """The forced rescue of 5, then 7 failing lanes: both pad to 8, so the
+    second replays the first's rescue program (no new capture) and
+    launches its composed graph; 7 lanes OPTIMAL; again, one composed
+    launch a program with a fresh solver's bits and counts."""
+    st, probs, _, shared = fs.batch("lp")
+    forced = pt.Settings(kkt_strategy="banded", iter_max=3)
+    rescue = pt.Settings(kkt_strategy="reduced")
+    bs = pt.BatchedSolver(st, forced, shared=shared, rescue=rescue)
+    five = pt.BatchedSolver.stack(probs[:5], shared=shared)
+    seven = pt.BatchedSolver.stack(probs[5:12], shared=shared)
+    _stats_solve(torch, bs, five)
+    rprog = bs._rescue_program
+    caps = rprog.captures
+    sol, _, _, stats = _stats_solve(torch, bs, seven)
+    assert bs.last_rescued == tuple(range(7))
+    assert bs._rescue_program is rprog and rprog.captures == caps
+    optimal(sol, 7)
+    # the primary's program is new at 7 lanes; the rescue's is composed
+    assert stats["loops"] == 1, stats
+    sol, counts, syncs, stats = _stats_solve(torch, bs, seven)
+    loops = composed_only(syncs, stats)
+    fresh = pt.BatchedSolver(st, forced, shared=shared, rescue=rescue)
+    want, w_counts, w_syncs, _ = _stats_solve(torch, fresh, seven)
+    same_solve(sol, want, (counts, w_counts), (syncs, w_syncs), loops)
+    fresh.close()
+    bs.close()
+
+
+def _p17_repeat_full(pt, fs, mp):
+    """``Solver`` at the default settings ("full") on lane 0, then
+    ``update_data`` with every value new: one composed launch with a new
+    ``Solver``'s bits and counts."""
+    from test_torch_program import rescaled
+
+    st, probs, _, _ = fs.batch("lp")
+    p0 = probs[0]
+    one = pt.Solver(p0.G, p0.A, p0.c, p0.h, p0.b)
+    _stats_solve(torch, one, False)
+    y = rescaled(st, pt.ProblemData(G=p0.G, A=p0.A, c=p0.c[None], h=p0.h,
+                                    b=p0.b[None]), seed=29)
+    new = dict(G=y.G, A=y.A, c=y.c[0], h=y.h, b=y.b[0])
+    one.update_data(**new)
+    _, counts, syncs, stats = _stats_solve(torch, one, False)
+    loops = composed_only(syncs, stats)
+    other = pt.Solver(**new)
+    _, w_counts, w_syncs, _ = _stats_solve(torch, other, False)
+    same_solve(one.last_solution, other.last_solution, (counts, w_counts),
+               (syncs, w_syncs), loops)
+    one.close()
+    other.close()
+
+
+def _p17_repeat_scan(pt, fs, mp):
+    """The scan's solver solved twice: the second is one composed launch
+    with the first's bits and counts."""
+    st, _, batch, shared = fs.batch("scan")
+    bs = pt.BatchedSolver(st, pt.Settings(kkt_strategy="banded"),
+                          shared=shared)
+    first, f_counts, f_syncs, _ = _stats_solve(torch, bs, batch)
+    sol, counts, syncs, stats = _stats_solve(torch, bs, batch)
+    loops = composed_only(syncs, stats)
+    same_solve(sol, first, (counts, f_counts), (syncs, f_syncs), loops)
+    bs.close()
+
+
+def _p17_repeat_mesh(pt, fs, mp):
+    """The mesh's solver solved twice: the second is one composed launch
+    a card with the first's bits and counts."""
+    from eicos_tpu_torch.parallel import make_mesh
+
+    st, _, batch, shared = fs.batch("lp")
+    ms = pt.BatchedSolver(st, pt.Settings(kkt_strategy="banded"),
+                          shared=shared,
+                          rescue=pt.Settings(kkt_strategy="reduced"),
+                          mesh=make_mesh())
+    first, f_counts, f_syncs, _ = _stats_solve(torch, ms, batch)
+    sol, counts, syncs, stats = _stats_solve(torch, ms, batch)
+    loops = composed_only(syncs, stats)
+    same_solve(sol, first, (counts, f_counts), (syncs, f_syncs), loops)
+    ms.close()
+
+
+PATHS = {
+    "p02-banded-lp": _p02_banded_lp, "p03-forced-rescue": _p03_forced_rescue,
+    "p04-reduced-inverse": _p04_reduced_inverse,
+    "p05-socp-reduced": _p05_socp_reduced,
+    "p06-socp-keep-soc": _p06_socp_keep_soc, "p07-wide-bw3": _p07_wide_bw3,
+    "p08-reduced-subst": _p08_reduced_subst,
+    "p09-normal-socp": _p09_normal_socp, "p10-full": _p10_full,
+    "p11-reduced-f32": _p11_reduced_f32, "p12-scan-bw9": _p12_scan_bw9,
+    "p13-banded-f32": _p13_banded_f32, "p15-block64": _p15_block64,
+    "p16-mesh": _p16_mesh, "p17-repeat-lp": _p17_repeat_lp,
+    "p17-repeat-socp": _p17_repeat_socp,
+    "p17-repeat-rescue": _p17_repeat_rescue,
+    "p17-repeat-full": _p17_repeat_full, "p17-repeat-scan": _p17_repeat_scan,
+    "p17-repeat-mesh": _p17_repeat_mesh,
+}
+
+
+@pytest.mark.parametrize("path", list(PATHS))
+def test_path_at_full_size(cuda, full_size, counted_factors, monkeypatch,
+                           path):
+    """Each path of the port at the size the benchmark runs it (its
+    docstring says which): the kernels it must and must not launch, its
+    exit codes and tiers, lane 0 against the CPU plain path, the bits of
+    a repeat, of the same solve with its segments called eagerly and of
+    its next solve, composed, with no host sync.  Each case releases its
+    solvers' programs."""
+    import eicos_tpu_torch as pt
+
+    try:
+        PATHS[path](pt, full_size, monkeypatch)
+    finally:
+        torch.cuda.synchronize()
+        torch.cuda.empty_cache()
+
+
+# ------------------------------------------- the entry points on the card
+
+def table_rows(text):
+    """The iteration rows of a printed table, without the IR column (it
+    turns on the last bits)."""
+    return [r[:-12] for r in text.splitlines() if r[:3].strip().isdigit()]
+
+
+def small_socp():
+    """A small feasible SOCP: a box, two equalities and one cone
+    ||(x0, x1)|| <= 1.5 (G, A, c, h, b, q)."""
+    rng = np.random.default_rng(5)
+    n, p = 6, 2
+    G = np.vstack([np.eye(n), -np.eye(n), np.zeros((3, n))])
+    G[-2, 0] = G[-1, 1] = -1.0
+    h = np.concatenate([np.ones(2 * n), [1.5, 0.0, 0.0]])
+    A = rng.standard_normal((p, n))
+    b = A @ (0.3 * rng.uniform(-1, 1, n))
+    return G, A, rng.standard_normal(n), h, b, (3,)
+
+
+@pytest.mark.parametrize("entry", ["live", "solve_ecos", "cli", "timed"])
+def test_entry_point_on_card(cuda, full_size, tmp_path, entry):
+    """The entry points on the card, on lane 0 of the LP of the mpc_lp
+    cells under "banded".  "live": ``Solver.solve_live(seg=3)`` prints a
+    row an iteration and gives ``solve()``'s bits, and
+    ``Settings(verbose_live=True)`` on 4 lanes streams lane 0's rows.
+    "solve_ecos": ``ecos_compat.solve_ecos`` agrees with ``Solver`` on a
+    small SOCP.  "cli": ``python -m eicos_tpu_torch solve <npz> --live``
+    and ``demo`` exit 0.  "timed": ``utils.timing.timed`` is no shorter
+    than CUDA events around a solve, and waits for four queued f64
+    products (at least 10 times their launches' host time)."""
+    import contextlib
+    import io
+    import os
+    import subprocess
+    import sys
+    import time
+
+    import eicos_tpu_torch as pt
+    from eicos_tpu_torch import ecos_compat
+    from eicos_tpu_torch.utils import timing
+
+    st, probs, _, shared = full_size.batch("lp")
+    banded = pt.Settings(kkt_strategy="banded")
+    p0 = probs[0]
+    lanes = pt.BatchedSolver.stack(probs[:4], shared=shared)
+    if entry == "live":
+        one = pt.Solver(p0.G, p0.A, p0.c, p0.h, p0.b, settings=banded)
+        buf = io.StringIO()
+        code = one.solve_live(seg=3, file=buf)
+        live = one.last_solution
+        rows = table_rows(buf.getvalue())
+        assert one.solve() == code == 0
+        for f in ("x", "y", "z", "s"):
+            assert torch.equal(getattr(live, f),
+                               getattr(one.last_solution, f)), f
+        assert len(rows) == int(one.last_solution.info.iter) + 1
+        one.close()
+        out = io.StringIO()
+        bs = pt.BatchedSolver(st, pt.Settings(kkt_strategy="banded",
+                                              verbose_live=True),
+                              shared=shared)
+        with contextlib.redirect_stdout(out):
+            bs.solve(lanes)
+        bs.close()
+        assert out.getvalue().startswith("It ")
+        assert table_rows(out.getvalue()) == rows
+    elif entry == "solve_ecos":
+        import scipy.sparse as sp
+
+        G, A, c, h, b, q = small_socp()
+        r = ecos_compat.solve_ecos(c, sp.csc_matrix(G), h,
+                                   {"l": G.shape[0] - 3, "q": list(q)},
+                                   sp.csc_matrix(A), b)
+        s = pt.Solver(G, A, c, h, b, soc_dims=q)
+        assert r["exitFlag"] == int(s.solve())
+        assert np.abs(r["x"] - s.solution()).max() <= LANE_TOL
+        s.close()
+    elif entry == "cli":
+        root = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
+        npz = str(tmp_path / "lane0.npz")
+        pt.save_problem(npz, st, p0)
+        for args in (["solve", npz, "--live"],
+                     ["demo", "--horizon", "40", "--batch", "8"]):
+            proc = subprocess.run([sys.executable, "-m", "eicos_tpu_torch",
+                                   *args], cwd=root, capture_output=True,
+                                  text=True, timeout=300)
+            assert proc.returncode == 0, (args[0], proc.stderr[-2000:])
+    else:
+        bs = pt.BatchedSolver(st, banded, shared=shared)
+        e0, e1 = (torch.cuda.Event(enable_timing=True) for _ in range(2))
+
+        def solve_between_events():
+            e0.record()
+            out = bs.solve(lanes)
+            e1.record()
+            return out
+
+        bs.solve(lanes)
+        _, ms = timing.timed(solve_between_events)
+        assert ms >= e0.elapsed_time(e1)
+        bs.close()
+        a = torch.randn(8192, 8192, dtype=torch.float64, device=cuda)
+        a /= 8192 ** 0.5
+
+        def queued():
+            e0.record()
+            x = a
+            for _ in range(4):
+                x = x @ a
+            e1.record()
+            return x
+
+        queued()
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        queued()
+        launch_ms = 1e3 * (time.perf_counter() - t0)
+        torch.cuda.synchronize()
+        _, ms = timing.timed(queued)
+        assert ms >= e0.elapsed_time(e1) and ms >= 10 * launch_ms

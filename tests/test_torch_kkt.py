@@ -56,9 +56,10 @@ def setup():
 
 @pytest.mark.parametrize("scaled", [False, True])
 def test_band_blocks_match_dense_assembly(setup, scaled):
-    """Kd/Ks of the direct scatter equal the reference's dense-assembled
-    _band_views(K[perm][:, perm]) within 1e-13 relative; the dump slot,
-    element (0, 0) of Ks[0], is excluded (the factor never reads it)."""
+    """Kd/Ks of the direct scatter (Ks in the band layout at bandwidth 1)
+    equal the reference's dense-assembled _band_views(K[perm][:, perm])
+    within 1e-13 relative; the dump slot, element (0, 0) of Ks[0], is
+    excluded (the factor never reads it)."""
     jst, st = setup["jst"], setup["st"]
     delta = setup["pset"].deltastat
     G = setup["jeq"].G
@@ -77,7 +78,7 @@ def test_band_blocks_match_dense_assembly(setup, scaled):
     Kd_ref, Kband = _band_views(K[perm][:, perm], 1, B)
     Ks_ref = np.asarray(Kband)[:, 0]
     Kd, Ks = kkt.band_blocks(st, setup["pctx"], pwinv, delta)
-    Kd, Ks = Kd[0].numpy(), Ks[0].numpy().copy()
+    Kd, Ks = Kd[0].numpy(), Ks[0, :, 0].numpy().copy()
     scale = np.abs(np.asarray(Kd_ref)).max()
     assert np.abs(Kd - np.asarray(Kd_ref)).max() / scale < 1e-13
     Ks[0, 0, 0] = Ks_ref[0, 0, 0]

@@ -104,7 +104,7 @@ def test_band_dispatches_to_scan():
     assert band.scan(Ks, torch.float64)
     assert band.scan(Ks[:, :, :2], torch.float32)
     assert not band.scan(Ks[:, :, :2], torch.float64)
-    assert not band.scan(Ks[:, :, 0], torch.float32)   # the 4-d layout
+    assert band.scan(Ks[:, :, :1], torch.float32)     # bw 1 too
     fac = band.band_factor(Kd, Ks)
     want = band_ldl_factor(Kd, Ks)
     assert all(torch.equal(a, b) for a, b in zip(fac, want))
@@ -128,7 +128,7 @@ def wide_case(lanes):
     """``make_mpc_like(horizon=3, nx=256, nu=128, seed=3)`` (n 1152, p 768,
     m 2816; Dp 1920, block bandwidth 7) with its gsplit and the JAX
     package's plan carried into the port, and ``lanes`` lanes made as
-    ``chip_smoke.py`` makes them (lane seed 7)."""
+    the card tests make them (lane seed 7)."""
     jst, d = jcorpus.make_mpc_like(horizon=3, nx=256, nu=128, seed=3)
     jst = jst.with_gsplit(d.G, d.A)
     jst = jst.with_band_plan(jplan(jst, d.G, d.A))
