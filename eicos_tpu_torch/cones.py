@@ -16,6 +16,11 @@ with w = q'q, c = (1+a) + w/(1+a), d = 1 + 2/(1+a) + w/(1+a)^2.
 
 Out-of-cone iterates are not guarded: as in EiCOS, NaNs from the square
 roots flow on into the solver's NaN exit.
+
+For a structure with cones on CUDA tensors, ``update_scalings`` and
+``line_search`` are one launch each of ``ops/soc.py``'s kernels
+(``csrc/cones.cu``); CPU tensors run the torch code below, their plain
+twin.
 """
 
 from __future__ import annotations
@@ -23,8 +28,10 @@ from __future__ import annotations
 import functools
 from typing import NamedTuple
 
+import numpy as np
 import torch
 
+from .ops import kernels, soc
 from .segsum import SegmentSum, segment_map, segment_sum
 from .structure import ConeStructure
 
@@ -49,6 +56,7 @@ class _ConeConsts(NamedTuple):
     head_offsets: torch.Tensor  # (n_sc,) int64
     segs: SegmentSum            # the per-cone sums over the SOC part
     heads: torch.Tensor         # (ms, n_sc) f64: 1 at each cone's head
+    offs: torch.Tensor          # (n_sc + 1,) int32 head offsets, then ms
 
 
 @functools.lru_cache(maxsize=64)
@@ -63,7 +71,9 @@ def _consts(st: ConeStructure, device: str) -> _ConeConsts:
         seg=torch.as_tensor(st.seg, dtype=torch.int64, device=device),
         is_head=torch.as_tensor(st.is_head, device=device),
         head_offsets=head_offsets, segs=segment_map(st.seg, device),
-        heads=heads)
+        heads=heads, offs=torch.as_tensor(
+            np.append(st.head_offsets, st.ms), dtype=torch.int32,
+            device=device))
 
 
 def _k(st, x) -> _ConeConsts:
@@ -101,6 +111,9 @@ def _split(st: ConeStructure, x):
 def update_scalings(st: ConeStructure, s, z):
     """NT scalings and lam = W z (EiCOS updateScalings).
     Returns (scaling, lambda)."""
+    if st.n_sc and not kernels.on_cpu(s):
+        *fields, lam = soc.scalings(st, _k(st, s).offs, s, z)
+        return Scaling(*fields), lam
     s_lp, s_s = _split(st, s)
     z_lp, z_s = _split(st, z)
 
@@ -285,6 +298,9 @@ def line_search(st: ConeStructure, lam, ds, dz, tau, dtau, kap, dkap,
                 stepmin: float, stepmax: float):
     """Max step to the cone boundary in scaled variables, saturated
     (EiCOS lineSearch).  tau, dtau, kap, dkap are (L,); returns (L,)."""
+    if st.n_sc and not kernels.on_cpu(lam):
+        return soc.line_search(st, _k(st, lam).offs, lam, ds, dz, tau, dtau,
+                               kap, dkap, stepmin, stepmax)
     lam_lp, lam_s = _split(st, lam)
     ds_lp, ds_s = _split(st, ds)
     dz_lp, dz_s = _split(st, dz)

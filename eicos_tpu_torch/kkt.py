@@ -115,6 +115,7 @@ import torch
 from . import cones, graphs
 from .ops.band import band_factor, band_solve
 from .ops.band_ldl import B, KP
+from .ops import kernels, soc
 from .ops.gemm import matmul
 from .ops.ldl import ldl_factor, ldl_factor_subst, ldl_solve, pad_to_block
 from .ops.spmv import SparseOperand, SparsePattern, csc_table, fused_tail
@@ -453,6 +454,7 @@ class SocMaps(NamedTuple):
     head: torch.Tensor    # (n_sc, dmax) bool, the cone's first slot
     cols: torch.Tensor    # (n_sc, w) column support, pad n
     flat: torch.Tensor    # (ms,) each SOC entry's place in (n_sc * dmax)
+    offs: torch.Tensor    # (n_sc + 1,) int32 head offsets, then ms
 
 
 @functools.lru_cache(maxsize=16)
@@ -462,6 +464,8 @@ def soc_maps(st: ProblemStructure, device: str) -> SocMaps:
     return SocMaps(qidx=_t(qidx, device), valid=_t(valid, device, torch.bool),
                    head=_t(head, device, torch.bool),
                    flat=_t(np.flatnonzero(valid), device),
+                   offs=_t(np.append(st.cone.head_offsets, st.cone.ms),
+                           device, torch.int32),
                    cols=_t(np.asarray(st.socsplit.cols, np.int64).reshape(
                        st.n_sc, st.socsplit.width), device))
 
@@ -737,7 +741,7 @@ def _soc_pad(ctx: KKTContext, x_s):
         :, ctx.soc.qidx]
 
 
-def _soc_eig(ctx: KKTContext, scal):
+def _soc_eig(ctx: KKTContext, scal, delta=None):
     """Each cone's W^2 in its eigenbasis, in closed form: (rot (L, n_sc,
     dmax, dmax), lam (L, n_sc, dmax)) with W^2 = rot' diag(lam) rot on a
     cone's slots.  With W = eta [a, q'; q, I + qq'/(1+a)], a^2 - q'q = 1,
@@ -745,8 +749,16 @@ def _soc_eig(ctx: KKTContext, scal):
     eta^2 (a+|q|)^2 and eta^2 / (a+|q|)^2, then (0, u) for u an orthonormal
     basis of qh's complement (the columns after the first of a Householder
     reflector that maps e1 to -+qh), eigenvalue eta^2.  Pad rows and
-    columns are zero, pad eigenvalues 0."""
+    columns are zero, pad eigenvalues 0.
+
+    On CUDA tensors one launch of ``soc.eig`` (``cone_eig``) also computes
+    what ``_soc_kept_vals`` (given ``delta``) and ``_soc_coupling_vals``
+    make of the result, returned third and fourth: (rot, lam, kept or
+    None, coupling)."""
     sm = ctx.soc
+    if not kernels.on_cpu(scal.a):
+        return soc.eig(sm.offs, sm.qidx.shape[1], scal.q_flat, scal.a,
+                       scal.eta2, ctx.soc_gsub, delta)
     dmax = sm.qidx.shape[1]
     if dmax == 1:                       # every cone is its head alone
         return (scal.eta2.new_ones(*scal.eta2.shape, 1, 1),
@@ -787,8 +799,10 @@ def _soc_eig(ctx: KKTContext, scal):
 
 def _soc_rotate(rot, x_s, ctx: KKTContext, transpose: bool = False):
     """rot x (or rot' x) cone by cone over the SOC segment, x_s (L, k,
-    ms)."""
+    ms): one launch of ``soc.rotate`` (``cone_rotate``) on CUDA tensors."""
     sm = ctx.soc
+    if not kernels.on_cpu(x_s):
+        return soc.rotate(sm.offs, rot, x_s, transpose)
     xp = torch.cat([x_s, x_s.new_zeros(*x_s.shape[:-1], 1)], -1)[
         ..., sm.qidx]                                   # (L, k, n_sc, dmax)
     R = rot.transpose(-1, -2) if transpose else rot
@@ -816,6 +830,8 @@ def _soc_kept_vals(st, ctx: KKTContext, scal, delta, lanes: int,
     eye_v = eye * (sm.valid[:, :, None] & sm.valid[:, None, :])
     if scal is None:
         return (-(1.0 + delta) * eye_v).expand(lanes, -1, -1, -1)
+    if eig is not None and len(eig) > 2 and eig[2] is not None:
+        return eig[2]                   # ``cone_eig`` made them
     lam = (eig if eig is not None else _soc_eig(ctx, scal))[1]
     return -(lam[..., None] * eye + delta * eye_v)
 
@@ -824,6 +840,8 @@ def _soc_coupling_vals(ctx: KKTContext, eig, lanes: int):
     """The kept rows' coupling on the ``SOCSplit`` column supports, (L,
     n_sc, dmax, w): G_soc at the identity scaling (``eig`` None), else rot
     G_soc in each cone's eigenbasis (``_soc_eig``)."""
+    if eig is not None and len(eig) > 3:
+        return eig[3]                   # ``cone_eig`` made it
     g = ctx.soc_gsub if eig is None else eig[0] @ ctx.soc_gsub
     return g.expand(lanes, *g.shape[-3:])
 
@@ -880,7 +898,7 @@ def _band_scatter_vals(st, ctx: KKTContext, winv_lp, delta, scal=None,
     if st.n_sc and ctx.keep_soc:
         with graphs.region("cones.kept_blocks"):
             if scal is not None and eig is None:
-                eig = _soc_eig(ctx, scal)
+                eig = _soc_eig(ctx, scal, delta)
             vals.append(_soc_kept_vals(st, ctx, scal, delta, lanes,
                                        eig).reshape(lanes, -1))
             coup = _soc_coupling_vals(ctx, eig, lanes).reshape(lanes, -1)
@@ -1172,7 +1190,7 @@ def factor(st: ProblemStructure, ctx: KKTContext,
         eig = None
         if ctx.keep_soc and scal is not None:
             with graphs.region("cones.kept_blocks"):
-                eig = _soc_eig(ctx, scal)
+                eig = _soc_eig(ctx, scal, delta)
         fac = band_factor(*band_blocks(st, ctx, winv_lp, delta, scal, eig))
         return ExactSolve(kind="band", fac=fac, gemm_dtype=gdt,
                           rot=None if eig is None else eig[0], **common)

@@ -7,9 +7,9 @@ hash of its source and flags, so an edited source rebuilds.  The libraries
 are bound with ``ctypes``: pointers and the stream pass as ``c_void_p``.
 
 ``COUNTS`` holds one plain integer per kernel: its wrapper (``band.py``,
-``leaf.py``, ``gemm.py``, ``dense.py``, ``spmv.py``) adds one through
-``count`` where it launches the kernel, and nowhere else, so a run can show
-that the main path went through the kernels.  ``loop_cond`` (S2,
+``leaf.py``, ``gemm.py``, ``dense.py``, ``spmv.py``, ``soc.py``) adds one
+through ``count`` where it launches the kernel, and nowhere else, so a run
+can show that the main path went through the kernels.  ``loop_cond`` (S2,
 ``graph_loop.py``) launches only on the card, as nodes of a composed
 program graph: each node counts its launches on the device, and
 ``graphs.settle`` adds them here, with ``loop_stamp``'s two a traced
@@ -76,6 +76,15 @@ LIBS = {
                      "eicos_dense_bwd": [_P] * 4 + [_I, _I, _I, _P]}),
     "spmv": ("spmv.cu",
              {"eicos_spmv": [_P, _P]}),
+    "cones": ("cones.cu",
+              {"eicos_cone_scalings": [_P, _LL, _P, _LL, _P] + [_I] * 5
+               + [_P] * 11,
+               "eicos_cone_eig": [_P] * 5 + [_LL] + [_I] * 5 + [_D] * 2
+               + [_P] * 5,
+               "eicos_cone_rotate": [_P, _P, _LL, _LL, _P] + [_I] * 6
+               + [_P] * 2,
+               "eicos_cone_line_search": [_P, _LL] * 7 + [_P] + [_I] * 4
+               + [_D] * 4 + [_P] * 2}),
     # the program graph and S2 (``graph_loop.py``): every function returns
     # a null pointer or an error message
     "graph_loop": ("graph_loop.cu",
@@ -99,7 +108,8 @@ COUNTS = {"band_factor_bw": 0, "band_factor_cluster": 0, "band_fwd_bw": 0,
           "band_bwd_bw": 0,
           "leaf_ldl": 0, "dgemm": 0, "linv_fwd": 0, "linv_bwd": 0,
           "leaf_ldl_f32": 0, "dense_pack": 0, "dense_fwd": 0, "dense_bwd": 0,
-          "spmv": 0, "loop_cond": 0, "loop_stamp": 0}
+          "spmv": 0, "loop_cond": 0, "loop_stamp": 0, "cone_scalings": 0,
+          "cone_eig": 0, "cone_rotate": 0, "cone_line_search": 0}
 BUILD_LOG: dict = {}      # library name -> nvcc's output (ptxas -v report)
 
 _loaded: dict = {}

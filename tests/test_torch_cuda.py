@@ -10,6 +10,9 @@ machine (which has no JAX: ``--noconftest``) with
 
 import torch_threads  # noqa: F401  (one torch thread a worker)
 
+import json
+import os
+
 import numpy as np
 import pytest
 import torch
@@ -41,6 +44,10 @@ def band_case(lanes, nb, seed):
 
 def rel(a, b):
     return float((a - b).abs().max() / b.abs().max())
+
+
+CONE_KERNELS = ("cone_scalings", "cone_eig", "cone_rotate",
+                "cone_line_search")
 
 
 def factor_name(lanes, bw=1):
@@ -1308,6 +1315,362 @@ def test_mesh_of_visible_cards_matches_unsharded(cuda):
             pt.BatchedSolver.stack(probs[2 * i:2 * i + 2], shared=shared))
         assert torch.equal(sol.x[2 * i:2 * i + 2], one.x)
         assert torch.equal(sol.exit_code[2 * i:2 * i + 2], one.exit_code)
+
+
+# ---------------------------------------------------------- the cone kernels
+
+def interior_points(rng, l, q, lanes):
+    """(lanes, l + sum(q)) points inside the cone."""
+    v = rng.standard_normal((lanes, l + sum(q)))
+    v[:, :l] = np.abs(v[:, :l]) + 0.5
+    off = l
+    for d in q:
+        v[:, off] = (np.linalg.norm(v[:, off + 1:off + d], axis=1) + 0.5
+                     + np.abs(v[:, off]))
+        off += d
+    return v
+
+
+# (l, q, lanes, kind): the powered-descent cell's cones (N = 100: 302 LP
+# rows, 101 cones of 4 entries, 201 of 3) at 128 lanes; a cone whose q is 0
+# (z = s on it); lane 1 out of its cone; cones of 1, 2, 5 and 40 entries,
+# past segsum's sequential sums, beside LP rows
+CONE_CASES = {"pdg": (302, (4,) * 101 + (3,) * 201, 128, None),
+              "q0": (5, (4, 3, 3) * 4, 4, "q0"),
+              "outside": (5, (4, 3, 3) * 4, 4, "outside"),
+              "mixed": (7, (1, 2, 5, 40), 6, None)}
+
+
+def cone_inputs(name, seed):
+    """A case's CPU inputs: the ``ConeStructure``, s, z, the rotation's two
+    right-hand sides, G_soc (per lane in "mixed") and the line search's
+    lam directions, tau, dtau, kap, dkap, with lane 0's first cone outside
+    lam's cone and tau (lane 0) and kappa (the last lane) steps that
+    bind."""
+    from eicos_tpu_torch.structure import ConeStructure
+
+    l, q, lanes, kind = CONE_CASES[name]
+    st = ConeStructure(l=l, q=q)
+    rng = np.random.default_rng(seed)
+    s, z = (interior_points(rng, l, q, lanes) for _ in range(2))
+    if kind == "q0":
+        z[:, l:l + q[0]] = s[:, l:l + q[0]]
+    elif kind == "outside":
+        s[1, l] = -3.0
+    D, w = max(q), 3
+    gshape = ((lanes,) if name == "mixed" else ()) + (st.n_sc, D, w)
+    valid = np.arange(D)[None, :] < np.asarray(q)[:, None]
+    tau, kap = (rng.random(lanes) + 0.5 for _ in range(2))
+    dtau, dkap = (rng.standard_normal(lanes) for _ in range(2))
+    dtau[0], dkap[-1] = -1e3, -1e3
+    t = torch.tensor
+    return st, dict(
+        s=t(s), z=t(z), x=t(rng.standard_normal((lanes, 2, st.ms))),
+        gsub=t(rng.standard_normal(gshape) * valid[:, :, None]),
+        ds=t(rng.standard_normal((lanes, st.m))),
+        dz=t(rng.standard_normal((lanes, st.m))),
+        tau=t(tau), dtau=t(dtau), kap=t(kap), dkap=t(dkap))
+
+
+def soc_context(st, gsub):
+    """A ``KKTContext`` holding what the cone functions of ``kkt`` read:
+    the ``SocMaps`` of ``st`` and G_soc, on gsub's device."""
+    from eicos_tpu_torch import kkt
+
+    dev = gsub.device
+    qidx, valid = kkt._soc_pad_maps(st.q, st.ms)
+    D = qidx.shape[1]
+    sm = kkt.SocMaps(
+        qidx=torch.tensor(qidx, device=dev),
+        valid=torch.tensor(valid, device=dev),
+        head=torch.tensor((np.arange(D)[None, :] == 0) & valid, device=dev),
+        cols=torch.zeros(st.n_sc, gsub.shape[-1], dtype=torch.int64,
+                         device=dev),
+        flat=torch.tensor(np.flatnonzero(valid), device=dev),
+        offs=torch.tensor(np.append(st.head_offsets, st.ms),
+                          dtype=torch.int32, device=dev))
+    G = torch.zeros(1, 1, dtype=torch.float64, device=dev)
+    return kkt.KKTContext(G=G, A=G, Gf=G, split=None, spr_outer=None,
+                          sing_sq=None, soc=sm, soc_gsub=gsub)
+
+
+def held(got, want, bits):
+    """NaN in the same entries of the card's ``got`` and ``want``, and
+    elsewhere the same bits (``bits``) or within 1e-15 in 2-norm,
+    relative."""
+    got, want = got.cpu().contiguous(), want.cpu().contiguous()
+    assert got.shape == want.shape
+    nan = torch.isnan(want)
+    assert torch.equal(torch.isnan(got), nan)
+    g, w = got[~nan], want[~nan]
+    if bits:
+        assert torch.equal(g.view(torch.int64), w.view(torch.int64))
+    else:
+        assert float((g - w).norm()) <= 1e-15 * float(w.norm())
+
+
+def plain_on_card(monkeypatch, fn, *args):
+    """``fn`` on the card's tensors through the torch code, the plain twin
+    that runs on CPU tensors (the parent's launches on the card)."""
+    from eicos_tpu_torch.ops import kernels
+
+    with monkeypatch.context() as mp:
+        mp.setattr(kernels, "on_cpu", lambda t: True)
+        return fn(*args)
+
+
+def launches(name, fn, *args):
+    """``fn(*args)`` and the number of ``name`` launches it counted."""
+    from eicos_tpu_torch.ops import kernels
+
+    before = kernels.COUNTS[name]
+    out = fn(*args)
+    torch.cuda.synchronize()
+    return out, kernels.COUNTS[name] - before
+
+
+def sequential(q):
+    from eicos_tpu_torch.segsum import SEQUENTIAL_MAX
+
+    return max(q) <= SEQUENTIAL_MAX
+
+
+@pytest.mark.parametrize("name", list(CONE_CASES))
+def test_cone_scalings_kernel_matches_plain(cuda, monkeypatch, name):
+    """``cone_scalings`` (one launch) on strided s and z against
+    ``cones.update_scalings``' torch code on the card: the same bits while
+    its sums run in segsum's fixed order, within 1e-15 past it; against the
+    torch code on CPU copies (whose f64 square roots may round the other
+    way) within 1e-15.  NaN in the same entries."""
+    from eicos_tpu_torch import cones
+
+    st, c = cone_inputs(name, 1)
+    lanes, m = c["s"].shape
+    wide = torch.zeros(2, lanes, m + 3, dtype=torch.float64, device=cuda)
+    wide[:, :, 2:m + 2] = torch.stack([c["s"], c["z"]]).to(cuda)
+    s, z = wide[0, :, 2:m + 2], wide[1, :, 2:m + 2]
+    (scal, lam), n = launches("cone_scalings", cones.update_scalings, st, s,
+                              z)
+    assert n == 1
+    card = plain_on_card(monkeypatch, cones.update_scalings, st, s, z)
+    cpu = cones.update_scalings(st, c["s"], c["z"])
+    for got, want, ref in zip((*scal, lam), (*card[0], card[1]),
+                              (*cpu[0], cpu[1])):
+        held(got, want, sequential(st.q))
+        held(got, ref, False)
+
+
+@pytest.mark.parametrize("name", list(CONE_CASES))
+def test_cone_eig_and_rotate_kernels_match_plain(cuda, monkeypatch, name):
+    """``cone_eig`` (one launch: rot, lam, the kept blocks and the
+    coupling) against ``kkt._soc_eig``, ``_soc_kept_vals`` and
+    ``_soc_coupling_vals``, and ``cone_rotate`` (one launch, both
+    orientations, two right-hand sides of a strided view) against
+    ``_soc_rotate``: within 1e-15 of the torch code on the card and on CPU
+    copies (the plain path sums through a library there), NaN in the same
+    entries."""
+    from eicos_tpu_torch import cones, kkt
+
+    st, c = cone_inputs(name, 2)
+    delta = 7e-8
+    lanes = c["s"].shape[0]
+    scal, _ = cones.update_scalings(st, c["s"].to(cuda), c["z"].to(cuda))
+    ctx = soc_context(st, c["gsub"].to(cuda))
+    eig, n = launches("cone_eig", kkt._soc_eig, ctx, scal, delta)
+    assert n == 1 and len(eig) == 4
+
+    def plain(ctx, scal):
+        e = kkt._soc_eig(ctx, scal)
+        return (*e, kkt._soc_kept_vals(st, ctx, scal, delta, lanes, e),
+                kkt._soc_coupling_vals(ctx, e, lanes))
+
+    card = plain_on_card(monkeypatch, plain, ctx, scal)
+    cpu_scal = cones.Scaling(*[f.cpu() for f in scal])
+    cpu_ctx = soc_context(st, c["gsub"])
+    cpu = plain(cpu_ctx, cpu_scal)
+    assert kkt._soc_kept_vals(st, ctx, scal, delta, lanes, eig) is eig[2]
+    assert kkt._soc_coupling_vals(ctx, eig, lanes) is eig[3]
+    for got, want, ref in zip(eig, card, cpu):
+        held(got, want, False)
+        held(got, ref, False)
+    ms = st.ms
+    wide = torch.zeros(lanes, 2, ms + 5, dtype=torch.float64, device=cuda)
+    wide[:, :, 1:ms + 1] = c["x"].to(cuda)
+    x = wide[:, :, 1:ms + 1]
+    for transpose in (False, True):
+        y, n = launches("cone_rotate", kkt._soc_rotate, eig[0], x, ctx,
+                        transpose)
+        assert n == 1
+        held(y, plain_on_card(monkeypatch, kkt._soc_rotate, eig[0], x, ctx,
+                              transpose), False)
+        held(y, kkt._soc_rotate(eig[0].cpu(), c["x"], cpu_ctx, transpose),
+             False)
+
+
+@pytest.mark.parametrize("name", list(CONE_CASES))
+def test_cone_line_search_kernel_matches_plain(cuda, monkeypatch, name):
+    """``cone_line_search`` (one launch, one CTA a lane) with a cone
+    outside lam's cone (skipped), binding tau and kappa steps and strided
+    tau and kap, against ``cones.line_search``' torch code on the card: the
+    same bits while its sums run in segsum's fixed order, within 1e-15 past
+    it; within 1e-15 of the torch code on CPU copies."""
+    from eicos_tpu_torch import cones
+
+    st, c = cone_inputs(name, 3)
+    lanes = c["s"].shape[0]
+    _, lam = cones.update_scalings(st, c["s"].to(cuda), c["z"].to(cuda))
+    lam[0, st.l] = -5.0
+    tk = torch.stack([c["tau"], c["kap"]], 1).to(cuda)
+    args = (lam, c["ds"].to(cuda), c["dz"].to(cuda), tk[:, 0],
+            c["dtau"].to(cuda), tk[:, 1], c["dkap"].to(cuda), 1e-6, 0.999)
+    got, n = launches("cone_line_search", cones.line_search, st, *args)
+    assert n == 1
+    assert float(got[0]) == float(c["tau"][0]) / 1e3       # tau binds
+    assert float(got[-1]) == float(c["kap"][-1]) / 1e3     # kappa binds
+    held(got, plain_on_card(monkeypatch, cones.line_search, st, *args),
+         sequential(st.q))
+    held(got, cones.line_search(st, *[a.cpu() if torch.is_tensor(a) else a
+                                      for a in args]), False)
+
+
+def test_cone_wrappers_check_inputs(cuda):
+    """The cone kernels' wrappers refuse what their kernels cannot read:
+    f32, a column stride, a wrong table of offsets."""
+    from eicos_tpu_torch import cones
+    from eicos_tpu_torch.ops import soc
+
+    st, c = cone_inputs("q0", 4)
+    s, z = c["s"].to(cuda), c["z"].to(cuda)
+    offs = cones._k(st, s).offs
+    with pytest.raises(ValueError):
+        soc.scalings(st, offs, s.float(), z.float())
+    with pytest.raises(ValueError):
+        soc.scalings(st, offs, s.t().contiguous().t(), z)
+    with pytest.raises(ValueError):
+        soc.scalings(st, offs[:-1], s, z)
+    scal, lam = cones.update_scalings(st, s, z)
+    with pytest.raises(ValueError):
+        soc.line_search(st, offs, lam, lam, lam, 1.0, -1.0, 1.0, -1.0, 1e-6,
+                        0.999)
+
+
+BENCH = os.path.join(os.path.dirname(os.path.dirname(
+    os.path.abspath(__file__))), "benchmark")
+
+
+def bench_module(rel):
+    """A module of the benchmark (``benchmark/<rel>``), loaded by path."""
+    import importlib.util
+
+    spec = importlib.util.spec_from_file_location(
+        "card_" + rel.replace("/", "_")[:-3], os.path.join(BENCH, rel))
+    mod = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(mod)
+    return mod
+
+
+def bench_json(rel):
+    with open(os.path.join(BENCH, rel)) as fh:
+        return json.load(fh)
+
+
+def pdg_batch(pt, N, lanes, seed):
+    """The powered-descent family (``benchmark/families/pdg.py``) at N steps
+    on a ``keep_soc`` band plan, and ``lanes`` ignition states dispersed as
+    the benchmark's traffic disperses them: (structure, batch, the
+    family's (G, A, C, h, B, l, q))."""
+    from eicos_tpu_torch.plan import make_band_plan
+
+    cfg = bench_json("configs/pdg_mars_n100.json")
+    traffic = bench_json("traffic/pdg_mc128.json")
+    G, A, c, h, b, l, q = bench_module("families/pdg.py").make(
+        dict(cfg, horizon=N), 0)
+    rng = np.random.default_rng([seed, 1])
+    B = np.broadcast_to(b, (lanes, b.size)).copy()
+    B[:, :cfg["nx"]] += traffic["b_sigma"] * rng.standard_normal(
+        (lanes, cfg["nx"]))
+    C = np.broadcast_to(c, (lanes, c.size)).copy()
+    st = pt.ProblemStructure.create(G.shape[1], A.shape[0], G.shape[0], l,
+                                    q).with_gsplit(G, A)
+    st = st.with_band_plan(make_band_plan(st, G, A, keep_soc=True))
+    return st, pt.ProblemData(G=G, A=A, c=C, h=h, b=B), (G, A, C, h, B, l, q)
+
+
+def test_pdg_solve_takes_one_cone_kernel_a_region_call(cuda, monkeypatch):
+    """The powered-descent SOCP at N = 20, four lanes, on a kept solver:
+    its first (captured) and second (composed) solves end every lane
+    OPTIMAL, as the CPU plain path does, their answers meet the
+    optimality conditions at the benchmark cell's limits
+    (``benchmark/reference/certificate.py``), and the second repeats the
+    first's iterations.  (Their iterations and objectives are not the
+    CPU's: this problem's endgame turns on the last bits, and the card's
+    torch code, the cone kernels' parent, ended these lanes in 36, 39, 41,
+    35 iterations against the CPU's 34, 39, 41, 36.)
+    The same solve with its segments called eagerly gives the first's
+    codes and iterations and launches, in each call of a cone region, one
+    cone kernel: ``cone_scalings`` in "cones.scalings",
+    ``cone_line_search`` in "cones.line_search", ``cone_eig`` or
+    ``cone_rotate`` (or nothing, where the kept values come from the
+    factor's ``cone_eig``) in "cones.kept_blocks"; none outside them, and
+    as many as the graphed solve counted."""
+    import contextlib
+
+    import eicos_tpu_torch as pt
+    from eicos_tpu_torch import graphs
+    from eicos_tpu_torch.ops import kernels
+
+    lanes = 4
+    st, batch, data = pdg_batch(pt, 20, lanes, 2 ** 31 + 11)
+    certificate = bench_module("reference/certificate.py")
+    limits = bench_json("limits/pdg.mc128.json")
+    kw = dict(settings=pt.Settings(kkt_strategy="banded"),
+              shared=("G", "A", "h"))
+    cpu = pt.BatchedSolver(st, device="cpu", **kw).solve(batch)
+    assert cpu.exit_code.tolist() == [0] * lanes
+    bs = pt.BatchedSolver(st, **kw)
+    kernels.reset_counts()
+    first = bs.solve(batch)
+    torch.cuda.synchronize()
+    graphed = {n: kernels.COUNTS[n] for n in CONE_KERNELS}
+    second = bs.solve(batch)
+    for sol in (first, second):
+        assert torch.equal(sol.exit_code.cpu(), cpu.exit_code)
+        r = certificate.readings(*data, *[getattr(sol, f).cpu().numpy()
+                                          for f in ("x", "y", "z", "s")])
+        for name in certificate.READINGS:
+            assert r[name].max() <= limits[name], name
+    assert torch.equal(second.info.iter, first.info.iter)
+    real, seen = graphs.region, []
+
+    @contextlib.contextmanager
+    def counted(name):
+        torch.cuda.synchronize()
+        before = {n: kernels.COUNTS[n] for n in CONE_KERNELS}
+        with real(name):
+            yield
+        seen.append((name, {n: kernels.COUNTS[n] - before[n]
+                            for n in CONE_KERNELS
+                            if kernels.COUNTS[n] != before[n]}))
+
+    with monkeypatch.context() as mp:
+        mp.setattr(graphs.Segment, "__call__",
+                   lambda self, *args: self._run(*args))
+        mp.setattr(graphs.Program, "compose", lambda self, steps: None)
+        mp.setattr(graphs, "region", counted)
+        kernels.reset_counts()
+        eager = pt.BatchedSolver(st, **kw).solve(batch)
+        torch.cuda.synchronize()
+    assert torch.equal(eager.exit_code, first.exit_code)
+    assert torch.equal(eager.info.iter, first.info.iter)
+    allowed = {"cones.scalings": [{"cone_scalings": 1}],
+               "cones.line_search": [{"cone_line_search": 1}],
+               "cones.kept_blocks": [{"cone_eig": 1}, {"cone_rotate": 1},
+                                     {}]}
+    for name, delta in seen:
+        assert delta in allowed[name], (name, delta)
+    total = {n: sum(d.get(n, 0) for _, d in seen) for n in CONE_KERNELS}
+    assert total == {n: kernels.COUNTS[n] for n in CONE_KERNELS} == graphed
+    assert all(total[n] > 0 for n in CONE_KERNELS)
 
 
 # ------------------------------------------- the loop as captured graphs
