@@ -105,12 +105,15 @@ from the host even where a program has composed.
 Probes (``Probes``, which the solver makes for a traced program of a
 structure with cones before its first capture, so that its segments'
 graphs hold them): the refinement steps of its solves (the finish adds
-each solve's, summed over the lanes) and, on the card, the device time of
-the cone regions inside its segments (``region(name)``: a stamp kernel at
-a region's start and end, on a stamp block of the region's own).  An LP
-program has none, so its graphs keep their nodes.  ``settle()`` reads them
-with the trip counters: ``STATS`` "refine_steps", "regions_ns" and
-"regions_runs" by region, keys that only a probed program adds.
+each solve's, summed over the lanes), the shape (nb, bwb) of the band it
+factors (``band_shape``), and, on the card, the device time of the
+regions inside its segments (``region(name)``: a stamp kernel at a
+region's start and end, on a stamp block of the region's own): the cone
+regions, each band factor ("band.factor") and each pair of band sweeps
+("band.sweeps").  An LP program has none, so its graphs keep their nodes.
+``settle()`` reads them with the trip counters: ``STATS`` "refine_steps",
+"regions_ns" and "regions_runs" by region, and "band_shape", keys that
+only a probed program adds.
 
 Failures raise: a capture, replay, composition or composed launch that
 fails raises ``RuntimeError`` naming the segment (or the CUDA call), and
@@ -144,7 +147,8 @@ _STAMPED: "weakref.WeakSet" = weakref.WeakSet()   # traced composed programs
 _PROBED: "weakref.WeakSet" = weakref.WeakSet()    # programs with probes
 
 
-REGIONS = ("cones.scalings", "cones.kept_blocks", "cones.line_search")
+REGIONS = ("cones.scalings", "cones.kept_blocks", "cones.line_search",
+           "band.factor", "band.sweeps")
 REGION_CELLS = RING + 2 + 1     # a region's stamp block (a ring of one run)
 #                                 and its accumulator
 
@@ -158,6 +162,7 @@ class Probes:
         self.regions = REGIONS if device.type == "cuda" else ()
         self.cells = torch.zeros(1 + REGION_CELLS * len(self.regions),
                                  dtype=torch.int64, device=device)
+        self.band_shape: Optional[tuple] = None   # (nb, bwb) factored
 
     def block(self, name: str) -> int:
         return 1 + REGION_CELLS * self.regions.index(name)
@@ -180,6 +185,14 @@ def region(name: str):
     stamp_on(pr.cells, b, START)
     yield
     stamp_on(pr.cells, b, END, acc=b + REGION_CELLS - 1)
+
+
+def band_shape(nb: int, bwb: int) -> None:
+    """Record (nb, bwb), the shape of the band that the segment running
+    this factors, on its program's probes (module doc); else nothing."""
+    pr = getattr(_TLS, "probes", None)
+    if pr is not None:
+        pr.band_shape = (nb, bwb)
 
 
 @contextlib.contextmanager
@@ -871,6 +884,8 @@ class Program:
         pr = self.probes
         with _LOCK:
             STATS["refine_steps"] = STATS.get("refine_steps", 0) + delta[0]
+            if pr.band_shape is not None:
+                STATS["band_shape"] = pr.band_shape
             for name in pr.regions:
                 b = pr.block(name)
                 for key, v in (("regions_ns", delta[b + REGION_CELLS - 1]),

@@ -26,17 +26,19 @@ banded   K is RCM-permuted by the structure's ``BandPlan`` into blocks of
          reference.  Three ways to the band blocks, as in
          ``eicos_tpu.kkt.factor``:
 
-         direct scatter (f64, 128-blocks, bwb = 1, every eliminated LP
-         row a singleton or scatter row of the gsplit, cones on narrow
-         ``SOCSplit`` supports):
+         direct scatter (f64, 128-blocks, bwb 1..6, the band kernels'
+         widths, every eliminated LP row a singleton or scatter row of
+         the gsplit, cones on narrow ``SOCSplit`` supports):
          H is never formed; its contributions (one per singleton row on
          the diagonal, a w x w outer product per scatter row, dI, and per
          cone either the eliminating closed form or, on a ``keep_soc``
          plan, the kept block and its coupling) are summed straight into
-         the diagonal and sub-diagonal blocks, on top of a lane-invariant
-         base of A, -dI and identity padding pivots.  Contributions that
-         land above the band or on a padding column, which the reference
-         sends to a dump slot the band factor never reads, are dropped.
+         the diagonal and the bwb sub-diagonal blocks, on top of a
+         lane-invariant base of A, -dI and identity padding pivots.
+         Contributions that land above the band or on a padding column,
+         which the reference sends to a dump slot the band factor never
+         reads, are dropped.  The JAX package scatters at bwb 1 only; the
+         port's maps and sums at bwb 1 are the reference's.
          The kept rows are in each cone's eigenbasis of W_s^2: the factor
          holds R K R', R = diag(rot, I, I), a diagonal kept block
          -(diag(lam) + dI) and the coupling rot G_s, and ``solve_exact``
@@ -49,8 +51,9 @@ banded   K is RCM-permuted by the structure's ``BandPlan`` into blocks of
          B, B), Ksubs (L, nb, bwb, B, B) are gathered from H.ravel() and
          the shared [A.ravel() | (-d, 0, 1)] by static maps.
 
-         gathered from K (a ``keep_soc`` plan off the scatter path): the
-         unscaled dense K of "reduced", its permuted blocks gathered.
+         gathered from K (a ``keep_soc`` plan off the scatter path: bwb
+         above 6, an f32 factor, no gsplit): the unscaled dense K of
+         "reduced", its permuted blocks gathered.
 
 reduced  the dense (Dp, Dp) K with the SOC rows kept, on a lane-invariant
          base ``K0`` (``eicos_tpu.kkt.make_context``).  The factor and the
@@ -113,7 +116,7 @@ import numpy as np
 import torch
 
 from . import cones, graphs
-from .ops.band import band_factor, band_solve
+from .ops.band import BW_MAX, band_factor, band_solve
 from .ops.band_ldl import B, KP
 from .ops import kernels, soc
 from .ops.gemm import matmul
@@ -153,13 +156,14 @@ def _keep_soc(st: ProblemStructure, settings) -> bool:
 
 def _direct_band(st: ProblemStructure, settings) -> bool:
     """True where the H contributions scatter straight into the band
-    blocks (``eicos_tpu.kkt.factor``'s ``direct_band``): an f64 factor at
-    block bandwidth 1, every eliminated LP row a singleton or scatter row
-    of the gsplit, and narrow per-cone column supports (``SOCSplit``)
-    where there are cones; blocks of 128, as the band kernels there
-    take."""
+    blocks (``eicos_tpu.kkt.factor``'s ``direct_band``, which the JAX
+    package takes at bandwidth 1 only): an f64 factor at a block
+    bandwidth the band kernels take (1..``BW_MAX``), every eliminated LP
+    row a singleton or scatter row of the gsplit, and narrow per-cone
+    column supports (``SOCSplit``) where there are cones; blocks of 128,
+    as the band kernels take."""
     split = st.gsplit
-    return bool(st.band.bwb == 1 and st.band.block == B
+    return bool(1 <= st.band.bwb <= BW_MAX and st.band.block == B
                 and settings.factor_dtype == "float64"
                 and split is not None
                 and not split.dense_rows and (split.n_sing or split.n_spr)
@@ -254,11 +258,17 @@ def _soc_pad_maps(q: tuple, ms: int):
 
 
 def _band_scatter_idx(n: int, Dp: int, perm: np.ndarray, split,
-                      socsplit=None, keep_q: tuple = ()) -> np.ndarray:
-    """Flat targets in a per-lane [diag | sub] buffer of 2 nb B B values
-    for the contributions [spr (n_spr w w) | sing (n_sing) | dI (n) | soc]
-    (``eicos_tpu.kkt._band_scatter_idx``).  Contributions above the band
-    or on a padding column go to the dump slot nb B B.
+                      socsplit=None, keep_q: tuple = (),
+                      bwb: int = 1) -> np.ndarray:
+    """Flat targets in a per-lane [diag | subs] buffer of (1 + bwb) nb B B
+    values for the contributions [spr (n_spr w w) | sing (n_sing) | dI (n)
+    | soc] (``eicos_tpu.kkt._band_scatter_idx``, bwb 1): ``diag`` is laid
+    out as the diagonal blocks (nb, B, B) and ``subs`` as the sub-diagonal
+    blocks (nb, bwb, B, B), so that an entry at block distance
+    bi - bj = j in 1..bwb lands in block [bi, j - 1].  Contributions above
+    the band or on a padding column go to the dump slot nb B B (block
+    [0, 0] of ``subs``, left of block column 0, which the factor never
+    reads).  At bwb 1 the targets and the buffer are the reference's.
 
     The soc part is either the H contributions on the ``SOCSplit`` column
     supports (eliminating layout, (n_sc, w, w)) or, with ``keep_q`` (the
@@ -278,9 +288,11 @@ def _band_scatter_idx(n: int, Dp: int, perm: np.ndarray, split,
         pi = iperm[np.minimum(gi, len(perm) - 1)]
         pj = iperm[np.minimum(gj, len(perm) - 1)]
         bi, bj = pi // B, pj // B
-        flat = (bi * B + pi % B) * B + pj % B
-        out = np.where(bi == bj, flat,
-                       np.where(bi == bj + 1, nbb + flat, dump))
+        dist = bi - bj
+        inner = (pi % B) * B + pj % B
+        sub = nbb + ((bi * bwb + dist - 1) * B * B + inner)
+        out = np.where(dist == 0, bi * B * B + inner,
+                       np.where((dist >= 1) & (dist <= bwb), sub, dump))
         return np.where(bad, dump, out)
 
     def pos(i, j):
@@ -395,7 +407,7 @@ def band_maps(st: ProblemStructure, device: str, direct: bool) -> BandMaps:
                 smask=_t(smask, device, torch.bool), sio=_t(sio, device))
     if direct:
         idx = _band_scatter_idx(n, Dp, perm, st.gsplit, st.socsplit,
-                                st.q if keep else ())
+                                st.q if keep else (), plan.bwb)
         return BandMaps(scatter=segment_map(idx, device, keep=idx != nb * B * B),
                         **maps, **common)
     return BandMaps(dih=_t(dih, device), sih=_t(sih, device), **maps,
@@ -910,19 +922,19 @@ def _band_scatter_vals(st, ctx: KKTContext, winv_lp, delta, scal=None,
 
 
 def band_blocks(st, ctx: KKTContext, winv_lp, delta, scal=None, eig=None):
-    """The per-lane band blocks (Kd (L, nb, B, B), Ks (L, nb, 1, B, B)) of
-    the direct scatter, which runs at block bandwidth 1: the base plus the
-    scattered contributions (with kept cones, their rows in each cone's
-    eigenbasis, ``_soc_kept_vals``)."""
+    """The per-lane band blocks (Kd (L, nb, B, B), Ks (L, nb, bwb, B, B))
+    of the direct scatter: the base plus the scattered contributions (with
+    kept cones, their rows in each cone's eigenbasis, ``_soc_kept_vals``),
+    read from the [diag | subs] buffer of ``_band_scatter_idx``."""
     lanes = winv_lp.shape[0]
-    Dp = ctx.band.Dp
-    nbb = (Dp // B) * B * B
-    buf = winv_lp.new_zeros(lanes, 2 * nbb)
+    nb, bwb = ctx.Ks0.shape[-4], ctx.Ks0.shape[-3]
+    nbb = nb * B * B
+    buf = winv_lp.new_zeros(lanes, (1 + bwb) * nbb)
     buf[:, ctx.band.scatter.targets] = segment_sum(
         ctx.band.scatter,
         _band_scatter_vals(st, ctx, winv_lp, delta, scal, eig))
-    bufb = buf.view(lanes, 2, Dp // B, B, B)
-    return ctx.Kd0 + bufb[:, 0], ctx.Ks0 + bufb[:, 1, :, None]
+    return (ctx.Kd0 + buf[:, :nbb].view(lanes, nb, B, B),
+            ctx.Ks0 + buf[:, nbb:].view(lanes, nb, bwb, B, B))
 
 
 def _gathered_blocks(ctx: KKTContext, flat):
@@ -1134,8 +1146,10 @@ def solve_exact(es: ExactSolve, rhs):
         x = ldl_solve(es.fac, rr)
     else:
         maps = ctx.band
-        x = band_solve(es.fac, rr[..., maps.perm],
-                       gemm_dtype=es.gemm_dtype)[..., maps.iperm]
+        rp = rr[..., maps.perm]
+        with graphs.region("band.sweeps"):
+            x = band_solve(es.fac, rp, gemm_dtype=es.gemm_dtype)
+        x = x[..., maps.iperm]
     dzs = x[..., :ms]
     if es.rot is not None:
         with graphs.region("cones.kept_blocks"):
@@ -1191,8 +1205,9 @@ def factor(st: ProblemStructure, ctx: KKTContext,
         if ctx.keep_soc and scal is not None:
             with graphs.region("cones.kept_blocks"):
                 eig = _soc_eig(ctx, scal, delta)
-        fac = band_factor(*band_blocks(st, ctx, winv_lp, delta, scal, eig))
-        return ExactSolve(kind="band", fac=fac, gemm_dtype=gdt,
+        Kd, Ks = band_blocks(st, ctx, winv_lp, delta, scal, eig)
+        return ExactSolve(kind="band", fac=_band_factor(Kd, Ks, gdt),
+                          gemm_dtype=gdt,
                           rot=None if eig is None else eig[0], **common)
     if ctx.keep_soc:
         # a keep_soc plan off the scatter path: the unscaled dense K
@@ -1200,10 +1215,17 @@ def factor(st: ProblemStructure, ctx: KKTContext,
     else:
         src = G.new_zeros(lanes, n, n)
         _assemble_h(st, ctx, ctx.dense, src, scal, winv_lp, delta)
-    fac = band_factor(*_gathered_blocks(ctx, src.view(lanes, -1)),
-                      gemm_dtype=gdt)
+    fac = _band_factor(*_gathered_blocks(ctx, src.view(lanes, -1)), gdt)
     del src
     return ExactSolve(kind="band", fac=fac, gemm_dtype=gdt, **common)
+
+
+def _band_factor(Kd, Ks, gemm_dtype):
+    """``band_factor`` as the region "band.factor", its shape recorded
+    (``graphs.band_shape``)."""
+    graphs.band_shape(Ks.shape[-4], Ks.shape[-3])
+    with graphs.region("band.factor"):
+        return band_factor(Kd, Ks, gemm_dtype=gemm_dtype)
 
 
 class KKTSolveResult(NamedTuple):

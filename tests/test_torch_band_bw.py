@@ -227,9 +227,10 @@ def test_band_wider_than_six_raises():
 # ---------------------------------------------- KKT assembly, factor, solve
 
 def lp_case(kind):
-    """JAX structure and data of the LPs that leave the direct scatter:
-    the wide-stage LP (bwb 2, with and without its gsplit), and the narrow
-    MPC LP (bwb 1) without a gsplit or with one dense LP row."""
+    """JAX structure and data of the wide-stage LP (bwb 2, with its gsplit
+    on the direct scatter, without it off), and of the narrow MPC LP (bwb
+    1) without a gsplit or with one dense LP row, which leave the direct
+    scatter."""
     if kind in ("bwb2", "bwb2_nosplit"):
         jst, d, _, _ = wide_lp(gsplit=kind == "bwb2")
         return jst, d
@@ -250,10 +251,11 @@ def lp_case(kind):
 @pytest.mark.parametrize("kind", ["bwb2", "bwb2_nosplit", "nosplit",
                                   "dense_rows"])
 def test_gathered_band_refined_solve_matches(kind):
-    """The dense H assembly and the gathered band blocks: the port's blocks
-    equal the blocks of the JAX package's dense K[perm][:, perm] within
-    1e-13 of its scale, and one ``solve_refined`` at an interior scaling
-    gives dx, dy, dz within 1e-9 relative."""
+    """The dense H assembly and the gathered band blocks, and at bwb 2
+    with a gsplit the direct scatter's blocks (the JAX package gathers
+    there): the port's blocks equal the blocks of the JAX package's dense
+    K[perm][:, perm] within 1e-13 of its scale, and one ``solve_refined``
+    at an interior scaling gives dx, dy, dz within 1e-9 relative."""
     jst, d = lp_case(kind)
     if kind == "dense_rows":
         assert jst.gsplit.dense_rows
@@ -268,7 +270,8 @@ def test_gathered_band_refined_solve_matches(kind):
                       t(pd.b)[None])
     jctx = jkkt.make_context(jst, jeq.G, jeq.A, jset)
     pctx = kkt.make_context(st, peq.G, peq.A, pset)
-    assert pctx.band.scatter is None
+    direct = kind == "bwb2"
+    assert (pctx.band.scatter is not None) == direct
     rng = np.random.default_rng(5)
     s, z = rng.random(st.m) * 3 + 0.01, rng.random(st.m) * 3 + 0.01
     from eicos_tpu import cones as jcones
@@ -280,9 +283,12 @@ def test_gathered_band_refined_solve_matches(kind):
 
     # blocks against the reference's dense assembly
     winv = 1.0 / (pscal.v_lp + delta)
-    Hm = torch.zeros(1, st.n, st.n, dtype=torch.float64)
-    kkt._assemble_h(st, pctx, pctx.dense, Hm, pscal, winv, delta)
-    Kd, Ksubs = kkt._gathered_blocks(pctx, Hm.view(1, -1))
+    if direct:
+        Kd, Ksubs = kkt.band_blocks(st, pctx, winv, delta, pscal)
+    else:
+        Hm = torch.zeros(1, st.n, st.n, dtype=torch.float64)
+        kkt._assemble_h(st, pctx, pctx.dense, Hm, pscal, winv, delta)
+        Kd, Ksubs = kkt._gathered_blocks(pctx, Hm.view(1, -1))
     Ge = np.asarray(jeq.G)
     Href = Ge.T @ (Ge / (np.asarray(jscal.v_lp) + delta)[:, None]) \
         + delta * np.eye(st.n)
@@ -343,14 +349,16 @@ def test_gathered_band_solves_match(kind, count):
     assert np.all(np.abs(sol.info.pcost.numpy() - want) <= 1e-9 * np.abs(want))
 
 
-def test_plan_wider_than_six_raises():
+def test_plan_wider_than_six_raises(monkeypatch):
     """A plan beyond the kernels' bandwidth, the wide LP's bwb-2 plan
     declared at 7, solves through the scan as the JAX package's scan
     solves it: the same exit code (OPTIMAL) and iteration count, the
     objective within 1e-8 relative, and the same bits as the port's own
-    bwb-2 solve (the five extra sub-diagonals are zero and contribute
-    exact zeros); no kernel launch is counted.  The band kernel's wrapper
-    itself still raises at bandwidth 7."""
+    bwb-2 solve on the same gathered blocks (the five extra sub-diagonals
+    are zero and contribute exact zeros; at bwb 2 the blocks come from
+    the direct scatter unless it is switched off); no kernel launch is
+    counted.  The band kernel's wrapper itself still raises at bandwidth
+    7."""
     jst, d, st, pd = wide_lp()
     st7 = dataclasses.replace(st, band=dataclasses.replace(st.band, bwb=7))
     jst7 = jst.with_band_plan(dataclasses.replace(jst.band, bwb=7))
@@ -362,6 +370,10 @@ def test_plan_wider_than_six_raises():
     assert int(sol.info.iter) == int(ref.info.iter)
     want = float(ref.info.pcost)
     assert abs(float(sol.info.pcost) - want) <= 1e-8 * abs(want)
+    direct = pt.solve(st, pd, pt.Settings(**BANDED), device="cpu")
+    assert int(direct.exit_code) == 0
+    assert abs(float(direct.info.pcost) - want) <= 1e-8 * abs(want)
+    monkeypatch.setattr(kkt, "_direct_band", lambda st, settings: False)
     narrow = pt.solve(st, pd, pt.Settings(**BANDED), device="cpu")
     assert torch.equal(sol.x, narrow.x) and torch.equal(sol.z, narrow.z)
     nb = st.band.dim // B

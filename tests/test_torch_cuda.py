@@ -1611,8 +1611,9 @@ def test_pdg_solve_takes_one_cone_kernel_a_region_call(cuda, monkeypatch):
     cone kernel: ``cone_scalings`` in "cones.scalings",
     ``cone_line_search`` in "cones.line_search", ``cone_eig`` or
     ``cone_rotate`` (or nothing, where the kept values come from the
-    factor's ``cone_eig``) in "cones.kept_blocks"; none outside them, and
-    as many as the graphed solve counted."""
+    factor's ``cone_eig``) in "cones.kept_blocks"; none in the band
+    regions ("band.factor", "band.sweeps") or outside the cone regions,
+    and as many as the graphed solve counted."""
     import contextlib
 
     import eicos_tpu_torch as pt
@@ -1665,12 +1666,83 @@ def test_pdg_solve_takes_one_cone_kernel_a_region_call(cuda, monkeypatch):
     allowed = {"cones.scalings": [{"cone_scalings": 1}],
                "cones.line_search": [{"cone_line_search": 1}],
                "cones.kept_blocks": [{"cone_eig": 1}, {"cone_rotate": 1},
-                                     {}]}
+                                     {}],
+               "band.factor": [{}], "band.sweeps": [{}]}
     for name, delta in seen:
         assert delta in allowed[name], (name, delta)
     total = {n: sum(d.get(n, 0) for _, d in seen) for n in CONE_KERNELS}
     assert total == {n: kernels.COUNTS[n] for n in CONE_KERNELS} == graphed
     assert all(total[n] > 0 for n in CONE_KERNELS)
+
+
+DISTFLOW_MAX_ALLOCATED = 30 * 2 ** 30   # bytes; PERF.md section 4
+
+
+def test_distflow_day_on_the_direct_scatter(cuda):
+    """The day-ahead feeder SOCP at full size (``benchmark/families/
+    distflow.py``, 24 hours: n 3432, 768 SOC(4), a keep_soc band of nb 71
+    at block bandwidth 2) on 128 lanes dispersed as the cell's traffic
+    disperses them, through a kept solver with the "reduced" rescue:
+    every lane OPTIMAL on the banded path (the rescue idle), its answers
+    within the cell's limits, the composed repeat the same bits; the
+    bw-2 band factor (``band_factor_bw``, not the bw-1 cluster) and its
+    sweeps launched, the traced program's band (71, 2); and at most
+    ``DISTFLOW_MAX_ALLOCATED`` bytes allocated: one lane-batch of the
+    dense (Dp, Dp) K that the gathered path forms is 78.8 GiB."""
+    import eicos_tpu_torch as pt
+    from eicos_tpu_torch import graphs, kkt
+    from eicos_tpu_torch.ops import kernels
+    from eicos_tpu_torch.plan import make_band_plan
+    from eicos_tpu_torch.utils import timing
+
+    cfg = bench_json("configs/distflow_33bus_24h.json")
+    traffic = bench_json("traffic/dist_mc128.json")
+    limits = bench_json("limits/dist33.mc128.json")
+    certificate = bench_module("reference/certificate.py")
+    G, A, c, h, b, l, q = bench_module("families/distflow.py").make(cfg, 0)
+    lanes = traffic["lanes"]
+    rng = np.random.default_rng([2 ** 32 + 9, 1])
+    Bv = np.broadcast_to(b, (lanes, b.size)).copy()
+    Bv[:, :cfg["nx"]] += traffic["b_sigma"] * rng.standard_normal(
+        (lanes, cfg["nx"]))
+    C = np.broadcast_to(c, (lanes, c.size)).copy()
+    st = pt.ProblemStructure.create(G.shape[1], A.shape[0], G.shape[0], l,
+                                    q).with_gsplit(G, A)
+    st = st.with_band_plan(make_band_plan(st, G, A, keep_soc=True))
+    settings = pt.Settings(**cfg["settings"])
+    assert (st.band.dim // B, st.band.bwb) == (71, 2)
+    assert kkt._direct_band(st, settings)
+    batch = pt.ProblemData(G=G, A=A, c=C, h=h, b=Bv)
+    torch.cuda.synchronize()
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    kernels.reset_counts()
+    graphs.reset_stats()
+    bs = pt.BatchedSolver(st, settings, shared=("G", "A", "h"),
+                          rescue=pt.Settings(**cfg["rescue"]))
+    try:
+        first = bs.solve(batch)
+        assert list(bs.last_rescued) == []
+        second = bs.solve(batch)
+        torch.cuda.synchronize()
+        graphs.settle()
+        peak = torch.cuda.max_memory_allocated()
+        counts, stats = dict(kernels.COUNTS), dict(graphs.STATS)
+    finally:
+        bs.close()
+    optimal(first, lanes)
+    assert same_bits(first, second)
+    launched(counts, ("band_factor_bw", "band_fwd_bw", "band_bwd_bw"))
+    not_launched(counts, ("band_factor_cluster",))
+    if timing.tracing():
+        assert tuple(stats["band_shape"]) == (71, 2)
+    assert peak <= DISTFLOW_MAX_ALLOCATED, peak
+    r = certificate.readings(G, A, C, h, Bv, l, q,
+                             *[getattr(second, f).cpu().numpy()
+                               for f in ("x", "y", "z", "s")])
+    for name in certificate.READINGS:
+        assert r[name].max() <= limits[name], name
+    assert int(second.info.iter.max()) <= limits["iter_max"]
 
 
 # ------------------------------------------- the loop as captured graphs
@@ -2222,8 +2294,8 @@ def test_trace_off_gives_the_same_bits(cuda, monkeypatch):
     """The same composed solve with tracing on and off
     (``EICOS_TORCH_TRACE=0`` as the program composes): the same answer
     bits, and launch counts that differ by the stamp kernel alone: the
-    launch's two and two a run of each cone region (``graphs.Probes``;
-    the structure has cones)."""
+    launch's two and two a run of each region, the cones' and the band's
+    (``graphs.Probes``; the structure has cones)."""
     import eicos_tpu_torch as pt
     from eicos_tpu_torch import corpus
 
@@ -3043,14 +3115,22 @@ def objectives_close(sol, want, tol_by_tier):
                 <= tol, tier
 
 
+def tiers_of_short_lanes(pt, st, probs, shared, settings, rescue, sol):
+    """``tiers_as_cpu`` on the lanes short of OPTIMAL, for a path whose
+    endgame turns on the last bits."""
+    bad = [int(i) for i in np.flatnonzero(sol.exit_code.cpu().numpy() != 0)]
+    if bad:
+        tiers_as_cpu(pt, st, probs, shared, settings, sol, bad)
+
+
 def run_path(monkeypatch, pt, st, probs, batch, shared, settings, rescue,
-             names):
+             names, short=all_optimal_or_as_cpu):
     """One path at full width: a first solve that launches ``names``, held
     to its eager segments and its composed next solve, a repeat with its
     bits, a solve through the unfused gather sequence where the path
-    launches the gather kernel, every lane OPTIMAL (or as on the CPU),
-    lane 0 as on the CPU.  Returns the first solve's counts, the
-    composed solve's counts, the repeat and the rescued lanes."""
+    launches the gather kernel, every lane OPTIMAL (or as on the CPU,
+    ``short``), lane 0 as on the CPU.  Returns the first solve's counts,
+    the composed solve's counts, the repeat and the rescued lanes."""
     bs = pt.BatchedSolver(st, settings, shared=shared, rescue=rescue)
     first, counts, syncs, stats = _stats_solve(torch, bs, batch)
     launched(counts, names)
@@ -3061,7 +3141,7 @@ def run_path(monkeypatch, pt, st, probs, batch, shared, settings, rescue,
     assert same_bits(first, again)
     if "spmv" in names:
         same_bits_unfused(monkeypatch, bs, batch, first)
-    all_optimal_or_as_cpu(pt, st, probs, shared, settings, rescue, again)
+    short(pt, st, probs, shared, settings, rescue, again)
     same_as_cpu(pt, st, probs[0], settings, again)
     bs.close()
     return counts, composed, again, rescued
@@ -3155,12 +3235,61 @@ def _p06_socp_keep_soc(pt, fs, mp):
 
 def _p07_wide_bw3(pt, fs, mp):
     """The wide band at a real size: 64 lanes of bwb 3, Dp 4864, through
-    the gathered band blocks, the wide kernels and dgemm's operands."""
+    the gathered band blocks, the wide kernels and dgemm's operands.  The
+    direct scatter, which this LP takes since it reaches bwb 6, is
+    switched off here; ``p07-wide-direct`` runs it."""
+    from eicos_tpu_torch import kkt
+
     st, probs, batch, shared = fs.batch("wide")
     assert (st.band.bwb, st.band.dim) == (WIDE_BWB, WIDE_DP)
+    mp.setattr(kkt, "_direct_band", lambda st, settings: False)
     run_path(mp, pt, st, probs, batch, shared,
              pt.Settings(kkt_strategy="banded"), None,
              BAND + ("spmv", "dgemm"))
+
+
+def _p07_wide_direct(pt, fs, mp):
+    """The wide band of ``p07-wide-bw3`` on its own path, the direct
+    scatter at bwb 3: at an interior scaling its band blocks are the
+    gathered path's within 1e-15 of their scale; then ``run_path`` with
+    the lanes short of OPTIMAL held to the CPU's tiers and objectives
+    (``tiers_as_cpu``), since this batch's endgame turns on the last bits.
+    Lane 52 ends CLOSE_TO_OPTIMAL here (its pres jumps from 2e-13 to
+    6e-10 on the last step), and with noise of an ulp on the factor's
+    input it does so on the gathered path too."""
+    from eicos_tpu_torch import cones, kkt
+    from eicos_tpu_torch.equilibrate import equilibrate
+
+    st, probs, batch, shared = fs.batch("wide")
+    settings = pt.Settings(kkt_strategy="banded")
+    assert kkt._direct_band(st, settings)
+    p0 = probs[0]
+    dev = [torch.tensor(np.asarray(v), device="cuda")[None]
+           for v in (p0.c, p0.h, p0.b)]
+    eq = equilibrate(st, torch.tensor(p0.G, device="cuda"),
+                     torch.tensor(p0.A, device="cuda"), *dev)
+    rng = np.random.default_rng(5)
+    s, z = [torch.tensor(rng.random(st.m) * 3 + 0.01, device="cuda")[None]
+            for _ in range(2)]
+    scal, _ = cones.update_scalings(st.cone, s, z)
+    delta = settings.deltastat
+    winv = 1.0 / (scal.v_lp + delta)
+    Kd, Ks = kkt.band_blocks(st, kkt.make_context(st, eq.G, eq.A, settings),
+                             winv, delta, scal)
+    with mp.context() as m:
+        m.setattr(kkt, "_direct_band", lambda st, settings: False)
+        ctx = kkt.make_context(st, eq.G, eq.A, settings)
+    H = torch.zeros(1, st.n, st.n, dtype=torch.float64, device="cuda")
+    kkt._assemble_h(st, ctx, ctx.dense, H, scal, winv, delta)
+    gd, gs = kkt._gathered_blocks(ctx, H.view(1, -1))
+    scale = gd.abs().max()
+    assert (Kd - gd).abs().max() <= 1e-15 * scale
+    for j in range(WIDE_BWB):
+        assert (Ks[:, j + 1:, j] - gs[:, j + 1:, j]).abs().max() \
+            <= 1e-15 * scale, j
+    del H, ctx
+    run_path(mp, pt, st, probs, batch, shared, settings, None,
+             BAND + ("spmv", "dgemm"), short=tiers_of_short_lanes)
 
 
 def _p08_reduced_subst(pt, fs, mp):
@@ -3548,6 +3677,7 @@ PATHS = {
     "p04-reduced-inverse": _p04_reduced_inverse,
     "p05-socp-reduced": _p05_socp_reduced,
     "p06-socp-keep-soc": _p06_socp_keep_soc, "p07-wide-bw3": _p07_wide_bw3,
+    "p07-wide-direct": _p07_wide_direct,
     "p08-reduced-subst": _p08_reduced_subst,
     "p09-normal-socp": _p09_normal_socp, "p10-full": _p10_full,
     "p11-reduced-f32": _p11_reduced_f32, "p12-scan-bw9": _p12_scan_bw9,
