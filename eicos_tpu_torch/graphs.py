@@ -106,14 +106,15 @@ Probes (``Probes``, which the solver makes for a traced program of a
 structure with cones before its first capture, so that its segments'
 graphs hold them): the refinement steps of its solves (the finish adds
 each solve's, summed over the lanes), the shape (nb, bwb) of the band it
-factors (``band_shape``), and, on the card, the device time of the
+factors (``band_shape``), on the card the panel ring its band sweeps take
+(``sweep_ring``: (slots, bytes) by (bw, KT)), and the device time of the
 regions inside its segments (``region(name)``: a stamp kernel at a
 region's start and end, on a stamp block of the region's own): the cone
 regions, each band factor ("band.factor") and each pair of band sweeps
 ("band.sweeps").  An LP program has none, so its graphs keep their nodes.
 ``settle()`` reads them with the trip counters: ``STATS`` "refine_steps",
-"regions_ns" and "regions_runs" by region, and "band_shape", keys that
-only a probed program adds.
+"regions_ns" and "regions_runs" by region, "band_shape" and "sweep_ring",
+keys that only a probed program adds.
 
 Failures raise: a capture, replay, composition or composed launch that
 fails raises ``RuntimeError`` naming the segment (or the CUDA call), and
@@ -163,6 +164,7 @@ class Probes:
         self.cells = torch.zeros(1 + REGION_CELLS * len(self.regions),
                                  dtype=torch.int64, device=device)
         self.band_shape: Optional[tuple] = None   # (nb, bwb) factored
+        self.sweep_ring: dict = {}   # (bw, KT) -> the sweeps' (slots, bytes)
 
     def block(self, name: str) -> int:
         return 1 + REGION_CELLS * self.regions.index(name)
@@ -193,6 +195,15 @@ def band_shape(nb: int, bwb: int) -> None:
     pr = getattr(_TLS, "probes", None)
     if pr is not None:
         pr.band_shape = (nb, bwb)
+
+
+def sweep_ring(bw: int, kt: int, ring: tuple) -> None:
+    """Record ``ring``, the (slots, bytes) of the panel ring that the band
+    sweeps of the segment running this take at bandwidth ``bw`` and width
+    ``kt``, on its program's probes (module doc); else nothing."""
+    pr = getattr(_TLS, "probes", None)
+    if pr is not None:
+        pr.sweep_ring[bw, kt] = ring
 
 
 @contextlib.contextmanager
@@ -886,6 +897,8 @@ class Program:
             STATS["refine_steps"] = STATS.get("refine_steps", 0) + delta[0]
             if pr.band_shape is not None:
                 STATS["band_shape"] = pr.band_shape
+            if pr.sweep_ring:
+                STATS.setdefault("sweep_ring", {}).update(pr.sweep_ring)
             for name in pr.regions:
                 b = pr.block(name)
                 for key, v in (("regions_ns", delta[b + REGION_CELLS - 1]),

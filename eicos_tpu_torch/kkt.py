@@ -116,7 +116,8 @@ import numpy as np
 import torch
 
 from . import cones, graphs
-from .ops.band import BW_MAX, band_factor, band_solve
+from .ops.band import (BW_MAX, band_factor, band_solve, scan, sweep_kt,
+                       sweep_ring)
 from .ops.band_ldl import B, KP
 from .ops import kernels, soc
 from .ops.gemm import matmul
@@ -1147,6 +1148,9 @@ def solve_exact(es: ExactSolve, rhs):
     else:
         maps = ctx.band
         rp = rr[..., maps.perm]
+        if rp.is_cuda and not scan(es.fac.L, es.fac.d.dtype):
+            bw, kt = es.fac.L.shape[2], sweep_kt(rp.shape[-2])
+            graphs.sweep_ring(bw, kt, sweep_ring(bw, kt, rp.device))
         with graphs.region("band.sweeps"):
             x = band_solve(es.fac, rp, gemm_dtype=es.gemm_dtype)
         x = x[..., maps.iperm]

@@ -21,6 +21,11 @@ At bw 1, where the lanes leave SMs idle, ``band_factor_bw`` launches the
 same factor on a cluster of CTAs a lane (``csrc/band_factor_cluster.cu``,
 counted as ``band_factor_cluster``; the same bits): ``cluster_size`` is the
 rule, fed by the lane count, the bandwidth and what the card reports.
+The sweeps stream the factor through a ring of panels in shared memory
+(``csrc/band_solve_bw.cu``): ``sweep_stages`` is its depth, fed by the
+bandwidth, the right-hand sides' width, the card's shared memory a block
+and the clusters of the sweep that the card holds at once; the depth does
+not change the bits.
 For a CUDA tensor each checks its inputs, allocates its outputs with
 ``torch.empty``, launches its kernel on the current stream and counts the
 launch in ``kernels.COUNTS``; a launch error raises.  For a CPU tensor it
@@ -42,6 +47,12 @@ from .band_ldl import (B, KP, BandFactors, band_bwd_bw_plain,
 
 BW_MAX = 6    # widest block band of the wide kernels
 CLUSTERS = (8, 4, 2)    # CTAs a lane of the cluster factor, widest first
+# the sweeps' CTA (``csrc/band_solve_bw.cu``): rows it owns, threads a row,
+# a ring slot (a panel of 2048 doubles, rows padded by 2), its widths
+SWEEP_R, SWEEP_NG, SWEEP_SLOT = 64, 4, 64 * 34
+SWEEP_KT = (2, 8, 16)
+PANEL_BYTES = 2048 * 8     # of the factor, a panel
+SWEEP_STAGES_MIN = 4       # the ring whose residency `sweep_stages` keeps
 
 
 def scan(Ks: torch.Tensor, dtype: torch.dtype) -> bool:
@@ -111,6 +122,68 @@ def _card(index: int) -> tuple:
             active[c] = n.value
         sms = torch.cuda.get_device_properties(index).multi_processor_count
     return sms, active
+
+
+def sweep_kt(k: int) -> int:
+    """The width a sweep carries ``k`` right-hand sides at: 2, 8 or 16."""
+    return next(kt for kt in SWEEP_KT if k <= kt)
+
+
+def sweep_smem(stages: int, bw: int, kt: int) -> int:
+    """Shared memory bytes of a sweep CTA with a ring of ``stages`` slots
+    at bandwidth ``bw`` and width ``kt``: the ring, bw y blocks, the
+    residual, the join's partial sums, then an mbarrier a slot twice and
+    two exchange barriers (``smem_bytes`` of ``band_solve_bw.cu``)."""
+    doubles = (stages * SWEEP_SLOT + (bw + 1) * B * kt
+               + SWEEP_NG * SWEEP_R * kt)
+    return 8 * doubles + 8 * (2 * stages + 2)
+
+
+def sweep_stages(bw: int, kt: int, per_block: int, resident) -> int:
+    """Slots of the sweeps' panel ring: the deepest ring that fits
+    ``per_block`` bytes of shared memory beside the rest of a CTA's
+    (``sweep_smem``) and keeps as many clusters resident as a ring of
+    ``SWEEP_STAGES_MIN`` does, where ``resident(stages)`` is the clusters
+    of the sweep the card holds at once: more lanes at once beat a deeper
+    ring."""
+    base = sweep_smem(0, bw, kt)
+    stages = (per_block - base) // (sweep_smem(1, bw, kt) - base)
+    floor = resident(SWEEP_STAGES_MIN)
+    while stages > SWEEP_STAGES_MIN and resident(stages) < floor:
+        stages -= 1
+    return stages
+
+
+def sweep_ring(bw: int, k: int, device) -> tuple:
+    """(slots, bytes of the factor they hold) of the ring that the sweeps
+    take on CUDA ``device`` at bandwidth ``bw`` for ``k`` right-hand
+    sides."""
+    index = torch.device(device).index
+    if index is None:
+        index = torch.cuda.current_device()
+    stages = _sweep_stages(index, bw, sweep_kt(k))
+    return stages, stages * PANEL_BYTES
+
+
+@functools.lru_cache(maxsize=None)
+def _sweep_stages(index: int, bw: int, kt: int) -> int:
+    """``sweep_stages`` on CUDA device ``index``, asked once: its shared
+    memory a block, and the clusters of the forward and the backward sweep
+    it holds at once (the fewer)."""
+    lib = kernels.lib("band_solve_bw")
+    n = ctypes.c_int(0)
+
+    def resident(stages):
+        held = []
+        for fwd in (1, 0):
+            kernels.launch(lib.eicos_band_sweep_clusters, fwd, kt, bw, stages,
+                           ctypes.byref(n))
+            held.append(n.value)
+        return min(held)
+
+    with torch.cuda.device(index):
+        kernels.launch(lib.eicos_band_sweep_smem, ctypes.byref(n))
+        return sweep_stages(bw, kt, n.value, resident)
 
 
 def band_factor_bw(Kd: torch.Tensor, Ksubs: torch.Tensor) -> BandFactors:
@@ -183,11 +256,12 @@ def band_fwd_bw(fac: BandFactors, rhs: torch.Tensor) -> torch.Tensor:
         return band_fwd_bw_plain(fac, rhs)
     lanes, nb, k = _check_fac(fac, rhs)
     out = torch.empty_like(rhs)
+    stages, _ = sweep_ring(bw, k, rhs.device)
     with torch.cuda.device(rhs.device):
         kernels.launch(kernels.lib("band_solve_bw").eicos_band_fwd_bw,
                        fac.L.data_ptr(), fac.Dinv.data_ptr(), fac.d.data_ptr(),
                        rhs.data_ptr(), out.data_ptr(), lanes, nb, bw, k,
-                       kernels.stream(rhs))
+                       stages, kernels.stream(rhs))
     kernels.count("band_fwd_bw")
     return out
 
@@ -200,10 +274,12 @@ def band_bwd_bw(fac: BandFactors, w: torch.Tensor) -> torch.Tensor:
         return band_bwd_bw_plain(fac, w)
     lanes, nb, k = _check_fac(fac, w)
     out = torch.empty_like(w)
+    stages, _ = sweep_ring(bw, k, w.device)
     with torch.cuda.device(w.device):
         kernels.launch(kernels.lib("band_solve_bw").eicos_band_bwd_bw,
                        fac.L.data_ptr(), fac.Dinv.data_ptr(), w.data_ptr(),
-                       out.data_ptr(), lanes, nb, bw, k, kernels.stream(w))
+                       out.data_ptr(), lanes, nb, bw, k, stages,
+                       kernels.stream(w))
     kernels.count("band_bwd_bw")
     return out
 

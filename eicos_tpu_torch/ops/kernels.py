@@ -54,8 +54,11 @@ LIBS = {
                              "eicos_band_factor_clusters":
                                  [_I, ctypes.POINTER(_I)]}),
     "band_solve_bw": ("band_solve_bw.cu",
-                      {"eicos_band_fwd_bw": [_P] * 5 + [_I] * 4 + [_P],
-                       "eicos_band_bwd_bw": [_P] * 4 + [_I] * 4 + [_P]}),
+                      {"eicos_band_fwd_bw": [_P] * 5 + [_I] * 5 + [_P],
+                       "eicos_band_bwd_bw": [_P] * 4 + [_I] * 5 + [_P],
+                       "eicos_band_sweep_smem": [ctypes.POINTER(_I)],
+                       "eicos_band_sweep_clusters": [_I] * 4
+                       + [ctypes.POINTER(_I)]}),
     "leaf_ldl": ("leaf_ldl.cu",
                  {"eicos_leaf_ldl": [_P, _LL, _LL, _P, _LL, _LL, _P, _LL,
                                      _I, _P]}),

@@ -224,6 +224,58 @@ def test_band_wider_than_six_raises():
                for a, b in zip(wide, band.band_ldl_factor(Kd, Ks)))
 
 
+H100_SMEM_BLOCK = 232448    # shared memory a block may opt in to, H100
+H100_SMEM_SM, H100_SMS = 233472, 132   # and an SM, of which 1 KB a CTA
+
+
+def h100_resident(bw, kt):
+    """Clusters of the sweep (2 CTAs of 288 threads) an H100 holds at once
+    at each ring depth: by shared memory, and by registers (fewer than 114
+    a thread at width 2, as the build reports, more at 8 and 16)."""
+    def resident(stages):
+        smem = band.sweep_smem(stages, bw, kt)
+        if smem > H100_SMEM_BLOCK:
+            return 0
+        ctas = min(H100_SMEM_SM // (smem + 1024), 2 if kt == 2 else 1)
+        return H100_SMS * ctas // 2
+    return resident
+
+
+@pytest.mark.parametrize("kt", band.SWEEP_KT)
+@pytest.mark.parametrize("bw", range(1, band.BW_MAX + 1))
+def test_sweep_ring_fits_the_card(bw, kt):
+    """The sweeps' panel ring at every bandwidth and width: its slots, the
+    y blocks, the residual, the join's sums and the barriers fit the
+    card's shared memory a block; it keeps as many clusters resident as
+    the 4 slots it had before the rule, is never shallower, and one slot
+    more would not fit or would hold fewer clusters."""
+    resident = h100_resident(bw, kt)
+    stages = band.sweep_stages(bw, kt, H100_SMEM_BLOCK, resident)
+    assert stages >= band.SWEEP_STAGES_MIN
+    assert band.sweep_smem(stages, bw, kt) <= H100_SMEM_BLOCK
+    assert resident(stages) == resident(band.SWEEP_STAGES_MIN) > 0
+    assert resident(stages + 1) < resident(stages)
+    assert band.sweep_kt(kt) == kt
+    assert band.sweep_kt(kt - 1) == kt
+
+
+def test_sweeps_on_cpu_never_ask_the_card(monkeypatch):
+    """CPU tensors take the plain twins: the sweeps neither build a kernel
+    nor ask the card for its shared memory."""
+    def refuse(*args):
+        raise AssertionError("a CPU tensor asked the card")
+
+    monkeypatch.setattr(band, "_sweep_stages", refuse)
+    monkeypatch.setattr(kernels, "lib", refuse)
+    Kd, Ks = (torch.tensor(a) for a in wide_band(2, 4, 2, seed=5))
+    fac = band.band_factor(Kd, Ks)
+    rhs = torch.tensor(np.random.default_rng(5).standard_normal((2, 2,
+                                                                 4 * B)))
+    w = band.band_fwd_bw(fac, rhs)
+    assert torch.equal(w, band_fwd_bw_plain(fac, rhs))
+    assert torch.equal(band.band_bwd_bw(fac, w), band_bwd_bw_plain(fac, w))
+
+
 # ---------------------------------------------- KKT assembly, factor, solve
 
 def lp_case(kind):

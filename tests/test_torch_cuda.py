@@ -419,20 +419,33 @@ def random_band_factor(lanes, nb, bw, device, seed):
     return BandFactors(L=L, Dinv=Dinv, d=d)
 
 
-@pytest.mark.parametrize("nb", [2, 5, 38])
-@pytest.mark.parametrize("bw", [1, 2, 3, 4, 5, 6])
-def test_wide_band_sweeps_match_plain(cuda, bw, nb):
+# (bw, nb, lane counts, k): every bandwidth at block counts below, at and
+# far above it; then the cells' shapes (bw 2 at nb 71, bw 1 at nb 23 and
+# 16, 16 and 128 lanes) and bw 6 at k 16, the shallowest panel ring
+SWEEP_CASES = [pytest.param(bw, nb, (1, 3, 64, 130), (1, 2, 16),
+                            id=f"{bw}-{nb}")
+               for nb in (2, 5, 38) for bw in range(1, 7)] + [
+    pytest.param(2, 71, (128,), (1, 2), id="dist33"),
+    pytest.param(1, 23, (128,), (1, 2), id="pdg"),
+    pytest.param(1, 16, (16, 128), (1, 2), id="mpc-lp"),
+    pytest.param(6, 9, (128,), (16,), id="bw6-k16"),
+]
+
+
+@pytest.mark.parametrize("bw,nb,lane_counts,ks", SWEEP_CASES)
+def test_wide_band_sweeps_match_plain(cuda, bw, nb, lane_counts, ks):
     """band_fwd_bw and band_bwd_bw against their plain twins within 1e-12
-    relative at 1, 3, 64 and 130 lanes (2 to 260 CTAs in clusters of 2),
-    k = 1, 2, 16, with block counts below, at and far above the bandwidth;
-    a repeated sweep gives the same bits."""
+    relative (2 to 260 CTAs in clusters of 2); a repeated sweep gives the
+    same bits, and a lane alone the bits it has inside a call of 64 or
+    more lanes."""
     from eicos_tpu_torch.ops import band, kernels
     from eicos_tpu_torch.ops import band_ldl as plain
+    from eicos_tpu_torch.ops.band_ldl import BandFactors
 
     rng = np.random.default_rng(bw * 100 + nb)
-    for lanes in (1, 3, 64, 130):
+    for lanes in lane_counts:
         fac = random_band_factor(lanes, nb, bw, cuda, seed=lanes + bw + nb)
-        for k in (1, 2, 16):
+        for k in ks:
             r = torch.tensor(rng.standard_normal((lanes, k, nb * B)),
                              device=cuda)
             before = dict(kernels.COUNTS)
@@ -443,9 +456,18 @@ def test_wide_band_sweeps_match_plain(cuda, bw, nb):
             assert kernels.COUNTS["band_bwd_bw"] == before["band_bwd_bw"] + 1
             assert rel(w, plain.band_fwd_bw_plain(fac, r)) < 1e-12, (lanes, k)
             assert rel(z, plain.band_bwd_bw_plain(fac, w)) < 1e-12, (lanes, k)
-            if lanes == 3:
+            if lanes in (3, 128):
                 assert torch.equal(w, band.band_fwd_bw(fac, r))
                 assert torch.equal(z, band.band_bwd_bw(fac, w))
+            if lanes >= 64:
+                for i in (0, lanes - 1):
+                    one = BandFactors(*(t[i:i + 1].contiguous() for t in fac))
+                    assert torch.equal(
+                        band.band_fwd_bw(one, r[i:i + 1].contiguous()),
+                        w[i:i + 1]), (lanes, k, i)
+                    assert torch.equal(
+                        band.band_bwd_bw(one, w[i:i + 1].contiguous()),
+                        z[i:i + 1]), (lanes, k, i)
         del fac
         torch.cuda.empty_cache()
 
@@ -1686,7 +1708,8 @@ def test_distflow_day_on_the_direct_scatter(cuda):
     every lane OPTIMAL on the banded path (the rescue idle), its answers
     within the cell's limits, the composed repeat the same bits; the
     bw-2 band factor (``band_factor_bw``, not the bw-1 cluster) and its
-    sweeps launched, the traced program's band (71, 2); and at most
+    sweeps launched, the traced program's band (71, 2) and its sweeps'
+    panel ring (``band.sweep_ring``); and at most
     ``DISTFLOW_MAX_ALLOCATED`` bytes allocated: one lane-batch of the
     dense (Dp, Dp) K that the gathered path forms is 78.8 GiB."""
     import eicos_tpu_torch as pt
@@ -1735,7 +1758,11 @@ def test_distflow_day_on_the_direct_scatter(cuda):
     launched(counts, ("band_factor_bw", "band_fwd_bw", "band_bwd_bw"))
     not_launched(counts, ("band_factor_cluster",))
     if timing.tracing():
+        from eicos_tpu_torch.ops import band
+
         assert tuple(stats["band_shape"]) == (71, 2)
+        # the sweeps of a solve carry 1 or 2 right-hand sides: width 2
+        assert stats["sweep_ring"] == {(2, 2): band.sweep_ring(2, 2, cuda)}
     assert peak <= DISTFLOW_MAX_ALLOCATED, peak
     r = certificate.readings(G, A, C, h, Bv, l, q,
                              *[getattr(second, f).cpu().numpy()

@@ -249,6 +249,7 @@ def test_banded_lanes_are_optimal_and_right(solved):
                                sol.info.pcost.numpy(), rtol=1e-12)
     if probes is not None:
         assert probes.band_shape == (HOURS * 3, 2)
+        assert probes.sweep_ring == {}    # the plain sweeps take no ring
 
 
 @pytest.mark.parametrize("kind", ["pdg", "mpc_lp"])
